@@ -1,11 +1,167 @@
-"""Named render presets shared by the rendering CLIs (port of
-``RENDER_PRESETS``, ``add_preset_arg`` and ``apply_render_preset`` from
-``fourier_feature_nets_tpu/cli/common.py``). A preset only fills flags
-the user left unset, so explicit flags always win."""
+"""Shared plumbing of the CLIs (port of
+``fourier_feature_nets_tpu/cli/common.py``): the training flags and the
+helpers around ``Raycaster.fit``, and the named render presets. A
+preset only fills flags the user left unset, so explicit flags always
+win."""
 
+import json
+import os
 import sys
 
-__all__ = ["RENDER_PRESETS", "add_preset_arg", "apply_render_preset"]
+import numpy as np
+import torch
+
+from ..utils.errors import not_ported
+
+__all__ = ["RENDER_PRESETS", "add_common_train_args", "add_preset_arg",
+           "apply_render_preset", "fit_kwargs", "get_compute_dtype",
+           "load_train_val", "make_visualizers", "resolve_data_path",
+           "save_best_model", "write_run_log"]
+
+
+_REMAINING = "Remaining models, data, CLIs and parallel"
+
+
+def add_common_train_args(parser):
+    """Arguments shared by the 3D trainers, with the JAX CLI's
+    defaults, plus ``--device``."""
+    parser.add_argument("--device", default="cuda",
+                        help="Torch device to train on")
+    parser.add_argument("--mode", choices=["rgba", "rgb", "dilate"],
+                        default="rgba")
+    parser.add_argument("--batch-size", type=int, default=1024)
+    parser.add_argument("--report-interval", type=int, default=1000)
+    parser.add_argument("--image-interval", type=int, default=2000)
+    parser.add_argument("--seed", type=int, default=20080524)
+    parser.add_argument("--make-video", action="store_true")
+    parser.add_argument("--color-space", choices=["YCrCb", "RGB"],
+                        default="RGB")
+    parser.add_argument("--num-frames", type=int, default=200)
+    parser.add_argument("--anneal-start", type=float, default=0.2)
+    parser.add_argument("--num-anneal-steps", type=int, default=2000)
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="Shard the ray batch across all devices")
+    parser.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
+                        default="float32",
+                        help="Matmul dtype for the model body")
+    parser.add_argument("--fused", action="store_true", default=None,
+                        help="Force the fused NeRF kernels for rendering "
+                             "and training (default: on for a NeRF on a "
+                             "CUDA device)")
+    parser.add_argument("--no-fused", dest="fused", action="store_false",
+                        help="Force the plain PyTorch autograd/render path")
+    parser.add_argument("--steps-per-call", type=int, default=1)
+    parser.add_argument("--checkpoint-interval", type=int, default=0)
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--occupancy-interval", type=int, default=0)
+    parser.add_argument("--occupancy-samples", type=int, default=48)
+    parser.add_argument("--occupancy-start", type=int, default=0)
+    parser.add_argument("--occupancy-end", type=int, default=0)
+    parser.add_argument("--occupancy-empty-weight", type=float, default=0.1)
+    parser.add_argument("--occupancy-mix", type=int, default=0)
+
+
+def fit_kwargs(args) -> dict:
+    """``fit`` kwargs from the common flags. ``fit`` raises for the ones
+    whose path is not ported (checkpoints, occupancy, steps per call);
+    ``--make-video`` and ``--data-parallel`` raise here."""
+    if args.make_video:
+        raise not_ported("--make-video", _REMAINING)
+    if args.data_parallel:
+        raise not_ported("--data-parallel", _REMAINING)
+    kwargs = {"seed": args.seed, "steps_per_call": args.steps_per_call,
+              "occupancy_interval": args.occupancy_interval or None}
+    if args.checkpoint_interval or args.resume:
+        kwargs.update(checkpoint_dir=os.path.join(args.results_dir,
+                                                  "checkpoints"),
+                      checkpoint_interval=args.checkpoint_interval or None,
+                      resume=args.resume)
+    return kwargs
+
+
+def data_dir() -> str:
+    """Where generated datasets are cached: ``$FFN_TORCH_DATA_DIR`` or
+    ``~/.cache/fourier_feature_nets_torch``."""
+    root = os.environ.get("FFN_TORCH_DATA_DIR")
+    if root:
+        return root
+    return os.path.join(os.path.expanduser("~"), ".cache",
+                        "fourier_feature_nets_torch")
+
+
+def resolve_data_path(path: str, device="cpu") -> str:
+    """Resolves a dataset path; ``synthetic[:<res>]`` generates the
+    built-in synthetic scene on ``device`` into :func:`data_dir` on
+    first use (the scheme must match exactly: a file named
+    ``synthetic_800.npz`` is a path)."""
+    parts = path.split(":")
+    if parts[0] == "synthetic":
+        from ..datasets.synthetic import load_or_generate
+        res = int(parts[1]) if len(parts) > 1 else 100
+        out = os.path.join(data_dir(), f"synthetic_{res}.npz")
+        return load_or_generate(out, resolution=res, device=device)
+    return path
+
+
+def load_train_val(args, num_samples=None):
+    """Train (stratified, annealed) and val datasets on ``args.device``."""
+    from ..datasets import ImageDataset, Mode
+    include_alpha = args.mode == "rgba"
+    num_samples = num_samples or args.num_samples
+    train = ImageDataset.load(args.data_path, "train", num_samples,
+                              include_alpha, True, args.color_space,
+                              anneal_start=args.anneal_start,
+                              num_anneal_steps=args.num_anneal_steps,
+                              device=args.device)
+    val = ImageDataset.load(args.data_path, "val", num_samples,
+                            include_alpha, False, args.color_space,
+                            device=args.device)
+    if args.mode == "dilate":
+        train.mode = Mode.Dilate
+    return train, val
+
+
+def make_visualizers(args, train_dataset, val_dataset):
+    """The per-run visualizers: evaluation grids of the train and val
+    sets every ``--image-interval`` steps (0 disables them)."""
+    from ..visualizers import EvaluationVisualizer
+    if args.image_interval <= 0:
+        return []
+    return [EvaluationVisualizer(args.results_dir, train_dataset,
+                                 args.image_interval),
+            EvaluationVisualizer(args.results_dir, val_dataset,
+                                 args.image_interval)]
+
+
+def get_compute_dtype(args):
+    return torch.bfloat16 if args.compute_dtype == "bfloat16" else None
+
+
+def save_best_model(results_dir, name, model, log):
+    """Writes ``<name>_best.npz``, the report snapshot with the highest
+    val PSNR, beside the final model."""
+    from ..models import params_from_jax, save_model
+    entries = [e for e in log if np.isfinite(e.val_psnr)]
+    if not entries:
+        return None
+    best = max(entries, key=lambda e: e.val_psnr)
+    path = os.path.join(results_dir, f"{name}_best.npz")
+    snapshot = type(model)(**model.params_manifest)
+    save_model(params_from_jax(snapshot, best.state), path)
+    print(f"best val checkpoint: step {best.step} "
+          f"({best.val_psnr:.2f} dB) -> {path}")
+    return path
+
+
+def write_run_log(path, args, log):
+    """JSON args header + TSV of the LogEntry rows."""
+    from ..utils.progress import write_log
+    with open(path, "w") as file:
+        json.dump({k: v for k, v in vars(args).items()
+                   if isinstance(v, (int, float, str, bool, type(None)))},
+                  file)
+        file.write("\n\n")
+        write_log(file, log)
 
 RENDER_PRESETS = {
     "fast": {

@@ -21,6 +21,7 @@ from ..cameras import Resolution
 from ..models import load_model
 from ..render import OccupancyGridSampler, Raycaster, RaySampler
 from ..utils import ETABar, orbit, write_png
+from ..utils.errors import not_ported
 from .common import add_preset_arg, apply_render_preset
 
 VECTORS = {
@@ -80,25 +81,19 @@ def _parse_args(argv=None):
     return apply_render_preset(parser.parse_args(argv), parser, argv)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet; see ROADMAP.md, queue 1, "
-        f"'{item}'")
-
-
 def _reject_unported(args):
     """Raises for every flag whose path the port does not have yet
     (the sampler flags are checked by :func:`build_render_sampler`)."""
     if args.early_term > 0.0:
-        raise _not_ported("--early-term", "Early termination")
+        raise not_ported("--early-term", "Early termination")
     if args.chunked:
-        raise _not_ported("--chunked (render_image)",
+        raise not_ported("--chunked (render_image)",
                           "Pose rendering and serving")
     if args.data_parallel:
-        raise _not_ported("--data-parallel", "Remaining models, data, "
+        raise not_ported("--data-parallel", "Remaining models, data, "
                           "CLIs and parallel")
     if args.mp4:
-        raise _not_ported("--mp4", "Remaining models, data, CLIs and "
+        raise not_ported("--mp4", "Remaining models, data, CLIs and "
                           "parallel")
 
 
@@ -111,12 +106,12 @@ def build_render_sampler(args, model, cameras, bounds):
             model, cameras, args.num_samples,
             alpha_threshold=args.density_threshold, bounds=bounds)
     if args.octree:
-        raise _not_ported("--octree", "Octree")
+        raise not_ported("--octree", "Octree")
     if args.opacity_model:
-        raise _not_ported("--opacity-model (focus sampling)",
+        raise not_ported("--opacity-model (focus sampling)",
                           "Focus sampling")
     if not args.no_focus:
-        raise _not_ported("Focus sampling (the default without "
+        raise not_ported("Focus sampling (the default without "
                           "--no-focus or --density-grid)", "Focus sampling")
     device = next(model.parameters()).device
     return RaySampler(bounds, cameras, args.num_samples, device)

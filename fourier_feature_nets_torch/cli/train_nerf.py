@@ -1,0 +1,95 @@
+"""CLI: trains a full NeRF model.
+
+Port of ``fourier_feature_nets_tpu/cli/train_nerf.py``, same flags and
+defaults plus ``--device`` (default ``cuda``). On a CUDA device each
+training step runs the fused NeRF forward (K1) and recompute backward
+(K2) Hopper kernels; ``--no-fused`` trains through autograd of the
+plain model. Flags whose path is not ported yet (``--opacity-model``,
+``--make-video``, ``--data-parallel``, ``--resume``,
+``--checkpoint-interval``, ``--occupancy-*``, ``--steps-per-call``)
+raise ``NotImplementedError`` naming their ROADMAP.md item.
+
+    python -m fourier_feature_nets_torch.cli.train_nerf synthetic out/ \\
+        --num-steps 30 --report-interval 10
+"""
+
+import os
+from argparse import ArgumentDefaultsHelpFormatter, ArgumentParser
+
+import numpy as np
+import torch
+
+from ..models import NeRF, save_model
+from ..render import Raycaster
+from ..utils.errors import not_ported
+from . import common
+
+
+def _parse_args(argv=None):
+    parser = ArgumentParser("NeRF Training script",
+                            formatter_class=ArgumentDefaultsHelpFormatter)
+    parser.add_argument("data_path", help="Path to the data NPZ "
+                        "(or 'synthetic[:res]')")
+    parser.add_argument("results_dir", help="Path to output results")
+    parser.add_argument("--opacity-model")
+    parser.add_argument("--num-samples", type=int, default=128)
+    parser.add_argument("--num-layers", type=int, default=8)
+    parser.add_argument("--learning-rate", type=float, default=5e-4)
+    parser.add_argument("--num-channels", type=int, default=256)
+    parser.add_argument("--pos-freq", type=int, default=10)
+    parser.add_argument("--pos-max-log-scale", type=float, default=9)
+    parser.add_argument("--view-freq", type=int, default=4)
+    parser.add_argument("--view-max-log-scale", type=float, default=3)
+    parser.add_argument("--num-steps", type=int, default=50000)
+    parser.add_argument("--crop-steps", type=int, default=1000)
+    parser.add_argument("--omit-inputs", action="store_true")
+    parser.add_argument("--decay-rate", type=float, default=0.1)
+    parser.add_argument("--decay-steps", type=int, default=250000)
+    parser.add_argument("--weight-decay", type=float, default=0)
+    common.add_common_train_args(parser)
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    args = _parse_args(argv)
+    if args.opacity_model:
+        raise not_ported("--opacity-model (focus sampling)",
+                         "Focus sampling")
+    kwargs = common.fit_kwargs(args)
+    device = torch.device(args.device)
+    args.data_path = common.resolve_data_path(args.data_path, device)
+    os.makedirs(args.results_dir, exist_ok=True)
+
+    model = NeRF(args.num_layers, args.num_channels,
+                 args.pos_max_log_scale, args.pos_freq,
+                 args.view_max_log_scale, args.view_freq,
+                 [4], not args.omit_inputs,
+                 generator=torch.Generator().manual_seed(args.seed)).to(device)
+    train_dataset, val_dataset = common.load_train_val(args)
+    visualizers = common.make_visualizers(args, train_dataset, val_dataset)
+    raycaster = Raycaster(model, compute_dtype=common.get_compute_dtype(args),
+                          fused=args.fused, fused_train=args.fused)
+    log = raycaster.fit(train_dataset, val_dataset, args.batch_size,
+                        args.learning_rate, args.num_steps, args.crop_steps,
+                        args.report_interval, args.decay_rate,
+                        args.decay_steps, args.weight_decay, visualizers,
+                        **kwargs)
+
+    save_model(model, os.path.join(args.results_dir, "nerf.npz"))
+    common.save_best_model(args.results_dir, "nerf", model, log)
+    common.write_run_log(os.path.join(args.results_dir, "log.txt"), args,
+                         log)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else str(device))
+    step_ms = raycaster.step_ms
+    steady = (f"{np.mean(step_ms[1:]):.3f} ms/step over steps 2.."
+              f"{len(step_ms)}" if len(step_ms) > 1 else "no later steps")
+    print(f"train_nerf: {len(step_ms)} steps of {args.batch_size} rays x "
+          f"{args.num_samples} samples on {where}, {args.compute_dtype}, "
+          f"{'fused' if raycaster.fused_train else 'plain'}: first step "
+          f"{step_ms[0]:.3f} ms, {steady}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into ``kernels/_build/`` (listed in
-``.gitignore``), under a name that carries a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
+``.gitignore``), under a name that carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and an unchanged one is reused.
 The library is then loaded with ``ctypes``. Nothing here runs at import
 time: a machine without CUDA imports the package and never builds.
 """
@@ -48,7 +49,9 @@ def _nvcc() -> str:
 def build_library(source_name: str) -> BuiltLibrary:
     """Compiles ``csrc/<source_name>`` (if not built yet) and loads it."""
     source = CSRC_DIR / source_name
-    digest = hashlib.sha256(source.read_bytes()
+    content = source.read_bytes() + b"".join(
+        header.read_bytes() for header in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(content
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     stem = source_name.rsplit(".", 1)[0]
     target = BUILD_DIR / f"{stem}_{digest}.so"

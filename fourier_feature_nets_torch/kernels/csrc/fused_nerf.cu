@@ -42,21 +42,26 @@
 // The kernel masks the ragged last tile itself, launches on the caller's
 // stream and allocates nothing; the entry point returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
 
+#include "fused_nerf_common.cuh"
+
 namespace {
+
+using ffn::Desc;
+using ffn::kHeadWidth;
+using ffn::kMaxChannels;
+using ffn::to_f;
+using ffn::to_t;
 
 constexpr int kTile = 64;       // points per block
 constexpr int kThreads = 256;   // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowBlocks = kTile / 16;
 constexpr int kMaxColBlocksPerWarp = 2;   // N <= 16 * 8 * 2 = 256
-constexpr int kMaxChannels = 16 * kWarps * kMaxColBlocksPerWarp;
-constexpr int kHeadWidth = 16;  // heads padded to the MMA tile width
+static_assert(kMaxChannels == 16 * kWarps * kMaxColBlocksPerWarp,
+              "one column block per warp and step covers the widest layer");
 constexpr int kRowPad = 8;      // elements of padding per activation row
-constexpr int kMaxLayers = 16;
 constexpr int kStageK = 16;     // f32 weight rows staged per chunk
 // per-block scratch: bf16 path, one 16x16 f32 tile per warp; f32 path,
 // kStageK weight rows
@@ -64,78 +69,6 @@ constexpr int kScratchFloats = kStageK * kMaxChannels;
 static_assert(kScratchFloats >= kWarps * 256, "scratch too small");
 
 enum Epilogue { kReluCast = 0, kCast = 1, kToOutput = 2 };
-
-struct Desc {
-  int num_layers;
-  int channels;
-  int pos_width;    // P
-  int view_width;   // V
-  int e_pos;
-  int e_view;
-  int include_inputs;
-  unsigned skip_mask;
-  long long w_off[kMaxLayers + 4];
-  long long b_off[kMaxLayers + 4];
-};
-
-template <typename T>
-__device__ __forceinline__ T to_t(float v);
-template <>
-__device__ __forceinline__ float to_t<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_t<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// Same reduction and polynomial as ops/fused_nerf.py::_fast_sincos.
-__device__ __forceinline__ void fast_sincos(float x, float* s, float* c) {
-  const float two_pi = 6.283185307179586f;
-  float f = x * 0.15915494309189535f;
-  f = f - rintf(f);
-  const float t = f * two_pi;
-  const float t2 = t * t;
-  *c = 1.0f + t2 * (-0.5f + t2 * (4.1666666666666664e-2f + t2 * (
-      -1.3888888888888889e-3f + t2 * (2.4801587301587302e-5f + t2 * (
-          -2.7557319223985893e-7f + t2 * (2.08767569878681e-9f
-                                          - t2 * 1.1470745597729725e-11f))))));
-  *s = t * (1.0f + t2 * (-1.6666666666666666e-1f + t2 * (
-      8.3333333333333332e-3f + t2 * (-1.9841269841269841e-4f + t2 * (
-          2.7557319223985893e-6f + t2 * (-2.5052108385441720e-8f
-                                         + t2 * 1.6059043836821613e-10f))))));
-}
-
-// Writes [cos(xB) | sin(xB) | x (optional) | zeros] for the tile into
-// act[:, col0 : col0 + width]. B is (3, E) f32; the phase is three f32
-// multiply-adds, never a reduced-precision product.
-template <typename T>
-__device__ void encode(const float* xs, const float* __restrict__ enc, int E,
-                       int include_inputs, int width, T* act, int lda,
-                       int col0) {
-  for (int idx = threadIdx.x; idx < kTile * E; idx += kThreads) {
-    const int r = idx / E;
-    const int e = idx - r * E;
-    const float* x = xs + 3 * r;
-    const float phase = fmaf(x[2], __ldg(enc + 2 * E + e),
-                             fmaf(x[1], __ldg(enc + E + e),
-                                  x[0] * __ldg(enc + e)));
-    float s, c;
-    fast_sincos(phase, &s, &c);
-    act[r * lda + col0 + e] = to_t<T>(c);
-    act[r * lda + col0 + E + e] = to_t<T>(s);
-  }
-  const int tail = width - 2 * E;
-  for (int idx = threadIdx.x; idx < kTile * tail; idx += kThreads) {
-    const int r = idx / tail;
-    const int j = idx - r * tail;
-    const float v = (include_inputs && j < 3) ? xs[3 * r + j] : 0.0f;
-    act[r * lda + col0 + 2 * E + j] = to_t<T>(v);
-  }
-}
 
 // Stores one finished f32 value (sum + bias) of output (row, col).
 template <typename T>
@@ -317,7 +250,8 @@ fused_nerf_kernel(const float* __restrict__ positions,
     vs[idx] = live ? views[row0 * 3 + idx] : 0.0f;
   }
   __syncthreads();
-  encode<T>(xs, pos_enc, d.e_pos, d.include_inputs, d.pos_width, act, lda, C);
+  ffn::encode<kTile, kThreads, T>(xs, pos_enc, d.e_pos, d.include_inputs,
+                                  d.pos_width, act, lda, C);
   __syncthreads();
 
   const int L = d.num_layers;
@@ -334,8 +268,8 @@ fused_nerf_kernel(const float* __restrict__ positions,
   // bottleneck, cast to the weight type
   dense(act, act, lda, 0, C, weights + d.w_off[L + 1], C,
         biases + d.b_off[L + 1], kCast, out, row0, num_points, 0, 0, scratch);
-  encode<T>(vs, view_enc, d.e_view, d.include_inputs, d.view_width, act, lda,
-            C);
+  ffn::encode<kTile, kThreads, T>(vs, view_enc, d.e_view, d.include_inputs,
+                                  d.view_width, act, lda, C);
   __syncthreads();
   // hidden layer over [bottleneck | view features]
   dense(act, act, lda, 0, C + d.view_width, weights + d.w_off[L + 2], C / 2,
@@ -369,35 +303,17 @@ cudaError_t launch(const void* positions, const void* views,
 
 }  // namespace
 
-// meta (host int64): num_layers, channels, P, V, e_pos, e_view,
-// include_inputs, skip_mask, then num_layers + 4 weight offsets (elements)
-// and num_layers + 4 bias offsets. Layer order: body 0..L-1, opacity,
-// bottleneck, hidden, color. weight_dtype: 0 = f32, 1 = bf16.
+// meta: the host int64 descriptor of ffn::parse_desc (fused_nerf_common.cuh).
+// weight_dtype: 0 = f32, 1 = bf16.
 extern "C" int fused_nerf_forward(const void* positions, const void* views,
                                   const void* pos_enc, const void* view_enc,
                                   const void* weights, const void* biases,
                                   const void* meta, void* out,
                                   long long num_points, int weight_dtype,
                                   void* stream) {
-  const long long* m = static_cast<const long long*>(meta);
   Desc d;
-  d.num_layers = static_cast<int>(m[0]);
-  d.channels = static_cast<int>(m[1]);
-  d.pos_width = static_cast<int>(m[2]);
-  d.view_width = static_cast<int>(m[3]);
-  d.e_pos = static_cast<int>(m[4]);
-  d.e_view = static_cast<int>(m[5]);
-  d.include_inputs = static_cast<int>(m[6]);
-  d.skip_mask = static_cast<unsigned>(m[7]);
-  if (d.num_layers < 1 || d.num_layers > kMaxLayers || d.channels % 32 != 0
-      || d.channels > kMaxChannels || d.pos_width % 16 != 0
-      || d.view_width % 16 != 0 || (d.skip_mask & 1u)) {
+  if (!ffn::parse_desc(static_cast<const long long*>(meta), &d)) {
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int num_packed = d.num_layers + 4;
-  for (int i = 0; i < num_packed; ++i) {
-    d.w_off[i] = m[8 + i];
-    d.b_off[i] = m[8 + num_packed + i];
   }
   if (num_points <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

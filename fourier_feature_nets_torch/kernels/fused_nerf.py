@@ -5,9 +5,10 @@ The CUDA kernel (``csrc/fused_nerf.cu``) replaces the TPU Pallas kernels
 ``ops/fused_nerf_fm.py::_kernel_fm``, which compute the same function
 in two layouts. The source comment says what bounds it on an H100.
 
-* :func:`prepare_fused_nerf` packs a :class:`~..models.nerf.NeRF` once
-  into one contiguous weight buffer (bf16 or f32), one f32 bias buffer
-  and an offset table.
+* :func:`pack_fused_nerf` packs a :class:`~..models.nerf.NeRF` into
+  one contiguous weight buffer (bf16 or f32), one f32 bias buffer and
+  an offset table, differentiably; :func:`prepare_fused_nerf` is the
+  same pack without autograd.
 * :func:`fused_nerf_reference` is the plain PyTorch twin: the same
   packed weights, the same rounding points and the same sin/cos.
 * :func:`fused_nerf_apply` launches the kernel for CUDA tensors and
@@ -21,13 +22,15 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..models.nerf import NeRF
 from ..ops.encoding import encode_phases
 from .build import build_library
 
-__all__ = ["FusedNeRFWeights", "prepare_fused_nerf", "fast_sincos",
-           "fused_nerf_reference", "fused_nerf_apply", "load_kernel"]
+__all__ = ["FusedNeRFWeights", "pack_fused_nerf", "prepare_fused_nerf",
+           "fast_sincos", "fused_nerf_reference", "fused_nerf_apply",
+           "load_kernel"]
 
 HEAD_WIDTH = 16       # heads padded to the MMA tile width
 MAX_CHANNELS = 256    # kMaxChannels in csrc/fused_nerf.cu
@@ -61,10 +64,30 @@ class FusedNeRFWeights(NamedTuple):
     pos_width: int
     view_width: int
 
+    def split_flat(self, flat_weights: torch.Tensor,
+                   flat_biases: torch.Tensor):
+        """(name, flat view) of every layer's weight (``w<i>``) and bias
+        (``b<i>``) in two flat buffers laid out like this pack's, such
+        as the gradients K2 returns; ``i`` is the packing order."""
+        count = self.num_layers + 4
+        w_off, b_off = self.meta[8:8 + count], self.meta[8 + count:]
+        leaves = []
+        for i, (w, b) in enumerate(self.layers):
+            leaves.append((f"w{i}", flat_weights[w_off[i]:w_off[i]
+                                                 + w.numel()]))
+            leaves.append((f"b{i}", flat_biases[b_off[i]:b_off[i]
+                                                + b.numel()]))
+        return leaves
 
-def prepare_fused_nerf(model: NeRF, dtype=torch.bfloat16) -> FusedNeRFWeights:
-    """Packs ``model``'s parameters for the kernel, on the model's
-    device, with weights cast to ``dtype`` (bf16 or f32)."""
+
+def pack_fused_nerf(model: NeRF, dtype=torch.bfloat16) -> FusedNeRFWeights:
+    """Packs ``model``'s parameters for the kernels, on the model's
+    device, with weights cast to ``dtype`` (bf16 or f32).
+
+    The pack is built from ``F.pad``, ``cat`` and a cast of the live
+    parameters, so under autograd the gradients of the two flat
+    buffers flow back to the module's parameters (a bf16 weight
+    gradient returns to its f32 parameter through the cast)."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"fused NeRF weights must be bf16 or f32, got {dtype}")
     if 0 in model.skips:
@@ -82,12 +105,10 @@ def prepare_fused_nerf(model: NeRF, dtype=torch.bfloat16) -> FusedNeRFWeights:
         cols). Inputs keep their order ([h | features] for the skip and
         hidden layers), so padding rows go to the end, where the
         kernel's padded feature columns hold zeros."""
-        w_t = layer.weight.detach().T.float()
-        out = torch.zeros(rows, cols, device=w_t.device)
-        out[:w_t.shape[0], :w_t.shape[1]] = w_t
-        bias = torch.zeros(cols, device=w_t.device)
-        bias[:w_t.shape[1]] = layer.bias.detach().float()
-        return out, bias
+        w_t = layer.weight.T.float()
+        w_t = F.pad(w_t, (0, cols - w_t.shape[1], 0, rows - w_t.shape[0]))
+        bias = F.pad(layer.bias.float(), (0, cols - layer.bias.shape[0]))
+        return w_t, bias
 
     packed = []
     for i, layer in enumerate(model.layers):
@@ -104,7 +125,7 @@ def prepare_fused_nerf(model: NeRF, dtype=torch.bfloat16) -> FusedNeRFWeights:
     w_offsets = np.cumsum([0] + [w.numel() for w, _ in packed])
     b_offsets = np.cumsum([0] + [b.numel() for _, b in packed])
     weights = torch.cat([w.reshape(-1) for w, _ in packed]).to(dtype)
-    biases = torch.cat([b for _, b in packed]).contiguous()
+    biases = torch.cat([b for _, b in packed])
     layers = tuple(
         (weights[w_offsets[i]:w_offsets[i + 1]].view(w.shape),
          biases[b_offsets[i]:b_offsets[i + 1]])
@@ -120,6 +141,13 @@ def prepare_fused_nerf(model: NeRF, dtype=torch.bfloat16) -> FusedNeRFWeights:
         meta=meta, layers=layers, num_layers=num_layers, channels=channels,
         skips=skips, include_inputs=bool(model.include_inputs),
         pos_width=pos_width, view_width=view_width)
+
+
+def prepare_fused_nerf(model: NeRF, dtype=torch.bfloat16) -> FusedNeRFWeights:
+    """:func:`pack_fused_nerf` outside autograd: a detached pack for
+    rendering."""
+    with torch.no_grad():
+        return pack_fused_nerf(model, dtype)
 
 
 def fast_sincos(x: torch.Tensor):

@@ -1,8 +1,9 @@
 """Ray sample placement.
 
-Port of ``batch_linspace``, ``uniform_t_values`` and
-``inverse_cdf_from_bins`` from ``fourier_feature_nets_tpu/ops/sampling.py``
-for the deterministic render path. The TPU module brackets each
+Port of ``batch_linspace``, ``anneal_near_far``, ``uniform_t_values``
+(with stratified jitter) and ``inverse_cdf_from_bins`` from
+``fourier_feature_nets_tpu/ops/sampling.py``, and the port's own
+counter-based generator :func:`per_ray_uniform`. The TPU module brackets each
 quantile with masked max/min reductions (``_monotone_bracket``) because
 row gathers are slow there; here the bracket is ``torch.searchsorted``
 plus two gathers, with the same semantics: "below" is the last edge
@@ -11,8 +12,10 @@ with ``cdf <= q``, "above" the next edge, clamped to the last one.
 
 import torch
 
-__all__ = ["unit_linspace", "batch_linspace", "uniform_t_values",
-           "inverse_cdf_from_bins"]
+__all__ = ["unit_linspace", "batch_linspace", "anneal_near_far",
+           "per_ray_uniform", "uniform_t_values", "inverse_cdf_from_bins"]
+
+_MASK32 = 0xFFFFFFFF
 
 
 def unit_linspace(num: int, device=None) -> torch.Tensor:
@@ -36,15 +39,81 @@ def batch_linspace(start: torch.Tensor, stop: torch.Tensor,
     return start[..., None] + steps * (stop - start)[..., None]
 
 
+def _mul32(x, c: int):
+    """``x * c`` modulo 2**32 for 32-bit ``x`` (int or int64 tensor),
+    split in 16-bit halves of ``c`` so no int64 product overflows."""
+    low = x * (c & 0xFFFF)
+    high = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (low + high) & _MASK32
+
+
+def _mix32(x):
+    """The ``lowbias32`` integer finalizer (a bijection on 32 bits)."""
+    x = x & _MASK32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def per_ray_uniform(seed: int, step: int, idx: torch.Tensor,
+                    num_samples: int, salt: int = 0) -> torch.Tensor:
+    """Uniform [0, 1) draws keyed by GLOBAL ray index, not batch slot.
+
+    A stateless hash of (seed, step, salt, ray id, sample index): the
+    same on every device and for every batch layout, so re-sampling a
+    ray in the same step draws the same jitter. The JAX package folds
+    the same counters into a threefry key; the bits differ, the
+    distribution does not.
+
+    Args:
+        seed: the epoch's integer key.
+        step: training step.
+        idx: (R,) integer global ray indices.
+        num_samples: draws per ray.
+        salt: distinguishes independent streams per call site.
+
+    Returns:
+        (R, num_samples) float32 uniforms with 24 random bits each.
+    """
+    key = _mix32(_mix32(_mix32(seed) ^ (step & _MASK32)) ^ (salt & _MASK32))
+    ray = _mix32(_mix32(idx.to(torch.int64)) ^ key)
+    lanes = torch.arange(num_samples, dtype=torch.int64, device=idx.device)
+    bits = _mix32(ray[:, None] ^ _mix32(lanes + 0x9E3779B9)[None, :])
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def anneal_near_far(near: torch.Tensor, far: torch.Tensor, step: int,
+                    anneal_start: float, num_anneal_steps: int):
+    """Shrinks [near, far] toward its midpoint early in training; from
+    ``step >= num_anneal_steps`` (or with no annealing) the bounds pass
+    through unchanged. The blend factor is f32, as in the JAX package."""
+    if num_anneal_steps <= 0 or step >= num_anneal_steps:
+        return near, far
+    progress = torch.tensor(step, dtype=torch.float32) / num_anneal_steps
+    anneal = torch.clamp(progress, anneal_start, 1.0).to(near.device)
+    midpoint = (near + far) * 0.5
+    return (midpoint + (near - midpoint) * anneal,
+            midpoint + (far - midpoint) * anneal)
+
+
 def uniform_t_values(near: torch.Tensor, far: torch.Tensor,
-                     num_samples: int) -> torch.Tensor:
-    """Evenly spaced sample depths from near to far (the render path
-    draws no stratified jitter).
+                     num_samples: int,
+                     jitter: torch.Tensor = None) -> torch.Tensor:
+    """Evenly spaced sample depths from near to far, plus (with
+    ``jitter``, (R, num_samples) uniforms in [0, 1)) stratified jitter
+    of up to one bin width ``(far - near) / num_samples``; the output
+    stays row-wise sorted.
 
     Returns:
         (R, num_samples) row-wise sorted t values.
     """
-    return batch_linspace(near, far, num_samples)
+    t_values = batch_linspace(near, far, num_samples)
+    if jitter is not None:
+        scale = (far - near) / num_samples
+        t_values = t_values + jitter * scale[..., None]
+    return t_values
 
 
 def inverse_cdf_from_bins(t_edges: torch.Tensor, cdf: torch.Tensor,

@@ -166,7 +166,9 @@ class OccupancyGridSampler(RaySampler):
         """The per-ray sample budget at evenly spaced CDF quantiles."""
         return inverse_cdf_from_bins(edges, cdf, self.num_samples)
 
-    def _sample_geometry(self, starts, directions, near, far, idx):
+    def _sample_geometry(self, starts, directions, near, far, idx,
+                         step=None, rng=None):
+        # deterministic render-time placement: no jitter or annealing
         edges, cdf, _ = self._probe_cdf_geometry(starts, directions,
                                                  near, far)
         t_values = self.t_from_cdf(edges, cdf)

@@ -1,25 +1,38 @@
-"""Volumetric raycaster: the inference half.
+"""Volumetric raycaster and trainer.
 
-Port of the render path of ``fourier_feature_nets_tpu/render/raycaster.py``:
-``_composite``, ``Raycaster.render``/``batched_render`` and the
-whole-frame renderer ``render_frame``/``render_frame_async`` with
-empty-space culling. The JAX package compiles a frame into one
-``lax.scan`` over ray chunks; here the chunk loop is a Python loop of
-eager PyTorch ops, and the NeRF query goes through the fused Hopper
-kernel (:mod:`..kernels.fused_nerf`) on a CUDA device.
+Port of ``fourier_feature_nets_tpu/render/raycaster.py``: ``_composite``,
+``Raycaster.render``/``batched_render``, the whole-frame renderer
+``render_frame``/``render_frame_async`` with empty-space culling, and
+the trainer: ``_train_forward``, ``_make_train_step``, ``_validate``
+and ``fit``. The JAX package compiles a frame into one ``lax.scan`` and
+a train step into one jitted function; here both are eager PyTorch.
+On a CUDA device NeRF queries go through the fused Hopper kernels:
+K1 (:mod:`..kernels.fused_nerf`) for rendering, K1 forward and K2
+backward (:mod:`..kernels.fused_nerf_train`) for training.
 
-Training, pose rendering, early termination and the data-parallel mesh
-are not ported yet (ROADMAP.md, queue 1).
+Pose rendering, early termination, occupancy-guided training,
+checkpoint/resume and the data-parallel mesh are not ported yet
+(ROADMAP.md, queue 1).
 """
 
-from typing import NamedTuple, Optional
+import time
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels.fused_nerf import fused_nerf_apply, prepare_fused_nerf
+from ..kernels.fused_nerf import (
+    fused_nerf_apply,
+    pack_fused_nerf,
+    prepare_fused_nerf,
+)
+from ..kernels.fused_nerf_train import fused_nerf_train_apply
+from ..models.serialization import params_to_jax
 from ..ops import calculate_blend_weights
+from ..utils.errors import not_ported
+from ..utils.optim import ClippedAdam, exponential_lr
+from ..utils.progress import LogEntry
 from .ray_sampler import RaySampler, RaySamples
 
 __all__ = ["Raycaster", "RenderResult"]
@@ -62,7 +75,8 @@ class Raycaster:
     """Renders rays through a radiance field."""
 
     def __init__(self, model, compute_dtype: Optional[torch.dtype] = None,
-                 fused: Optional[bool] = None):
+                 fused: Optional[bool] = None,
+                 fused_train: Optional[bool] = None):
         """Constructor.
 
         Args:
@@ -74,13 +88,24 @@ class Raycaster:
                 wrapper. None (default) = on for a NeRF on a CUDA
                 device, off elsewhere. With True on the CPU the wrapper
                 runs the kernel's plain twin.
+            fused_train: route training forwards through the fused
+                recompute-backward (K1 forward, K2 backward). None
+                (default) = on for a NeRF on a CUDA device, off
+                elsewhere; with True on the CPU the wrappers run the
+                kernels' plain twins. Off trains through autograd of
+                the plain model.
         """
         self.model = model
         self.compute_dtype = compute_dtype
         is_nerf = getattr(model, "model_type", None) == "nerf"
+        on_cuda = next(model.parameters()).is_cuda
         if fused is None:
-            fused = next(model.parameters()).is_cuda
+            fused = on_cuda
+        if fused_train is None:
+            fused_train = on_cuda
         self.fused = bool(fused) and is_nerf
+        self.fused_train = bool(fused_train) and is_nerf
+        self.step_ms: List[float] = []
         self._fused_weights = None
         self._fused_key = None
 
@@ -244,3 +269,229 @@ class Raycaster:
         return self.render_frame_async(sampler, camera, chunk_size,
                                        cull_empty,
                                        probe_subsample).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+
+    def _train_forward(self, rays: RaySamples) -> RenderResult:
+        """Differentiable forward for training: the fused custom-autograd
+        kernels when enabled, otherwise autograd of the plain model."""
+        num_rays, num_samples = rays.t_values.shape
+        positions = rays.positions.reshape(-1, 3)
+        views = rays.view_directions.reshape(-1, 3)
+        if self.fused_train:
+            dtype = (self.compute_dtype if self.compute_dtype is not None
+                     else torch.float32)
+            # packed from the live parameters, so autograd carries the
+            # packed gradients back to them
+            packed = pack_fused_nerf(self.model, dtype)
+            logits = fused_nerf_train_apply(packed, positions, views)
+        else:
+            logits = self.model(positions, views,
+                                compute_dtype=self.compute_dtype)
+        return _composite(logits.reshape(num_rays, num_samples, 4),
+                          rays.t_values, False)
+
+    def _make_train_step(self, dataset, batch_size: int,
+                         learning_rate: float, decay_rate: float,
+                         decay_steps: int, optimizer: ClippedAdam):
+        """One training step: sample the batch's rays, forward, loss,
+        backward, clipped Adam at the step's learning rate. The step
+        keeps the sampler the dataset had when it was built; it reads
+        the dataset's mode on every call, so the crop curriculum's
+        mode switches (Dilate drops the alpha term) take effect at
+        once."""
+        sampler = dataset.sampler
+
+        def train_step(perm: torch.Tensor, offset: int, step: int,
+                       rng: int) -> torch.Tensor:
+            idx = perm[offset:offset + batch_size]
+            rays = sampler.sample(idx, step,
+                                  rng if sampler.stratified else None)
+            optimizer.zero_grad()
+            loss = dataset.loss(idx, self._train_forward(rays))
+            loss.backward()
+            optimizer.step(exponential_lr(learning_rate, step, decay_rate,
+                                          decay_steps))
+            return loss.detach()
+
+        return train_step
+
+    @torch.no_grad()
+    def _validate(self, dataset, batch_size: int, step: int) -> float:
+        """PSNR over <= 102,400 evenly strided valid rays of the active
+        mode, in whole batches of ``batch_size``."""
+        num_rays = len(dataset)
+        num_validate = min(num_rays, 1024 * 100)
+        if num_validate < num_rays:
+            val_index = np.linspace(0, num_rays, num_validate,
+                                    endpoint=False).astype(np.int64)
+        else:
+            val_index = np.arange(num_rays)
+        if dataset.mode != dataset.Mode.Full:
+            val_index = dataset._mode_index(dataset.mode)[val_index]
+        val_index = dataset.to_valid(val_index)
+        num_batches = len(val_index) // batch_size
+        if num_batches == 0:
+            return float("nan")
+        batches = torch.from_numpy(
+            val_index[:num_batches * batch_size]).to(dataset.device).reshape(
+                num_batches, batch_size)
+        losses = torch.stack([
+            dataset.loss(idx, self._train_forward(
+                dataset.sampler.sample(idx, step, None)))
+            for idx in batches])
+        mean_loss = float(losses.mean())
+        return float(-10.0 * np.log10(max(mean_loss, 1e-10)))
+
+    def fit(self, train_dataset, val_dataset, batch_size: int,
+            learning_rate: float, num_steps: int, crop_steps: int,
+            report_interval: int, decay_rate: float, decay_steps: int,
+            weight_decay: float = 0.0, visualizers=(), seed: int = 0,
+            mesh=None, checkpoint_dir: Optional[str] = None,
+            checkpoint_interval: Optional[int] = None,
+            resume: bool = False, steps_per_call: int = 1,
+            occupancy_interval: Optional[int] = None) -> List[LogEntry]:
+        """Fits the model (in place) to the dataset.
+
+        Args:
+            train_dataset / val_dataset: ray datasets on the model's
+                device.
+            batch_size: rays per training step.
+            learning_rate / decay_rate / decay_steps: per-step
+                exponential LR schedule.
+            num_steps: the last step (steps 0..num_steps run).
+            crop_steps: steps of center-crop curriculum at the start.
+            report_interval: steps between train/val PSNR reports.
+            weight_decay: Adam L2 weight decay.
+            visualizers: objects with
+                ``visualize(step, render_fn, act_fn)``.
+            seed: seeds the epoch shuffles and the stratified jitter
+                (a CPU ``torch.Generator``).
+            mesh / checkpoint_dir / checkpoint_interval / resume /
+                steps_per_call > 1 / occupancy_interval: not ported;
+                each raises ``NotImplementedError``.
+
+        Returns:
+            The LogEntry of every report interval. The wall time of
+            each training step (host clock, or CUDA events on a GPU,
+            validation and visualizers excluded) is left in
+            ``self.step_ms``.
+        """
+        if mesh is not None:
+            raise not_ported("data-parallel training (a mesh)",
+                             "Remaining models, data, CLIs and parallel")
+        if checkpoint_dir or checkpoint_interval or resume:
+            raise not_ported("checkpoint/resume", "Training")
+        if steps_per_call > 1:
+            raise not_ported("steps_per_call > 1 (a TPU dispatch knob; "
+                             "its counterpart is a CUDA-graph step)",
+                             "Training")
+        if occupancy_interval:
+            raise not_ported("occupancy-guided training", "Training")
+        generator = torch.Generator().manual_seed(seed)
+        trainval_dataset = train_dataset.sample_cameras(
+            val_dataset.num_cameras, val_dataset.num_samples, False)
+        optimizer = ClippedAdam(self.model.parameters(), learning_rate,
+                                weight_decay)
+        modes = train_dataset.Mode
+        dataset_mode = train_dataset.mode
+        if crop_steps:
+            train_dataset.mode = modes.Center
+            val_dataset.mode = modes.Center
+            trainval_dataset.mode = modes.Center
+        else:
+            val_dataset.mode = dataset_mode
+            trainval_dataset.mode = dataset_mode
+        train_step = self._make_train_step(train_dataset, batch_size,
+                                           learning_rate, decay_rate,
+                                           decay_steps, optimizer)
+
+        def render_image_fn(samples: RaySamples, include_depth: bool):
+            return self.batched_render(samples, max(batch_size, 16384),
+                                       include_depth)
+
+        def render_act_fn(sampler, camera):
+            raise not_ported("activation renders",
+                             "Remaining models, data, CLIs and parallel")
+
+        device = train_dataset.device
+        timer = _StepTimer(device)
+        log: List[LogEntry] = []
+        step = 0
+        start_time = time.time()
+        while step <= num_steps:
+            pool = torch.from_numpy(train_dataset.index_pool())
+            perm = pool[torch.randperm(len(pool), generator=generator)].to(
+                device)
+            strat_key = int(torch.randint(0, 2 ** 31, (1,),
+                                          generator=generator))
+            num_batches = len(pool) // batch_size
+            for batch_num in range(max(num_batches, 1)):
+                if step > num_steps:
+                    break
+                timer.start()
+                train_step(perm, batch_num * batch_size, step, strat_key)
+                timer.stop()
+                last = step
+                step += 1
+                restart_epoch = False
+                if last % report_interval == 0 or last < 10:
+                    train_psnr = self._validate(trainval_dataset, batch_size,
+                                                last)
+                    val_psnr = self._validate(val_dataset, batch_size, last)
+                    current_time = time.time()
+                    time_per_step = ((current_time - start_time) / last
+                                     if last >= report_interval else 0)
+                    print("{:07}".format(last),
+                          "{:2f} s/step".format(time_per_step),
+                          "psnr_train: {:2f}".format(train_psnr),
+                          "val_psnr: {:2f}".format(val_psnr))
+                    if last % report_interval == 0:
+                        log.append(LogEntry(last, current_time - start_time,
+                                            params_to_jax(self.model),
+                                            train_psnr, val_psnr))
+                    if (train_dataset.mode == modes.Center
+                            and last >= crop_steps):
+                        print("Removing center crop...")
+                        train_dataset.mode = dataset_mode
+                        val_dataset.mode = dataset_mode
+                        trainval_dataset.mode = dataset_mode
+                        restart_epoch = True
+                if restart_epoch:
+                    break
+                for visualizer in visualizers:
+                    visualizer.visualize(last, render_image_fn,
+                                         render_act_fn)
+        self.step_ms = timer.milliseconds()
+        return log
+
+
+class _StepTimer:
+    """Wall time of each training step: CUDA events on a GPU (read once
+    at the end, so timing adds no synchronisation), the host clock
+    elsewhere."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+
+    def start(self):
+        self.marks.append([self._mark(), None])
+
+    def stop(self):
+        self.marks[-1][1] = self._mark()
+
+    def _mark(self):
+        if not self.cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def milliseconds(self) -> List[float]:
+        if self.cuda:
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in self.marks]
+        return [(b - a) * 1e3 for a, b in self.marks]

@@ -1,9 +1,10 @@
 """Synthetic camera orbits.
 
 NumPy port of ``fourier_feature_nets_tpu/utils/camera_paths.py``
-(``orbit``, ``look_at_extrinsics``, ``_intrinsics`` and the Rodrigues
-rotation they use). Camera paths are host-side metadata, so the code is
-the same NumPy on both sides.
+(``orbit``, ``hemisphere``, ``fibonacci_hemisphere``,
+``shuffle_positions``, ``look_at_extrinsics``, ``_intrinsics`` and the
+Rodrigues rotation they use). Camera paths are host-side metadata, so
+the code is the same NumPy on both sides.
 """
 
 import math
@@ -13,7 +14,8 @@ import numpy as np
 
 from ..cameras import CameraInfo, Resolution
 
-__all__ = ["orbit", "look_at_extrinsics", "rotation_about_axis"]
+__all__ = ["orbit", "hemisphere", "fibonacci_hemisphere",
+           "shuffle_positions", "look_at_extrinsics", "rotation_about_axis"]
 
 
 def rotation_about_axis(axis: np.ndarray, angle: float) -> np.ndarray:
@@ -95,6 +97,73 @@ def orbit(up_dir: np.ndarray, forward_dir: np.ndarray, num_frames: int,
         elevate = rotation_about_axis(right_dir, frame_alt)
         rotate = rotation_about_axis(up_dir, frame_azi)
         extrinsics = rotate @ elevate @ init_ext
+        cameras.append(CameraInfo.create(f"cam{len(cameras)}", resolution,
+                                         intrinsics, extrinsics))
+    return cameras
+
+
+def shuffle_positions(positions: np.ndarray, random=True,
+                      rng: np.random.Generator = None) -> List[int]:
+    """Farthest-point-biased shuffling of positions."""
+    if rng is None:
+        rng = np.random.default_rng()
+    samples = [0]
+    all_positions = set(range(len(positions)))
+    while len(samples) < len(all_positions):
+        sample_positions = positions[samples]
+        distances = positions[:, None, :] - sample_positions[None, :, :]
+        distances = np.square(distances).sum(-1).min(-1)
+        unchosen = np.array(sorted(all_positions - set(samples)))
+        if random:
+            weights = np.asarray(distances[unchosen], np.float64)
+            weights = weights / weights.sum()
+            choice = rng.choice(unchosen, p=weights)
+        else:
+            choice = unchosen[distances[unchosen].argmax()]
+        samples.append(int(choice))
+    return samples
+
+
+def fibonacci_hemisphere(num_samples: int,
+                         rng: np.random.Generator = None) -> np.ndarray:
+    """Evenly spread hemisphere points, far-point shuffled."""
+    phi = math.pi * (3.0 - math.sqrt(5.0))
+    i = np.arange(num_samples, dtype=np.float64)
+    y = 1 - i / (num_samples - 1)
+    radius = np.sqrt(1 - y * y)
+    theta = phi * i
+    points = np.stack([np.cos(theta) * radius, y,
+                       np.sin(theta) * radius], -1)
+    index = shuffle_positions(points, rng=rng)
+    return points[index]
+
+
+def hemisphere(up_dir: np.ndarray, forward_dir: np.ndarray,
+               num_cameras: int, fov_y_degrees: float,
+               resolution: Resolution, distance: float, pos_noise=0.1,
+               rng: np.random.Generator = None) -> List[CameraInfo]:
+    """Randomly perturbed, evenly placed hemisphere cameras."""
+    if rng is None:
+        rng = np.random.default_rng()
+    directions = fibonacci_hemisphere(num_cameras, rng=rng)
+    up_dir = np.asarray(up_dir, np.float64)
+    right_dir = np.cross(up_dir, np.asarray(forward_dir, np.float64))
+    intrinsics = _intrinsics(fov_y_degrees, resolution)
+
+    cameras = []
+    for direction in directions:
+        position = direction * distance + rng.normal(0, pos_noise, size=3)
+        dist = np.linalg.norm(position)
+        azimuth = math.atan2(direction[0], direction[2])
+        altitude = math.asin(min(1.0, max(-1.0, direction[1])))
+        pos = np.eye(4)
+        pos[2, 3] = -dist
+        elevate = rotation_about_axis(right_dir, altitude)
+        rotate = rotation_about_axis(up_dir, azimuth)
+        # unlike orbit, no x-flip: the camera's +z axis (OpenCV
+        # forward) already points at the origin from the translated
+        # position
+        extrinsics = rotate @ elevate @ pos
         cameras.append(CameraInfo.create(f"cam{len(cameras)}", resolution,
                                          intrinsics, extrinsics))
     return cameras

@@ -1,10 +1,11 @@
-"""Console progress bar (port of ``ETABar`` from
-``fourier_feature_nets_tpu/utils/progress.py``)."""
+"""Console progress bar and run log (port of ``ETABar``, ``LogEntry``
+and ``write_log`` from ``fourier_feature_nets_tpu/utils/progress.py``)."""
 
 import sys
 import time
+from typing import NamedTuple
 
-__all__ = ["ETABar"]
+__all__ = ["ETABar", "LogEntry", "write_log"]
 
 
 class ETABar:
@@ -44,3 +45,30 @@ class ETABar:
         if sys.stderr.isatty():
             sys.stderr.write("\n")
             sys.stderr.flush()
+
+
+class LogEntry(NamedTuple):
+    """A training-trajectory snapshot: ``state`` is the model's
+    parameters as the JAX package's flat ``{path: array}`` dict."""
+
+    step: int
+    timestamp: float
+    state: dict
+    train_psnr: float
+    val_psnr: float
+
+
+def write_log(path, log) -> None:
+    """Writes the training log as TSV to a path or an open file."""
+    if hasattr(path, "write"):
+        _write_log_rows(path, log)
+        return
+    with open(path, "w") as file:
+        _write_log_rows(file, log)
+
+
+def _write_log_rows(file, log) -> None:
+    file.write("step\ttimestamp\tpsnr_train\tpsnr_val\n")
+    for entry in log:
+        file.write(f"{entry.step}\t{entry.timestamp}\t"
+                   f"{entry.train_psnr}\t{entry.val_psnr}\n")

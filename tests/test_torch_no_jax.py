@@ -43,7 +43,7 @@ def imported():
 def _port_sources():
     for base, _, files in os.walk(PORT):
         for name in files:
-            if name.endswith((".py", ".cu")):
+            if name.endswith((".py", ".cu", ".cuh")):
                 yield os.path.join(base, name)
 
 
@@ -58,7 +58,10 @@ def test_walk_found_the_slice_modules(imported):
         "models.module", "models.nerf", "models.serialization",
         "kernels.fused_nerf", "kernels.build", "render.ray_sampler",
         "render.occupancy_sampler", "render.raycaster", "cli.common",
-        "cli.orbit_video"}
+        "cli.orbit_video", "ops.sampling", "utils.optim",
+        "kernels.fused_nerf_train", "datasets.ray_dataset",
+        "datasets.image_dataset", "datasets.synthetic", "visualizers",
+        "cli.train_nerf"}
     found = {name.split(".", 1)[1] for name in imported["modules"]}
     assert expected <= found
 
