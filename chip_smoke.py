@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1, the fused NeRF forward; K2, the
-fused recompute backward) from the sources in this checkout, in
-parallel, and drives both paths of the port at the flagship width:
+fused recompute backward; K3, the fused ray render, with T1's scan)
+from the sources in this checkout, in parallel, and drives the port's
+paths at the flagship width:
 
 * serving: K1 against its plain twin; three 800x800 ``--preset fast``
   frames of a seeded random flagship NeRF through ``orbit_video``,
@@ -14,7 +15,14 @@ parallel, and drives both paths of the port at the flagship width:
   (1024 rays x 128 samples) and a ragged N; 30 steps of ``train_nerf``
   on the generated ``synthetic`` scene in bf16 and f32, fused (through
   K1 and K2, which must both launch) and ``--no-fused``; the trained
-  checkpoint then renders an 800x800 frame through ``orbit_video``.
+  checkpoint then renders an 800x800 frame through ``orbit_video``;
+* kernel validation: K3 against its plain twin in bf16 and f32 at
+  S = 42, 48 and 128, a ragged R and a case where only the last ray
+  block carries signal, and against the plain render; T1's scan against
+  ``exclusive_cumprod``; K3, its twin and K1 followed by ``_composite``
+  timed at 16384 rays x 48 and x 128 samples; then
+  ``cli/validate_kernels``, which must launch K1, K2, K3 and the scan
+  and end in ``ALL OK``.
 
 Each phase prints its own lines; any failure raises and the script
 exits non-zero without printing a result. The last two lines are the
@@ -78,6 +86,10 @@ GRAD_SHARE = {"random": {"bfloat16": 2e-2, "float32": 2e-2},
               "tail": {"bfloat16": 1e-2, "float32": 2e-5}}
 MARGIN = {"float32": 1e-6}
 GROUP = 32    # K2's bf16 tile, two of its f32 tiles
+RENDER_RAYS = 16384            # one frame chunk / bench.py's render batch
+RAGGED_RAYS = 1001             # not a multiple of any ray block
+PLAIN_RENDER_ATOL = 5e-3       # tools/validate_kernels_tpu.py:167-170
+SCAN_RTOL = 1e-5               # tests/test_fused_ray_render.py:31
 TRAIN_STEPS = 30
 SEED = 0
 
@@ -142,12 +154,15 @@ def phase_device():
     log(f"device: {name}, count {torch.cuda.device_count()}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
-    from fourier_feature_nets_torch.kernels import fused_nerf, fused_nerf_train
+    import importlib
+    modules = [importlib.import_module(f"fourier_feature_nets_torch.kernels."
+                                       f"{name}")
+               for name in ("fused_nerf", "fused_nerf_train",
+                            "fused_ray_render")]
     start = time.perf_counter()
     # one nvcc per source, all started together
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = list(pool.map(lambda module: module.load_kernel(),
-                               (fused_nerf, fused_nerf_train)))
+    with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
+        builds = list(pool.map(lambda module: module.load_kernel(), modules))
     log(f"kernel builds (in parallel): {time.perf_counter() - start:.3f} s")
     for built in builds:
         log(f"  {built.path.name}: nvcc {built.seconds:.3f} s")
@@ -474,6 +489,210 @@ def phase_render_trained(checkpoint):
         raise AssertionError("the trained checkpoint did not render")
 
 
+def render_rays(num_rays: int, num_samples: int, rng: np.random.Generator):
+    """Rays through the volume as the validation tool makes them: sorted
+    depths in [1, 4), unit directions, starts in [-0.5, 0.5); (R, S, 3)
+    positions, (R, 3) directions, (R, S) depths on the card."""
+    t = np.sort(rng.uniform(1, 4, (num_rays, num_samples)).astype(np.float32),
+                -1)
+    d = rng.normal(size=(num_rays, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    start = rng.uniform(-0.5, 0.5, (num_rays, 3)).astype(np.float32)
+    pos = (start[:, None] + t[..., None] * d[:, None]).astype(np.float32)
+    return tuple(torch.from_numpy(a).cuda() for a in (pos, d, t))
+
+
+def render_error(out, twin, dtype):
+    """(max abs err, within tolerance, stated tolerance) of K3 against
+    its twin: K1's tolerances."""
+    err = (out - twin).abs()
+    if dtype == torch.float32:
+        ok = bool((err <= F32_ATOL + F32_RTOL * twin.abs()).all())
+        return err.max().item(), ok, f"|d| <= {F32_ATOL} + {F32_RTOL}|ref|"
+    return err.max().item(), err.max().item() <= BF16_ATOL, \
+        f"|d| <= {BF16_ATOL}"
+
+
+def phase_ray_render_vs_twin(model):
+    """K3 against its plain twin at S = 42, 48 and 128 with a ragged R,
+    with signal only in the last ray block, and against the plain render
+    (f32)."""
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        prepare_fused_nerf)
+    from fourier_feature_nets_torch.kernels.fused_ray_render import (
+        fused_ray_render, fused_ray_render_reference, rays_per_block)
+    from fourier_feature_nets_torch.render import Raycaster, RaySamples
+    rng = np.random.default_rng(SEED + 2)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        weights = prepare_fused_nerf(model, dtype)
+        cases = [(f"R={RAGGED_RAYS:,d} S={s}", RAGGED_RAYS, s, False)
+                 for s in (42, 48, 128)]
+        cases += [(f"R={RAGGED_RAYS:,d} S={s}, signal only in the last ray "
+                   f"block", RAGGED_RAYS, s, True) for s in (42, 48)]
+        for label, num_rays, num_samples, last_only in cases:
+            pos, d, t = render_rays(num_rays, num_samples, rng)
+            if last_only:
+                # every other ray has all its samples at one depth: alpha 0
+                last = num_rays % rays_per_block(num_samples) \
+                    or rays_per_block(num_samples)
+                t[:-last] = 2.0
+                pos[:-last] = d[:-last, None] * 2.0
+            with torch.no_grad():
+                out = fused_ray_render(weights, pos, d, t)
+                twin = fused_ray_render_reference(weights, pos, d, t)
+            torch.cuda.synchronize()
+            if out.shape != (num_rays, 4) or not torch.isfinite(out).all():
+                raise AssertionError(f"K3 output not finite ({label})")
+            max_abs, ok, stated = render_error(out, twin, dtype)
+            if last_only:
+                quiet = torch.count_nonzero(twin[:-last, 3]).item()
+                loud = twin[-last:, 3].min().item()
+                label += (f" ({last} rays; twin alpha nonzero on {quiet} "
+                          f"others, min {loud:.3f} in the block)")
+                ok = ok and quiet == 0 and loud > 0.1
+            log(f"  K3 {name:8s} {label}: max abs err {max_abs:.3e} "
+                f"(tolerance {stated}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K3 disagrees with its plain twin "
+                                     f"({name}, {label})")
+    weights = prepare_fused_nerf(model, torch.float32)
+    pos, d, t = render_rays(RAGGED_RAYS, 128, rng)
+    with torch.no_grad():
+        out = fused_ray_render(weights, pos, d, t)
+        ref = Raycaster(model, fused=False).render(
+            RaySamples(pos, d[:, None].expand(pos.shape), t, None))
+    color = (out[:, :3] - ref.color).abs().max().item()
+    alpha = (out[:, 3] - ref.alpha).abs().max().item()
+    ok = max(color, alpha) <= PLAIN_RENDER_ATOL
+    log(f"  K3 float32 vs Raycaster(fused=False).render, R={RAGGED_RAYS:,d} "
+        f"S=128: color max err {color:.3e}, alpha max err {alpha:.3e} "
+        f"(atol {PLAIN_RENDER_ATOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K3 disagrees with the plain render")
+
+
+def phase_ray_render_timing(model):
+    """K3, its twin, and K1 followed by _composite (the port's render
+    path today) at R = 16384 rays, S = 48 (a --preset fast chunk) and 128
+    (bench.py's render batch)."""
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        fused_nerf_apply, prepare_fused_nerf)
+    from fourier_feature_nets_torch.kernels.fused_ray_render import (
+        fused_ray_render, fused_ray_render_reference)
+    from fourier_feature_nets_torch.render.raycaster import _composite
+    rng = np.random.default_rng(SEED + 3)
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        weights = prepare_fused_nerf(model, dtype)
+        for num_samples in (48, 128):
+            pos, d, t = render_rays(RENDER_RAYS, num_samples, rng)
+            flat = pos.reshape(-1, 3)
+            views = d[:, None].expand(pos.shape).reshape(-1, 3).contiguous()
+
+            def k1_composite():
+                logits = fused_nerf_apply(weights, flat, views)
+                return _composite(logits.reshape(RENDER_RAYS, num_samples, 4),
+                                  t, False)
+
+            with torch.no_grad():
+                out = fused_ray_render(weights, pos, d, t)
+                twin = fused_ray_render_reference(weights, pos, d, t)
+                k1 = k1_composite()
+                max_abs, ok, stated = render_error(out, twin, dtype)
+                k1_diff = max((out[:, :3] - k1.color).abs().max().item(),
+                              (out[:, 3] - k1.alpha).abs().max().item())
+                ms = cuda_ms(lambda: fused_ray_render(weights, pos, d, t), 5)
+                plain_ms = cuda_ms(lambda: fused_ray_render_reference(
+                    weights, pos, d, t), 5)
+                k1_ms = cuda_ms(k1_composite, 5)
+                k1_alone_ms = cuda_ms(
+                    lambda: fused_nerf_apply(weights, flat, views), 5)
+            log(f"  K3 {name:8s} R={RENDER_RAYS} S={num_samples:3d}: K3 "
+                f"{ms:.3f} ms, plain twin {plain_ms:.3f} ms, K1 + _composite "
+                f"{k1_ms:.3f} ms (K1 alone {k1_alone_ms:.3f} ms) (CUDA "
+                f"events, mean of 5); K3 vs twin max abs err {max_abs:.3e} "
+                f"({stated}) {'ok' if ok else 'FAIL'}; K3 vs K1 + _composite "
+                f"max abs diff {k1_diff:.3e}")
+            if not ok:
+                raise AssertionError(f"K3 disagrees with its plain twin "
+                                     f"({name}, S={num_samples})")
+            results[(name, num_samples)] = {
+                "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                "k1_composite_ms": k1_ms, "k1_ms": k1_alone_ms,
+                "k1_composite_max_abs_diff": k1_diff}
+            del pos, d, t, flat, views, out, twin, k1
+        del weights
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_scan():
+    """T1's scan kernel against exclusive_cumprod at the JAX test's
+    (16, 128), at lane counts that are not a multiple of 32, and at the
+    render batch's (16384, 128), where it is timed."""
+    from fourier_feature_nets_torch.kernels.fused_ray_render import (
+        exclusive_cumprod_scan)
+    from fourier_feature_nets_torch.ops import exclusive_cumprod
+    rng = np.random.default_rng(SEED + 4)
+    worst = 0.0
+    for rows, lanes in ((16, 128), (1003, 20), (1003, 45), (1003, 77),
+                        (RENDER_RAYS, 128)):
+        x = torch.from_numpy(rng.uniform(0.5, 1.0, (rows, lanes)).astype(
+            np.float32)).cuda()
+        out = exclusive_cumprod_scan(x)
+        ref = exclusive_cumprod(x)
+        torch.cuda.synchronize()
+        rel = ((out - ref).abs() / ref.abs()).max().item()
+        worst = max(worst, (out - ref).abs().max().item())
+        ok = rel <= SCAN_RTOL
+        log(f"  T1 scan ({rows}, {lanes}): max rel err {rel:.3e} (rtol "
+            f"{SCAN_RTOL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the scan kernel disagrees with "
+                                 "exclusive_cumprod")
+    ms = cuda_ms(lambda: exclusive_cumprod_scan(x), 5)
+    plain_ms = cuda_ms(lambda: exclusive_cumprod(x), 5)
+    log(f"  T1 scan ({RENDER_RAYS}, 128): kernel {ms:.4f} ms, "
+        f"exclusive_cumprod {plain_ms:.4f} ms (CUDA events, mean of 5)")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_validate():
+    """The kernel-validation path: cli/validate_kernels, counts set to 0
+    just before and read just after."""
+    from fourier_feature_nets_torch.cli import validate_kernels
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        fused_nerf_apply)
+    from fourier_feature_nets_torch.kernels.fused_nerf_train import (
+        fused_nerf_backward)
+    from fourier_feature_nets_torch.kernels.fused_ray_render import (
+        exclusive_cumprod_scan, fused_ray_render)
+    wrappers = {"fused_nerf": fused_nerf_apply,
+                "fused_nerf_train": fused_nerf_backward,
+                "fused_ray_render": fused_ray_render,
+                "exclusive_cumprod_scan": exclusive_cumprod_scan}
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    captured = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(captured):
+        rc = validate_kernels.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = {name: w.launches for name, w in wrappers.items()}
+    lines = captured.getvalue().strip().splitlines()
+    log("\n".join(f"    {line}" for line in lines))
+    log(f"validate_kernels: rc {rc}, {wall:.3f} s, launches {launches}")
+    if rc != 0 or lines[-1] != "ALL OK":
+        raise AssertionError(f"validate_kernels returned {rc}")
+    missing = [name for name, count in launches.items() if count <= 0]
+    if missing:
+        raise AssertionError(f"validate_kernels did not launch {missing}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -496,6 +715,14 @@ def main() -> int:
     log("train ms/step over steps 2.." + str(TRAIN_STEPS + 1) + ": "
         + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items()))
     phase_render_trained(checkpoint)
+    model = flagship_nerf(torch.Generator().manual_seed(SEED)).cuda()
+    log("K3 vs plain twin, flagship:")
+    phase_ray_render_vs_twin(model)
+    render = phase_ray_render_timing(model)
+    del model
+    torch.cuda.empty_cache()
+    scan = phase_scan()
+    validate_launches = phase_validate()
 
     bf16 = results[torch.bfloat16]
     f32 = results[torch.float32]
@@ -529,6 +756,41 @@ def main() -> int:
         "f32_max_rel_err_by_cotangent": backward["float32"]["max_rel_err"],
         "bitwise_equal": backward["bfloat16"]["bitwise_equal"],
         "train_ms_per_step": step_ms,
+    }, {
+        "name": "fused_ray_render",
+        "route": "cuda",
+        "source": "fourier_feature_nets_torch/kernels/csrc/"
+                  "fused_ray_render.cu",
+        "replaces": "fourier_feature_nets_tpu/ops/fused_ray_render.py:82",
+        "launches": validate_launches["fused_ray_render"],
+        "max_abs_err": render[("bfloat16", 128)]["max_abs_err"],
+        "ms": render[("bfloat16", 128)]["ms"],
+        "plain_ms": render[("bfloat16", 128)]["plain_ms"],
+        "shape": f"R={RENDER_RAYS} S=128 (ms) and S=48 (s48_*)",
+        "k1_composite_ms": render[("bfloat16", 128)]["k1_composite_ms"],
+        "f32_max_abs_err": render[("float32", 128)]["max_abs_err"],
+        "f32_ms": render[("float32", 128)]["ms"],
+        "f32_plain_ms": render[("float32", 128)]["plain_ms"],
+        "f32_k1_composite_ms": render[("float32", 128)]["k1_composite_ms"],
+        "s48_ms": render[("bfloat16", 48)]["ms"],
+        "s48_plain_ms": render[("bfloat16", 48)]["plain_ms"],
+        "s48_k1_composite_ms": render[("bfloat16", 48)]["k1_composite_ms"],
+        "s48_f32_ms": render[("float32", 48)]["ms"],
+        "s48_f32_plain_ms": render[("float32", 48)]["plain_ms"],
+        "s48_f32_k1_composite_ms":
+            render[("float32", 48)]["k1_composite_ms"],
+        "validate_launches": validate_launches,
+    }, {
+        "name": "exclusive_cumprod_scan",
+        "route": "cuda",
+        "source": "fourier_feature_nets_torch/kernels/csrc/"
+                  "fused_ray_render.cu",
+        "replaces": "tests/test_fused_ray_render.py:26",
+        "launches": validate_launches["exclusive_cumprod_scan"],
+        "max_abs_err": scan["max_abs_err"],
+        "ms": scan["ms"],
+        "plain_ms": scan["plain_ms"],
+        "shape": f"({RENDER_RAYS}, 128)",
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -8,6 +8,12 @@ from .fused_nerf import (
     fused_nerf_reference,
     prepare_fused_nerf,
 )
+from .fused_ray_render import (
+    exclusive_cumprod_scan,
+    fused_ray_render,
+    fused_ray_render_reference,
+)
 
-__all__ = ["FusedNeRFWeights", "fused_nerf_apply", "fused_nerf_reference",
-           "prepare_fused_nerf"]
+__all__ = ["FusedNeRFWeights", "exclusive_cumprod_scan", "fused_nerf_apply",
+           "fused_nerf_reference", "fused_ray_render",
+           "fused_ray_render_reference", "prepare_fused_nerf"]

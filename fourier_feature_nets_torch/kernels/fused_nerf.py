@@ -186,11 +186,9 @@ def _dense(x, layer):
     return x.float() @ weight.float() + bias
 
 
-def fused_nerf_reference(weights: FusedNeRFWeights, positions: torch.Tensor,
-                         views: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel: (N, 3) positions and views ->
-    (N, 4) f32 logits, rounding where the kernel rounds. On a CUDA
-    device the f32 products rely on ``allow_tf32`` being False."""
+def _trunk(weights: FusedNeRFWeights, positions: torch.Tensor):
+    """The twin's per-point body: the (N, 1) f32 opacity logit and the
+    bottleneck in the working type."""
     dtype = weights.weights.dtype
     layers = weights.layers
     num_layers = weights.num_layers
@@ -202,6 +200,18 @@ def fused_nerf_reference(weights: FusedNeRFWeights, positions: torch.Tensor,
         h = torch.relu(_dense(inputs, layers[i]).to(dtype))
     opacity = _dense(h, layers[num_layers])[:, :1]
     bottleneck = _dense(h, layers[num_layers + 1]).to(dtype)
+    return opacity, bottleneck
+
+
+def fused_nerf_reference(weights: FusedNeRFWeights, positions: torch.Tensor,
+                         views: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel: (N, 3) positions and views ->
+    (N, 4) f32 logits, rounding where the kernel rounds. On a CUDA
+    device the f32 products rely on ``allow_tf32`` being False."""
+    dtype = weights.weights.dtype
+    layers = weights.layers
+    num_layers = weights.num_layers
+    opacity, bottleneck = _trunk(weights, positions)
     venc = _features(views.float(), weights.view_enc, weights.view_width,
                      weights.include_inputs, dtype)
     hidden = torch.relu(_dense(torch.cat([bottleneck, venc], -1),
@@ -224,17 +234,10 @@ def load_kernel():
     return built
 
 
-def _check_cuda_inputs(weights: FusedNeRFWeights, positions, views):
-    device = positions.device
-    for name, tensor in (("positions", positions), ("views", views)):
-        if tensor.dtype != torch.float32 or tensor.dim() != 2 \
-                or tensor.shape[1] != 3 or not tensor.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous (N, 3) float32 "
-                             f"tensor, got {tensor.dtype} "
-                             f"{tuple(tensor.shape)}")
-    if views.shape != positions.shape:
-        raise ValueError("positions and views must have the same shape")
-    for name, tensor in (("views", views), ("weights", weights.weights),
+def _check_pack(weights: FusedNeRFWeights, device: torch.device):
+    """Raises unless the pack lies on ``device`` and the kernels take
+    its type and shape."""
+    for name, tensor in (("weights", weights.weights),
                          ("biases", weights.biases),
                          ("pos_enc", weights.pos_enc),
                          ("view_enc", weights.view_enc)):
@@ -249,6 +252,21 @@ def _check_cuda_inputs(weights: FusedNeRFWeights, positions, views):
             f"the kernel takes channels a multiple of 32 up to "
             f"{MAX_CHANNELS} and at most {MAX_LAYERS} layers; got "
             f"{weights.channels} channels, {weights.num_layers} layers")
+
+
+def _check_cuda_inputs(weights: FusedNeRFWeights, positions, views):
+    device = positions.device
+    for name, tensor in (("positions", positions), ("views", views)):
+        if tensor.dtype != torch.float32 or tensor.dim() != 2 \
+                or tensor.shape[1] != 3 or not tensor.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous (N, 3) float32 "
+                             f"tensor, got {tensor.dtype} "
+                             f"{tuple(tensor.shape)}")
+    if views.shape != positions.shape:
+        raise ValueError("positions and views must have the same shape")
+    if views.device != device:
+        raise ValueError(f"views is on {views.device}, positions on {device}")
+    _check_pack(weights, device)
 
 
 def fused_nerf_apply(weights: FusedNeRFWeights, positions: torch.Tensor,

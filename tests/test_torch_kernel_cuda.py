@@ -1,4 +1,5 @@
-"""The Hopper fused-NeRF kernel against its plain twin, on a CUDA card.
+"""The Hopper kernels (K1, K2, K3 and T1's scan) against their plain
+twins, on a CUDA card.
 
 Every test here needs a card and skips without one (the kernel has no
 CPU mode). The file imports no jax, so it also runs on a machine that
@@ -14,8 +15,15 @@ import torch
 
 from fourier_feature_nets_torch.kernels import fused_nerf as port
 from fourier_feature_nets_torch.kernels import fused_nerf_train as train
+from fourier_feature_nets_torch.kernels.fused_ray_render import (
+    exclusive_cumprod_scan,
+    fused_ray_render,
+    fused_ray_render_reference,
+    rays_per_block,
+)
 from fourier_feature_nets_torch.models import NeRF, flagship_nerf
-from fourier_feature_nets_torch.render import Raycaster, RaySampler
+from fourier_feature_nets_torch.ops import exclusive_cumprod
+from fourier_feature_nets_torch.render import Raycaster, RaySampler, RaySamples
 
 SMALL = dict(num_layers=4, num_channels=64, max_log_scale_pos=9.0,
              num_freq_pos=10, max_log_scale_view=3.0, num_freq_view=4,
@@ -253,3 +261,100 @@ def test_fused_train_step_matches_plain_step(cuda, dtype):
     for a, b in zip(grads[True][1], grads[False][1]):
         bound = share * b.abs().max().item() + 1e-7
         assert (a - b).abs().max().item() <= bound
+
+
+# ---------------------------------------------------------------------------
+# K3: the fused ray render, and T1's scan, against their plain twins
+# ---------------------------------------------------------------------------
+
+
+def _rays(num_rays, num_samples, device, seed=7):
+    """Sorted depths in [1, 4), unit directions, starts in [-0.5, 0.5):
+    (R, S, 3) positions, (R, 3) directions, (R, S) depths."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(1, 4, (num_rays, num_samples)).astype(np.float32),
+                -1)
+    d = rng.normal(size=(num_rays, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    start = rng.uniform(-0.5, 0.5, (num_rays, 3)).astype(np.float32)
+    pos = (start[:, None] + t[..., None] * d[:, None]).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (pos, d, t))
+
+
+def _assert_render_matches_twin(weights, pos, d, t):
+    before = fused_ray_render.launches
+    with torch.no_grad():
+        out = fused_ray_render(weights, pos, d, t)
+        twin = fused_ray_render_reference(weights, pos, d, t)
+    torch.cuda.synchronize()
+    assert fused_ray_render.launches == before + 1
+    assert out.shape == (t.shape[0], 4) and torch.isfinite(out).all()
+    if weights.weights.dtype == torch.float32:
+        torch.testing.assert_close(out, twin, rtol=1e-3, atol=2e-4)
+    else:
+        torch.testing.assert_close(out, twin, rtol=0, atol=0.05)
+    return twin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("num_samples", [42, 48, 128])
+@pytest.mark.parametrize("num_rays", [64, 1001])
+def test_ray_render_matches_twin(cuda, dtype, num_samples, num_rays):
+    model = NeRF(**SMALL, generator=torch.Generator().manual_seed(1)).to(cuda)
+    _assert_render_matches_twin(port.prepare_fused_nerf(model, dtype),
+                                *_rays(num_rays, num_samples, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("num_samples", [42, 48])
+def test_ray_render_signal_only_in_last_ray_block(cuda, dtype, num_samples):
+    """Every ray outside the ragged last ray block has all its samples at
+    one depth, so its alpha is exactly 0: only the last block's alphas
+    carry signal, and a block the kernel dropped or mis-masked there
+    cannot hide behind the rest."""
+    num_rays = 1001
+    last = num_rays % rays_per_block(num_samples) or rays_per_block(
+        num_samples)
+    model = NeRF(**SMALL, generator=torch.Generator().manual_seed(1)).to(cuda)
+    pos, d, t = _rays(num_rays, num_samples, cuda)
+    t[:-last] = 2.0
+    pos[:-last] = d[:-last, None] * 2.0
+    twin = _assert_render_matches_twin(port.prepare_fused_nerf(model, dtype),
+                                       pos, d, t)
+    assert torch.count_nonzero(twin[:-last, 3]) == 0
+    assert twin[-last:, 3].min() > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ray_render_flagship_matches_twin(cuda, dtype):
+    model = flagship_nerf(torch.Generator().manual_seed(0)).to(cuda)
+    _assert_render_matches_twin(port.prepare_fused_nerf(model, dtype),
+                                *_rays(517, 128, cuda))
+
+
+@pytest.mark.cuda
+def test_ray_render_matches_plain_render(cuda):
+    model = NeRF(**SMALL, generator=torch.Generator().manual_seed(1)).to(cuda)
+    pos, d, t = _rays(64, 42, cuda)
+    with torch.no_grad():
+        out = fused_ray_render(port.prepare_fused_nerf(model, torch.float32),
+                               pos, d, t)
+        ref = Raycaster(model, fused=False).render(
+            RaySamples(pos, d[:, None].expand(pos.shape), t, None))
+    torch.testing.assert_close(out[:, :3], ref.color, rtol=0, atol=5e-3)
+    torch.testing.assert_close(out[:, 3], ref.alpha, rtol=0, atol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [128, 20, 45, 77])
+def test_scan_matches_exclusive_cumprod(cuda, lanes):
+    x = torch.from_numpy(np.random.default_rng(lanes).uniform(
+        0.5, 1.0, (1003, lanes)).astype(np.float32)).to(cuda)
+    before = exclusive_cumprod_scan.launches
+    out = exclusive_cumprod_scan(x)
+    torch.cuda.synchronize()
+    assert exclusive_cumprod_scan.launches == before + 1
+    torch.testing.assert_close(out, exclusive_cumprod(x), rtol=1e-5, atol=0)
