@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1, the fused NeRF forward; K2, the
-fused recompute backward; K3, the fused ray render, with T1's scan)
-from the sources in this checkout, in parallel, and drives the port's
-paths at the flagship width:
+fused recompute backward; K3, the fused ray render, with T1's scan;
+P1a-c, the int8 probe's; P2, the forward's ablations; P3a-c, the
+IO-floor copy kernels) from the sources in this checkout, in parallel,
+and drives the port's paths at the flagship width:
 
 * serving: K1 against its plain twin; three 800x800 ``--preset fast``
   frames of a seeded random flagship NeRF through ``orbit_video``,
@@ -22,11 +23,20 @@ paths at the flagship width:
   ``exclusive_cumprod``; K3, its twin and K1 followed by ``_composite``
   timed at 16384 rays x 48 and x 128 samples; then
   ``cli/validate_kernels``, which must launch K1, K2, K3 and the scan
-  and end in ``ALL OK``.
+  and end in ``ALL OK``;
+* the probes: P1a, P1b, P1c in int8 and P3a-c bit for bit against their
+  twins, P1c in bf16 within a stated share, P2 in each mode within K1's
+  bf16 tolerance, at their CLIs' shapes and ragged ones, each timed
+  beside its bound (and, where one PyTorch call computes the same
+  function, that call's time); then ``cli/int8_probe``,
+  ``cli/kernel_ablation_bench`` and ``cli/kernel_io_floor_bench``, each
+  of which must exit 0 and launch its kernels.
 
 Each phase prints its own lines; any failure raises and the script
 exits non-zero without printing a result. The last two lines are the
-per-kernel JSON record and ``{"ok": true, "device": ...}``.
+per-kernel JSON record (every kernel with its launches on its path,
+error, time, its plain twin's time, bound and library time) and
+``{"ok": true, "device": ...}``.
 
 Needs one CUDA device; on a machine without one it exits with code 2.
 Outputs go to ``smoke_out/`` inside the checkout.
@@ -92,6 +102,24 @@ PLAIN_RENDER_ATOL = 5e-3       # tools/validate_kernels_tpu.py:167-170
 SCAN_RTOL = 1e-5               # tests/test_fused_ray_render.py:31
 TRAIN_STEPS = 30
 SEED = 0
+# The probes, at the shapes of their CLIs (the JAX tools') and ragged ones.
+P1_GEMM_SHAPES = ((128, 128, 256), (100, 72, 250))     # (M, K, N)
+P1B_RTOL = 1e-6                # max|kernel - twin| / max|twin|; reads 0
+P1C_SHAPES = ((192, 2048, 8), (192, 1000, 8))          # (C, N, layers)
+# P1c bf16: max|kernel - twin| / max|twin|. Reads 0 at both shapes (H100
+# 80GB HBM3, 700 W). The sums pass 2**24 from the fifth layer on and may
+# round in another order on the tensor cores than in the twin's f32 GEMM;
+# the bound lets such a sum land one bf16 step (2**-8) away and the later
+# layers carry it.
+P1C_BF16_SHARE = 2e-2
+ABLATION_POINTS = 16384 * 32   # the ablation CLI: rays x samples
+IO_POINTS = 16384 * 48         # the IO-floor CLI: rays x samples
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet, dense), for
+# the least time the card could take: the larger of operations over the
+# peak and bytes (each input read once, each output written once) over
+# the HBM rate.
+PEAK = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(message: str) -> None:
@@ -110,6 +138,67 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(ops: float, kind: str, num_bytes: float):
+    """{"bound_ms", "bound_by"}: the larger of ops over the ``kind``
+    peak and bytes over the HBM rate, in ms."""
+    ops_ms = ops / PEAK[kind] * 1e3
+    bytes_ms = num_bytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def nerf_macs(weights, no_view: bool = False, view_once_per: int = 0):
+    """Multiply-adds per point of the packed NeRF's live (unpadded)
+    layers; ``no_view`` leaves out everything after the opacity head;
+    ``view_once_per`` > 0 counts the hidden layer's view rows once per
+    that many points (K3's per-ray view product)."""
+    c = weights.channels
+    inputs = 3 if weights.include_inputs else 0
+    pos = 2 * weights.pos_enc.shape[1] + inputs
+    view = 2 * weights.view_enc.shape[1] + inputs
+    macs = pos * c + (weights.num_layers - 1) * c * c \
+        + len(weights.skips) * pos * c + c
+    if no_view:
+        return macs
+    view_macs = view * (c // 2)
+    if view_once_per:
+        view_macs /= view_once_per
+    return macs + c * c + c * (c // 2) + view_macs + (c // 2) * 3
+
+
+def pack_bytes(weights) -> int:
+    return (weights.weights.numel() * weights.weights.element_size()
+            + weights.biases.numel() * 4)
+
+
+def flagship_bounds(packs):
+    """The bounds of K1, K2 and K3 at the shapes they are timed at, for
+    the flagship packs {dtype: pack}: K1 at BENCH_POINTS (40 B a point:
+    positions, views, logits); K2 at TRAIN_POINTS, three times K1's
+    products (the recompute, then the products for dX and dW), 40 B a
+    point (positions, views, cotangents) and f32 gradients the size of
+    the pack; K3 at RENDER_RAYS x 128 and x 48, its view rows once per
+    ray, 16 B a sample (position, depth) and 28 B a ray."""
+    bounds = {"fused_nerf": {}, "fused_nerf_train": {},
+              "fused_ray_render": {}}
+    for dtype, pack in packs.items():
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        weights = pack_bytes(pack)
+        grads = (pack.weights.numel() + pack.biases.numel()) * 4
+        macs = nerf_macs(pack)
+        bounds["fused_nerf"][kind] = bound(
+            2 * macs * BENCH_POINTS, kind, 40 * BENCH_POINTS + weights)
+        bounds["fused_nerf_train"][kind] = bound(
+            3 * 2 * macs * TRAIN_POINTS, kind,
+            40 * TRAIN_POINTS + weights + grads)
+        for samples, key in ((128, kind), (48, f"{kind}_s48")):
+            points = RENDER_RAYS * samples
+            bounds["fused_ray_render"][key] = bound(
+                2 * nerf_macs(pack, view_once_per=samples) * points, kind,
+                16 * points + 28 * RENDER_RAYS + weights)
+    return bounds
 
 
 def random_points(num: int, rng: np.random.Generator, device):
@@ -158,7 +247,8 @@ def phase_device():
     modules = [importlib.import_module(f"fourier_feature_nets_torch.kernels."
                                        f"{name}")
                for name in ("fused_nerf", "fused_nerf_train",
-                            "fused_ray_render")]
+                            "fused_ray_render", "int8_probe",
+                            "fused_nerf_ablation", "io_floor")]
     start = time.perf_counter()
     # one nvcc per source, all started together
     with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
@@ -654,9 +744,15 @@ def phase_scan():
                                  "exclusive_cumprod")
     ms = cuda_ms(lambda: exclusive_cumprod_scan(x), 5)
     plain_ms = cuda_ms(lambda: exclusive_cumprod(x), 5)
+    library_ms = cuda_ms(lambda: torch.cumprod(x, -1), 5)
     log(f"  T1 scan ({RENDER_RAYS}, 128): kernel {ms:.4f} ms, "
-        f"exclusive_cumprod {plain_ms:.4f} ms (CUDA events, mean of 5)")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+        f"exclusive_cumprod {plain_ms:.4f} ms, torch.cumprod (inclusive) "
+        f"{library_ms:.4f} ms (CUDA events, mean of 5)")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library_call": "torch.cumprod(x, -1), inclusive: one shift "
+                            "from the exclusive scan",
+            **bound(x.numel(), "f32", 2 * x.numel() * 4)}
 
 
 def phase_validate():
@@ -693,6 +789,246 @@ def phase_validate():
     return launches
 
 
+def _bits_equal(a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def _ints(rng, shape, low, high, dtype):
+    return torch.from_numpy(rng.integers(low, high, shape)).to("cuda", dtype)
+
+
+def phase_int8_probe():
+    """P1a-c against their twins at the probe CLI's shapes and ragged
+    ones; timed at the CLI's."""
+    from fourier_feature_nets_torch.kernels import int8_probe as probe
+    rng = np.random.default_rng(SEED + 5)
+    results = {}
+    for m, k, n in P1_GEMM_SHAPES:
+        w = _ints(rng, (m, k), -127, 128, torch.int8)
+        h = _ints(rng, (k, n), -127, 128, torch.int8)
+        x = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).cuda()
+        out, twin = probe.int8_matmul(w, h), probe.int8_matmul_reference(w, h)
+        outq = probe.quantized_matmul(x, w)
+        twinq = probe.quantized_matmul_reference(x, w)
+        torch.cuda.synchronize()
+        exact = torch.equal(out, twin)
+        err_a = (out - twin).abs().max().item()
+        err_b = (outq - twinq).abs().max().item()
+        rel_b = err_b / twinq.abs().max().item()
+        ok_b = rel_b <= P1B_RTOL
+        log(f"  P1a int8_matmul ({m}, {k}) @ ({k}, {n}): max abs err {err_a} "
+            f"(exact) {'ok' if exact else 'FAIL'}; P1b quantized_matmul: "
+            f"max abs err {err_b:.3e}, rel {rel_b:.3e}, bitwise equal "
+            f"{_bits_equal(outq, twinq)} (rel <= {P1B_RTOL:g}) "
+            f"{'ok' if ok_b else 'FAIL'}")
+        if not (exact and ok_b):
+            raise AssertionError("P1a/P1b disagree with their plain twins")
+        if (m, k, n) == P1_GEMM_SHAPES[0]:
+            ops = 2 * m * k * n
+            results["int8_matmul"] = {
+                "max_abs_err": err_a,
+                "ms": cuda_ms(lambda: probe.int8_matmul(w, h), 200),
+                "plain_ms": cuda_ms(lambda: probe.int8_matmul_reference(
+                    w, h), 200),
+                "library_ms": cuda_ms(lambda: torch._int_mm(w, h), 200),
+                "library_call": "torch._int_mm(w, h)",
+                **bound(ops, "int8", m * k + k * n + 4 * m * n)}
+            results["quantized_matmul"] = {
+                "max_abs_err": err_b,
+                "ms": cuda_ms(lambda: probe.quantized_matmul(x, w), 200),
+                "plain_ms": cuda_ms(lambda: probe.quantized_matmul_reference(
+                    x, w), 200),
+                "library_ms": None,
+                **bound(ops, "int8", 4 * k * n + m * k + 4 * m * n)}
+    stack = {}
+    for channels, n, layers in P1C_SHAPES:
+        for dtype, name in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
+            ws = _ints(rng, (layers, channels, channels), -5, 6, dtype)
+            h0 = _ints(rng, (channels, n), 0, 6, dtype)
+            out = probe.layer_stack(h0, ws)
+            twin = probe.layer_stack_reference(h0, ws)
+            torch.cuda.synchronize()
+            err = (out - twin).abs().max().item()
+            rel = err / twin.abs().max().item()
+            if name == "int8":
+                ok, stated = torch.equal(out, twin), "exact"
+                wraps = int((twin < 0).sum().item())
+                stated += f"; {wraps} wrapped negative values"
+            else:
+                ok = rel <= P1C_BF16_SHARE
+                stated = f"rel <= {P1C_BF16_SHARE:g}"
+            log(f"  P1c layer_stack {name} C={channels} N={n} L={layers}: "
+                f"max abs err {err:.3e}, rel {rel:.3e}, max|twin| "
+                f"{twin.abs().max().item():.3e} ({stated}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("P1c disagrees with its plain twin")
+            if (channels, n, layers) == P1C_SHAPES[0]:
+                size = 1 if name == "int8" else 2
+                stack[name] = {
+                    "max_abs_err": err, "max_rel_err": rel,
+                    "ms": cuda_ms(lambda: probe.layer_stack(h0, ws), 200),
+                    "plain_ms": cuda_ms(lambda: probe.layer_stack_reference(
+                        h0, ws), 20),
+                    **bound(2 * channels * channels * n * layers, name,
+                            size * (channels * n + layers * channels ** 2)
+                            + 4 * channels * n)}
+    results["layer_stack"] = {**stack["int8"], "library_ms": None,
+                              **{f"bf16_{k}": v for k, v in
+                                 stack["bf16"].items()}}
+    for name, row in results.items():
+        log(f"  {name}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items()))
+    return results
+
+
+def phase_ablation():
+    """P2 in each mode against its twin at the ablation CLI's points and
+    a ragged N; timed at the CLI's."""
+    from fourier_feature_nets_torch.cli.kernel_ablation_bench import (
+        ablation_inputs)
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        prepare_fused_nerf)
+    from fourier_feature_nets_torch.kernels.fused_nerf_ablation import (
+        MODES, fused_nerf_ablation, fused_nerf_ablation_reference)
+    from fourier_feature_nets_torch.models import flagship_nerf
+    model = flagship_nerf(torch.Generator().manual_seed(SEED)).cuda()
+    weights = prepare_fused_nerf(model, torch.bfloat16)
+    cli_points = ablation_inputs(16384, ABLATION_POINTS // 16384, "cuda")
+    ragged = random_points(RAGGED_POINTS, np.random.default_rng(SEED + 6),
+                           "cuda")
+    modes = {}
+    with torch.no_grad():
+        for mode in MODES:
+            for pos, views in (cli_points, ragged):
+                out = fused_nerf_ablation(weights, pos, views, mode)
+                twin = fused_nerf_ablation_reference(weights, pos, views,
+                                                     mode)
+                torch.cuda.synchronize()
+                err = (out - twin).abs().max().item()
+                ok = torch.isfinite(out).all().item() and err <= BF16_ATOL
+                log(f"  P2 {mode:12s} N={pos.shape[0]:>7,d}: max abs err "
+                    f"{err:.3e} (|d| <= {BF16_ATOL}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"P2 {mode} disagrees with its twin")
+                if pos is cli_points[0]:
+                    ms = cuda_ms(lambda: fused_nerf_ablation(
+                        weights, pos, views, mode), 10)
+                    plain_ms = cuda_ms(lambda: fused_nerf_ablation_reference(
+                        weights, pos, views, mode), 5)
+                    macs = nerf_macs(weights, no_view=mode == "no-view")
+                    modes[mode] = {"max_abs_err": err, "ms": ms,
+                                   "plain_ms": plain_ms,
+                                   **bound(2 * macs * ABLATION_POINTS, "bf16",
+                                           ABLATION_POINTS * 40
+                                           + pack_bytes(weights))}
+                    log(f"  P2 {mode:12s} N={ABLATION_POINTS:,d}: kernel "
+                        f"{ms:.3f} ms, plain twin {plain_ms:.3f} ms, bound "
+                        f"{modes[mode]['bound_ms']:.3f} ms (CUDA events, "
+                        f"mean of 10 / 5)")
+    return modes
+
+
+def phase_io_floor():
+    """P3a-c bit for bit against their twins at the IO-floor CLI's n
+    (both tiles) and a ragged n; timed at the CLI's, beside the PyTorch
+    call that computes the same function where there is one."""
+    from fourier_feature_nets_torch.kernels import io_floor as io
+    rng = np.random.default_rng(SEED + 7)
+    results = {}
+    for n in (IO_POINTS, RAGGED_POINTS):
+        pos, views = (torch.from_numpy(rng.normal(size=(n, 3)).astype(
+            np.float32)).cuda() for _ in range(2))
+        wide = torch.from_numpy(rng.normal(size=(n, 128)).astype(
+            np.float32)).cuda()
+        packed = torch.from_numpy(rng.normal(size=(n, 8)).astype(
+            np.float32)).cuda()
+        cases = [(f"io_narrow t{tile}", lambda tile=tile: io.io_narrow(
+                      pos, views, tile),
+                  lambda: io.io_narrow_reference(pos, views),
+                  lambda: torch.cat([pos, views[:, :1]], -1),
+                  "torch.cat([p, v[:, :1]], -1)", 0, 40)
+                 for tile in (2048, 4096)]
+        cases += [("io_wide", lambda: io.io_wide(wide),
+                   lambda: io.io_wide_reference(wide), lambda: wide * 2.0,
+                   "x * 2.0", 128, 1024),
+                  ("packed8", lambda: io.packed8(packed),
+                   lambda: io.packed8_reference(packed), None, None, 4, 64)]
+        # per row: multiplies, and bytes read once and written once
+        for name, fn, twin, library, call, row_ops, row_bytes in cases:
+            out, ref = fn(), twin()
+            torch.cuda.synchronize()
+            exact = _bits_equal(out, ref)
+            log(f"  P3 {name} n={n:,d}: bitwise equal to its twin {exact}")
+            if not exact:
+                raise AssertionError(f"P3 {name} disagrees with its twin")
+            if n == IO_POINTS and name != "io_narrow t4096":
+                key = name.split()[0]
+                results[key] = {
+                    "max_abs_err": (out - ref).abs().max().item(),
+                    "ms": cuda_ms(fn, 20), "plain_ms": cuda_ms(twin, 20),
+                    "library_ms": cuda_ms(library, 20) if library else None,
+                    **bound(n * row_ops, "f32", n * row_bytes)}
+                if call:
+                    results[key]["library_call"] = call
+                if key == "io_narrow":
+                    results[key]["t4096_ms"] = cuda_ms(
+                        lambda: io.io_narrow(pos, views, 4096), 20)
+                log(f"  P3 {key} n={n:,d}: " + ", ".join(
+                    f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in results[key].items()))
+        del pos, views, wide, packed
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_probe_clis():
+    """The probes' path: the three CLIs that run P1, P2 and P3 (and K1
+    in the IO-floor sweep), each with the counts of its kernels set to 0
+    just before it and read just after."""
+    from fourier_feature_nets_torch.cli import (int8_probe,
+                                                kernel_ablation_bench,
+                                                kernel_io_floor_bench)
+    from fourier_feature_nets_torch.kernels import fused_nerf_ablation, io_floor
+    from fourier_feature_nets_torch.kernels import int8_probe as probe
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        fused_nerf_apply)
+    runs = (
+        (int8_probe, {"int8_matmul": probe.int8_matmul,
+                      "quantized_matmul": probe.quantized_matmul,
+                      "layer_stack": probe.layer_stack}),
+        (kernel_ablation_bench,
+         {"fused_nerf_ablation": fused_nerf_ablation.fused_nerf_ablation}),
+        (kernel_io_floor_bench, {"fused_nerf": fused_nerf_apply,
+                                 "io_narrow": io_floor.io_narrow,
+                                 "io_wide": io_floor.io_wide,
+                                 "packed8": io_floor.packed8}))
+    launches = {}
+    for cli, wrappers in runs:
+        name = cli.__name__.rsplit(".", 1)[1]
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        captured = io.StringIO()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(captured):
+            rc = cli.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = {key: w.launches for key, w in wrappers.items()}
+        log("\n".join(f"    {line}" for line in
+                      captured.getvalue().strip().splitlines()))
+        log(f"{name}: rc {rc}, {wall:.3f} s, launches {counts}")
+        missing = [key for key, count in counts.items() if count <= 0]
+        if rc != 0 or missing:
+            raise AssertionError(f"{name} returned {rc}; no launch of "
+                                 f"{missing}")
+        launches.update({key: count for key, count in counts.items()
+                         if key != "fused_nerf"})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -700,10 +1036,16 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        prepare_fused_nerf)
     from fourier_feature_nets_torch.models import flagship_nerf
 
     name = phase_device()
     model = flagship_nerf(torch.Generator().manual_seed(SEED)).cuda()
+    packs = {dtype: prepare_fused_nerf(model, dtype)
+             for dtype in (torch.bfloat16, torch.float32)}
+    bounds = flagship_bounds(packs)
+    del packs
     results = phase_kernel_vs_twin(model)
     launches = phase_orbit(model)
     phase_fused_vs_plain(model)
@@ -723,6 +1065,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     scan = phase_scan()
     validate_launches = phase_validate()
+    log("P1, the int8 probe's kernels, vs plain twins:")
+    probe = phase_int8_probe()
+    log("P2, the ablation kernel, vs plain twin, flagship bf16:")
+    ablation = phase_ablation()
+    log("P3, the IO-floor copy kernels, vs plain twins:")
+    io_rows = phase_io_floor()
+    log("the probes' path: their three CLIs")
+    probe_launches = phase_probe_clis()
 
     bf16 = results[torch.bfloat16]
     f32 = results[torch.float32]
@@ -735,6 +1085,10 @@ def main() -> int:
         "max_abs_err": bf16[0],
         "ms": bf16[1],
         "plain_ms": bf16[2],
+        **bounds["fused_nerf"]["bf16"],
+        "library_ms": None,
+        "shape": f"N={BENCH_POINTS} (ms) and f32 (f32_*)",
+        "f32_bound_ms": bounds["fused_nerf"]["f32"]["bound_ms"],
         "f32_max_abs_err": f32[0],
         "f32_ms": f32[1],
         "f32_plain_ms": f32[2],
@@ -749,6 +1103,10 @@ def main() -> int:
         "max_abs_err": backward["bfloat16"]["max_abs_err"],
         "ms": backward["bfloat16"]["ms"],
         "plain_ms": backward["bfloat16"]["plain_ms"],
+        **bounds["fused_nerf_train"]["bf16"],
+        "library_ms": None,
+        "shape": f"N={TRAIN_POINTS} (ms) and f32 (f32_*)",
+        "f32_bound_ms": bounds["fused_nerf_train"]["f32"]["bound_ms"],
         "f32_max_abs_err": backward["float32"]["max_abs_err"],
         "f32_ms": backward["float32"]["ms"],
         "f32_plain_ms": backward["float32"]["plain_ms"],
@@ -766,7 +1124,11 @@ def main() -> int:
         "max_abs_err": render[("bfloat16", 128)]["max_abs_err"],
         "ms": render[("bfloat16", 128)]["ms"],
         "plain_ms": render[("bfloat16", 128)]["plain_ms"],
+        **bounds["fused_ray_render"]["bf16"],
+        "library_ms": None,
         "shape": f"R={RENDER_RAYS} S=128 (ms) and S=48 (s48_*)",
+        "f32_bound_ms": bounds["fused_ray_render"]["f32"]["bound_ms"],
+        "s48_bound_ms": bounds["fused_ray_render"]["bf16_s48"]["bound_ms"],
         "k1_composite_ms": render[("bfloat16", 128)]["k1_composite_ms"],
         "f32_max_abs_err": render[("float32", 128)]["max_abs_err"],
         "f32_ms": render[("float32", 128)]["ms"],
@@ -787,11 +1149,34 @@ def main() -> int:
                   "fused_ray_render.cu",
         "replaces": "tests/test_fused_ray_render.py:26",
         "launches": validate_launches["exclusive_cumprod_scan"],
-        "max_abs_err": scan["max_abs_err"],
-        "ms": scan["ms"],
-        "plain_ms": scan["plain_ms"],
+        **scan,
         "shape": f"({RENDER_RAYS}, 128)",
-    }]}))
+    }] + [{
+        "name": key,
+        "route": "cuda",
+        "source": f"fourier_feature_nets_torch/kernels/csrc/{source}",
+        "replaces": replaces,
+        "launches": probe_launches[key],
+        **row,
+    } for key, source, replaces, row in (
+        ("int8_matmul", "int8_probe.cu", "tools/int8_probe.py:31",
+         probe["int8_matmul"]),
+        ("quantized_matmul", "int8_probe.cu", "tools/int8_probe.py:63",
+         probe["quantized_matmul"]),
+        ("layer_stack", "int8_probe.cu", "tools/int8_probe.py:99",
+         probe["layer_stack"]),
+        ("fused_nerf_ablation", "fused_nerf_ablation.cu",
+         "tools/kernel_ablation_bench.py:50",
+         {**ablation["base"], "library_ms": None,
+          "max_abs_err": max(m["max_abs_err"] for m in ablation.values()),
+          "shape": f"N={ABLATION_POINTS}, bf16; ms is base, modes below",
+          "modes": ablation}),
+        ("io_narrow", "io_floor.cu", "tools/kernel_io_floor_bench.py:142",
+         io_rows["io_narrow"]),
+        ("io_wide", "io_floor.cu", "tools/kernel_io_floor_bench.py:165",
+         io_rows["io_wide"]),
+        ("packed8", "io_floor.cu", "tools/kernel_io_floor_bench.py:185",
+         io_rows["packed8"]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,13 @@
 """Shared plumbing of the CLIs (port of
 ``fourier_feature_nets_tpu/cli/common.py``): the training flags and the
-helpers around ``Raycaster.fit``, and the named render presets. A
-preset only fills flags the user left unset, so explicit flags always
-win."""
+helpers around ``Raycaster.fit``, the named render presets, and the
+kernel CLIs' device and timing helpers. A preset only fills
+flags the user left unset, so explicit flags always win."""
 
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -14,9 +15,10 @@ import torch
 from ..utils.errors import not_ported
 
 __all__ = ["RENDER_PRESETS", "add_common_train_args", "add_preset_arg",
-           "apply_render_preset", "fit_kwargs", "get_compute_dtype",
-           "load_train_val", "make_visualizers", "resolve_data_path",
-           "save_best_model", "write_run_log"]
+           "apply_render_preset", "bench_ms", "fit_kwargs",
+           "get_compute_dtype", "kernel_device", "load_train_val",
+           "make_visualizers", "resolve_data_path", "save_best_model",
+           "write_run_log"]
 
 
 _REMAINING = "Remaining models, data, CLIs and parallel"
@@ -162,6 +164,49 @@ def write_run_log(path, args, log):
                   file)
         file.write("\n\n")
         write_log(file, log)
+
+
+def kernel_device(tool: str, name: str, cpu_note: str):
+    """The torch device of a kernel CLI, named on stderr, or None (after
+    saying why) when it asks for a card and there is none. On a card the
+    plain twins' f32 products are full f32 (no TF32); on the CPU the
+    wrappers run the twins, which ``cpu_note`` says the output means."""
+    device = torch.device(name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            print(f"{tool}: no CUDA device; the kernels run on a GPU only",
+                  file=sys.stderr)
+            return None
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"device: {torch.cuda.get_device_name(device)}",
+              file=sys.stderr)
+    else:
+        print(f"device: {device}; the wrappers run the kernels' plain "
+              f"twins, {cpu_note}", file=sys.stderr)
+    return device
+
+
+def bench_ms(fn, reps: int, device) -> float:
+    """Mean milliseconds per call over ``reps`` back-to-back calls of
+    ``fn`` after one warm-up call: CUDA events on a card, the host clock
+    elsewhere."""
+    fn()
+    if torch.device(device).type != "cuda":
+        start = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - start) * 1e3 / reps
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
 
 RENDER_PRESETS = {
     "fast": {

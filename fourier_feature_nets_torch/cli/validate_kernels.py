@@ -49,6 +49,7 @@ from ..kernels.fused_ray_render import (
 from ..models import NeRF, flagship_nerf
 from ..ops.blend import exclusive_cumprod
 from ..render import Raycaster, RaySamples
+from .common import kernel_device
 
 CONFIGS = [
     ("flagship 8x256",
@@ -203,19 +204,10 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="cuda (the kernels) or cpu (their plain twins)")
     args = parser.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            print("validate_kernels: no CUDA device; the kernels run on a "
-                  "GPU only", file=sys.stderr)
-            return 2
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        print(f"device: {torch.cuda.get_device_name(device)}",
-              file=sys.stderr)
-    else:
-        print(f"device: {device}; the wrappers run the kernels' plain "
-              f"twins, so no kernel is checked", file=sys.stderr)
+    device = kernel_device("validate_kernels", args.device,
+                           "so no kernel is checked")
+    if device is None:
+        return 2
     report = Report()
     rng = np.random.default_rng(0)
     for label, make in CONFIGS:

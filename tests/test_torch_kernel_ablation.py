@@ -1,0 +1,292 @@
+"""The fused NeRF ablation's plain twin (P2) against a copy of the JAX
+tool's Pallas kernel in interpret mode on the CPU, ``base`` against the
+JAX package's fused forward, the wrapper's CPU contract, and the
+ablation CLI on the CPU twins. The Hopper kernel itself is held against
+the twin on a card by tests/test_torch_kernel_cuda.py.
+
+The model is an 8x32 NeRF with a skip at 4 and raw inputs: the
+flagship's structure (the tool's kernel is written for it) at a width
+that keeps interpret mode quick."""
+
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from fourier_feature_nets_torch.cli import kernel_ablation_bench as cli
+from fourier_feature_nets_torch.kernels import fused_nerf_ablation as ablation
+from fourier_feature_nets_torch.kernels.fused_nerf import (
+    fused_nerf_reference,
+    prepare_fused_nerf as port_prepare,
+)
+from fourier_feature_nets_torch.models import NeRF as TorchNeRF
+from fourier_feature_nets_torch.models import params_from_jax
+from fourier_feature_nets_tpu.models import NeRF
+from fourier_feature_nets_tpu.models.serialization import _flatten
+from fourier_feature_nets_tpu.ops.fused_nerf import (
+    _fast_sincos,
+    _phases,
+    fused_nerf_apply,
+    prepare_fused_nerf,
+)
+
+FLAGSHIP_SHAPED = dict(num_layers=8, num_channels=32, max_log_scale_pos=9.0,
+                       num_freq_pos=10, max_log_scale_view=3.0,
+                       num_freq_view=4, skips=[4], include_inputs=True)
+TILE = 64
+# tests/test_fused_nerf.py:64; every mode reads 0.0 against the tool's
+# kernel on the CPU
+BF16_ATOL = 0.05
+
+
+def make_kernel(mode):
+    """tools/kernel_ablation_bench.py:50-129, the modes the tool runs."""
+    def dot(a, w_ref):
+        return jax.lax.dot_general(
+            a, w_ref[:], (((1,), (0,)), ((), ())),
+            preferred_element_type=jnp.float32)
+
+    def kernel(positions_ref, views_ref, pos_enc_ref, view_enc_ref,
+               fp0, fp1, fp2, first_b, m0, m1, m2, m3, m4, m5,
+               mb0, mb1, mb2, mb3, mb4, mb5,
+               sp0, sp1, sp2, sp3, sb0,
+               opacity_w, opacity_b, bottleneck_w, bottleneck_b,
+               hp0, hp1, hp2, hp3, hidden_b, color_w, color_b,
+               out_ref):
+        cd = jnp.bfloat16
+        pos = positions_ref[:]
+        sin, cos = _fast_sincos(_phases(pos, pos_enc_ref))
+        enc = [cos.astype(cd), sin.astype(cd), pos.astype(cd)]
+        first = [fp0, fp1, fp2]
+
+        def enc_dot(parts):
+            acc = dot(enc[0], parts[0])
+            for feat, w in zip(enc[1:], parts[1:]):
+                acc += dot(feat, w)
+            return acc
+
+        use_bias = mode not in ("no-bias", "matmul-only")
+        use_relu = mode not in ("no-relu", "matmul-only")
+
+        def post(acc, b):
+            if use_bias:
+                acc = acc + b[:].astype(acc.dtype)
+            acc = acc.astype(cd)
+            if use_relu:
+                acc = jnp.maximum(acc, 0.0)
+            return acc
+
+        h = post(enc_dot(first), first_b)
+        mids = [m0, m1, m2, m3, m4, m5]
+        mbs = [mb0, mb1, mb2, mb3, mb4, mb5]
+        mid_iter = 0
+        for i in range(1, 8):
+            if i == 4:
+                acc = dot(h, sp0) + enc_dot([sp1, sp2, sp3])
+                h = post(acc, sb0)
+            else:
+                acc = dot(h, mids[mid_iter])
+                h = post(acc, mbs[mid_iter])
+                mid_iter += 1
+
+        opacity = dot(h, opacity_w) + opacity_b[:]
+        bottleneck = (dot(h, bottleneck_w) + bottleneck_b[:]).astype(cd)
+
+        if mode == "no-view":
+            color = opacity * 0.0 + color_b[:]
+        else:
+            v = views_ref[:]
+            v_sin, v_cos = _fast_sincos(_phases(v, view_enc_ref))
+            venc = [v_cos.astype(cd), v_sin.astype(cd), v.astype(cd)]
+            acc = dot(bottleneck, hp0)
+            for feat, w in zip(venc, [hp1, hp2, hp3]):
+                acc += dot(feat, w)
+            hidden = jnp.maximum(acc + hidden_b[:], 0.0).astype(cd)
+            color = dot(hidden, color_w) + color_b[:]
+
+        out_ref[:] = jnp.concatenate([color[:, :3], opacity[:, :1]], -1)
+
+    return kernel
+
+
+def tool_ablation(weights, pos, views, mode):
+    """The tool's pallas_call (:131-161), interpreted, tile TILE."""
+    weight_inputs = (list(weights.first_parts) + [weights.first_b]
+                     + list(weights.mid_w) + list(weights.mid_b)
+                     + list(weights.skip_parts[0]) + list(weights.skip_b)
+                     + [weights.opacity_w, weights.opacity_b,
+                        weights.bottleneck_w, weights.bottleneck_b]
+                     + list(weights.hidden_parts)
+                     + [weights.hidden_b, weights.color_w,
+                        weights.color_b])
+
+    def const_spec(shape):
+        return pl.BlockSpec(shape, lambda i: (0,) * len(shape),
+                            memory_space=pltpu.VMEM)
+
+    in_specs = [
+        pl.BlockSpec((TILE, 3), lambda i: (i, 0), memory_space=pltpu.VMEM),
+        pl.BlockSpec((TILE, 3), lambda i: (i, 0), memory_space=pltpu.VMEM),
+        const_spec(weights.pos_enc.shape),
+        const_spec(weights.view_enc.shape),
+    ] + [const_spec(w.shape) for w in weight_inputs]
+    n = pos.shape[0]
+    return np.asarray(pl.pallas_call(
+        make_kernel(mode), grid=(n // TILE,), in_specs=in_specs,
+        out_specs=pl.BlockSpec((TILE, 4), lambda i: (i, 0),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((n, 4), jnp.float32),
+        interpret=True)(jnp.asarray(pos), jnp.asarray(views),
+                        weights.pos_enc, weights.view_enc, *weight_inputs))
+
+
+@pytest.fixture(scope="module")
+def nerf():
+    model = NeRF(**FLAGSHIP_SHAPED)
+    params = model.init(jax.random.PRNGKey(0))
+    flat = {k: np.asarray(v) for k, v in _flatten(params).items()}
+    torch_model = params_from_jax(TorchNeRF(**FLAGSHIP_SHAPED), flat)
+    return model, prepare_fused_nerf(model, params, dtype=jnp.bfloat16), \
+        port_prepare(torch_model, torch.bfloat16)
+
+
+@pytest.fixture(scope="module")
+def points():
+    """The tool's points (:36-42) for 4 rays x 32 samples, seeded."""
+    pos, views = cli.ablation_inputs(4, 32, "cpu")
+    return pos.numpy(), views.numpy()
+
+
+def _twin(weights, points, mode):
+    pos, views = points
+    with torch.no_grad():
+        return ablation.fused_nerf_ablation_reference(
+            weights, torch.from_numpy(pos), torch.from_numpy(views),
+            mode).numpy()
+
+
+@pytest.mark.parametrize("mode", ablation.MODES)
+def test_twin_matches_the_tool_kernel(nerf, points, mode):
+    _, jax_weights, weights = nerf
+    ref = tool_ablation(jax_weights, *points, mode)
+    ours = _twin(weights, points, mode)
+    assert ours.shape == ref.shape == (points[0].shape[0], 4)
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=BF16_ATOL)
+
+
+def test_base_matches_the_jax_fused_forward(nerf, points):
+    model, jax_weights, weights = nerf
+    pos, views = points
+    ref = np.asarray(fused_nerf_apply(model, jax_weights, jnp.asarray(pos),
+                                      jnp.asarray(views), tile=TILE,
+                                      interpret=True))
+    np.testing.assert_allclose(_twin(weights, points, "base"), ref, rtol=0,
+                               atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_base_twin_is_the_forward_twin(nerf, points, dtype):
+    model_weights = nerf[2]
+    if dtype == torch.float32:
+        torch_model = TorchNeRF(**FLAGSHIP_SHAPED,
+                                generator=torch.Generator().manual_seed(2))
+        model_weights = port_prepare(torch_model, dtype)
+    pos, views = map(torch.from_numpy, points)
+    with torch.no_grad():
+        assert torch.equal(
+            ablation.fused_nerf_ablation_reference(model_weights, pos, views,
+                                                   "base"),
+            fused_nerf_reference(model_weights, pos, views))
+
+
+def test_each_mode_changes_what_it_names(nerf, points):
+    """Every mode differs from base; no-view leaves the opacity alone
+    and sets every row's color to the color head's bias."""
+    weights = nerf[2]
+    base = _twin(weights, points, "base")
+    outs = {mode: _twin(weights, points, mode) for mode in ablation.MODES}
+    for mode in ablation.MODES[1:]:
+        assert not np.array_equal(outs[mode], base), mode
+    np.testing.assert_array_equal(outs["no-view"][:, 3], base[:, 3])
+    color_b = weights.layers[weights.num_layers + 3][1][:3].numpy()
+    np.testing.assert_array_equal(outs["no-view"][:, :3],
+                                  np.broadcast_to(color_b, (len(base), 3)))
+
+
+def test_cpu_wrapper_runs_twin_without_counting(nerf, points):
+    weights = nerf[2]
+    pos, views = map(torch.from_numpy, points)
+    before = ablation.fused_nerf_ablation.launches
+    with torch.no_grad():
+        for mode in ablation.MODES:
+            assert torch.equal(
+                ablation.fused_nerf_ablation(weights, pos, views, mode),
+                ablation.fused_nerf_ablation_reference(weights, pos, views,
+                                                       mode))
+    assert ablation.fused_nerf_ablation.launches == before
+
+
+def test_wrapper_rejects_unknown_modes_and_devices(nerf):
+    weights = nerf[2]
+    cpu = torch.zeros(4, 3)
+    for fn in (ablation.fused_nerf_ablation,
+               ablation.fused_nerf_ablation_reference):
+        with pytest.raises(ValueError, match="unknown ablation mode"):
+            fn(weights, cpu, cpu, "bf16-accum")
+    meta = torch.empty(4, 3, device="meta")
+    with pytest.raises(ValueError, match="no fused NeRF ablation kernel"):
+        ablation.fused_nerf_ablation(weights, meta, meta, "base")
+
+
+# ---------------------------------------------------------------------------
+# the ablation CLI on the CPU twins
+# ---------------------------------------------------------------------------
+
+
+def test_cli_inputs_follow_the_tool():
+    """Origin at zero, depths linspace(1, 4, S), unit directions; the
+    views repeat each ray's direction over its samples."""
+    pos, views = cli.ablation_inputs(3, 5, "cpu")
+    assert pos.shape == views.shape == (15, 3)
+    depth = pos.norm(dim=-1).reshape(3, 5)
+    torch.testing.assert_close(depth, torch.linspace(1, 4, 5).expand(3, 5))
+    torch.testing.assert_close(views.norm(dim=-1), torch.ones(15))
+    torch.testing.assert_close(pos / depth.reshape(-1, 1), views)
+
+
+def test_cli_runs_every_mode_on_cpu_twins(capsys):
+    assert cli.main(["--device", "cpu", "--rays", "4", "--samples", "8",
+                     "--reps", "1"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == ("tile: the JAX tool's tile=2048 has no counterpart "
+                        "here; the kernel's tile is 64 points")
+    assert len(lines) == 1 + len(ablation.MODES)
+    for line, mode in zip(lines[1:], ablation.MODES):
+        assert re.fullmatch(rf"{mode:12s}: +[0-9.]+ ms \( *[0-9.]+ Mpts/s\)",
+                            line), line
+
+
+def test_cli_reports_a_failed_mode_and_exits_1(monkeypatch, capsys):
+    def broken(weights, pos, views, mode):
+        out = ablation.fused_nerf_ablation_reference(weights, pos, views,
+                                                     mode)
+        return out + (1.0 if mode == "no-relu" else 0.0)
+
+    monkeypatch.setattr(cli, "fused_nerf_ablation", broken)
+    assert cli.main(["--device", "cpu", "--rays", "2", "--samples", "4",
+                     "--reps", "1"]) == 1
+    lines = capsys.readouterr().out.strip().splitlines()
+    failed = [line for line in lines if "FAILED" in line]
+    assert len(failed) == 1 and failed[0].startswith("no-relu     : FAILED")
+    assert len(lines) == 1 + len(ablation.MODES)
+
+
+def test_cli_refuses_a_missing_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main([]) == 2
+    assert "no CUDA device" in capsys.readouterr().err

@@ -1,5 +1,6 @@
-"""The Hopper kernels (K1, K2, K3 and T1's scan) against their plain
-twins, on a CUDA card.
+"""The Hopper kernels (K1, K2, K3, T1's scan, the int8 probe's P1a-c,
+the ablation P2 and the copy kernels P3a-c) against their plain twins,
+on a CUDA card.
 
 Every test here needs a card and skips without one (the kernel has no
 CPU mode). The file imports no jax, so it also runs on a machine that
@@ -13,8 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from fourier_feature_nets_torch.cli import kernel_io_floor_bench
 from fourier_feature_nets_torch.kernels import fused_nerf as port
+from fourier_feature_nets_torch.kernels import fused_nerf_ablation as ablation
 from fourier_feature_nets_torch.kernels import fused_nerf_train as train
+from fourier_feature_nets_torch.kernels import int8_probe as probe
+from fourier_feature_nets_torch.kernels import io_floor as io
 from fourier_feature_nets_torch.kernels.fused_ray_render import (
     exclusive_cumprod_scan,
     fused_ray_render,
@@ -358,3 +363,155 @@ def test_scan_matches_exclusive_cumprod(cuda, lanes):
     torch.cuda.synchronize()
     assert exclusive_cumprod_scan.launches == before + 1
     torch.testing.assert_close(out, exclusive_cumprod(x), rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# P1: the int8 probe's kernels against their plain twins
+# ---------------------------------------------------------------------------
+
+
+def _ints(shape, low, high, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(low, high, shape)).to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, k, n", [(128, 128, 256), (100, 72, 250),
+                                     (1, 1, 1), (65, 129, 63)])
+def test_int8_matmul_matches_twin_exactly(cuda, m, k, n):
+    w = _ints((m, k), -127, 128, torch.int8, cuda, 1)
+    h = _ints((k, n), -127, 128, torch.int8, cuda, 2)
+    before = probe.int8_matmul.launches
+    out = probe.int8_matmul(w, h)
+    torch.cuda.synchronize()
+    assert probe.int8_matmul.launches == before + 1
+    assert out.dtype == torch.int32
+    assert torch.equal(out, probe.int8_matmul_reference(w, h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, k, n", [(128, 128, 256), (100, 72, 250)])
+def test_quantized_matmul_matches_twin_exactly(cuda, m, k, n):
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(k, n)).astype(
+        np.float32)).to(cuda)
+    w = _ints((m, k), -127, 128, torch.int8, cuda, 4)
+    before = probe.quantized_matmul.launches
+    out = probe.quantized_matmul(x, w)
+    torch.cuda.synchronize()
+    assert probe.quantized_matmul.launches == before + 1
+    assert torch.equal(out, probe.quantized_matmul_reference(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("channels, n, layers", [(192, 2048, 8),
+                                                 (32, 1000, 3), (256, 65, 2)])
+def test_layer_stack_matches_twin(cuda, dtype, channels, n, layers):
+    ws = _ints((layers, channels, channels), -5, 6, dtype, cuda, 5)
+    h0 = _ints((channels, n), 0, 6, dtype, cuda, 6)
+    before = probe.layer_stack.launches
+    out = probe.layer_stack(h0, ws)
+    torch.cuda.synchronize()
+    assert probe.layer_stack.launches == before + 1
+    twin = probe.layer_stack_reference(h0, ws)
+    if dtype == torch.int8:
+        assert torch.equal(out, twin)
+    else:
+        # bf16 sums past 2**24 round in another order (chip_smoke.py,
+        # P1C_BF16_SHARE)
+        err = (out - twin).abs().max().item()
+        assert err <= 2e-2 * twin.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# P2: the ablation kernel against its plain twin
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ablation.MODES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ablation_matches_twin(cuda, mode, dtype):
+    model = flagship_nerf(torch.Generator().manual_seed(0)).to(cuda)
+    weights = port.prepare_fused_nerf(model, dtype)
+    pos, views = _inputs(20_011, cuda)
+    before = ablation.fused_nerf_ablation.launches
+    with torch.no_grad():
+        out = ablation.fused_nerf_ablation(weights, pos, views, mode)
+        twin = ablation.fused_nerf_ablation_reference(weights, pos, views,
+                                                      mode)
+    torch.cuda.synchronize()
+    assert ablation.fused_nerf_ablation.launches == before + 1
+    assert torch.isfinite(out).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, twin, rtol=1e-3, atol=2e-4)
+    else:
+        torch.testing.assert_close(out, twin, rtol=0, atol=0.05)
+
+
+@pytest.mark.cuda
+def test_ablation_base_is_k1(cuda):
+    model = NeRF(**SMALL, generator=torch.Generator().manual_seed(1)).to(cuda)
+    weights = port.prepare_fused_nerf(model, torch.bfloat16)
+    pos, views = _inputs(4099, cuda)
+    with torch.no_grad():
+        assert torch.equal(
+            ablation.fused_nerf_ablation(weights, pos, views, "base"),
+            port.fused_nerf_apply(weights, pos, views))
+
+
+# ---------------------------------------------------------------------------
+# P3: the IO-floor sweep's small models through K1, and the copy kernels
+# against their plain twins, bit for bit
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("row", kernel_io_floor_bench.SWEEP[1:])
+def test_sweep_models_match_twin(cuda, dtype, row):
+    """4x128 skip 2, its f6/2 encode (39 and 15 encoded widths) and 2x64
+    skip 1, as the IO-floor CLI builds them."""
+    model = kernel_io_floor_bench.sweep_model(*row).to(cuda)
+    _assert_matches_twin(port.prepare_fused_nerf(model, dtype),
+                         *_inputs(4099, cuda))
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, tile", [(786_432, 2048), (786_432, 4096),
+                                     (1001, 2048), (4099, 64), (3, 4)])
+def test_io_floor_kernels_match_twins_bitwise(cuda, n, tile):
+    rng = np.random.default_rng(7)
+    pos, views = (torch.from_numpy(rng.normal(size=(n, 3)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    wide = torch.from_numpy(rng.normal(size=(min(n, 5000), 128)).astype(
+        np.float32)).to(cuda)
+    packed = torch.from_numpy(rng.normal(size=(n, 8)).astype(
+        np.float32)).to(cuda)
+    packed[0, :4] = torch.tensor([float("nan"), -1.0, float("inf"), 0.0])
+    before = (io.io_narrow.launches, io.io_wide.launches,
+              io.packed8.launches)
+    narrow = io.io_narrow(pos, views, tile)
+    doubled = io.io_wide(wide, tile)
+    p8 = io.packed8(packed, tile)
+    torch.cuda.synchronize()
+    assert (io.io_narrow.launches, io.io_wide.launches,
+            io.packed8.launches) == tuple(b + 1 for b in before)
+    assert torch.equal(_bits(narrow), _bits(io.io_narrow_reference(pos,
+                                                                   views)))
+    assert torch.equal(_bits(doubled), _bits(io.io_wide_reference(wide)))
+    ref = io.packed8_reference(packed)
+    assert torch.isnan(p8[0, 4]) and torch.isnan(p8[0, 6])
+    finite = torch.isfinite(ref)
+    assert torch.equal(_bits(p8)[finite], _bits(ref)[finite])
+
+
+@pytest.mark.cuda
+def test_io_narrow_rejects_a_tile_not_a_multiple_of_4(cuda):
+    pos = torch.zeros(8, 3, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        io.io_narrow(pos, pos, 6)

@@ -61,7 +61,10 @@ def test_walk_found_the_slice_modules(imported):
         "cli.orbit_video", "ops.sampling", "utils.optim",
         "kernels.fused_nerf_train", "datasets.ray_dataset",
         "datasets.image_dataset", "datasets.synthetic", "visualizers",
-        "cli.train_nerf", "kernels.fused_ray_render", "cli.validate_kernels"}
+        "cli.train_nerf", "kernels.fused_ray_render", "cli.validate_kernels",
+        "kernels.int8_probe", "kernels.fused_nerf_ablation",
+        "kernels.io_floor", "cli.int8_probe", "cli.kernel_ablation_bench",
+        "cli.kernel_io_floor_bench"}
     found = {name.split(".", 1)[1] for name in imported["modules"]}
     assert expected <= found
 
