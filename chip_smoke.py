@@ -20,28 +20,41 @@ and drives the port's paths at the flagship width:
 * kernel validation: K3 against its plain twin in bf16 and f32 at
   S = 42, 48 and 128, a ragged R and a case where only the last ray
   block carries signal, and against the plain render; T1's scan against
-  ``exclusive_cumprod``; K3, its twin and K1 followed by ``_composite``
-  timed at 16384 rays x 48 and x 128 samples; then
-  ``cli/validate_kernels``, which must launch K1, K2, K3 and the scan
-  and end in ``ALL OK``;
-* the probes: P1a, P1b, P1c in int8 and P3a-c bit for bit against their
+  ``exclusive_cumprod`` (up to 128 lanes within SCAN_RTOL, at 130 and
+  4096 within ``scan_rtol``, and at bases one row and one element into
+  a buffer); K3, its twin and K1 followed by ``_composite`` timed at
+  16384 rays x 48 and x 128 samples; then ``cli/validate_kernels``,
+  which must launch K1, K2, K3 and the scan and end in ``ALL OK``;
+* the probes: P1a (also with W and h one row and one element into
+  larger buffers), P1b, P1c in int8 and P3a-c bit for bit against their
   twins, P1c in bf16 within a stated share, P2 in each mode within K1's
-  bf16 tolerance, at their CLIs' shapes and ragged ones, each timed
-  beside its bound (and, where one PyTorch call computes the same
-  function, that call's time); then ``cli/int8_probe``,
+  bf16 tolerance, at their CLIs' shapes and ragged ones, each timed beside
+  its bound (and, where one PyTorch call computes the same function,
+  that call's time); then ``cli/int8_probe``,
   ``cli/kernel_ablation_bench`` and ``cli/kernel_io_floor_bench``, each
-  of which must exit 0 and launch its kernels.
+  of which must exit 0 and launch its kernels;
+* the short kernels (P1a, P1b, T1, P3a, P3c) and their library calls,
+  each timed three ways (:func:`call_times`): wrapper ms, device ms
+  from a CUDA graph replay, and host us a call.
 
 Each phase prints its own lines; any failure raises and the script
 exits non-zero without printing a result. The last two lines are the
 per-kernel JSON record (every kernel with its launches on its path,
-error, time, its plain twin's time, bound and library time) and
-``{"ok": true, "device": ...}``.
+error, time, its plain twin's time, bound and library time; the short
+kernels also with ``device_ms``, ``library_device_ms`` and ``host_us``)
+and ``{"ok": true, "device": ...}``.
+
+``--times-only [--tree DIR]`` prints only those three times for the
+short kernels, the host cost of each launch-path step and K1-K3 at
+their PERF.md sizes, as one JSON line, for the port found in ``DIR``
+(an unpacked parent commit, say), so that two trees can be timed in
+turns on one card.
 
 Needs one CUDA device; on a machine without one it exits with code 2.
 Outputs go to ``smoke_out/`` inside the checkout.
 """
 
+import argparse
 import concurrent.futures
 import contextlib
 import io
@@ -104,6 +117,8 @@ TRAIN_STEPS = 30
 SEED = 0
 # The probes, at the shapes of their CLIs (the JAX tools') and ragged ones.
 P1_GEMM_SHAPES = ((128, 128, 256), (100, 72, 250))     # (M, K, N)
+P1A_CASES = tuple((shape, offset) for shape in P1_GEMM_SHAPES
+                  for offset in ("none", "one row", "one element"))
 P1B_RTOL = 1e-6                # max|kernel - twin| / max|twin|; reads 0
 P1C_SHAPES = ((192, 2048, 8), (192, 1000, 8))          # (C, N, layers)
 # P1c bf16: max|kernel - twin| / max|twin|. Reads 0 at both shapes (H100
@@ -120,6 +135,10 @@ IO_POINTS = 16384 * 48         # the IO-floor CLI: rays x samples
 # the HBM rate.
 PEAK = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 HBM_BYTES_PER_S = 3.35e12
+TIME_REPS = 200      # back-to-back calls for wrapper ms and host us
+GRAPH_CALLS = 100    # calls captured in one CUDA graph for device ms
+GRAPH_REPLAYS = 10
+FLAGSHIP_REPS = 10   # K1, K2, K3 calls (milliseconds each) per timing
 
 
 def log(message: str) -> None:
@@ -138,6 +157,102 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn) -> float:
+    """Device milliseconds per call: GRAPH_CALLS calls captured once in a
+    CUDA graph (a raw launch goes to PyTorch's current stream, which is
+    the capture stream), replayed GRAPH_REPLAYS times between CUDA
+    events. The host issues one replay, not each call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (GRAPH_REPLAYS * GRAPH_CALLS)
+
+
+def profiler_kernel_ms(fn, reps: int):
+    """The device time of the kernels ``fn`` launches, summed by
+    ``torch.profiler`` over ``reps`` calls, per call; None when the
+    trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for event in prof.key_averages():
+        if event.device_type == DeviceType.CUDA:
+            total_us += getattr(event, "self_device_time_total",
+                                getattr(event, "self_cuda_time_total", 0.0))
+    return total_us / reps / 1e3 if total_us > 0 else None
+
+
+def call_times(fn, reps: int = TIME_REPS) -> dict:
+    """Three times of one call of ``fn``, which launches work on the card:
+
+    * wrapper_ms: ``reps`` back-to-back calls between CUDA events
+      (:func:`cuda_ms`), so the host's issue rate shows when a call is
+      short;
+    * device_ms: :func:`graph_ms`, the calls replayed from a CUDA graph
+      (or, if capture fails, :func:`profiler_kernel_ms`; device_method
+      says which);
+    * host_us: the host clock around ``reps`` calls, read before any
+      synchronise: what issuing one call costs the host.
+
+    kernel_ms is the profiler's device time of the launched kernels
+    alone, per call, beside them."""
+    wrapper_ms = cuda_ms(fn, reps)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_us = (time.perf_counter() - start) * 1e6 / reps
+    torch.cuda.synchronize()
+    try:
+        device_ms, method = graph_ms(fn), "cuda graph"
+    except RuntimeError as error:
+        torch.cuda.synchronize()
+        device_ms = profiler_kernel_ms(fn, reps)
+        method = f"torch.profiler (graph capture failed: {str(error)[:120]})"
+    return {"wrapper_ms": wrapper_ms, "device_ms": device_ms,
+            "host_us": host_us, "device_method": method,
+            "kernel_ms": profiler_kernel_ms(fn, reps)}
+
+
+def with_times(row: dict, times: dict) -> dict:
+    """A kernel's JSON row with its :func:`call_times` (ms is the wrapper
+    ms) and its library call's, where it has one."""
+    merged = dict(row, ms=times["wrapper_ms"], device_ms=times["device_ms"],
+                  host_us=times["host_us"], kernel_ms=times["kernel_ms"],
+                  device_method=times["device_method"])
+    if "library_wrapper_ms" in times:
+        merged.update(library_ms=times["library_wrapper_ms"],
+                      library_device_ms=times["library_device_ms"],
+                      library_host_us=times["library_host_us"],
+                      library_kernel_ms=times["library_kernel_ms"])
+    else:
+        merged.update(library_ms=None, library_device_ms=None)
+    return merged
 
 
 def bound(ops: float, kind: str, num_bytes: float):
@@ -718,38 +833,81 @@ def phase_ray_render_timing(model):
     return results
 
 
+def scan_rtol(lanes: int) -> float:
+    """T1's tolerance on max|kernel - twin| / |twin|. Up to 128 lanes it
+    is the JAX test's SCAN_RTOL. Beyond, the kernel and the twin each
+    round every one of a row's lanes - 1 products once, with a relative
+    error of at most 2**-24, in orders that differ, so they can differ
+    by up to about 2 * lanes * 2**-24 (1.55e-5 at 130 lanes, 4.88e-4 at
+    4096)."""
+    return SCAN_RTOL if lanes <= 128 else 2 * lanes * 2.0 ** -24
+
+
+def _placed(values: torch.Tensor, offset: str) -> torch.Tensor:
+    """``values`` (2-D, on the card) alone, or copied into a view one row
+    or one element into a larger buffer: "one element" gives a base that
+    is not 16-byte aligned."""
+    if offset == "none":
+        return values
+    skip = values.shape[1] if offset == "one row" else 1
+    buffer = torch.empty(values.numel() + skip, dtype=values.dtype,
+                         device=values.device)
+    view = buffer[skip:].view(values.shape)
+    view.copy_(values)
+    return view
+
+
+def _scan_input(rng, rows: int, lanes: int, offset: str):
+    """(rows, lanes) f32 on the card, in (0.5, 1) up to 130 lanes and in
+    (0.99, 1) beyond, so every product stays a normal float, placed by
+    :func:`_placed`."""
+    low = 0.5 if lanes <= 130 else 0.99
+    return _placed(torch.from_numpy(rng.uniform(low, 1.0, (
+        rows, lanes)).astype(np.float32)).cuda(), offset)
+
+
 def phase_scan():
-    """T1's scan kernel against exclusive_cumprod at the JAX test's
-    (16, 128), at lane counts that are not a multiple of 32, and at the
-    render batch's (16384, 128), where it is timed."""
+    """T1's scan kernel against exclusive_cumprod: within SCAN_RTOL at the
+    JAX test's (16, 128), at lane counts that are not a multiple of 4 or
+    32, at the render batch's (16384, 128) and at views one row and one
+    element into a buffer (the scalar path of a 16-byte misaligned base);
+    within :func:`scan_rtol` at 130 lanes (a carry across 128-lane
+    passes) and 4096 (K3's largest S)."""
     from fourier_feature_nets_torch.kernels.fused_ray_render import (
         exclusive_cumprod_scan)
     from fourier_feature_nets_torch.ops import exclusive_cumprod
     rng = np.random.default_rng(SEED + 4)
     worst = 0.0
-    for rows, lanes in ((16, 128), (1003, 20), (1003, 45), (1003, 77),
-                        (RENDER_RAYS, 128)):
-        x = torch.from_numpy(rng.uniform(0.5, 1.0, (rows, lanes)).astype(
-            np.float32)).cuda()
+    for rows, lanes, offset in ((16, 128, "none"), (1003, 20, "none"),
+                                (1003, 45, "none"), (1003, 77, "none"),
+                                (RENDER_RAYS, 128, "none"),
+                                (1003, 128, "one row"),
+                                (1003, 128, "one element"),
+                                (1003, 77, "one row"),
+                                (1003, 130, "none"), (1003, 4096, "none"),
+                                (1003, 4096, "one element")):
+        x = _scan_input(rng, rows, lanes, offset)
+        before = exclusive_cumprod_scan.launches
         out = exclusive_cumprod_scan(x)
         ref = exclusive_cumprod(x)
         torch.cuda.synchronize()
         rel = ((out - ref).abs() / ref.abs()).max().item()
-        worst = max(worst, (out - ref).abs().max().item())
-        ok = rel <= SCAN_RTOL
-        log(f"  T1 scan ({rows}, {lanes}): max rel err {rel:.3e} (rtol "
-            f"{SCAN_RTOL:g}) {'ok' if ok else 'FAIL'}")
+        if lanes <= 128:
+            worst = max(worst, (out - ref).abs().max().item())
+        rtol = scan_rtol(lanes)
+        ok = rel <= rtol and exclusive_cumprod_scan.launches == before + 1 \
+            and bool(torch.isfinite(out).all())
+        log(f"  T1 scan ({rows}, {lanes}), offset {offset}: max rel err "
+            f"{rel:.3e} (rtol {rtol:.3g}), min |twin| "
+            f"{ref.abs().min().item():.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("the scan kernel disagrees with "
                                  "exclusive_cumprod")
-    ms = cuda_ms(lambda: exclusive_cumprod_scan(x), 5)
-    plain_ms = cuda_ms(lambda: exclusive_cumprod(x), 5)
-    library_ms = cuda_ms(lambda: torch.cumprod(x, -1), 5)
-    log(f"  T1 scan ({RENDER_RAYS}, 128): kernel {ms:.4f} ms, "
-        f"exclusive_cumprod {plain_ms:.4f} ms, torch.cumprod (inclusive) "
-        f"{library_ms:.4f} ms (CUDA events, mean of 5)")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
+    x = _scan_input(rng, RENDER_RAYS, 128, "none")
+    plain_ms = cuda_ms(lambda: exclusive_cumprod(x), TIME_REPS)
+    log(f"  T1 scan ({RENDER_RAYS}, 128): exclusive_cumprod {plain_ms:.4f} "
+        f"ms (CUDA events, mean of {TIME_REPS})")
+    return {"max_abs_err": worst, "plain_ms": plain_ms,
             "library_call": "torch.cumprod(x, -1), inclusive: one shift "
                             "from the exclusive scan",
             **bound(x.numel(), "f32", 2 * x.numel() * 4)}
@@ -800,47 +958,56 @@ def _ints(rng, shape, low, high, dtype):
 
 def phase_int8_probe():
     """P1a-c against their twins at the probe CLI's shapes and ragged
-    ones; timed at the CLI's."""
+    ones, P1a also with W and h one row and one element into larger
+    buffers; P1c timed at the CLI's shape (P1a and P1b by phase_times)."""
     from fourier_feature_nets_torch.kernels import int8_probe as probe
     rng = np.random.default_rng(SEED + 5)
     results = {}
+    for (m, k, n), offset in P1A_CASES:
+        w = _placed(_ints(rng, (m, k), -127, 128, torch.int8), offset)
+        h = _placed(_ints(rng, (k, n), -127, 128, torch.int8), offset)
+        before = probe.int8_matmul.launches
+        out, twin = probe.int8_matmul(w, h), probe.int8_matmul_reference(w, h)
+        torch.cuda.synchronize()
+        exact = torch.equal(out, twin) \
+            and probe.int8_matmul.launches == before + 1
+        err_a = (out - twin).abs().max().item()
+        log(f"  P1a int8_matmul ({m}, {k}) @ ({k}, {n}), offset {offset} "
+            f"(W base % 16 = {w.data_ptr() % 16}, h base % 16 = "
+            f"{h.data_ptr() % 16}): max abs err {err_a} (exact) "
+            f"{'ok' if exact else 'FAIL'}")
+        if not exact:
+            raise AssertionError("P1a disagrees with its plain twin")
+        if ((m, k, n), offset) == (P1_GEMM_SHAPES[0], "none"):
+            results["int8_matmul"] = {
+                "max_abs_err": err_a,
+                "plain_ms": cuda_ms(lambda: probe.int8_matmul_reference(
+                    w, h), TIME_REPS),
+                "library_call": "torch._int_mm(w, h)",
+                **bound(2 * m * k * n, "int8", m * k + k * n + 4 * m * n)}
     for m, k, n in P1_GEMM_SHAPES:
         w = _ints(rng, (m, k), -127, 128, torch.int8)
-        h = _ints(rng, (k, n), -127, 128, torch.int8)
         x = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).cuda()
-        out, twin = probe.int8_matmul(w, h), probe.int8_matmul_reference(w, h)
         outq = probe.quantized_matmul(x, w)
         twinq = probe.quantized_matmul_reference(x, w)
         torch.cuda.synchronize()
-        exact = torch.equal(out, twin)
-        err_a = (out - twin).abs().max().item()
         err_b = (outq - twinq).abs().max().item()
         rel_b = err_b / twinq.abs().max().item()
         ok_b = rel_b <= P1B_RTOL
-        log(f"  P1a int8_matmul ({m}, {k}) @ ({k}, {n}): max abs err {err_a} "
-            f"(exact) {'ok' if exact else 'FAIL'}; P1b quantized_matmul: "
-            f"max abs err {err_b:.3e}, rel {rel_b:.3e}, bitwise equal "
+        log(f"  P1b quantized_matmul ({m}, {k}) @ ({k}, {n}): max abs err "
+            f"{err_b:.3e}, rel {rel_b:.3e}, bitwise equal "
             f"{_bits_equal(outq, twinq)} (rel <= {P1B_RTOL:g}) "
             f"{'ok' if ok_b else 'FAIL'}")
-        if not (exact and ok_b):
-            raise AssertionError("P1a/P1b disagree with their plain twins")
+        if not ok_b:
+            raise AssertionError("P1b disagrees with its plain twin")
         if (m, k, n) == P1_GEMM_SHAPES[0]:
-            ops = 2 * m * k * n
-            results["int8_matmul"] = {
-                "max_abs_err": err_a,
-                "ms": cuda_ms(lambda: probe.int8_matmul(w, h), 200),
-                "plain_ms": cuda_ms(lambda: probe.int8_matmul_reference(
-                    w, h), 200),
-                "library_ms": cuda_ms(lambda: torch._int_mm(w, h), 200),
-                "library_call": "torch._int_mm(w, h)",
-                **bound(ops, "int8", m * k + k * n + 4 * m * n)}
             results["quantized_matmul"] = {
                 "max_abs_err": err_b,
-                "ms": cuda_ms(lambda: probe.quantized_matmul(x, w), 200),
                 "plain_ms": cuda_ms(lambda: probe.quantized_matmul_reference(
-                    x, w), 200),
+                    x, w), TIME_REPS),
                 "library_ms": None,
-                **bound(ops, "int8", 4 * k * n + m * k + 4 * m * n)}
+                **bound(2 * m * k * n, "int8",
+                        4 * k * n + m * k + 4 * m * n)}
     stack = {}
     for channels, n, layers in P1C_SHAPES:
         for dtype, name in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
@@ -933,8 +1100,9 @@ def phase_ablation():
 
 def phase_io_floor():
     """P3a-c bit for bit against their twins at the IO-floor CLI's n
-    (both tiles) and a ragged n; timed at the CLI's, beside the PyTorch
-    call that computes the same function where there is one."""
+    (both tiles) and a ragged n; P3b and io-narrow's tile 4096 timed at
+    the CLI's n, beside the PyTorch call that computes the same function
+    where there is one (P3a and P3c by phase_times)."""
     from fourier_feature_nets_torch.kernels import io_floor as io
     rng = np.random.default_rng(SEED + 7)
     results = {}
@@ -968,14 +1136,16 @@ def phase_io_floor():
                 key = name.split()[0]
                 results[key] = {
                     "max_abs_err": (out - ref).abs().max().item(),
-                    "ms": cuda_ms(fn, 20), "plain_ms": cuda_ms(twin, 20),
-                    "library_ms": cuda_ms(library, 20) if library else None,
+                    "plain_ms": cuda_ms(twin, 20),
                     **bound(n * row_ops, "f32", n * row_bytes)}
+                if key == "io_wide":   # io_narrow, packed8: phase_times
+                    results[key].update(ms=cuda_ms(fn, 20),
+                                        library_ms=cuda_ms(library, 20))
                 if call:
                     results[key]["library_call"] = call
                 if key == "io_narrow":
                     results[key]["t4096_ms"] = cuda_ms(
-                        lambda: io.io_narrow(pos, views, 4096), 20)
+                        lambda: io.io_narrow(pos, views, 4096), TIME_REPS)
                 log(f"  P3 {key} n={n:,d}: " + ", ".join(
                     f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                     for k, v in results[key].items()))
@@ -1029,13 +1199,158 @@ def phase_probe_clis():
     return launches
 
 
-def main() -> int:
+def host_step_costs(reps: int = 5000) -> dict:
+    """Host microseconds per call of each step a kernel wrapper's launch
+    path can take, on the host clock (no synchronise)."""
+    from fourier_feature_nets_torch.kernels import int8_probe as probe
+    lib = probe.load_kernel().lib
+    device = torch.device("cuda", torch.cuda.current_device())
+    w = torch.zeros((128, 128), dtype=torch.int8, device=device)
+    small = torch.zeros(16, device=device)
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+    def device_context():
+        with torch.cuda.device(device):
+            pass
+
+    steps = {
+        "ctypes call, 1 int argument": lambda: lib.int8_probe_error_string(0),
+        "torch.cuda.current_stream(device).cuda_stream":
+            lambda: torch.cuda.current_stream(device).cuda_stream,
+        "torch.cuda.current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "torch._C._cuda_getCurrentRawStream(index)":
+            (lambda: raw(device.index)) if raw else None,
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "with torch.cuda.device(device)": device_context,
+        "torch.empty((128, 256), int32)": lambda: torch.empty(
+            (128, 256), dtype=torch.int32, device=device),
+        "tensor.data_ptr()": w.data_ptr,
+        "tensor.is_contiguous()": w.is_contiguous,
+        "tensor.device": lambda: w.device,
+        "tensor.get_device()": w.get_device,
+        "torch.add, 16 floats (a whole library call)":
+            lambda: torch.add(small, small),
+    }
+    costs = {}
+    for name, fn in steps.items():
+        if fn is None:
+            costs[name] = None
+            continue
+        fn()
+        start = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        costs[name] = (time.perf_counter() - start) * 1e6 / reps
+    torch.cuda.synchronize()
+    return costs
+
+
+def phase_times(flagship: bool) -> dict:
+    """:func:`call_times` of the short kernels and the one PyTorch call
+    that computes each one's function (P1a and ``torch._int_mm``, T1 and
+    ``torch.cumprod``, P3a and ``torch.cat``; P1b and P3c have none), at
+    the shapes of their paths; with ``flagship``, also K1, K2 and K3 at
+    the sizes PERF.md times them (CUDA events, FLAGSHIP_REPS calls)."""
+    from fourier_feature_nets_torch.kernels import int8_probe as probe
+    from fourier_feature_nets_torch.kernels import io_floor as io
+    from fourier_feature_nets_torch.kernels.fused_ray_render import (
+        exclusive_cumprod_scan)
+    rng = np.random.default_rng(SEED + 8)
+    rows = {}
+    m, k, n = P1_GEMM_SHAPES[0]
+    w = _ints(rng, (m, k), -127, 128, torch.int8)
+    h = _ints(rng, (k, n), -127, 128, torch.int8)
+    x = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).cuda()
+    scan_in = torch.from_numpy(rng.uniform(0.5, 1.0, (RENDER_RAYS, 128)).astype(
+        np.float32)).cuda()
+    pos, views = (torch.from_numpy(rng.normal(size=(IO_POINTS, 3)).astype(
+        np.float32)).cuda() for _ in range(2))
+    packed = torch.from_numpy(rng.normal(size=(IO_POINTS, 8)).astype(
+        np.float32)).cuda()
+    for name, fn, library in (
+            ("int8_matmul", lambda: probe.int8_matmul(w, h),
+             lambda: torch._int_mm(w, h)),
+            ("quantized_matmul", lambda: probe.quantized_matmul(x, w), None),
+            ("exclusive_cumprod_scan", lambda: exclusive_cumprod_scan(scan_in),
+             lambda: torch.cumprod(scan_in, -1)),
+            ("io_narrow", lambda: io.io_narrow(pos, views),
+             lambda: torch.cat([pos, views[:, :1]], -1)),
+            ("packed8", lambda: io.packed8(packed), None)):
+        rows[name] = call_times(fn)
+        if library is not None:
+            rows[name].update({f"library_{key}": value for key, value in
+                               call_times(library).items()})
+        log(f"  {name}: " + ", ".join(
+            f"{key} {value:.5f}" if isinstance(value, float)
+            else f"{key} {value}" for key, value in rows[name].items()))
+    if not flagship:
+        return rows
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        fused_nerf_apply, prepare_fused_nerf)
+    from fourier_feature_nets_torch.kernels.fused_nerf_train import (
+        fused_nerf_backward)
+    from fourier_feature_nets_torch.kernels.fused_ray_render import (
+        fused_ray_render)
+    from fourier_feature_nets_torch.models import flagship_nerf
+    model = flagship_nerf(torch.Generator().manual_seed(SEED)).cuda()
+    for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        weights = prepare_fused_nerf(model, dtype)
+        with torch.no_grad():
+            pos, views = random_points(BENCH_POINTS, rng, "cuda")
+            rows[f"fused_nerf_{kind}"] = cuda_ms(
+                lambda: fused_nerf_apply(weights, pos, views), FLAGSHIP_REPS)
+            pos, views = random_points(TRAIN_POINTS, rng, "cuda")
+            g = torch.from_numpy(rng.normal(size=(TRAIN_POINTS, 4)).astype(
+                np.float32)).cuda()
+            rows[f"fused_nerf_train_{kind}"] = cuda_ms(
+                lambda: fused_nerf_backward(weights, pos, views, g),
+                FLAGSHIP_REPS)
+            pos, d, t = render_rays(RENDER_RAYS, 128, rng)
+            rows[f"fused_ray_render_{kind}"] = cuda_ms(
+                lambda: fused_ray_render(weights, pos, d, t), FLAGSHIP_REPS)
+        for key in ("fused_nerf", "fused_nerf_train", "fused_ray_render"):
+            log(f"  {key}_{kind}: {rows[f'{key}_{kind}']:.4f} ms (CUDA "
+                f"events, mean of {FLAGSHIP_REPS})")
+        del weights, pos, views, g, d, t
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_times(tree: str) -> int:
+    """--times-only: the step-1 timings of the port found in ``tree``,
+    as one JSON line, so that two checkouts can be timed in turns."""
+    name = phase_device()
+    log(f"times of the port in {os.path.abspath(tree)}")
+    costs = host_step_costs()
+    for step, cost in costs.items():
+        log(f"  host: {step}: " + (f"{cost:.3f} us" if cost is not None
+                                   else "not available"))
+    rows = phase_times(flagship=True)
+    print(json.dumps({"tree": os.path.abspath(tree), "device": name,
+                      "host_step_us": costs, "times": rows}))
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="Smoke run of the PyTorch port on one NVIDIA GPU")
+    parser.add_argument("--times-only", action="store_true",
+                        help="only time the short kernels, their library "
+                             "calls and K1-K3 (one JSON line)")
+    parser.add_argument("--tree", default=ROOT,
+                        help="with --times-only: import the port from this "
+                             "checkout (e.g. an unpacked parent commit)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs on a GPU only", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.times_only:
+        sys.path.insert(0, os.path.abspath(args.tree))
+        return run_times(args.tree)
     from fourier_feature_nets_torch.kernels.fused_nerf import (
         prepare_fused_nerf)
     from fourier_feature_nets_torch.models import flagship_nerf
@@ -1071,6 +1386,15 @@ def main() -> int:
     ablation = phase_ablation()
     log("P3, the IO-floor copy kernels, vs plain twins:")
     io_rows = phase_io_floor()
+    log("the short kernels and their library calls: wrapper ms (CUDA events "
+        f"over {TIME_REPS} calls), device ms ({GRAPH_CALLS} calls replayed "
+        f"from a CUDA graph), host us (host clock over {TIME_REPS} calls):")
+    times = phase_times(flagship=False)
+    scan = with_times(scan, times["exclusive_cumprod_scan"])
+    for key in ("int8_matmul", "quantized_matmul"):
+        probe[key] = with_times(probe[key], times[key])
+    for key in ("io_narrow", "packed8"):
+        io_rows[key] = with_times(io_rows[key], times[key])
     log("the probes' path: their three CLIs")
     probe_launches = phase_probe_clis()
 

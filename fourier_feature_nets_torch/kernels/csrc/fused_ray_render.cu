@@ -2,8 +2,9 @@
 //
 // Replaces the TPU Pallas kernel fourier_feature_nets_tpu/ops/
 // fused_ray_render.py::_kernel, which goes from ray geometry to composited
-// color in one pass, and the lane-scan test kernel of
-// tests/test_fused_ray_render.py (around _exclusive_cumprod_lanes). Inputs
+// color in one pass (K3), and the lane-scan test kernel of
+// tests/test_fused_ray_render.py:26 around _exclusive_cumprod_lanes (T1,
+// described at its kernel below). K3's inputs
 // are (R, S, 3) sample positions, ray-major, (R, 3) view directions and
 // (R, S) depths, all f32, and the weights pack of kernels/fused_nerf.py
 // (bf16 or f32); the output is (R, 4) f32: the composited RGB and an alpha
@@ -25,8 +26,8 @@
 //    with 1e10 at the last sample (a compare), alpha = 1 - exp(-sigma delta),
 //    transmittance as the exclusive cumulative product of
 //    min(1, 1 - alpha + 1e-10), scanned with __shfl_up_sync over chunks of 32
-//    samples with a carried product (T1's scan); color sums w * rgb over all
-//    S samples, alpha sums w over the first S - 1.
+//    samples with a carried product (exclusive_cumprod_chunk); color sums
+//    w * rgb over all S samples, alpha sums w over the first S - 1.
 // Device memory sees only the ray geometry in and (R, 4) out.
 //
 // What bounds it on an H100. The MLP, as in K1: ~0.6 MFLOP per sample at
@@ -44,7 +45,10 @@
 // The kernels launch on the caller's stream and allocate nothing; the entry
 // points return cudaGetLastError().
 
+#include <cstdint>
+
 #include "fused_nerf_common.cuh"
+#include "shared_limit.cuh"
 
 namespace {
 
@@ -63,8 +67,8 @@ using ffn::kWarps;
 constexpr int kMaxRaysPerBlock = 32;
 constexpr int kMaxBlockPoints = 4096;   // 64 KB of logits
 
-// T1: one chunk of an exclusive cumulative product, one value per lane of a
-// full warp. Returns carry times the product of the lower lanes' values and
+// K3's scan: one chunk of an exclusive cumulative product, one value per
+// lane of a full warp. Returns carry times the product of the lower lanes' values and
 // multiplies carry by the product of all 32; a lane past the end of the
 // row passes 1.
 __device__ __forceinline__ float exclusive_cumprod_chunk(float x,
@@ -238,23 +242,102 @@ fused_ray_render_kernel(const float* __restrict__ positions,
   }
 }
 
-// T1's test kernel: the exclusive cumulative product along each row of a
-// (rows, lanes) f32 array, one warp per row.
-__global__ void __launch_bounds__(kThreads)
+// T1: the exclusive cumulative product along each row of a (rows, lanes) f32
+// array, first lane 1. Bound by bytes: at the render batch's (16384, 128) it
+// reads 8.4 MB and writes 8.4 MB, 5.0 us at 3.35 TB/s (less when x sits in
+// the 50 MB L2), for 2.1 M multiplies. The design keeps memory busy and the
+// scan short:
+// * one warp a row, eight warps a block, up to 64 warps an SM, so many rows'
+//   loads are in flight at once;
+// * each lane holds four consecutive values, loaded as one float4: a warp
+//   covers 128 lanes of a row with one 512-byte coalesced load, and issues
+//   the loads of up to kScanUnroll such passes (512 lanes) before its first
+//   scan step;
+// * per pass: the lane's product of its four values, one 5-step
+//   __shfl_up_sync scan over the 32 lane products, and an exclusive shift;
+//   a row longer than 128 lanes carries the product of each pass into the
+//   next; results leave as float4 stores;
+// * a scalar path (the same scan, four 4-byte loads and stores a lane,
+//   masked) takes lane counts that are not a multiple of 4 and bases that
+//   are not 16-byte aligned.
+// The products are taken in another order than a sequential cumprod: each
+// of the two carries at most lanes - 1 roundings of 2^-24 relative error.
+constexpr int kScanThreads = 256;
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kScanPass = 128;     // lanes one float4 a lane covers
+constexpr int kScanUnroll = 4;     // passes whose loads issue together
+
+// The exclusive products of the four consecutive values v of each lane of a
+// full warp, times *carry; *carry is multiplied by the product of all 128.
+__device__ __forceinline__ float4 exclusive_cumprod_quad(float4 v,
+                                                         float* carry) {
+  const int lane = threadIdx.x % 32;
+  const float p1 = v.x * v.y;
+  const float p2 = p1 * v.z;
+  float inclusive = p2 * v.w;
+#pragma unroll
+  for (int shift = 1; shift < 32; shift <<= 1) {
+    const float lower = __shfl_up_sync(0xffffffffu, inclusive, shift);
+    if (lane >= shift) inclusive *= lower;
+  }
+  float before = __shfl_up_sync(0xffffffffu, inclusive, 1);
+  if (lane == 0) before = 1.0f;
+  const float base = *carry * before;
+  *carry *= __shfl_sync(0xffffffffu, inclusive, 31);
+  return make_float4(base, base * v.x, base * p1, base * p2);
+}
+
+// Lanes i..i+3 of a row; 1 past its end.
+template <bool kVector>
+__device__ __forceinline__ float4 load_quad(const float* __restrict__ row,
+                                            int i, int lanes) {
+  if (kVector) {   // lanes % 4 == 0: i < lanes means all four are in
+    return i < lanes ? __ldg(reinterpret_cast<const float4*>(row + i))
+                     : make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+  }
+  return make_float4(i < lanes ? row[i] : 1.0f,
+                     i + 1 < lanes ? row[i + 1] : 1.0f,
+                     i + 2 < lanes ? row[i + 2] : 1.0f,
+                     i + 3 < lanes ? row[i + 3] : 1.0f);
+}
+
+template <bool kVector>
+__device__ __forceinline__ void store_quad(float* __restrict__ row, int i,
+                                           int lanes, float4 v) {
+  if (kVector) {
+    if (i < lanes) *reinterpret_cast<float4*>(row + i) = v;
+    return;
+  }
+  if (i < lanes) row[i] = v.x;
+  if (i + 1 < lanes) row[i + 1] = v.y;
+  if (i + 2 < lanes) row[i + 2] = v.z;
+  if (i + 3 < lanes) row[i + 3] = v.w;
+}
+
+template <bool kVector>
+__global__ void __launch_bounds__(kScanThreads)
 exclusive_cumprod_kernel(const float* __restrict__ x, float* __restrict__ out,
                          long long rows, int lanes) {
   const long long row =
-      static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
+      static_cast<long long>(blockIdx.x) * kScanWarps + threadIdx.x / 32;
   if (row >= rows) return;   // the whole warp leaves together
-  const int lane = threadIdx.x % 32;
+  const int quad = (threadIdx.x % 32) * 4;
   const float* in_row = x + row * lanes;
   float* out_row = out + row * lanes;
   float carry = 1.0f;
-  for (int c0 = 0; c0 < lanes; c0 += 32) {
-    const int i = c0 + lane;
-    const float value =
-        exclusive_cumprod_chunk(i < lanes ? in_row[i] : 1.0f, &carry);
-    if (i < lanes) out_row[i] = value;
+  for (int c0 = 0; c0 < lanes; c0 += kScanPass * kScanUnroll) {
+    float4 v[kScanUnroll];
+#pragma unroll
+    for (int u = 0; u < kScanUnroll; ++u) {
+      v[u] = load_quad<kVector>(in_row, c0 + u * kScanPass + quad, lanes);
+    }
+#pragma unroll
+    for (int u = 0; u < kScanUnroll; ++u) {
+      const int c = c0 + u * kScanPass;
+      if (c >= lanes) break;   // the same for the whole warp
+      store_quad<kVector>(out_row, c + quad, lanes,
+                          exclusive_cumprod_quad(v[u], &carry));
+    }
   }
 }
 
@@ -265,10 +348,10 @@ cudaError_t launch(const void* positions, const void* views,
                    const void* biases, void* out, long long num_rays,
                    int num_samples, int rays_per_block, const Desc& d,
                    cudaStream_t stream) {
+  static ffn::SharedLimit limit;
   const size_t smem = shared_bytes<T>(d, rays_per_block, num_samples);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ray_render_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const cudaError_t err =
+      ffn::reserve_shared(fused_ray_render_kernel<T>, smem, limit);
   if (err != cudaSuccess) return err;
   const long long blocks = (num_rays + rays_per_block - 1) / rays_per_block;
   fused_ray_render_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem,
@@ -323,10 +406,19 @@ extern "C" int exclusive_cumprod_scan(const void* x, void* out,
                                       void* stream) {
   if (lanes < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (rows <= 0) return static_cast<int>(cudaSuccess);
-  const long long blocks = (rows + kWarps - 1) / kWarps;
-  exclusive_cumprod_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), rows, lanes);
+  const unsigned blocks =
+      static_cast<unsigned>((rows + kScanWarps - 1) / kScanWarps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vector = lanes % 4 == 0
+                      && reinterpret_cast<std::uintptr_t>(x) % 16 == 0
+                      && reinterpret_cast<std::uintptr_t>(out) % 16 == 0;
+  if (vector) {
+    exclusive_cumprod_kernel<true><<<blocks, kScanThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<float*>(out), rows, lanes);
+  } else {
+    exclusive_cumprod_kernel<false><<<blocks, kScanThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<float*>(out), rows, lanes);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

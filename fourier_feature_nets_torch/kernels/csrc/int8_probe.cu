@@ -17,20 +17,36 @@
 // a roofline: P1a and P1b move ~0.2-0.3 MB and do ~8 MOP (under 0.1 us of
 // HBM time and under 0.01 us of int8 tensor-core time), and P1c's chain of
 // eight 192x192 @ 192x2048 products is 1.21 GOP (0.61 us at the int8 peak,
-// 1.22 us at the bf16 peak) over ~2.3-3 MB. Launch latency and the serial
-// dependence from one layer to the next bound them; P1c's 64-column slabs
-// give 32 blocks for 132 SMs. The design does not fight that (it is a
-// probe of numerics and of the int8/bf16 ratio); it keeps the work on the
-// tensor cores and off device memory:
+// 1.22 us at the bf16 peak) over ~2.3-3 MB. Latency bounds them: the launch,
+// the round trips to memory, and in P1c the serial dependence from one layer
+// to the next; P1c's 64-column slabs give 32 blocks for 132 SMs.
+//
+// P1a is built for that latency. A block owns a 32x32 output tile, so the
+// tool's (128, 128) @ (128, 256) spreads over 32 blocks, and stages K 128
+// bytes at a time: at K <= 128 one stage holds the whole product, with one
+// barrier between the copies and the products. W's rows go to shared memory
+// as 16-byte cp.async copies (zero-filled past M and K) into rows padded to
+// 144 bytes, so the eight rows an ldmatrix reads start on distinct banks.
+// The int8 tensor-core instruction, mma.sync m16n8k32, takes B K-contiguous
+// and h is N-contiguous: each thread reads 8 bytes of four consecutive rows
+// of h, transposes each 4x4 byte block with __byte_perm and stores h^T as
+// (N, K) rows. ldmatrix.x4 feeds A and B; each of the four warps owns a
+// 16x16 quarter of the tile as two n8 accumulators, stored from registers
+// as int2 pairs. A byte-wise path inside the kernel stages W when its base
+// or K is not 16-byte aligned and h when its base or N is not 8-byte
+// aligned (the tool's ragged (100, 72, 250) takes both); the edge stores
+// are masked.
+//
+// P1b and P1c keep a simpler scheme:
 // * every operand goes through shared memory as 16x16 row-major panels,
 //   each 256 elements from the last, so every WMMA pointer is 32-byte
 //   aligned for int8 and bf16 alike and any M, K, N can be zero-padded;
-// * P1a/P1b: one 64x64 output tile per step, K in chunks of 64; each warp
-//   owns two 16x16 int32 accumulators. P1a gives each tile a block; P1b is
-//   one block (it needs max|x| over all of x first), which reduces the max,
-//   quantizes x as it stages it (IEEE division and round-half-even, as
-//   jnp.round; this file must not be built with --use_fast_math) and
-//   dequantizes in the epilogue;
+// * P1b: one block (it needs max|x| over all of x first), which reduces
+//   the max, quantizes x as it stages it (IEEE division and
+//   round-half-even, as jnp.round; this file must not be built with
+//   --use_fast_math), walks the 64x64 output tiles with K in chunks of 64,
+//   each warp owning two 16x16 int32 accumulators, and dequantizes in the
+//   epilogue;
 // * P1c: a block owns a 64-column slab of h, keeps it in shared memory
 //   through every layer and stages each layer's W from L2 in 16-byte
 //   vectors; one template serves bf16 and int8. (On an H100 80GB HBM3 at
@@ -46,6 +62,10 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include <cstdint>
+
+#include "shared_limit.cuh"
+
 namespace {
 
 using namespace nvcuda;
@@ -53,7 +73,7 @@ using namespace nvcuda;
 constexpr int kThreads = 256;   // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kPanel = 256;     // elements of one 16x16 panel
-constexpr int kTile = 64;       // P1a/P1b: output tile side and K chunk
+constexpr int kTile = 64;       // P1b: output tile side and K chunk
 constexpr int kTilePanels = kTile / 16;
 constexpr int kSlab = 64;       // P1c: columns of h per block
 constexpr int kSlabPanels = kSlab / 16;
@@ -67,24 +87,210 @@ __device__ __forceinline__ int panel_index(int r, int c, int panels_per_row) {
          + (c & 15);
 }
 
-// --- P1a / P1b --------------------------------------------------------------
+// --- P1a ----------------------------------------------------------------------
 
-struct Int8Source {          // P1a: B is an int8 matrix
-  const signed char* b;
-  __device__ signed char operator()(long long idx) const { return b[idx]; }
+constexpr int kMmaTile = 32;             // output tile side
+constexpr int kMmaThreads = 128;         // 4 warps, a 16x16 quarter each
+constexpr int kMmaK = 128;               // K bytes staged at a time
+constexpr int kMmaPitch = kMmaK + 16;    // padded shared row, 16-byte aligned
+
+static_assert((kMmaK / 4) * (kMmaTile / 8) == kMmaThreads,
+              "stage_h gives each thread 4 rows x 8 columns of h");
+
+struct MmaShared {
+  __align__(16) signed char a[kMmaTile * kMmaPitch];    // W (m, k)
+  __align__(16) signed char bt[kMmaTile * kMmaPitch];   // h^T (n, k)
 };
 
-struct QuantSource {         // P1b: B is round(x / scale) as int8
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; `bytes` of 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(shared_address(dst)), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
+               ::: "memory");
+}
+
+// Four 8x8 matrices of 16-bit elements (8 rows of 16 bytes each); lanes
+// 8q..8q+7 give the row addresses of matrix q, and each lane receives the
+// 4-byte word (lane % 4) of row lane / 4 of every matrix.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
+                                            const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(shared_address(row))
+      : "memory");
+}
+
+// d += a (16x32, row) @ b (32x8, col), int8 in, int32 sums.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The transpose of a 4x4 byte block: r[i] holds bytes (i, 0..3), c[j]
+// gets bytes (0..3, j), both little-endian.
+__device__ __forceinline__ void transpose4x4(const unsigned (&r)[4],
+                                             unsigned (&c)[4]) {
+  const unsigned t0 = __byte_perm(r[0], r[1], 0x5140);   // r0.0 r1.0 r0.1 r1.1
+  const unsigned t1 = __byte_perm(r[0], r[1], 0x7362);   // r0.2 r1.2 r0.3 r1.3
+  const unsigned t2 = __byte_perm(r[2], r[3], 0x5140);
+  const unsigned t3 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// W rows m0.. and columns k0.. of one stage into s.a, zero past M and K.
+__device__ __forceinline__ void stage_w(const signed char* __restrict__ w,
+                                        int M, int K, int m0, int k0,
+                                        bool vector, MmaShared& s) {
+  if (vector) {   // w and K 16-byte aligned: a piece is all in or all out
+    constexpr int kPieces = kMmaK / 16;
+    for (int idx = threadIdx.x; idx < kMmaTile * kPieces;
+         idx += kMmaThreads) {
+      const int r = idx / kPieces;
+      const int k = k0 + (idx % kPieces) * 16;
+      const bool live = m0 + r < M && k < K;
+      cp_async16(s.a + r * kMmaPitch + k - k0,
+                 live ? w + static_cast<long long>(m0 + r) * K + k : w,
+                 live ? 16 : 0);
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < kMmaTile * kMmaK; idx += kMmaThreads) {
+    const int r = idx / kMmaK;
+    const int c = idx % kMmaK;
+    s.a[r * kMmaPitch + c] =
+        m0 + r < M && k0 + c < K
+            ? w[static_cast<long long>(m0 + r) * K + k0 + c] : 0;
+  }
+}
+
+// h rows k0.. and columns n0.. of one stage, transposed into s.bt.
+__device__ __forceinline__ void stage_h(const signed char* __restrict__ h,
+                                        int K, int N, int n0, int k0,
+                                        bool vector, MmaShared& s) {
+  if (vector) {   // h and N 8-byte aligned: a piece is all in or all out
+    // thread: rows k0 + 4 * kg .. + 3, columns n0 + 8 * ng .. + 7
+    const int kg = threadIdx.x / 4;
+    const int ng = threadIdx.x % 4;
+    const int n = n0 + ng * 8;
+    unsigned lo[4], hi[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = k0 + kg * 4 + i;
+      uint2 v = make_uint2(0u, 0u);
+      if (k < K && n < N) {
+        v = __ldg(reinterpret_cast<const uint2*>(
+            h + static_cast<long long>(k) * N + n));
+      }
+      lo[i] = v.x;
+      hi[i] = v.y;
+    }
+    unsigned c[4];
+    transpose4x4(lo, c);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      *reinterpret_cast<unsigned*>(s.bt + (ng * 8 + j) * kMmaPitch
+                                   + kg * 4) = c[j];
+    }
+    transpose4x4(hi, c);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      *reinterpret_cast<unsigned*>(s.bt + (ng * 8 + 4 + j) * kMmaPitch
+                                   + kg * 4) = c[j];
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < kMmaTile * kMmaK; idx += kMmaThreads) {
+    const int kk = idx / kMmaTile;
+    const int c = idx % kMmaTile;
+    s.bt[c * kMmaPitch + kk] =
+        k0 + kk < K && n0 + c < N
+            ? h[static_cast<long long>(k0 + kk) * N + n0 + c] : 0;
+  }
+}
+
+// out[r, c..c+1] = (v0, v1), masked to (M, N); one int2 where it can.
+__device__ __forceinline__ void store_pair(int* __restrict__ out, int M,
+                                           int N, int r, int c, int v0,
+                                           int v1, bool vector) {
+  if (r >= M || c >= N) return;
+  int* p = out + static_cast<long long>(r) * N + c;
+  if (vector) {   // N even and out 8-byte aligned: c + 1 < N too
+    *reinterpret_cast<int2*>(p) = make_int2(v0, v1);
+    return;
+  }
+  p[0] = v0;
+  if (c + 1 < N) p[1] = v1;
+}
+
+__global__ void __launch_bounds__(kMmaThreads)
+int8_matmul_kernel(const signed char* __restrict__ w,
+                   const signed char* __restrict__ h, int* __restrict__ out,
+                   int M, int K, int N, bool w_vector, bool h_vector,
+                   bool out_vector) {
+  __shared__ MmaShared s;
+  const int m0 = blockIdx.y * kMmaTile;
+  const int n0 = blockIdx.x * kMmaTile;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wm = (warp / 2) * 16;   // the warp's quarter of the tile
+  const int wn = (warp % 2) * 16;
+  int acc[2][4] = {};
+  for (int k0 = 0; k0 < K; k0 += kMmaK) {
+    stage_w(w, M, K, m0, k0, w_vector, s);
+    stage_h(h, K, N, n0, k0, h_vector, s);
+    cp_async_wait_all();
+    __syncthreads();
+    const int depth = K - k0 < kMmaK ? K - k0 : kMmaK;   // zeros beyond
+    for (int kk = 0; kk < depth; kk += 32) {
+      unsigned a[4], b[4];
+      // A: rows wm + (lane % 16), bytes kk + 16 * (lane / 16)
+      ldmatrix_x4(a, s.a + (wm + lane % 16) * kMmaPitch + kk
+                         + (lane / 16) * 16);
+      // B: matrix q = lane / 8 is n8 tile q / 2, k half q % 2
+      ldmatrix_x4(b, s.bt + (wn + (lane / 16) * 8 + lane % 8) * kMmaPitch
+                          + kk + ((lane / 8) % 2) * 16);
+      mma_s8(acc[0], a, b[0], b[1]);
+      mma_s8(acc[1], a, b[2], b[3]);
+    }
+    if (k0 + kMmaK < K) __syncthreads();   // the stage is restaged
+  }
+  const int g = lane / 4;
+  const int t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int c = n0 + wn + j * 8 + 2 * t;
+    store_pair(out, M, N, m0 + wm + g, c, acc[j][0], acc[j][1], out_vector);
+    store_pair(out, M, N, m0 + wm + g + 8, c, acc[j][2], acc[j][3],
+               out_vector);
+  }
+}
+
+// --- P1b ----------------------------------------------------------------------
+
+struct QuantSource {         // B is round(x / scale) as int8
   const float* x;
   float scale;
   __device__ signed char operator()(long long idx) const {
     return static_cast<signed char>(__float2int_rn(x[idx] / scale));
   }
-};
-
-struct StoreInt32 {
-  int* out;
-  __device__ void operator()(long long idx, int v) const { out[idx] = v; }
 };
 
 struct StoreScaled {
@@ -161,15 +367,6 @@ __device__ void gemm_tiles(const signed char* __restrict__ a, Source src,
     }
     __syncthreads();
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-int8_matmul_kernel(const signed char* __restrict__ w,
-                   const signed char* __restrict__ h, int* __restrict__ out,
-                   int M, int K, int N) {
-  __shared__ GemmShared s;
-  gemm_tiles(w, Int8Source{h}, StoreInt32{out}, M, K, N, blockIdx.x,
-             gridDim.x, s);
 }
 
 // One block: max|x|, then every tile of W @ round(x / scale), dequantized.
@@ -317,10 +514,10 @@ layer_stack_kernel(const T* __restrict__ h0, const T* __restrict__ ws,
 template <typename T, typename Acc>
 cudaError_t launch_stack(const void* h0, const void* ws, void* out, int C,
                          int N, int L, cudaStream_t stream) {
+  static ffn::SharedLimit limit;
   const size_t smem = stack_shared_bytes<T>(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      layer_stack_kernel<T, Acc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const cudaError_t err =
+      ffn::reserve_shared(layer_stack_kernel<T, Acc>, smem, limit);
   if (err != cudaSuccess) return err;
   const int blocks = (N + kSlab - 1) / kSlab;
   layer_stack_kernel<T, Acc><<<blocks, kThreads, smem, stream>>>(
@@ -335,10 +532,17 @@ cudaError_t launch_stack(const void* h0, const void* ws, void* out, int C,
 extern "C" int int8_matmul(const void* w, const void* h, void* out, int M,
                            int K, int N, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = ((M + kTile - 1) / kTile) * ((N + kTile - 1) / kTile);
-  int8_matmul_kernel<<<tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto address = [](const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p);
+  };
+  const bool w_vector = address(w) % 16 == 0 && K % 16 == 0;
+  const bool h_vector = address(h) % 8 == 0 && N % 8 == 0;
+  const bool out_vector = address(out) % 8 == 0 && N % 2 == 0;
+  const dim3 grid((N + kMmaTile - 1) / kMmaTile, (M + kMmaTile - 1) / kMmaTile);
+  int8_matmul_kernel<<<grid, kMmaThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const signed char*>(w), static_cast<const signed char*>(h),
-      static_cast<int*>(out), M, K, N);
+      static_cast<int*>(out), M, K, N, w_vector, h_vector, out_vector);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,8 +16,6 @@ in two layouts. The source comment says what bounds it on an H100.
   raises; it never falls back.
 """
 
-import ctypes
-import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -26,7 +24,7 @@ import torch.nn.functional as F
 
 from ..models.nerf import NeRF
 from ..ops.encoding import encode_phases
-from .build import build_library
+from .launch import INT, LONG, PTR, KernelLibrary, on_cuda
 
 __all__ = ["FusedNeRFWeights", "pack_fused_nerf", "prepare_fused_nerf",
            "fast_sincos", "fused_nerf_reference", "fused_nerf_apply",
@@ -220,18 +218,14 @@ def fused_nerf_reference(weights: FusedNeRFWeights, positions: torch.Tensor,
     return torch.cat([color, opacity], dim=-1)
 
 
-@functools.lru_cache(maxsize=None)
+_LIB = KernelLibrary("fused_nerf.cu", "fused_nerf_error_string",
+                     fused_nerf_forward=(PTR,) * 8 + (LONG, INT))
+
+
 def load_kernel():
     """Builds (first call) and loads the kernel library; returns the
-    :class:`~.build.BuiltLibrary` with the entry points typed."""
-    built = build_library("fused_nerf.cu")
-    fn = built.lib.fused_nerf_forward
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    built.lib.fused_nerf_error_string.argtypes = [ctypes.c_int]
-    built.lib.fused_nerf_error_string.restype = ctypes.c_char_p
-    return built
+    :class:`~.build.BuiltLibrary`."""
+    return _LIB.load()
 
 
 def _check_pack(weights: FusedNeRFWeights, device: torch.device):
@@ -277,29 +271,20 @@ def fused_nerf_apply(weights: FusedNeRFWeights, positions: torch.Tensor,
     the kernel on the current stream (building it on first use) or
     raise; each launch adds one to ``fused_nerf_apply.launches``.
     """
-    if positions.device.type == "cpu":
+    if not on_cuda(positions, "fused NeRF"):
         return fused_nerf_reference(weights, positions, views)
-    if positions.device.type != "cuda":
-        raise ValueError(f"no fused NeRF kernel for {positions.device}")
     _check_cuda_inputs(weights, positions, views)
     num = positions.shape[0]
-    out = torch.empty((num, 4), dtype=torch.float32, device=positions.device)
+    device = positions.device
+    out = torch.empty((num, 4), dtype=torch.float32, device=device)
     if num == 0:
         return out
-    lib = load_kernel().lib
-    with torch.cuda.device(positions.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.fused_nerf_forward(
-            positions.data_ptr(), views.data_ptr(),
-            weights.pos_enc.data_ptr(), weights.view_enc.data_ptr(),
-            weights.weights.data_ptr(), weights.biases.data_ptr(),
-            weights.meta.ctypes.data, out.data_ptr(), num,
-            _DTYPE_CODES[weights.weights.dtype], stream)
-    if code != 0:
-        message = lib.fused_nerf_error_string(code).decode()
-        raise RuntimeError(f"fused NeRF kernel launch failed: {message} "
-                           f"(cudaError {code})")
-    fused_nerf_apply.launches += 1
+    _LIB.launch(fused_nerf_apply, "fused_nerf_forward", device,
+                positions.data_ptr(), views.data_ptr(),
+                weights.pos_enc.data_ptr(), weights.view_enc.data_ptr(),
+                weights.weights.data_ptr(), weights.biases.data_ptr(),
+                weights.meta.ctypes.data, out.data_ptr(), num,
+                _DTYPE_CODES[weights.weights.dtype])
     return out
 
 

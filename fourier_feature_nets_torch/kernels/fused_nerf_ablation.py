@@ -15,12 +15,8 @@ for CUDA tensors it launches the kernel or raises, and each launch adds
 one to ``fused_nerf_ablation.launches``.
 """
 
-import ctypes
-import functools
-
 import torch
 
-from .build import build_library
 from .fused_nerf import (
     _DTYPE_CODES,
     FusedNeRFWeights,
@@ -28,6 +24,7 @@ from .fused_nerf import (
     _dense,
     _features,
 )
+from .launch import INT, LONG, PTR, KernelLibrary, on_cuda
 
 __all__ = ["MODES", "fused_nerf_ablation", "fused_nerf_ablation_reference",
            "load_kernel"]
@@ -76,18 +73,16 @@ def fused_nerf_ablation_reference(weights: FusedNeRFWeights,
     return torch.cat([color, opacity], dim=-1)
 
 
-@functools.lru_cache(maxsize=None)
+_LIB = KernelLibrary("fused_nerf_ablation.cu",
+                     "fused_nerf_ablation_error_string",
+                     fused_nerf_ablation_forward=(PTR,) * 8 + (LONG, INT,
+                                                               INT))
+
+
 def load_kernel():
     """Builds (first call) and loads the ablation library; returns the
-    :class:`~.build.BuiltLibrary` with the entry point typed."""
-    built = build_library("fused_nerf_ablation.cu")
-    fn = built.lib.fused_nerf_ablation_forward
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    built.lib.fused_nerf_ablation_error_string.argtypes = [ctypes.c_int]
-    built.lib.fused_nerf_ablation_error_string.restype = ctypes.c_char_p
-    return built
+    :class:`~.build.BuiltLibrary`."""
+    return _LIB.load()
 
 
 def fused_nerf_ablation(weights: FusedNeRFWeights, positions: torch.Tensor,
@@ -96,30 +91,20 @@ def fused_nerf_ablation(weights: FusedNeRFWeights, positions: torch.Tensor,
     (N, 4) logits."""
     if mode not in MODES:
         raise ValueError(f"unknown ablation mode {mode!r}; one of {MODES}")
-    if positions.device.type == "cpu":
+    if not on_cuda(positions, "fused NeRF ablation"):
         return fused_nerf_ablation_reference(weights, positions, views, mode)
-    if positions.device.type != "cuda":
-        raise ValueError(f"no fused NeRF ablation kernel for "
-                         f"{positions.device}")
     _check_cuda_inputs(weights, positions, views)
     num = positions.shape[0]
-    out = torch.empty((num, 4), dtype=torch.float32, device=positions.device)
+    device = positions.device
+    out = torch.empty((num, 4), dtype=torch.float32, device=device)
     if num == 0:
         return out
-    lib = load_kernel().lib
-    with torch.cuda.device(positions.device):
-        code = lib.fused_nerf_ablation_forward(
-            positions.data_ptr(), views.data_ptr(),
-            weights.pos_enc.data_ptr(), weights.view_enc.data_ptr(),
-            weights.weights.data_ptr(), weights.biases.data_ptr(),
-            weights.meta.ctypes.data, out.data_ptr(), num, MODES.index(mode),
-            _DTYPE_CODES[weights.weights.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        message = lib.fused_nerf_ablation_error_string(code).decode()
-        raise RuntimeError(f"fused NeRF ablation kernel launch failed: "
-                           f"{message} (cudaError {code})")
-    fused_nerf_ablation.launches += 1
+    _LIB.launch(fused_nerf_ablation, "fused_nerf_ablation_forward", device,
+                positions.data_ptr(), views.data_ptr(),
+                weights.pos_enc.data_ptr(), weights.view_enc.data_ptr(),
+                weights.weights.data_ptr(), weights.biases.data_ptr(),
+                weights.meta.ctypes.data, out.data_ptr(), num,
+                MODES.index(mode), _DTYPE_CODES[weights.weights.dtype])
     return out
 
 

@@ -23,13 +23,10 @@ comment says what bounds it on an H100.
   raises; it never falls back.
 """
 
-import ctypes
-import functools
 from typing import Tuple
 
 import torch
 
-from .build import build_library
 from .fused_nerf import (
     _DTYPE_CODES,
     HEAD_WIDTH,
@@ -39,6 +36,7 @@ from .fused_nerf import (
     _features,
     fused_nerf_apply,
 )
+from .launch import INT, LONG, PTR, KernelLibrary, on_cuda
 
 __all__ = ["FusedNeRFTrain", "fused_nerf_backward",
            "fused_nerf_backward_reference", "fused_nerf_train_apply",
@@ -148,18 +146,14 @@ def fused_nerf_backward_reference(weights: FusedNeRFWeights,
             torch.cat([b for _, b in grads]))
 
 
-@functools.lru_cache(maxsize=None)
+_LIB = KernelLibrary("fused_nerf_train.cu", "fused_nerf_train_error_string",
+                     fused_nerf_backward=(PTR,) * 10 + (LONG, INT))
+
+
 def load_kernel():
     """Builds (first call) and loads K2's library; returns the
-    :class:`~.build.BuiltLibrary` with the entry points typed."""
-    built = build_library("fused_nerf_train.cu")
-    fn = built.lib.fused_nerf_backward
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    built.lib.fused_nerf_train_error_string.argtypes = [ctypes.c_int]
-    built.lib.fused_nerf_train_error_string.restype = ctypes.c_char_p
-    return built
+    :class:`~.build.BuiltLibrary`."""
+    return _LIB.load()
 
 
 def fused_nerf_backward(weights: FusedNeRFWeights, positions: torch.Tensor,
@@ -171,11 +165,8 @@ def fused_nerf_backward(weights: FusedNeRFWeights, positions: torch.Tensor,
     launch the kernel on the current stream (building it on first use)
     or raise; each launch adds one to ``fused_nerf_backward.launches``.
     """
-    if positions.device.type == "cpu":
+    if not on_cuda(positions, "fused NeRF backward"):
         return fused_nerf_backward_reference(weights, positions, views, g)
-    if positions.device.type != "cuda":
-        raise ValueError(f"no fused NeRF backward kernel for "
-                         f"{positions.device}")
     _check_cuda_inputs(weights, positions, views)
     num = positions.shape[0]
     if g.dtype != torch.float32 or g.shape != (num, 4) \
@@ -190,21 +181,12 @@ def fused_nerf_backward(weights: FusedNeRFWeights, positions: torch.Tensor,
                            device=device)
     if num == 0:
         return d_weights, d_biases
-    lib = load_kernel().lib
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.fused_nerf_backward(
-            positions.data_ptr(), views.data_ptr(),
-            weights.pos_enc.data_ptr(), weights.view_enc.data_ptr(),
-            weights.weights.data_ptr(), weights.biases.data_ptr(),
-            weights.meta.ctypes.data, g.data_ptr(), d_weights.data_ptr(),
-            d_biases.data_ptr(), num, _DTYPE_CODES[weights.weights.dtype],
-            stream)
-    if code != 0:
-        message = lib.fused_nerf_train_error_string(code).decode()
-        raise RuntimeError(f"fused NeRF backward kernel launch failed: "
-                           f"{message} (cudaError {code})")
-    fused_nerf_backward.launches += 1
+    _LIB.launch(fused_nerf_backward, "fused_nerf_backward", device,
+                positions.data_ptr(), views.data_ptr(),
+                weights.pos_enc.data_ptr(), weights.view_enc.data_ptr(),
+                weights.weights.data_ptr(), weights.biases.data_ptr(),
+                weights.meta.ctypes.data, g.data_ptr(), d_weights.data_ptr(),
+                d_biases.data_ptr(), num, _DTYPE_CODES[weights.weights.dtype])
     return d_weights, d_biases
 
 

@@ -3,10 +3,11 @@
 The CUDA kernel (``csrc/fused_ray_render.cu``) replaces the TPU Pallas
 kernel ``fourier_feature_nets_tpu/ops/fused_ray_render.py::_kernel``:
 from ray geometry to composited color in one pass, with the view
-features computed once per ray. Its exclusive-cumprod scan also has an
-entry point of its own, the port of the lane-scan test kernel of
-``tests/test_fused_ray_render.py`` (around ``_exclusive_cumprod_lanes``).
-The source comment says what bounds it on an H100.
+features computed once per ray. The same library holds T1, the port of
+the lane-scan test kernel of ``tests/test_fused_ray_render.py`` (around
+``_exclusive_cumprod_lanes``): an exclusive cumprod with a ``float4`` a
+lane, apart from K3's own scan. The source comment says what bounds
+each on an H100.
 
 * :func:`fused_ray_render_reference` is the plain PyTorch twin, with
   the kernel's rounding: K1's twin body per sample, the view product
@@ -23,15 +24,12 @@ The JAX API rejects its double-angle pack; the port's pack has no
 double-angle layout, so there is nothing to reject.
 """
 
-import ctypes
-import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.blend import calculate_blend_weights, exclusive_cumprod
-from .build import build_library
 from .fused_nerf import (
     _DTYPE_CODES,
     FusedNeRFWeights,
@@ -40,6 +38,7 @@ from .fused_nerf import (
     _features,
     _trunk,
 )
+from .launch import INT, LONG, PTR, KernelLibrary, on_cuda
 
 __all__ = ["exclusive_cumprod_scan", "fused_ray_render",
            "fused_ray_render_reference", "load_kernel", "rays_per_block"]
@@ -99,30 +98,15 @@ def fused_ray_render_reference(weights: FusedNeRFWeights,
     return torch.cat([rgb, alpha], -1)
 
 
-@functools.lru_cache(maxsize=None)
+_LIB = KernelLibrary("fused_ray_render.cu", "fused_ray_render_error_string",
+                     fused_ray_render=(PTR,) * 9 + (LONG, INT, INT, INT),
+                     exclusive_cumprod_scan=(PTR, PTR, LONG, INT))
+
+
 def load_kernel():
     """Builds (first call) and loads the K3/T1 library; returns the
-    :class:`~.build.BuiltLibrary` with the entry points typed."""
-    built = build_library("fused_ray_render.cu")
-    fn = built.lib.fused_ray_render
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    scan = built.lib.exclusive_cumprod_scan
-    scan.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                     ctypes.c_int, ctypes.c_void_p]
-    scan.restype = ctypes.c_int
-    built.lib.fused_ray_render_error_string.argtypes = [ctypes.c_int]
-    built.lib.fused_ray_render_error_string.restype = ctypes.c_char_p
-    return built
-
-
-def _raise_on(code: int, lib, what: str):
-    if code != 0:
-        message = lib.fused_ray_render_error_string(code).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {message} "
-                           f"(cudaError {code})")
+    :class:`~.build.BuiltLibrary`."""
+    return _LIB.load()
 
 
 def _check_cuda_inputs(weights: FusedNeRFWeights, positions, views,
@@ -161,30 +145,23 @@ def fused_ray_render(weights: FusedNeRFWeights, positions: torch.Tensor,
     launch the kernel on the current stream (building it on first use)
     or raise; each launch adds one to ``fused_ray_render.launches``.
     """
-    if positions.device.type == "cpu":
+    if not on_cuda(positions, "fused ray render"):
         return fused_ray_render_reference(weights, positions,
                                           view_directions, t_values)
-    if positions.device.type != "cuda":
-        raise ValueError(f"no fused ray render kernel for {positions.device}")
     views = _per_ray_views(view_directions).contiguous()
     _check_cuda_inputs(weights, positions, views, t_values)
     num_rays, num_samples = t_values.shape
-    out = torch.empty((num_rays, 4), dtype=torch.float32,
-                      device=positions.device)
+    device = positions.device
+    out = torch.empty((num_rays, 4), dtype=torch.float32, device=device)
     if num_rays == 0:
         return out
-    lib = load_kernel().lib
-    with torch.cuda.device(positions.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.fused_ray_render(
-            positions.data_ptr(), views.data_ptr(), t_values.data_ptr(),
-            weights.pos_enc.data_ptr(), weights.view_enc.data_ptr(),
-            weights.weights.data_ptr(), weights.biases.data_ptr(),
-            weights.meta.ctypes.data, out.data_ptr(), num_rays, num_samples,
-            rays_per_block(num_samples), _DTYPE_CODES[weights.weights.dtype],
-            stream)
-    _raise_on(code, lib, "fused ray render")
-    fused_ray_render.launches += 1
+    _LIB.launch(fused_ray_render, "fused_ray_render", device,
+                positions.data_ptr(), views.data_ptr(), t_values.data_ptr(),
+                weights.pos_enc.data_ptr(), weights.view_enc.data_ptr(),
+                weights.weights.data_ptr(), weights.biases.data_ptr(),
+                weights.meta.ctypes.data, out.data_ptr(), num_rays,
+                num_samples, rays_per_block(num_samples),
+                _DTYPE_CODES[weights.weights.dtype])
     return out
 
 
@@ -193,29 +170,23 @@ fused_ray_render.launches = 0
 
 def exclusive_cumprod_scan(x: torch.Tensor) -> torch.Tensor:
     """Exclusive cumulative product along the lanes of a (rows, lanes)
-    f32 tensor (first lane 1): K3's warp scan on its own.
+    f32 tensor (first lane 1): T1, a warp a row, four values a lane.
 
     CPU tensors run :func:`..ops.blend.exclusive_cumprod`. CUDA tensors
     launch the scan kernel or raise; each launch adds one to
     ``exclusive_cumprod_scan.launches``."""
-    if x.device.type == "cpu":
+    if not on_cuda(x, "exclusive cumprod"):
         return exclusive_cumprod(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"no exclusive cumprod kernel for {x.device}")
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] < 1 \
             or not x.is_contiguous():
         raise ValueError(f"the scan takes a contiguous (rows, lanes) float32 "
                          f"tensor, got {x.dtype} {tuple(x.shape)}")
+    rows, lanes = x.shape
     out = torch.empty_like(x)
-    if x.shape[0] == 0:
+    if rows == 0:
         return out
-    lib = load_kernel().lib
-    with torch.cuda.device(x.device):
-        code = lib.exclusive_cumprod_scan(
-            x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(code, lib, "exclusive cumprod")
-    exclusive_cumprod_scan.launches += 1
+    _LIB.launch(exclusive_cumprod_scan, "exclusive_cumprod_scan", x.device,
+                x.data_ptr(), out.data_ptr(), rows, lanes)
     return out
 
 

@@ -21,12 +21,9 @@ launch adds one to ``<wrapper>.launches``. The source comment says what
 bounds the kernels on an H100.
 """
 
-import ctypes
-import functools
-
 import torch
 
-from .build import build_library
+from .launch import INT, PTR, KernelLibrary, on_cuda
 
 __all__ = ["int8_matmul", "int8_matmul_reference", "layer_stack",
            "layer_stack_reference", "load_kernel", "quantized_matmul",
@@ -74,69 +71,46 @@ def layer_stack_reference(h0: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
     return h.float()
 
 
-@functools.lru_cache(maxsize=None)
+_LIB = KernelLibrary(
+    "int8_probe.cu", "int8_probe_error_string",
+    int8_matmul=(PTR, PTR, PTR, INT, INT, INT),
+    quantized_matmul=(PTR, PTR, PTR, INT, INT, INT),
+    layer_stack=(PTR, PTR, PTR, INT, INT, INT, INT))
+
+
 def load_kernel():
     """Builds (first call) and loads the probe library; returns the
-    :class:`~.build.BuiltLibrary` with the entry points typed."""
-    built = build_library("int8_probe.cu")
-    lib = built.lib
-    for name in ("int8_matmul", "quantized_matmul"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.layer_stack.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    lib.layer_stack.restype = ctypes.c_int
-    lib.int8_probe_error_string.argtypes = [ctypes.c_int]
-    lib.int8_probe_error_string.restype = ctypes.c_char_p
-    return built
+    :class:`~.build.BuiltLibrary`."""
+    return _LIB.load()
 
 
-def _check(name, tensor, dtype, dims, device):
-    if tensor.dtype != dtype or tensor.dim() != dims \
-            or not tensor.is_contiguous() or 0 in tensor.shape:
-        raise ValueError(f"{name} must be a contiguous non-empty {dims}-D "
-                         f"{dtype} tensor, got {tensor.dtype} "
-                         f"{tuple(tensor.shape)}")
-    if tensor.device != device:
-        raise ValueError(f"{name} is on {tensor.device}, expected {device}")
-
-
-def _launch(wrapper, entry, out, *args):
-    lib = load_kernel().lib
-    with torch.cuda.device(out.device):
-        code = getattr(lib, entry)(*args,
-                                   torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        message = lib.int8_probe_error_string(code).decode()
-        raise RuntimeError(f"{entry} kernel launch failed: {message} "
-                           f"(cudaError {code})")
-    wrapper.launches += 1
-    return out
-
-
-def _on_cuda(tensor: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if tensor.device.type == "cpu":
-        return False
-    if tensor.device.type != "cuda":
-        raise ValueError(f"no {what} kernel for {tensor.device}")
-    return True
+def _check(device, *operands):
+    """Raises unless each (name, tensor, dtype, dims) is a contiguous
+    non-empty ``dims``-D ``dtype`` tensor on ``device``."""
+    for name, tensor, dtype, dims in operands:
+        if tensor.dtype != dtype or tensor.dim() != dims \
+                or not tensor.is_contiguous() or 0 in tensor.shape:
+            raise ValueError(f"{name} must be a contiguous non-empty {dims}-D "
+                             f"{dtype} tensor, got {tensor.dtype} "
+                             f"{tuple(tensor.shape)}")
+        if tensor.device != device:
+            raise ValueError(f"{name} is on {tensor.device}, expected "
+                             f"{device}")
 
 
 def int8_matmul(w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """P1a: int8 w (M, K) @ int8 h (K, N) -> int32 (M, N), exact."""
-    if not _on_cuda(w, "int8 matmul"):
+    if not on_cuda(w, "int8 matmul"):
         return int8_matmul_reference(w, h)
-    _check("w", w, torch.int8, 2, w.device)
-    _check("h", h, torch.int8, 2, w.device)
-    if h.shape[0] != w.shape[1]:
+    device = w.device
+    _check(device, ("w", w, torch.int8, 2), ("h", h, torch.int8, 2))
+    (m, k), (k_h, n) = w.shape, h.shape
+    if k_h != k:
         raise ValueError(f"w {tuple(w.shape)} @ h {tuple(h.shape)}")
-    (m, k), n = w.shape, h.shape[1]
-    out = torch.empty((m, n), dtype=torch.int32, device=w.device)
-    return _launch(int8_matmul, "int8_matmul", out, w.data_ptr(),
-                   h.data_ptr(), out.data_ptr(), m, k, n)
+    out = torch.empty((m, n), dtype=torch.int32, device=device)
+    _LIB.launch(int8_matmul, "int8_matmul", device, w.data_ptr(),
+                h.data_ptr(), out.data_ptr(), m, k, n)
+    return out
 
 
 int8_matmul.launches = 0
@@ -145,16 +119,17 @@ int8_matmul.launches = 0
 def quantized_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """P1b: f32 x (K, N) and int8 w (M, K) -> f32 (M, N), in one block
     of the card."""
-    if not _on_cuda(x, "quantized matmul"):
+    if not on_cuda(x, "quantized matmul"):
         return quantized_matmul_reference(x, w)
-    _check("x", x, torch.float32, 2, x.device)
-    _check("w", w, torch.int8, 2, x.device)
-    if x.shape[0] != w.shape[1]:
+    device = x.device
+    _check(device, ("x", x, torch.float32, 2), ("w", w, torch.int8, 2))
+    (m, k), (k_x, n) = w.shape, x.shape
+    if k_x != k:
         raise ValueError(f"w {tuple(w.shape)} @ x {tuple(x.shape)}")
-    (m, k), n = w.shape, x.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    return _launch(quantized_matmul, "quantized_matmul", out, x.data_ptr(),
-                   w.data_ptr(), out.data_ptr(), m, k, n)
+    out = torch.empty((m, n), dtype=torch.float32, device=device)
+    _LIB.launch(quantized_matmul, "quantized_matmul", device, x.data_ptr(),
+                w.data_ptr(), out.data_ptr(), m, k, n)
+    return out
 
 
 quantized_matmul.launches = 0
@@ -164,12 +139,12 @@ def layer_stack(h0: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
     """P1c: h0 (C, N) and the layers' weights ws (L, C, C), both bf16 or
     both int8 -> f32 (C, N). The kernel takes C a multiple of 16 up to
     256 and ws 16-byte aligned."""
-    if not _on_cuda(h0, "layer stack"):
+    if not on_cuda(h0, "layer stack"):
         return layer_stack_reference(h0, ws)
     if h0.dtype not in _STACK_DTYPES:
         raise ValueError(f"the layer stack takes bf16 or int8, got {h0.dtype}")
-    _check("h0", h0, h0.dtype, 2, h0.device)
-    _check("ws", ws, h0.dtype, 3, h0.device)
+    device = h0.device
+    _check(device, ("h0", h0, h0.dtype, 2), ("ws", ws, h0.dtype, 3))
     channels, n = h0.shape
     if ws.shape[1:] != (channels, channels) or channels % 16 \
             or channels > MAX_CHANNELS:
@@ -179,10 +154,11 @@ def layer_stack(h0: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
     if ws.data_ptr() % 16:
         raise ValueError("ws must be 16-byte aligned: the kernel loads the "
                          "weights as 16-byte vectors")
-    out = torch.empty((channels, n), dtype=torch.float32, device=h0.device)
-    return _launch(layer_stack, "layer_stack", out, h0.data_ptr(),
-                   ws.data_ptr(), out.data_ptr(), channels, n, ws.shape[0],
-                   _STACK_DTYPES[h0.dtype])
+    out = torch.empty((channels, n), dtype=torch.float32, device=device)
+    _LIB.launch(layer_stack, "layer_stack", device, h0.data_ptr(),
+                ws.data_ptr(), out.data_ptr(), channels, n, ws.shape[0],
+                _STACK_DTYPES[h0.dtype])
+    return out
 
 
 layer_stack.launches = 0

@@ -17,12 +17,9 @@ each launch adds one to ``<wrapper>.launches``. Every CUDA tensor must
 be contiguous f32 and 16-byte aligned (the kernels move float4).
 """
 
-import ctypes
-import functools
-
 import torch
 
-from .build import build_library
+from .launch import INT, LONG, PTR, KernelLibrary, on_cuda
 
 __all__ = ["io_narrow", "io_narrow_reference", "io_wide", "io_wide_reference",
            "load_kernel", "packed8", "packed8_reference"]
@@ -46,32 +43,16 @@ def packed8_reference(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[:, :3], x[:, 3:4], x[:, :4] * 0.0], -1)
 
 
-@functools.lru_cache(maxsize=None)
+_LIB = KernelLibrary("io_floor.cu", "io_floor_error_string",
+                     io_narrow=(PTR, PTR, PTR, LONG, INT),
+                     io_wide=(PTR, PTR, LONG, INT),
+                     packed8=(PTR, PTR, LONG, INT))
+
+
 def load_kernel():
     """Builds (first call) and loads the IO-floor library; returns the
-    :class:`~.build.BuiltLibrary` with the entry points typed."""
-    built = build_library("io_floor.cu")
-    lib = built.lib
-    lib.io_narrow.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
-                                                      ctypes.c_int,
-                                                      ctypes.c_void_p]
-    for fn in (lib.io_wide, lib.packed8):
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong,
-                                               ctypes.c_int, ctypes.c_void_p]
-    for fn in (lib.io_narrow, lib.io_wide, lib.packed8):
-        fn.restype = ctypes.c_int
-    lib.io_floor_error_string.argtypes = [ctypes.c_int]
-    lib.io_floor_error_string.restype = ctypes.c_char_p
-    return built
-
-
-def _on_cuda(tensor: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if tensor.device.type == "cpu":
-        return False
-    if tensor.device.type != "cuda":
-        raise ValueError(f"no {what} kernel for {tensor.device}")
-    return True
+    :class:`~.build.BuiltLibrary`."""
+    return _LIB.load()
 
 
 def _check(tensors, width_of, tile):
@@ -96,23 +77,10 @@ def _check(tensors, width_of, tile):
     return num
 
 
-def _launch(wrapper, entry, out, *args):
-    lib = load_kernel().lib
-    with torch.cuda.device(out.device):
-        code = getattr(lib, entry)(*args,
-                                   torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        message = lib.io_floor_error_string(code).decode()
-        raise RuntimeError(f"{entry} kernel launch failed: {message} "
-                           f"(cudaError {code})")
-    wrapper.launches += 1
-    return out
-
-
 def io_narrow(positions: torch.Tensor, views: torch.Tensor,
               tile: int = DEFAULT_TILE) -> torch.Tensor:
     """P3a: (n, 3) + (n, 3) -> (n, 4) ``[p, v[:, :1]]``."""
-    if not _on_cuda(positions, "io-narrow"):
+    if not on_cuda(positions, "io-narrow"):
         return io_narrow_reference(positions, views)
     num = _check([("positions", positions), ("views", views)],
                  {"positions": 3, "views": 3}, tile)
@@ -120,8 +88,9 @@ def io_narrow(positions: torch.Tensor, views: torch.Tensor,
         raise ValueError(f"io-narrow takes a tile of a multiple of 4 rows, "
                          f"got {tile}")
     out = torch.empty((num, 4), dtype=torch.float32, device=positions.device)
-    return _launch(io_narrow, "io_narrow", out, positions.data_ptr(),
-                   views.data_ptr(), out.data_ptr(), num, tile)
+    _LIB.launch(io_narrow, "io_narrow", positions.device, positions.data_ptr(),
+                views.data_ptr(), out.data_ptr(), num, tile)
+    return out
 
 
 io_narrow.launches = 0
@@ -129,12 +98,13 @@ io_narrow.launches = 0
 
 def io_wide(x: torch.Tensor, tile: int = DEFAULT_TILE) -> torch.Tensor:
     """P3b: (n, 128) -> ``x * 2``."""
-    if not _on_cuda(x, "io-wide"):
+    if not on_cuda(x, "io-wide"):
         return io_wide_reference(x)
     num = _check([("x", x)], {"x": 128}, tile)
     out = torch.empty_like(x)
-    return _launch(io_wide, "io_wide", out, x.data_ptr(), out.data_ptr(), num,
-                   tile)
+    _LIB.launch(io_wide, "io_wide", x.device, x.data_ptr(), out.data_ptr(),
+                num, tile)
+    return out
 
 
 io_wide.launches = 0
@@ -142,12 +112,13 @@ io_wide.launches = 0
 
 def packed8(x: torch.Tensor, tile: int = DEFAULT_TILE) -> torch.Tensor:
     """P3c: (n, 8) -> ``[x[:, :3], x[:, 3:4], x[:, :4] * 0]``."""
-    if not _on_cuda(x, "packed8"):
+    if not on_cuda(x, "packed8"):
         return packed8_reference(x)
     num = _check([("x", x)], {"x": 8}, tile)
     out = torch.empty_like(x)
-    return _launch(packed8, "packed8", out, x.data_ptr(), out.data_ptr(), num,
-                   tile)
+    _LIB.launch(packed8, "packed8", x.device, x.data_ptr(), out.data_ptr(),
+                num, tile)
+    return out
 
 
 packed8.launches = 0

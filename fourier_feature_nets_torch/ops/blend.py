@@ -14,7 +14,7 @@ __all__ = ["calculate_blend_weights", "exclusive_cumprod"]
 def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
     """Exclusive cumulative product along the last axis (first = 1).
 
-    Also the plain twin of K3's scan kernel
+    Also the plain twin of T1's scan kernel
     (:func:`..kernels.fused_ray_render.exclusive_cumprod_scan`), the
     port of the JAX package's lane scan ``_exclusive_cumprod_lanes``."""
     inclusive = torch.cumprod(x, dim=-1)

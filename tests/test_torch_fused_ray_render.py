@@ -135,6 +135,28 @@ def test_exclusive_cumprod_matches_lane_scan():
     assert np.all(ours[:, 0] == 1.0)
 
 
+@pytest.mark.parametrize("lanes, low", [(130, 0.5), (4096, 0.99)])
+def test_exclusive_cumprod_matches_lane_scan_on_long_rows(lanes, low):
+    """T1's twin against the Pallas lane scan past one 128-lane pass (130)
+    and at K3's largest S (4096), with values that keep every product a
+    normal float: (0.5, 1) underflows from about 256 lanes on."""
+    from jax.experimental import pallas as pl
+
+    x = np.random.default_rng(lanes).uniform(low, 1.0, (8, lanes)).astype(
+        np.float32)
+
+    def kernel(x_ref, o_ref):
+        o_ref[:] = _exclusive_cumprod_lanes(x_ref[:])
+
+    ref = np.asarray(pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct((8, lanes), jnp.float32),
+        interpret=True)(jnp.asarray(x)))
+    ours = exclusive_cumprod(torch.from_numpy(x)).numpy()
+    assert np.all(ref > np.finfo(np.float32).tiny)
+    np.testing.assert_allclose(ours, ref, rtol=1e-5)
+    assert np.all(ours[:, 0] == 1.0)
+
+
 def test_twin_needs_the_per_ray_view_rounding(nerf):
     """In bf16 K3 rounds each ray's view product to bf16 before adding
     it to every sample; K1 followed by compositing does not. With the

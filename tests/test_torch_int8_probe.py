@@ -172,7 +172,7 @@ def test_input_checks(bad):
     else:
         tensor = tensor[:0]
     with pytest.raises(ValueError, match="contiguous non-empty"):
-        probe._check("w", tensor, torch.int8, 2, tensor.device)
+        probe._check(tensor.device, ("w", tensor, torch.int8, 2))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The Hopper kernels (K1, K2, K3, T1's scan, the int8 probe's P1a-c,
 the ablation P2 and the copy kernels P3a-c) against their plain twins,
-on a CUDA card.
+on a CUDA card, and their launch path (counts, CUDA graph capture).
 
 Every test here needs a card and skips without one (the kernel has no
 CPU mode). The file imports no jax, so it also runs on a machine that
@@ -353,16 +353,77 @@ def test_ray_render_matches_plain_render(cuda):
     torch.testing.assert_close(out[:, 3], ref.alpha, rtol=0, atol=5e-3)
 
 
+def _placed(values, offset):
+    """``values`` alone, or copied one row or one element into a larger
+    buffer (a base that is not 16-byte aligned)."""
+    if offset == "none":
+        return values
+    skip = values.shape[1] if offset == "one row" else 1
+    buffer = torch.empty(values.numel() + skip, dtype=values.dtype,
+                         device=values.device)
+    view = buffer[skip:].view(values.shape)
+    view.copy_(values)
+    return view
+
+
+def _assert_scan_matches(x, rtol):
+    before = exclusive_cumprod_scan.launches
+    out = exclusive_cumprod_scan(x)
+    torch.cuda.synchronize()
+    assert exclusive_cumprod_scan.launches == before + 1
+    torch.testing.assert_close(out, exclusive_cumprod(x), rtol=rtol, atol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes", [128, 20, 45, 77])
 def test_scan_matches_exclusive_cumprod(cuda, lanes):
     x = torch.from_numpy(np.random.default_rng(lanes).uniform(
         0.5, 1.0, (1003, lanes)).astype(np.float32)).to(cuda)
+    _assert_scan_matches(x, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, lanes", [(16, 128), (16384, 128)])
+def test_scan_matches_at_the_test_and_render_shapes(cuda, rows, lanes):
+    x = torch.from_numpy(np.random.default_rng(rows).uniform(
+        0.5, 1.0, (rows, lanes)).astype(np.float32)).to(cuda)
+    _assert_scan_matches(x, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", ["one row", "one element"])
+@pytest.mark.parametrize("lanes", [128, 77])
+def test_scan_offset_bases_match(cuda, offset, lanes):
+    """A view one element in has a base that is not 16-byte aligned: the
+    kernel's scalar path, at 128 lanes too."""
+    x = torch.from_numpy(np.random.default_rng(lanes).uniform(
+        0.5, 1.0, (1003, lanes)).astype(np.float32)).to(cuda)
+    _assert_scan_matches(_placed(x, offset), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes, low, offset", [(130, 0.5, "none"),
+                                                (4096, 0.99, "none"),
+                                                (4096, 0.99, "one element")])
+def test_scan_long_rows_match_within_row_tolerance(cuda, lanes, low, offset):
+    """Rows past 128 lanes carry a product from one 128-lane pass to the
+    next; each side rounds lanes - 1 products in its own order, so the
+    tolerance is 2 * lanes * 2**-24 (chip_smoke.py, scan_rtol). The
+    values keep every product a normal float."""
+    x = torch.from_numpy(np.random.default_rng(lanes).uniform(
+        low, 1.0, (1003, lanes)).astype(np.float32)).to(cuda)
+    _assert_scan_matches(_placed(x, offset), 2 * lanes * 2.0 ** -24)
+
+
+@pytest.mark.cuda
+def test_validate_scan_check_launches_the_kernel(cuda):
+    from fourier_feature_nets_torch.cli import validate_kernels
+    report = validate_kernels.Report()
     before = exclusive_cumprod_scan.launches
-    out = exclusive_cumprod_scan(x)
-    torch.cuda.synchronize()
-    assert exclusive_cumprod_scan.launches == before + 1
-    torch.testing.assert_close(out, exclusive_cumprod(x), rtol=1e-5, atol=0)
+    validate_kernels.check_scan(report, np.random.default_rng(0), cuda)
+    assert report.ok, report.lines
+    assert exclusive_cumprod_scan.launches == before + len(
+        validate_kernels.SCAN_LANES)
 
 
 # ---------------------------------------------------------------------------
@@ -375,18 +436,78 @@ def _ints(shape, low, high, dtype, device, seed):
     return torch.from_numpy(rng.integers(low, high, shape)).to(device, dtype)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m, k, n", [(128, 128, 256), (100, 72, 250),
-                                     (1, 1, 1), (65, 129, 63)])
-def test_int8_matmul_matches_twin_exactly(cuda, m, k, n):
-    w = _ints((m, k), -127, 128, torch.int8, cuda, 1)
-    h = _ints((k, n), -127, 128, torch.int8, cuda, 2)
+def _assert_int8_matmul_exact(w, h):
     before = probe.int8_matmul.launches
     out = probe.int8_matmul(w, h)
     torch.cuda.synchronize()
     assert probe.int8_matmul.launches == before + 1
     assert out.dtype == torch.int32
     assert torch.equal(out, probe.int8_matmul_reference(w, h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, k, n", [(128, 128, 256), (100, 72, 250),
+                                     (1, 1, 1), (65, 129, 63),
+                                     (33, 160, 40), (129, 256, 264)])
+def test_int8_matmul_matches_twin_exactly(cuda, m, k, n):
+    """Besides the tool's shapes: K past one 128-byte stage, and ragged
+    tiles that still take the 16-byte W and 8-byte h paths."""
+    w = _ints((m, k), -127, 128, torch.int8, cuda, 1)
+    h = _ints((k, n), -127, 128, torch.int8, cuda, 2)
+    _assert_int8_matmul_exact(w, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", ["one row", "one element"])
+@pytest.mark.parametrize("m, k, n", [(128, 128, 256), (100, 72, 250)])
+def test_int8_matmul_offset_bases_match_twin_exactly(cuda, m, k, n, offset):
+    """W and h one row into larger buffers (aligned at the tool's shape)
+    and one element (a byte) in: the byte-wise staging path."""
+    w = _placed(_ints((m, k), -127, 128, torch.int8, cuda, 1), offset)
+    h = _placed(_ints((k, n), -127, 128, torch.int8, cuda, 2), offset)
+    _assert_int8_matmul_exact(w, h)
+
+
+@pytest.mark.cuda
+def test_int8_matmul_extreme_values_match_twin_exactly(cuda):
+    """All -128 and all 127: the largest sums, and the sign bit of every
+    byte through the transpose."""
+    for value in (-128, 127):
+        w = torch.full((64, 128), value, dtype=torch.int8, device=cuda)
+        h = torch.full((128, 96), -128, dtype=torch.int8, device=cuda)
+        _assert_int8_matmul_exact(w, h)
+
+
+@pytest.mark.cuda
+def test_int8_probe_cli_launches_the_product(cuda, capsys):
+    from fourier_feature_nets_torch.cli import int8_probe as cli
+    before = probe.int8_matmul.launches
+    assert cli.main(["--columns", "64", "--steps", "2"]) == 0
+    assert probe.int8_matmul.launches == before + 1
+    assert "stage2 OK" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+def test_wrappers_launch_inside_cuda_graph_capture(cuda):
+    """The launch path takes the current stream, which during capture is
+    the capture stream: a replay recomputes the product."""
+    w = _ints((128, 128), -127, 128, torch.int8, cuda, 1)
+    h = _ints((128, 256), -127, 128, torch.int8, cuda, 2)
+    x = torch.rand(64, 128, device=cuda) * 0.5 + 0.5
+    probe.int8_matmul(w, h)
+    exclusive_cumprod_scan(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = probe.int8_matmul(w, h)
+        scanned = exclusive_cumprod_scan(x)
+    w.copy_(_ints((128, 128), -127, 128, torch.int8, cuda, 3))
+    x.mul_(0.99)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, probe.int8_matmul_reference(w, h))
+    torch.testing.assert_close(scanned, exclusive_cumprod(x), rtol=1e-5,
+                               atol=0)
 
 
 @pytest.mark.cuda
