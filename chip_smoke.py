@@ -14,9 +14,11 @@ and drives the port's paths at the flagship width:
   plain render;
 * training: K2 against its plain twin in bf16 and f32 at the CLI batch
   (1024 rays x 128 samples) and a ragged N; 30 steps of ``train_nerf``
-  on the generated ``synthetic`` scene in bf16 and f32, fused (through
-  K1 and K2, which must both launch) and ``--no-fused``; the trained
-  checkpoint then renders an 800x800 frame through ``orbit_video``;
+  on the generated ``synthetic`` scene in bf16 and f32, ``--fused``
+  (through K1 and K2, which must both launch) and ``--no-fused``, then
+  at the CLI's defaults (f32, no fused flag), which must print the
+  plain path and launch neither; the trained checkpoint then renders an
+  800x800 frame through ``orbit_video``;
 * kernel validation: K3 against its plain twin in bf16 and f32 at
   S = 42, 48 and 128, a ragged R and a case where only the last ray
   block carries signal, and against the plain render; T1's scan against
@@ -27,15 +29,18 @@ and drives the port's paths at the flagship width:
   which must launch K1, K2, K3 and the scan and end in ``ALL OK``;
 * the probes: P1a (also with W and h one row and one element into
   larger buffers), P1b, P1c in int8 and P3a-c bit for bit against their
-  twins, P1c in bf16 within a stated share, P2 in each mode within K1's
-  bf16 tolerance, at their CLIs' shapes and ragged ones, each timed beside
-  its bound (and, where one PyTorch call computes the same function,
-  that call's time); then ``cli/int8_probe``,
+  twins, P1c in bf16 within a stated share, P2 in each of its seven
+  modes (the ablation CLI's five, bf16-accum and no-sincos) within K1's
+  bf16 tolerance (bf16-accum within ACCUM_ATOL and ACCUM_MEAN_ATOL, and
+  farther than that from base's twin), at their CLIs' shapes and ragged
+  ones, each timed beside its bound (and, where one PyTorch call
+  computes the same function, that call's time); then ``cli/int8_probe``,
   ``cli/kernel_ablation_bench`` and ``cli/kernel_io_floor_bench``, each
   of which must exit 0 and launch its kernels;
-* the short kernels (P1a, P1b, T1, P3a, P3c) and their library calls,
-  each timed three ways (:func:`call_times`): wrapper ms, device ms
-  from a CUDA graph replay, and host us a call.
+* the short kernels (P1a, P1b, T1, P3a at both tiles, P3c), P1c (int8
+  and bf16), P3b and their library calls, each timed three ways
+  (:func:`call_times`): wrapper ms, device ms from a CUDA graph replay,
+  and host us a call.
 
 Each phase prints its own lines; any failure raises and the script
 exits non-zero without printing a result. The last two lines are the
@@ -45,10 +50,10 @@ kernels also with ``device_ms``, ``library_device_ms`` and ``host_us``)
 and ``{"ok": true, "device": ...}``.
 
 ``--times-only [--tree DIR]`` prints only those three times for the
-short kernels, the host cost of each launch-path step and K1-K3 at
-their PERF.md sizes, as one JSON line, for the port found in ``DIR``
-(an unpacked parent commit, say), so that two trees can be timed in
-turns on one card.
+kernels of the last item, the host cost of each launch-path step, K1-K3
+at their PERF.md sizes and P2 in each of its modes, as one JSON line,
+for the port found in ``DIR`` (an unpacked parent commit, say), so that
+two trees can be timed in turns on one card.
 
 Needs one CUDA device; on a machine without one it exits with code 2.
 Outputs go to ``smoke_out/`` inside the checkout.
@@ -128,6 +133,16 @@ P1C_SHAPES = ((192, 2048, 8), (192, 1000, 8))          # (C, N, layers)
 # layers carry it.
 P1C_BF16_SHARE = 2e-2
 ABLATION_POINTS = 16384 * 32   # the ablation CLI: rays x samples
+# P2 bf16-accum against its twin. It differs from base by rounding only: at
+# the flagship the two twins are max 5.5e-4 / 5.1e-4 and mean 5.2e-5 /
+# 5.1e-5 apart, so a kernel that computed base would pass BF16_ATOL and any
+# max-error limit the real kernel passes (max 4.1e-4 / 2.9e-4). Its mean
+# error tells them apart: 4.1e-7 / 3.8e-7 against its twin, 5.2e-5 / 5.1e-5
+# against base's (H100 80GB HBM3, 700 W; N = 524,288 at the ablation CLI's
+# points / 100,003 ragged). The kernel must be within both limits of its
+# twin and farther than ACCUM_MEAN_ATOL from base's.
+ACCUM_ATOL = 4e-3              # max |d|
+ACCUM_MEAN_ATOL = 5e-6         # mean |d|
 IO_POINTS = 16384 * 48         # the IO-floor CLI: rays x samples
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet, dense), for
 # the least time the card could take: the larger of operations over the
@@ -616,7 +631,8 @@ def _read_log(path):
 
 def phase_train():
     """The training path: train_nerf on the generated synthetic scene,
-    fused (K1 + K2) and --no-fused, in bf16 and the f32 default."""
+    --fused (K1 + K2) and --no-fused, in bf16 and f32; then at the CLI's
+    defaults (f32, no fused flag), which must train plain."""
     from fourier_feature_nets_torch.cli import train_nerf
     from fourier_feature_nets_torch.kernels.fused_nerf import (
         fused_nerf_apply)
@@ -625,55 +641,61 @@ def phase_train():
     os.environ["FFN_TORCH_DATA_DIR"] = os.path.join(OUT_DIR, "data")
     step_ms, launches, checkpoint = {}, {"fused_nerf": 0,
                                          "fused_nerf_train": 0}, None
-    for dtype in ("bfloat16", "float32"):
-        for fused in (True, False):
-            label = f"{dtype}, {'fused' if fused else 'plain'}"
-            results = os.path.join(OUT_DIR, "train",
-                                   f"{dtype}_{'fused' if fused else 'plain'}")
-            argv = ["synthetic", results, "--num-steps", str(TRAIN_STEPS),
-                    "--report-interval", "10", "--compute-dtype", dtype]
-            if not fused:
-                argv.append("--no-fused")
-            fused_nerf_apply.launches = 0
-            fused_nerf_backward.launches = 0
-            captured = io.StringIO()
-            start = time.perf_counter()
-            with contextlib.redirect_stdout(captured):
-                rc = train_nerf.main(argv)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - start
-            k1, k2 = fused_nerf_apply.launches, fused_nerf_backward.launches
-            output = captured.getvalue()
-            log("\n".join(f"    {line}" for line in output.splitlines()))
-            if rc != 0:
-                raise AssertionError(f"train_nerf ({label}) returned {rc}")
-            summary = re.search(r"([0-9.]+) ms/step over steps 2", output)
-            step_ms[label] = float(summary.group(1))
-            rows = _read_log(os.path.join(results, "log.txt"))
-            psnrs = [p for row in rows for p in row[1:]]
-            for name in ("nerf.npz", "log.txt",
-                         os.path.join("train", "s0000000_c000.png")):
-                if not os.path.exists(os.path.join(results, name)):
-                    raise AssertionError(f"{label}: no {name} written")
-            shape, _ = png_shape(os.path.join(results, "train",
-                                              "s0000000_c000.png"))
-            log(f"train_nerf {label}: {TRAIN_STEPS + 1} steps in {wall:.3f} s "
-                f"(CLI call), {step_ms[label]:.3f} ms/step over steps 2.."
-                f"{TRAIN_STEPS + 1}; val PSNR {rows[0][2]:.3f} -> "
-                f"{rows[-1][2]:.3f} dB at steps {[r[0] for r in rows]}; "
-                f"K1 launches {k1}, K2 launches {k2}; eval PNG {shape}")
-            if not all(np.isfinite(psnrs)) or len(rows) < 2:
-                raise AssertionError(f"{label}: PSNRs {rows}")
-            if not rows[-1][2] > rows[0][2]:
-                raise AssertionError(f"{label}: val PSNR did not rise")
-            if fused:
-                if k1 <= 0 or k2 <= 0:
-                    raise AssertionError(f"{label}: the training path did "
-                                         f"not launch K1 ({k1}) and K2 "
-                                         f"({k2})")
-                launches["fused_nerf"] += k1
-                launches["fused_nerf_train"] += k2
-                checkpoint = os.path.join(results, "nerf.npz")
+    runs = [(f"{dtype}, {'fused' if fused else 'plain'}",
+             ["--compute-dtype", dtype, "--fused" if fused else "--no-fused"],
+             fused)
+            for dtype in ("bfloat16", "float32") for fused in (True, False)]
+    runs.append(("float32, defaults", [], False))
+    for label, flags, fused in runs:
+        results = os.path.join(OUT_DIR, "train", label.replace(", ", "_"))
+        argv = ["synthetic", results, "--num-steps", str(TRAIN_STEPS),
+                "--report-interval", "10", *flags]
+        fused_nerf_apply.launches = 0
+        fused_nerf_backward.launches = 0
+        captured = io.StringIO()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(captured):
+            rc = train_nerf.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        k1, k2 = fused_nerf_apply.launches, fused_nerf_backward.launches
+        output = captured.getvalue()
+        log("\n".join(f"    {line}" for line in output.splitlines()))
+        if rc != 0:
+            raise AssertionError(f"train_nerf ({label}) returned {rc}")
+        # cli/train_nerf.py's summary names the path it trained
+        summary = re.search(r"(fused|plain): first step .* ([0-9.]+) ms/step "
+                            r"over steps 2", output)
+        step_ms[label] = float(summary.group(2))
+        rows = _read_log(os.path.join(results, "log.txt"))
+        psnrs = [p for row in rows for p in row[1:]]
+        for name in ("nerf.npz", "log.txt",
+                     os.path.join("train", "s0000000_c000.png")):
+            if not os.path.exists(os.path.join(results, name)):
+                raise AssertionError(f"{label}: no {name} written")
+        shape, _ = png_shape(os.path.join(results, "train",
+                                          "s0000000_c000.png"))
+        log(f"train_nerf {label}: {summary.group(1)}, {TRAIN_STEPS + 1} steps "
+            f"in {wall:.3f} s (CLI call), {step_ms[label]:.3f} ms/step over "
+            f"steps 2..{TRAIN_STEPS + 1}; val PSNR {rows[0][2]:.3f} -> "
+            f"{rows[-1][2]:.3f} dB at steps {[r[0] for r in rows]}; "
+            f"K1 launches {k1}, K2 launches {k2}; eval PNG {shape}")
+        if not all(np.isfinite(psnrs)) or len(rows) < 2:
+            raise AssertionError(f"{label}: PSNRs {rows}")
+        if not rows[-1][2] > rows[0][2]:
+            raise AssertionError(f"{label}: val PSNR did not rise")
+        if summary.group(1) != ("fused" if fused else "plain"):
+            raise AssertionError(f"{label}: trained {summary.group(1)}")
+        if fused:
+            if k1 <= 0 or k2 <= 0:
+                raise AssertionError(f"{label}: the training path did "
+                                     f"not launch K1 ({k1}) and K2 ({k2})")
+            launches["fused_nerf"] += k1
+            launches["fused_nerf_train"] += k2
+            checkpoint = os.path.join(results, "nerf.npz")
+        elif k1 or k2:
+            raise AssertionError(f"{label}: the plain path launched K1 ({k1}) "
+                                 f"or K2 ({k2})")
     return step_ms, launches, checkpoint
 
 
@@ -1052,14 +1074,17 @@ def phase_int8_probe():
 
 
 def phase_ablation():
-    """P2 in each mode against its twin at the ablation CLI's points and
-    a ragged N; timed at the CLI's."""
+    """P2 in each of its seven modes (the five the ablation CLI runs,
+    then bf16-accum and no-sincos) against its twin at the ablation
+    CLI's points and a ragged N; timed at the CLI's. The CLI's run never
+    selects the last two, so this phase is their path: each mode's
+    launches here are counted and must be > 0."""
     from fourier_feature_nets_torch.cli.kernel_ablation_bench import (
         ablation_inputs)
     from fourier_feature_nets_torch.kernels.fused_nerf import (
         prepare_fused_nerf)
     from fourier_feature_nets_torch.kernels.fused_nerf_ablation import (
-        MODES, fused_nerf_ablation, fused_nerf_ablation_reference)
+        ALL_MODES, fused_nerf_ablation, fused_nerf_ablation_reference)
     from fourier_feature_nets_torch.models import flagship_nerf
     model = flagship_nerf(torch.Generator().manual_seed(SEED)).cuda()
     weights = prepare_fused_nerf(model, torch.bfloat16)
@@ -1068,16 +1093,32 @@ def phase_ablation():
                            "cuda")
     modes = {}
     with torch.no_grad():
-        for mode in MODES:
+        for mode in ALL_MODES:
+            fused_nerf_ablation.launches = 0
             for pos, views in (cli_points, ragged):
                 out = fused_nerf_ablation(weights, pos, views, mode)
                 twin = fused_nerf_ablation_reference(weights, pos, views,
                                                      mode)
                 torch.cuda.synchronize()
                 err = (out - twin).abs().max().item()
-                ok = torch.isfinite(out).all().item() and err <= BF16_ATOL
+                ok = torch.isfinite(out).all().item()
+                if mode == "bf16-accum":
+                    base = fused_nerf_ablation_reference(weights, pos, views,
+                                                         "base")
+                    mean = (out - twin).abs().mean().item()
+                    base_mean = (out - base).abs().mean().item()
+                    ok = ok and err <= ACCUM_ATOL \
+                        and mean <= ACCUM_MEAN_ATOL < base_mean
+                    stated = (f"|d| <= {ACCUM_ATOL}; mean {mean:.3e} <= "
+                              f"{ACCUM_MEAN_ATOL}, from base's twin "
+                              f"{base_mean:.3e} > {ACCUM_MEAN_ATOL}; the "
+                              f"twins max {(twin - base).abs().max():.3e}, "
+                              f"mean {(twin - base).abs().mean():.3e} apart")
+                else:
+                    ok = ok and err <= BF16_ATOL
+                    stated = f"|d| <= {BF16_ATOL}"
                 log(f"  P2 {mode:12s} N={pos.shape[0]:>7,d}: max abs err "
-                    f"{err:.3e} (|d| <= {BF16_ATOL}) {'ok' if ok else 'FAIL'}")
+                    f"{err:.3e} ({stated}) {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"P2 {mode} disagrees with its twin")
                 if pos is cli_points[0]:
@@ -1095,14 +1136,16 @@ def phase_ablation():
                         f"{ms:.3f} ms, plain twin {plain_ms:.3f} ms, bound "
                         f"{modes[mode]['bound_ms']:.3f} ms (CUDA events, "
                         f"mean of 10 / 5)")
+            modes[mode]["launches"] = fused_nerf_ablation.launches
+            if modes[mode]["launches"] <= 0:
+                raise AssertionError(f"P2 {mode} was never launched")
     return modes
 
 
 def phase_io_floor():
     """P3a-c bit for bit against their twins at the IO-floor CLI's n
-    (both tiles) and a ragged n; P3b and io-narrow's tile 4096 timed at
-    the CLI's n, beside the PyTorch call that computes the same function
-    where there is one (P3a and P3c by phase_times)."""
+    (both tiles) and a ragged n; their twins timed at the CLI's n (the
+    kernels and their library calls by phase_times)."""
     from fourier_feature_nets_torch.kernels import io_floor as io
     rng = np.random.default_rng(SEED + 7)
     results = {}
@@ -1138,14 +1181,8 @@ def phase_io_floor():
                     "max_abs_err": (out - ref).abs().max().item(),
                     "plain_ms": cuda_ms(twin, 20),
                     **bound(n * row_ops, "f32", n * row_bytes)}
-                if key == "io_wide":   # io_narrow, packed8: phase_times
-                    results[key].update(ms=cuda_ms(fn, 20),
-                                        library_ms=cuda_ms(library, 20))
                 if call:
                     results[key]["library_call"] = call
-                if key == "io_narrow":
-                    results[key]["t4096_ms"] = cuda_ms(
-                        lambda: io.io_narrow(pos, views, 4096), TIME_REPS)
                 log(f"  P3 {key} n={n:,d}: " + ", ".join(
                     f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
                     for k, v in results[key].items()))
@@ -1247,11 +1284,13 @@ def host_step_costs(reps: int = 5000) -> dict:
 
 
 def phase_times(flagship: bool) -> dict:
-    """:func:`call_times` of the short kernels and the one PyTorch call
-    that computes each one's function (P1a and ``torch._int_mm``, T1 and
-    ``torch.cumprod``, P3a and ``torch.cat``; P1b and P3c have none), at
-    the shapes of their paths; with ``flagship``, also K1, K2 and K3 at
-    the sizes PERF.md times them (CUDA events, FLAGSHIP_REPS calls)."""
+    """:func:`call_times` of the short kernels, P1c, P3b, and the one
+    PyTorch call that computes each one's function (P1a and
+    ``torch._int_mm``, T1 and ``torch.cumprod``, P3a and ``torch.cat``,
+    P3b and ``x * 2.0``; P1b, P1c and P3c have none), at the shapes of
+    their paths; with ``flagship``, also K1, K2 and K3 at the sizes
+    PERF.md times them and P2 in each of its modes at the ablation CLI's
+    points (CUDA events, FLAGSHIP_REPS calls)."""
     from fourier_feature_nets_torch.kernels import int8_probe as probe
     from fourier_feature_nets_torch.kernels import io_floor as io
     from fourier_feature_nets_torch.kernels.fused_ray_render import (
@@ -1268,15 +1307,28 @@ def phase_times(flagship: bool) -> dict:
         np.float32)).cuda() for _ in range(2))
     packed = torch.from_numpy(rng.normal(size=(IO_POINTS, 8)).astype(
         np.float32)).cuda()
-    for name, fn, library in (
-            ("int8_matmul", lambda: probe.int8_matmul(w, h),
-             lambda: torch._int_mm(w, h)),
-            ("quantized_matmul", lambda: probe.quantized_matmul(x, w), None),
-            ("exclusive_cumprod_scan", lambda: exclusive_cumprod_scan(scan_in),
-             lambda: torch.cumprod(scan_in, -1)),
-            ("io_narrow", lambda: io.io_narrow(pos, views),
-             lambda: torch.cat([pos, views[:, :1]], -1)),
-            ("packed8", lambda: io.packed8(packed), None)):
+    wide = torch.from_numpy(rng.normal(size=(IO_POINTS, 128)).astype(
+        np.float32)).cuda()
+    channels, columns, layers = P1C_SHAPES[0]
+    stacks = {name: (_ints(rng, (channels, columns), 0, 6, dtype),
+                     _ints(rng, (layers, channels, channels), -5, 6, dtype))
+              for name, dtype in (("int8", torch.int8),
+                                  ("bf16", torch.bfloat16))}
+    cases = [
+        ("int8_matmul", lambda: probe.int8_matmul(w, h),
+         lambda: torch._int_mm(w, h)),
+        ("quantized_matmul", lambda: probe.quantized_matmul(x, w), None),
+        ("exclusive_cumprod_scan", lambda: exclusive_cumprod_scan(scan_in),
+         lambda: torch.cumprod(scan_in, -1)),
+        ("io_narrow", lambda: io.io_narrow(pos, views),
+         lambda: torch.cat([pos, views[:, :1]], -1)),
+        ("io_narrow_t4096", lambda: io.io_narrow(pos, views, 4096), None),
+        ("io_wide", lambda: io.io_wide(wide), lambda: wide * 2.0),
+        ("packed8", lambda: io.packed8(packed), None),
+        ("layer_stack", lambda: probe.layer_stack(*stacks["int8"]), None),
+        ("layer_stack_bf16", lambda: probe.layer_stack(*stacks["bf16"]),
+         None)]
+    for name, fn, library in cases:
         rows[name] = call_times(fn)
         if library is not None:
             rows[name].update({f"library_{key}": value for key, value in
@@ -1284,6 +1336,8 @@ def phase_times(flagship: bool) -> dict:
         log(f"  {name}: " + ", ".join(
             f"{key} {value:.5f}" if isinstance(value, float)
             else f"{key} {value}" for key, value in rows[name].items()))
+    del wide
+    torch.cuda.empty_cache()
     if not flagship:
         return rows
     from fourier_feature_nets_torch.kernels.fused_nerf import (
@@ -1314,6 +1368,19 @@ def phase_times(flagship: bool) -> dict:
                 f"events, mean of {FLAGSHIP_REPS})")
         del weights, pos, views, g, d, t
         torch.cuda.empty_cache()
+    from fourier_feature_nets_torch.cli.kernel_ablation_bench import (
+        ablation_inputs)
+    from fourier_feature_nets_torch.kernels import fused_nerf_ablation
+    weights = prepare_fused_nerf(model, torch.bfloat16)
+    pos, views = ablation_inputs(16384, ABLATION_POINTS // 16384, "cuda")
+    with torch.no_grad():
+        for mode in fused_nerf_ablation.ALL_MODES:
+            rows[f"fused_nerf_ablation_{mode}"] = cuda_ms(
+                lambda: fused_nerf_ablation.fused_nerf_ablation(
+                    weights, pos, views, mode), FLAGSHIP_REPS)
+            log(f"  fused_nerf_ablation {mode}: "
+                f"{rows[f'fused_nerf_ablation_{mode}']:.4f} ms (CUDA events, "
+                f"mean of {FLAGSHIP_REPS})")
     return rows
 
 
@@ -1393,8 +1460,17 @@ def main(argv=None) -> int:
     scan = with_times(scan, times["exclusive_cumprod_scan"])
     for key in ("int8_matmul", "quantized_matmul"):
         probe[key] = with_times(probe[key], times[key])
-    for key in ("io_narrow", "packed8"):
+    for key in ("io_narrow", "io_wide", "packed8"):
         io_rows[key] = with_times(io_rows[key], times[key])
+    io_rows["io_narrow"].update(
+        t4096_ms=times["io_narrow_t4096"]["wrapper_ms"],
+        t4096_device_ms=times["io_narrow_t4096"]["device_ms"])
+    stack = probe["layer_stack"]
+    probe["layer_stack"] = with_times(stack, times["layer_stack"])
+    probe["layer_stack"].update(
+        bf16_ms=stack["bf16_ms"],
+        bf16_device_ms=times["layer_stack_bf16"]["device_ms"],
+        bf16_host_us=times["layer_stack_bf16"]["host_us"])
     log("the probes' path: their three CLIs")
     probe_launches = phase_probe_clis()
 
@@ -1480,8 +1556,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": f"fourier_feature_nets_torch/kernels/csrc/{source}",
         "replaces": replaces,
-        "launches": probe_launches[key],
         **row,
+        "launches": probe_launches[key],   # the CLIs' path, not a mode's
     } for key, source, replaces, row in (
         ("int8_matmul", "int8_probe.cu", "tools/int8_probe.py:31",
          probe["int8_matmul"]),

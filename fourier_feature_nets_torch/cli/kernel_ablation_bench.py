@@ -15,8 +15,9 @@ plain twins; ``--rays`` and ``--samples`` cut the size for the CPU
 tests and default to the tool's.
 
 The tool's ``tile=2048`` has no counterpart (the kernel's tile is 64
-points), and its docstring's ``bf16-accum`` and ``no-sincos`` modes,
-which it defines but never runs, are not ported.
+points). Its ``bf16-accum`` and ``no-sincos`` modes, which it defines
+but its run never selects, are ported (``ALL_MODES``) and run by
+``chip_smoke.py``; this CLI prints the five the tool runs.
 
     python -m fourier_feature_nets_torch.cli.kernel_ablation_bench
 """

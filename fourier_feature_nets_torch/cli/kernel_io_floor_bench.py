@@ -12,7 +12,8 @@ events after a warm-up:
   layout and those rows are the model sweep's;
 * the copy kernels (``kernels/io_floor.py``): ``io-narrow`` at tiles of
   2048 and 4096 rows, ``io-wide`` and ``packed8``, each first held
-  bit-exact against its plain twin.
+  bit-exact against its plain twin. ``io-wide`` takes no tile: its
+  blocks move 4 KB each.
 
 Rows print in the tool's format, ``{label:18s}: {ms:7.2f} ms
 ({Mrows:6.1f} Mrows/s)``, or ``FAILED`` and the run goes on. Exits 1 if

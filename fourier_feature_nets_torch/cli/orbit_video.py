@@ -130,8 +130,9 @@ def main(argv=None):
     model = load_model(args.model_path).to(device)
     compute_dtype = (torch.bfloat16 if args.compute_dtype == "bfloat16"
                      else None)
-    # fused=None: the Hopper kernel for a NeRF on a CUDA device, the
-    # plain PyTorch path on the CPU
+    # fused=None (Raycaster's resolve_fused): the Hopper kernel for a NeRF
+    # on a CUDA device in bf16 (--preset fast), the plain PyTorch path in
+    # f32 and on the CPU
     raycaster = Raycaster(model, compute_dtype=compute_dtype)
     sampler = build_render_sampler(args, model, orbit_cameras, bounds)
 

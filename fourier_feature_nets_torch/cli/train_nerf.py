@@ -1,10 +1,12 @@
 """CLI: trains a full NeRF model.
 
 Port of ``fourier_feature_nets_tpu/cli/train_nerf.py``, same flags and
-defaults plus ``--device`` (default ``cuda``). On a CUDA device each
-training step runs the fused NeRF forward (K1) and recompute backward
-(K2) Hopper kernels; ``--no-fused`` trains through autograd of the
-plain model. Flags whose path is not ported yet (``--opacity-model``,
+defaults plus ``--device`` (default ``cuda``). On a CUDA device with
+``--compute-dtype bfloat16``, or with ``--fused``, each training step
+runs the fused NeRF forward (K1) and recompute backward (K2) Hopper
+kernels; at the f32 default, or with ``--no-fused``, it trains through
+autograd of the plain model, which is the faster path in f32 on an
+H100. Flags whose path is not ported yet (``--opacity-model``,
 ``--make-video``, ``--data-parallel``, ``--resume``,
 ``--checkpoint-interval``, ``--occupancy-*``, ``--steps-per-call``)
 raise ``NotImplementedError`` naming their ROADMAP.md item.

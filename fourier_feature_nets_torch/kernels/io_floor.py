@@ -3,13 +3,17 @@
 The CUDA kernels (``csrc/io_floor.cu``) replace the three TPU Pallas
 kernels of ``tools/kernel_io_floor_bench.py::main``, which time moving
 the fused NeRF forward's inputs and outputs without its math. ``tile``
-is the rows each block copies (the JAX tool's block rows):
+is the JAX tool's block rows where a kernel takes it:
 
 * :func:`io_narrow` (P3a, ``io_kernel``): (n, 3) positions + (n, 3)
-  views -> (n, 4) ``[p, v[:, :1]]``; ``tile`` a multiple of 4;
+  views -> (n, 4) ``[p, v[:, :1]]``; ``tile`` (a multiple of 4) is the
+  rows each block moves, staged through shared memory;
 * :func:`io_wide` (P3b, ``io_wide_kernel``): (n, 128) f32 -> ``x * 2``;
+  its grid follows the array, one float4 a thread and 4 KB a block, so
+  it takes no ``tile`` (the tool's has no counterpart);
 * :func:`packed8` (P3c, ``p8_kernel``): (n, 8) f32 ->
-  ``[x[:, :3], x[:, 3:4], x[:, :4] * 0]`` (a NaN stays a NaN).
+  ``[x[:, :3], x[:, 3:4], x[:, :4] * 0]`` (a NaN stays a NaN); ``tile``
+  is the rows each block copies.
 
 Each ``*_reference`` is the plain PyTorch twin. A wrapper runs its twin
 for CPU tensors; for CUDA tensors it launches its kernel or raises, and
@@ -45,7 +49,7 @@ def packed8_reference(x: torch.Tensor) -> torch.Tensor:
 
 _LIB = KernelLibrary("io_floor.cu", "io_floor_error_string",
                      io_narrow=(PTR, PTR, PTR, LONG, INT),
-                     io_wide=(PTR, PTR, LONG, INT),
+                     io_wide=(PTR, PTR, LONG),
                      packed8=(PTR, PTR, LONG, INT))
 
 
@@ -55,10 +59,11 @@ def load_kernel():
     return _LIB.load()
 
 
-def _check(tensors, width_of, tile):
+def _check(tensors, width_of, tile=None):
     """Raises unless each (name, tensor) is a contiguous, 16-byte
     aligned, non-empty (n, width_of[name]) f32 tensor on the first
-    tensor's device, with one n, and ``tile`` is positive."""
+    tensor's device, with one n, and ``tile``, where given, is
+    positive."""
     device = tensors[0][1].device
     num = tensors[0][1].shape[0] if tensors[0][1].dim() else 0
     for name, tensor in tensors:
@@ -72,7 +77,7 @@ def _check(tensors, width_of, tile):
         if tensor.device != device:
             raise ValueError(f"{name} is on {tensor.device}, expected "
                              f"{device}")
-    if tile <= 0:
+    if tile is not None and tile <= 0:
         raise ValueError(f"tile must be positive, got {tile}")
     return num
 
@@ -96,14 +101,14 @@ def io_narrow(positions: torch.Tensor, views: torch.Tensor,
 io_narrow.launches = 0
 
 
-def io_wide(x: torch.Tensor, tile: int = DEFAULT_TILE) -> torch.Tensor:
-    """P3b: (n, 128) -> ``x * 2``."""
+def io_wide(x: torch.Tensor) -> torch.Tensor:
+    """P3b: (n, 128) -> ``x * 2``; the tool's tile has no counterpart."""
     if not on_cuda(x, "io-wide"):
         return io_wide_reference(x)
-    num = _check([("x", x)], {"x": 128}, tile)
+    num = _check([("x", x)], {"x": 128})
     out = torch.empty_like(x)
     _LIB.launch(io_wide, "io_wide", x.device, x.data_ptr(), out.data_ptr(),
-                num, tile)
+                num)
     return out
 
 

@@ -6,8 +6,9 @@ Port of ``fourier_feature_nets_tpu/render/raycaster.py``: ``_composite``,
 the trainer: ``_train_forward``, ``_make_train_step``, ``_validate``
 and ``fit``. The JAX package compiles a frame into one ``lax.scan`` and
 a train step into one jitted function; here both are eager PyTorch.
-On a CUDA device NeRF queries go through the fused Hopper kernels:
-K1 (:mod:`..kernels.fused_nerf`) for rendering, K1 forward and K2
+On a CUDA device in bf16 NeRF queries go through the fused Hopper
+kernels by default (:func:`resolve_fused`): K1
+(:mod:`..kernels.fused_nerf`) for rendering, K1 forward and K2
 backward (:mod:`..kernels.fused_nerf_train`) for training.
 
 Pose rendering, early termination, occupancy-guided training,
@@ -35,7 +36,7 @@ from ..utils.optim import ClippedAdam, exponential_lr
 from ..utils.progress import LogEntry
 from .ray_sampler import RaySampler, RaySamples
 
-__all__ = ["Raycaster", "RenderResult"]
+__all__ = ["Raycaster", "RenderResult", "resolve_fused"]
 
 
 class RenderResult(NamedTuple):
@@ -71,6 +72,20 @@ def _composite(color_o: torch.Tensor, t_values: torch.Tensor,
     return RenderResult(output_color, output_alpha, output_depth)
 
 
+def resolve_fused(requested: Optional[bool], on_cuda: bool,
+                  compute_dtype: Optional[torch.dtype]) -> bool:
+    """Whether a NeRF's queries take the fused kernels.
+
+    An explicit True or False (``--fused`` / ``--no-fused``) wins. None
+    turns them on only on a CUDA device with ``compute_dtype`` bf16: in
+    f32 the kernels are slower than the plain path on an H100 (PERF.md,
+    section 5), as the JAX package turns its kernels on only where they
+    measured a win."""
+    if requested is not None:
+        return bool(requested)
+    return on_cuda and compute_dtype == torch.bfloat16
+
+
 class Raycaster:
     """Renders rays through a radiance field."""
 
@@ -85,26 +100,23 @@ class Raycaster:
             compute_dtype: optional matmul dtype for the MLP (e.g.
                 torch.bfloat16); None keeps full f32.
             fused: route NeRF queries through the fused kernel's
-                wrapper. None (default) = on for a NeRF on a CUDA
-                device, off elsewhere. With True on the CPU the wrapper
-                runs the kernel's plain twin.
+                wrapper. None (default) resolves by
+                :func:`resolve_fused`: on for a NeRF on a CUDA device
+                in bf16, off elsewhere. With True on the CPU the
+                wrapper runs the kernel's plain twin.
             fused_train: route training forwards through the fused
                 recompute-backward (K1 forward, K2 backward). None
-                (default) = on for a NeRF on a CUDA device, off
-                elsewhere; with True on the CPU the wrappers run the
-                kernels' plain twins. Off trains through autograd of
-                the plain model.
+                (default) resolves as ``fused`` does; with True on the
+                CPU the wrappers run the kernels' plain twins. Off
+                trains through autograd of the plain model.
         """
         self.model = model
         self.compute_dtype = compute_dtype
         is_nerf = getattr(model, "model_type", None) == "nerf"
         on_cuda = next(model.parameters()).is_cuda
-        if fused is None:
-            fused = on_cuda
-        if fused_train is None:
-            fused_train = on_cuda
-        self.fused = bool(fused) and is_nerf
-        self.fused_train = bool(fused_train) and is_nerf
+        self.fused = is_nerf and resolve_fused(fused, on_cuda, compute_dtype)
+        self.fused_train = is_nerf and resolve_fused(fused_train, on_cuda,
+                                                     compute_dtype)
         self.step_ms: List[float] = []
         self._fused_weights = None
         self._fused_key = None

@@ -152,6 +152,7 @@ def test_input_checks(bad):
 
 def test_checks_pass_good_inputs():
     assert io._check([("x", torch.zeros(5, 8))], {"x": 8}, 2048) == 5
+    assert io._check([("x", torch.zeros(5, 128))], {"x": 128}) == 5
 
 
 # ---------------------------------------------------------------------------

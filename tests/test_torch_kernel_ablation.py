@@ -42,14 +42,22 @@ TILE = 64
 # tests/test_fused_nerf.py:64; every mode reads 0.0 against the tool's
 # kernel on the CPU
 BF16_ATOL = 0.05
+# bf16-accum, max and mean |d| (chip_smoke.py, ACCUM_ATOL): it differs
+# from base by rounding only, so base's twin lies within the max limit of
+# the tool's bf16-accum and only the mean tells them apart
+# (test_bf16_accum_limits_reject_base)
+ACCUM_ATOL, ACCUM_MEAN_ATOL = 4e-3, 5e-6
 
 
 def make_kernel(mode):
-    """tools/kernel_ablation_bench.py:50-129, the modes the tool runs."""
-    def dot(a, w_ref):
+    """tools/kernel_ablation_bench.py:50-129, every mode it defines."""
+    body_accum = (jnp.bfloat16 if mode == "bf16-accum"
+                  else jnp.float32)
+
+    def dot(a, w_ref, accum=jnp.float32):
         return jax.lax.dot_general(
             a, w_ref[:], (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
+            preferred_element_type=accum)
 
     def kernel(positions_ref, views_ref, pos_enc_ref, view_enc_ref,
                fp0, fp1, fp2, first_b, m0, m1, m2, m3, m4, m5,
@@ -60,14 +68,20 @@ def make_kernel(mode):
                out_ref):
         cd = jnp.bfloat16
         pos = positions_ref[:]
-        sin, cos = _fast_sincos(_phases(pos, pos_enc_ref))
-        enc = [cos.astype(cd), sin.astype(cd), pos.astype(cd)]
+        if mode == "no-sincos":
+            ph = _phases(pos, pos_enc_ref)
+            enc = [ph.astype(cd), (ph * 0.5).astype(cd),
+                   pos.astype(cd)]
+        else:
+            sin, cos = _fast_sincos(_phases(pos, pos_enc_ref))
+            enc = [cos.astype(cd), sin.astype(cd), pos.astype(cd)]
+
         first = [fp0, fp1, fp2]
 
-        def enc_dot(parts):
-            acc = dot(enc[0], parts[0])
+        def enc_dot(parts, accum):
+            acc = dot(enc[0], parts[0], accum)
             for feat, w in zip(enc[1:], parts[1:]):
-                acc += dot(feat, w)
+                acc += dot(feat, w, accum)
             return acc
 
         use_bias = mode not in ("no-bias", "matmul-only")
@@ -81,35 +95,39 @@ def make_kernel(mode):
                 acc = jnp.maximum(acc, 0.0)
             return acc
 
-        h = post(enc_dot(first), first_b)
+        h = post(enc_dot(first, body_accum), first_b)
         mids = [m0, m1, m2, m3, m4, m5]
         mbs = [mb0, mb1, mb2, mb3, mb4, mb5]
         mid_iter = 0
         for i in range(1, 8):
             if i == 4:
-                acc = dot(h, sp0) + enc_dot([sp1, sp2, sp3])
+                acc = (dot(h, sp0, body_accum)
+                       + enc_dot([sp1, sp2, sp3], body_accum))
                 h = post(acc, sb0)
             else:
-                acc = dot(h, mids[mid_iter])
+                acc = dot(h, mids[mid_iter], body_accum)
                 h = post(acc, mbs[mid_iter])
                 mid_iter += 1
 
         opacity = dot(h, opacity_w) + opacity_b[:]
-        bottleneck = (dot(h, bottleneck_w) + bottleneck_b[:]).astype(cd)
+        bottleneck = (dot(h, bottleneck_w)
+                      + bottleneck_b[:]).astype(cd)
 
         if mode == "no-view":
             color = opacity * 0.0 + color_b[:]
         else:
             v = views_ref[:]
             v_sin, v_cos = _fast_sincos(_phases(v, view_enc_ref))
-            venc = [v_cos.astype(cd), v_sin.astype(cd), v.astype(cd)]
+            venc = [v_cos.astype(cd), v_sin.astype(cd),
+                    v.astype(cd)]
             acc = dot(bottleneck, hp0)
             for feat, w in zip(venc, [hp1, hp2, hp3]):
                 acc += dot(feat, w)
             hidden = jnp.maximum(acc + hidden_b[:], 0.0).astype(cd)
             color = dot(hidden, color_w) + color_b[:]
 
-        out_ref[:] = jnp.concatenate([color[:, :3], opacity[:, :1]], -1)
+        out_ref[:] = jnp.concatenate(
+            [color[:, :3], opacity[:, :1]], -1)
 
     return kernel
 
@@ -170,13 +188,32 @@ def _twin(weights, points, mode):
             mode).numpy()
 
 
-@pytest.mark.parametrize("mode", ablation.MODES)
+def _assert_accum_close(ours, ref):
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=ACCUM_ATOL)
+    assert np.abs(ours - ref).mean() <= ACCUM_MEAN_ATOL
+
+
+@pytest.mark.parametrize("mode", ablation.ALL_MODES)
 def test_twin_matches_the_tool_kernel(nerf, points, mode):
     _, jax_weights, weights = nerf
     ref = tool_ablation(jax_weights, *points, mode)
     ours = _twin(weights, points, mode)
     assert ours.shape == ref.shape == (points[0].shape[0], 4)
-    np.testing.assert_allclose(ours, ref, rtol=0, atol=BF16_ATOL)
+    if mode == "bf16-accum":
+        _assert_accum_close(ours, ref)
+    else:
+        np.testing.assert_allclose(ours, ref, rtol=0, atol=BF16_ATOL)
+
+
+def test_bf16_accum_limits_reject_base(nerf, points):
+    """base's twin passes bf16-accum's max-error limits against the
+    tool's bf16-accum kernel but not its mean one."""
+    _, jax_weights, weights = nerf
+    ref = tool_ablation(jax_weights, *points, "bf16-accum")
+    base = _twin(weights, points, "base")
+    np.testing.assert_allclose(base, ref, rtol=0, atol=ACCUM_ATOL)
+    with pytest.raises(AssertionError):
+        _assert_accum_close(base, ref)
 
 
 def test_base_matches_the_jax_fused_forward(nerf, points):
@@ -209,8 +246,9 @@ def test_each_mode_changes_what_it_names(nerf, points):
     and sets every row's color to the color head's bias."""
     weights = nerf[2]
     base = _twin(weights, points, "base")
-    outs = {mode: _twin(weights, points, mode) for mode in ablation.MODES}
-    for mode in ablation.MODES[1:]:
+    outs = {mode: _twin(weights, points, mode)
+            for mode in ablation.ALL_MODES}
+    for mode in ablation.ALL_MODES[1:]:
         assert not np.array_equal(outs[mode], base), mode
     np.testing.assert_array_equal(outs["no-view"][:, 3], base[:, 3])
     color_b = weights.layers[weights.num_layers + 3][1][:3].numpy()
@@ -218,12 +256,42 @@ def test_each_mode_changes_what_it_names(nerf, points):
                                   np.broadcast_to(color_b, (len(base), 3)))
 
 
+def test_no_sincos_encodes_phases(nerf, points):
+    """no-sincos feeds the body [phase | phase * 0.5 | raw] in place of
+    [cos | sin | raw]."""
+    weights = nerf[2]
+    pos = torch.from_numpy(points[0])
+    parts = ablation._pos_parts(weights, pos, "no-sincos", torch.float32)
+    phases = pos @ weights.pos_enc
+    torch.testing.assert_close(parts[0], phases, rtol=1e-6, atol=1e-5)
+    assert torch.equal(parts[1], parts[0] * 0.5)
+    assert torch.equal(parts[2], pos)
+    sin_cos = ablation._pos_parts(weights, pos, "base", torch.float32)
+    assert not torch.allclose(sin_cos[0], parts[0])
+
+
+def test_bf16_accum_stays_near_base(nerf, points):
+    """bf16-accum rounds one more time in each body layer than base, so
+    it differs from base by rounding only; its body activations are
+    bf16 after the ReLU. (Where it rounds is held by the tool's kernel
+    above.)"""
+    weights = nerf[2]
+    base = _twin(weights, points, "base")
+    accum = _twin(weights, points, "bf16-accum")
+    assert not np.array_equal(accum, base)
+    np.testing.assert_allclose(accum, base, rtol=0, atol=ACCUM_ATOL)
+    pos = torch.from_numpy(points[0])
+    parts = ablation._pos_parts(weights, pos, "bf16-accum", torch.bfloat16)
+    h = ablation._bf16_body(None, parts, weights.layers[0])
+    assert h.dtype == torch.bfloat16 and (h >= 0).all()
+
+
 def test_cpu_wrapper_runs_twin_without_counting(nerf, points):
     weights = nerf[2]
     pos, views = map(torch.from_numpy, points)
     before = ablation.fused_nerf_ablation.launches
     with torch.no_grad():
-        for mode in ablation.MODES:
+        for mode in ablation.ALL_MODES:
             assert torch.equal(
                 ablation.fused_nerf_ablation(weights, pos, views, mode),
                 ablation.fused_nerf_ablation_reference(weights, pos, views,
@@ -233,11 +301,14 @@ def test_cpu_wrapper_runs_twin_without_counting(nerf, points):
 
 def test_wrapper_rejects_unknown_modes_and_devices(nerf):
     weights = nerf[2]
+    f32_weights = port_prepare(TorchNeRF(**FLAGSHIP_SHAPED), torch.float32)
     cpu = torch.zeros(4, 3)
     for fn in (ablation.fused_nerf_ablation,
                ablation.fused_nerf_ablation_reference):
         with pytest.raises(ValueError, match="unknown ablation mode"):
-            fn(weights, cpu, cpu, "bf16-accum")
+            fn(weights, cpu, cpu, "no-encode")
+        with pytest.raises(ValueError, match="bf16-accum takes a bf16 pack"):
+            fn(f32_weights, cpu, cpu, "bf16-accum")
     meta = torch.empty(4, 3, device="meta")
     with pytest.raises(ValueError, match="no fused NeRF ablation kernel"):
         ablation.fused_nerf_ablation(weights, meta, meta, "base")

@@ -1,6 +1,7 @@
 """The Hopper kernels (K1, K2, K3, T1's scan, the int8 probe's P1a-c,
-the ablation P2 and the copy kernels P3a-c) against their plain twins,
-on a CUDA card, and their launch path (counts, CUDA graph capture).
+the ablation P2 in all its modes and the copy kernels P3a-c) against
+their plain twins, on a CUDA card, and their launch path (counts, CUDA
+graph capture).
 
 Every test here needs a card and skips without one (the kernel has no
 CPU mode). The file imports no jax, so it also runs on a machine that
@@ -33,6 +34,9 @@ from fourier_feature_nets_torch.render import Raycaster, RaySampler, RaySamples
 SMALL = dict(num_layers=4, num_channels=64, max_log_scale_pos=9.0,
              num_freq_pos=10, max_log_scale_view=3.0, num_freq_view=4,
              skips=[2], include_inputs=True)
+# P2 bf16-accum, max and mean |kernel - twin| (readings and reasons at
+# chip_smoke.py, ACCUM_ATOL)
+ACCUM_ATOL, ACCUM_MEAN_ATOL = 4e-3, 5e-6
 
 
 @pytest.fixture
@@ -571,6 +575,54 @@ def test_ablation_matches_twin(cuda, mode, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode, dtype", [("bf16-accum", torch.bfloat16),
+                                         ("no-sincos", torch.bfloat16),
+                                         ("no-sincos", torch.float32)])
+@pytest.mark.parametrize("num", [20_011, 16384 * 32])
+def test_new_ablation_modes_match_twin(cuda, mode, dtype, num):
+    """The two modes the tool defines but its run never selects, at a
+    ragged N and at the ablation CLI's points (and views)."""
+    from fourier_feature_nets_torch.cli.kernel_ablation_bench import (
+        ablation_inputs)
+    model = flagship_nerf(torch.Generator().manual_seed(0)).to(cuda)
+    weights = port.prepare_fused_nerf(model, dtype)
+    if num == 16384 * 32:
+        pos, views = ablation_inputs(16384, 32, cuda)
+    else:
+        pos, views = _inputs(num, cuda)
+    before = ablation.fused_nerf_ablation.launches
+    with torch.no_grad():
+        out = ablation.fused_nerf_ablation(weights, pos, views, mode)
+        twin = ablation.fused_nerf_ablation_reference(weights, pos, views,
+                                                      mode)
+    torch.cuda.synchronize()
+    assert ablation.fused_nerf_ablation.launches == before + 1
+    assert torch.isfinite(out).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, twin, rtol=1e-3, atol=2e-4)
+    elif mode == "bf16-accum":
+        # base's twin lies within any max-error limit of bf16-accum's, so
+        # the mean error holds the mode (chip_smoke.py, ACCUM_MEAN_ATOL)
+        torch.testing.assert_close(out, twin, rtol=0, atol=ACCUM_ATOL)
+        assert (out - twin).abs().mean().item() <= ACCUM_MEAN_ATOL
+        with torch.no_grad():
+            base = ablation.fused_nerf_ablation_reference(weights, pos,
+                                                          views, "base")
+        assert (out - base).abs().mean().item() > ACCUM_MEAN_ATOL
+    else:
+        torch.testing.assert_close(out, twin, rtol=0, atol=0.05)
+
+
+@pytest.mark.cuda
+def test_bf16_accum_refuses_an_f32_pack(cuda):
+    model = NeRF(**SMALL).to(cuda)
+    weights = port.prepare_fused_nerf(model, torch.float32)
+    pos, views = _inputs(64, cuda)
+    with pytest.raises(ValueError, match="bf16-accum takes a bf16 pack"):
+        ablation.fused_nerf_ablation(weights, pos, views, "bf16-accum")
+
+
+@pytest.mark.cuda
 def test_ablation_base_is_k1(cuda):
     model = NeRF(**SMALL, generator=torch.Generator().manual_seed(1)).to(cuda)
     weights = port.prepare_fused_nerf(model, torch.bfloat16)
@@ -617,7 +669,7 @@ def test_io_floor_kernels_match_twins_bitwise(cuda, n, tile):
     before = (io.io_narrow.launches, io.io_wide.launches,
               io.packed8.launches)
     narrow = io.io_narrow(pos, views, tile)
-    doubled = io.io_wide(wide, tile)
+    doubled = io.io_wide(wide)
     p8 = io.packed8(packed, tile)
     torch.cuda.synchronize()
     assert (io.io_narrow.launches, io.io_wide.launches,
@@ -629,6 +681,44 @@ def test_io_floor_kernels_match_twins_bitwise(cuda, n, tile):
     assert torch.isnan(p8[0, 4]) and torch.isnan(p8[0, 6])
     finite = torch.isfinite(ref)
     assert torch.equal(_bits(p8)[finite], _bits(ref)[finite])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, tile", [(786_432, 2048), (786_432, 4096),
+                                     (786_431, 2048), (786_431, 4096),
+                                     (5_001, 1500), (2_047, 2048), (1, 2048),
+                                     (3, 4)])
+def test_io_narrow_matches_twin_bitwise_at_every_chunking(cuda, n, tile):
+    """The IO-floor CLI's n at both tiles; n not a multiple of 4 or of the
+    tile; a tile that is not a multiple of the kernel's 1024-row chunk;
+    n smaller than one block."""
+    rng = np.random.default_rng(n)
+    pos, views = (torch.from_numpy(rng.normal(size=(n, 3)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    before = io.io_narrow.launches
+    out = io.io_narrow(pos, views, tile)
+    torch.cuda.synchronize()
+    assert io.io_narrow.launches == before + 1
+    assert torch.equal(_bits(out), _bits(io.io_narrow_reference(pos, views)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [786_432, 786_431, 100_003, 33, 1])
+def test_io_wide_matches_twin_bitwise(cuda, n):
+    """The IO-floor CLI's n, ragged ones (the last block is partial) and
+    n smaller than one block; a NaN, a negative zero, an infinity and a
+    subnormal keep what ``x * 2`` makes of them."""
+    x = torch.from_numpy(np.random.default_rng(n).normal(
+        size=(n, 128)).astype(np.float32)).to(cuda)
+    x[0, :4] = torch.tensor([float("nan"), -0.0, float("inf"), 1e-40])
+    ref = io.io_wide_reference(x)
+    before = io.io_wide.launches
+    out = io.io_wide(x)
+    torch.cuda.synchronize()
+    assert io.io_wide.launches == before + 1
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(out), nan)
+    assert torch.equal(_bits(out)[~nan], _bits(ref)[~nan])
 
 
 @pytest.mark.cuda
