@@ -35,11 +35,13 @@
 // part's rows; its other columns are zero, so the rows of the neighbouring
 // part or padding it also reads add exact zeros.
 //
-// What bounds it on an H100: what bounds K1 (fused_nerf.cu): ~1.2 MFLOP per
-// point on the tensor cores from WMMA, with each 64-point tile re-reading
-// the ~1.2 MB weight pack from L2 and a per-layer epilogue through shared
-// memory between two block barriers. Its design is K1's, from the same tile
-// code (fused_nerf_common.cuh, untouched), with the mode a template
+// What bounds it on an H100: what bounds the 64-point WMMA tile of
+// fused_nerf_common.cuh, K1's bf16 tile until its wgmma redesign
+// (fused_nerf.cu), which K3 still runs: ~1.2 MFLOP per point on the tensor
+// cores from WMMA, with each 64-point tile re-reading the ~1.2 MB weight
+// pack from L2 and a per-layer epilogue through shared memory between two
+// block barriers. Its design is that tile's, from the same tile code
+// (fused_nerf_common.cuh, untouched), with the mode a template
 // parameter: a runtime branch in the per-layer epilogue cost K1 ~1.5% (H100
 // 80GB HBM3 at 700 W), so each mode is its own instantiation. no-bias is the
 // NoBias epilogue policy, no-relu is the kCast finish in place of

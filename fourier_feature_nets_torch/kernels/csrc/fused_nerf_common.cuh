@@ -1,10 +1,12 @@
 // Device code shared by the fused NeRF forward (fused_nerf.cu, K1), the
-// recompute backward (fused_nerf_train.cu, K2) and the fused ray render
-// (fused_ray_render.cu, K3): the packed-model descriptor, the working-type
-// conversions, the positional encode with the TPU kernels' sin/cos
+// recompute backward (fused_nerf_train.cu, K2), the fused ray render
+// (fused_ray_render.cu, K3) and the ablations (fused_nerf_ablation.cu, P2):
+// the packed-model descriptor, the working-type conversions, the positional
+// encode with the TPU kernels' sin/cos
 // (fourier_feature_nets_tpu/ops/fused_nerf.py::_fast_sincos), so that K2's
-// recomputed forward rounds exactly where K1 rounds, and K1's 64-point
-// forward tile (finish and the two dense overloads), which K3 runs too.
+// recomputed forward rounds where K1 rounds, and the 64-point forward tile
+// (finish and the two dense overloads): K1 runs it in f32, K3 and P2 in both
+// types (K1's bf16 path is the wgmma kernel of fused_nerf.cu).
 
 #pragma once
 
@@ -119,9 +121,9 @@ __device__ void encode(const float* xs, const float* __restrict__ enc, int E,
 }
 
 // ---------------------------------------------------------------------------
-// The forward tile of K1 and K3: one block of kThreads threads holds kTile
-// points' activation rows in shared memory and walks the layers, reading
-// each layer's weights from global memory (L2).
+// The 64-point forward tile (K1 in f32, K3, P2): one block of kThreads
+// threads holds kTile points' activation rows in shared memory and walks
+// the layers, reading each layer's weights from global memory (L2).
 // ---------------------------------------------------------------------------
 
 constexpr int kTile = 64;       // points per tile

@@ -17,8 +17,9 @@
 //    as the TPU kernel rounds it (vdot.astype(compute_dtype)). K1 instead
 //    sums the view features into every sample's hidden layer in f32, so in
 //    bf16 K3 is not K1 followed by compositing.
-// 2. Per point: K1's 64-point tile code (ffn::encode, ffn::dense in
-//    fused_nerf_common.cuh) over the block's rays_per_block * S points, with
+// 2. Per point: the 64-point tile code of K1's f32 path (ffn::encode,
+//    ffn::dense in fused_nerf_common.cuh; in bf16 the WMMA tile K1 ran
+//    before its wgmma redesign) over the block's rays_per_block * S points, with
 //    the same rounding points; the hidden layer reads only the bottleneck
 //    and adds its ray's view product before the bias. Each sample's four
 //    logits stay in shared memory (16 B a sample).

@@ -1,14 +1,16 @@
 """Fused NeRF forward: the Hopper kernel, its weight pack and its plain twin.
 
-The CUDA kernel (``csrc/fused_nerf.cu``) replaces the TPU Pallas kernels
+The CUDA kernels (``csrc/fused_nerf.cu``) replace the TPU Pallas kernels
 ``fourier_feature_nets_tpu/ops/fused_nerf.py::_kernel`` and
 ``ops/fused_nerf_fm.py::_kernel_fm``, which compute the same function
-in two layouts. The source comment says what bounds it on an H100.
+in two layouts. The source comment says what bounds them on an H100.
 
 * :func:`pack_fused_nerf` packs a :class:`~..models.nerf.NeRF` into
   one contiguous weight buffer (bf16 or f32), one f32 bias buffer and
   an offset table, differentiably; :func:`prepare_fused_nerf` is the
-  same pack without autograd.
+  same pack without autograd. A bf16 pack also carries the weights
+  once more as the slab image the bf16 (wgmma) kernel streams
+  (:func:`slab_image`), built outside autograd.
 * :func:`fused_nerf_reference` is the plain PyTorch twin: the same
   packed weights, the same rounding points and the same sin/cos.
 * :func:`fused_nerf_apply` launches the kernel for CUDA tensors and
@@ -16,7 +18,7 @@ in two layouts. The source comment says what bounds it on an H100.
   raises; it never falls back.
 """
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,14 +28,22 @@ from ..models.nerf import NeRF
 from ..ops.encoding import encode_phases
 from .launch import INT, LONG, PTR, KernelLibrary, on_cuda
 
-__all__ = ["FusedNeRFWeights", "pack_fused_nerf", "prepare_fused_nerf",
-           "fast_sincos", "fused_nerf_reference", "fused_nerf_apply",
-           "load_kernel"]
+__all__ = ["FusedNeRFWeights", "MOVED_ROUNDINGS", "pack_fused_nerf",
+           "prepare_fused_nerf", "slab_index", "slab_image", "fast_sincos",
+           "fused_nerf_reference", "fused_nerf_apply", "load_kernel"]
 
 HEAD_WIDTH = 16       # heads padded to the MMA tile width
-MAX_CHANNELS = 256    # kMaxChannels in csrc/fused_nerf.cu
-MAX_LAYERS = 16       # kMaxLayers in csrc/fused_nerf.cu
+MAX_CHANNELS = 256    # kMaxChannels in csrc/fused_nerf_common.cuh
+MAX_LAYERS = 16       # kMaxLayers in csrc/fused_nerf_common.cuh
+SLAB_K = 64           # K rows of a slab: one 128-byte swizzled row of bf16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# One rounding point of the twin moved (``fused_nerf_reference(moved=...)``):
+# a body layer's sum cast before its bias is added and cast again after;
+# the bottleneck, or the hidden layer, left in f32; the heads rounded to
+# bf16. Moving a ReLU across its cast is no such move: they commute.
+MOVED_ROUNDINGS = ("bias-after-cast", "uncast-bottleneck", "uncast-hidden",
+                   "cast-heads")
+_SLAB_INDEX_CACHE = {}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -46,7 +56,9 @@ class FusedNeRFWeights(NamedTuple):
     ``layers`` holds (weight (K, N), bias (N,)) views into the two
     buffers, in packing order: body layers, opacity head, bottleneck,
     hidden layer, color head. Weights are (in, out); K is padded to the
-    encoded features' padded width, the heads' N to 16.
+    encoded features' padded width, the heads' N to 16. ``slabs`` is
+    the bf16 kernel's copy of ``weights`` (:func:`slab_image`; None in
+    an f32 pack).
     """
 
     weights: torch.Tensor      # flat, bf16 or f32
@@ -61,6 +73,7 @@ class FusedNeRFWeights(NamedTuple):
     include_inputs: bool
     pos_width: int
     view_width: int
+    slabs: Optional[torch.Tensor] = None
 
     def split_flat(self, flat_weights: torch.Tensor,
                    flat_biases: torch.Tensor):
@@ -132,13 +145,55 @@ def pack_fused_nerf(model: NeRF, dtype=torch.bfloat16) -> FusedNeRFWeights:
     meta = np.array([num_layers, channels, pos_width, view_width, e_pos,
                      e_view, int(model.include_inputs), skip_mask,
                      *w_offsets[:-1], *b_offsets[:-1]], np.int64)
+    slabs = None
+    if dtype == torch.bfloat16:
+        slabs = slab_image(weights.detach(),
+                           [tuple(w.shape) for w, _ in packed],
+                           w_offsets[:-1])
     return FusedNeRFWeights(
         weights=weights, biases=biases,
         pos_enc=model.pos_encoding.detach().float().contiguous(),
         view_enc=model.view_encoding.detach().float().contiguous(),
         meta=meta, layers=layers, num_layers=num_layers, channels=channels,
         skips=skips, include_inputs=bool(model.include_inputs),
-        pos_width=pos_width, view_width=view_width)
+        pos_width=pos_width, view_width=view_width, slabs=slabs)
+
+
+def slab_index(shapes, offsets) -> np.ndarray:
+    """Where each element of the bf16 kernel's slab image comes from:
+    an index into the flat weights, or ``-1`` for a zero.
+
+    ``shapes`` are the packed layers' (K, N), in packing order, and
+    ``offsets`` their offsets into the flat weights. Each layer becomes
+    ceil(K / 64) slabs of N rows x 64 elements: slab ``s``, row ``n``
+    holds column ``n`` of the (in, out) weight for K rows 64 s .. 64 s
+    + 63 (zeros past K), its 16-byte chunk ``q`` (8 elements) stored
+    at chunk ``q ^ (n % 8)`` of the row. That is wgmma's 128-byte
+    swizzled K-major layout, so one slab is one contiguous copy into a
+    1024-byte-aligned ring stage (``csrc/hopper.cuh``)."""
+    parts = []
+    for (k, n), offset in zip(shapes, offsets):
+        slab = np.arange(-(-k // SLAB_K))[:, None, None]
+        row = np.arange(n)[None, :, None]
+        pos = np.arange(SLAB_K)[None, None, :]
+        krow = slab * SLAB_K + ((pos // 8) ^ (row % 8)) * 8 + pos % 8
+        src = int(offset) + krow * n + row
+        parts.append(np.where(krow < k, src, -1).reshape(-1))
+    return np.concatenate(parts)
+
+
+def slab_image(flat: torch.Tensor, shapes, offsets) -> torch.Tensor:
+    """The bf16 kernel's slab image of the flat weights (see
+    :func:`slab_index`): one gather on ``flat``'s device, with the index
+    cached for the model's shape."""
+    key = (tuple(shapes), tuple(int(o) for o in offsets), flat.device)
+    index = _SLAB_INDEX_CACHE.get(key)
+    if index is None:
+        host = slab_index(shapes, offsets)
+        host[host < 0] = flat.numel()    # the zero appended below
+        index = torch.from_numpy(host).to(flat.device)
+        _SLAB_INDEX_CACHE[key] = index
+    return F.pad(flat, (0, 1))[index]
 
 
 def prepare_fused_nerf(model: NeRF, dtype=torch.bfloat16) -> FusedNeRFWeights:
@@ -184,38 +239,62 @@ def _dense(x, layer):
     return x.float() @ weight.float() + bias
 
 
-def _trunk(weights: FusedNeRFWeights, positions: torch.Tensor):
+def _trunk(weights: FusedNeRFWeights, positions: torch.Tensor,
+           moved: Optional[str] = None):
     """The twin's per-point body: the (N, 1) f32 opacity logit and the
-    bottleneck in the working type."""
+    bottleneck in the working type (see :data:`MOVED_ROUNDINGS`)."""
     dtype = weights.weights.dtype
     layers = weights.layers
     num_layers = weights.num_layers
+
+    def body(inputs, layer):
+        if moved == "bias-after-cast":
+            weight, bias = layer
+            total = (inputs.float() @ weight.float()).to(dtype).float() + bias
+        else:
+            total = _dense(inputs, layer)
+        return torch.relu(total.to(dtype))
+
     enc = _features(positions.float(), weights.pos_enc, weights.pos_width,
                     weights.include_inputs, dtype)
-    h = torch.relu(_dense(enc, layers[0]).to(dtype))
+    h = body(enc, layers[0])
     for i in range(1, num_layers):
-        inputs = torch.cat([h, enc], -1) if i in weights.skips else h
-        h = torch.relu(_dense(inputs, layers[i]).to(dtype))
+        h = body(torch.cat([h, enc], -1) if i in weights.skips else h,
+                 layers[i])
     opacity = _dense(h, layers[num_layers])[:, :1]
-    bottleneck = _dense(h, layers[num_layers + 1]).to(dtype)
+    bottleneck = _dense(h, layers[num_layers + 1])
+    if moved != "uncast-bottleneck":
+        bottleneck = bottleneck.to(dtype)
     return opacity, bottleneck
 
 
 def fused_nerf_reference(weights: FusedNeRFWeights, positions: torch.Tensor,
-                         views: torch.Tensor) -> torch.Tensor:
+                         views: torch.Tensor,
+                         moved: Optional[str] = None) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: (N, 3) positions and views ->
     (N, 4) f32 logits, rounding where the kernel rounds. On a CUDA
-    device the f32 products rely on ``allow_tf32`` being False."""
+    device the f32 products rely on ``allow_tf32`` being False.
+
+    ``moved``, one of :data:`MOVED_ROUNDINGS`, moves one rounding point
+    of a bf16 pack: a control that a bf16 kernel's tolerance against
+    the twin must reject."""
+    if moved is not None and moved not in MOVED_ROUNDINGS:
+        raise ValueError(f"moved must be one of {MOVED_ROUNDINGS}, got "
+                         f"{moved!r}")
     dtype = weights.weights.dtype
     layers = weights.layers
     num_layers = weights.num_layers
-    opacity, bottleneck = _trunk(weights, positions)
+    opacity, bottleneck = _trunk(weights, positions, moved)
     venc = _features(views.float(), weights.view_enc, weights.view_width,
                      weights.include_inputs, dtype)
-    hidden = torch.relu(_dense(torch.cat([bottleneck, venc], -1),
-                               layers[num_layers + 2])).to(dtype)
-    color = _dense(hidden, layers[num_layers + 3])[:, :3]
-    return torch.cat([color, opacity], dim=-1)
+    hidden = torch.relu(_dense(torch.cat([bottleneck,
+                                          venc.to(bottleneck.dtype)], -1),
+                               layers[num_layers + 2]))
+    if moved != "uncast-hidden":
+        hidden = hidden.to(dtype)
+    out = torch.cat([_dense(hidden, layers[num_layers + 3])[:, :3], opacity],
+                    dim=-1)
+    return out.to(dtype).float() if moved == "cast-heads" else out
 
 
 _LIB = KernelLibrary("fused_nerf.cu", "fused_nerf_error_string",
@@ -261,6 +340,9 @@ def _check_cuda_inputs(weights: FusedNeRFWeights, positions, views):
     if views.device != device:
         raise ValueError(f"views is on {views.device}, positions on {device}")
     _check_pack(weights, device)
+    if weights.weights.dtype == torch.bfloat16 and (
+            weights.slabs is None or weights.slabs.device != device):
+        raise ValueError(f"a bf16 pack needs its slab image on {device}")
 
 
 def fused_nerf_apply(weights: FusedNeRFWeights, positions: torch.Tensor,
@@ -269,7 +351,11 @@ def fused_nerf_apply(weights: FusedNeRFWeights, positions: torch.Tensor,
 
     CPU tensors run :func:`fused_nerf_reference`. CUDA tensors launch
     the kernel on the current stream (building it on first use) or
-    raise; each launch adds one to ``fused_nerf_apply.launches``.
+    raise; each launch adds one to ``fused_nerf_apply.launches``. A
+    bf16 pack launches the wgmma kernel on its slab image, an f32 pack
+    the FFMA tile on its flat weights. A bf16 model whose activation
+    rows and two ring stages do not fit in a block's shared memory makes
+    the launch raise (``csrc/fused_nerf.cu::bf16_shared_bytes``).
     """
     if not on_cuda(positions, "fused NeRF"):
         return fused_nerf_reference(weights, positions, views)
@@ -279,10 +365,11 @@ def fused_nerf_apply(weights: FusedNeRFWeights, positions: torch.Tensor,
     out = torch.empty((num, 4), dtype=torch.float32, device=device)
     if num == 0:
         return out
+    flat = weights.slabs if weights.slabs is not None else weights.weights
     _LIB.launch(fused_nerf_apply, "fused_nerf_forward", device,
                 positions.data_ptr(), views.data_ptr(),
                 weights.pos_enc.data_ptr(), weights.view_enc.data_ptr(),
-                weights.weights.data_ptr(), weights.biases.data_ptr(),
+                flat.data_ptr(), weights.biases.data_ptr(),
                 weights.meta.ctypes.data, out.data_ptr(), num,
                 _DTYPE_CODES[weights.weights.dtype])
     return out

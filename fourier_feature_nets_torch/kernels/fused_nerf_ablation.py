@@ -7,7 +7,11 @@ forward with one part of the work changed, in the modes of
 (``:174``), and the ablation CLI prints those. The modes touch only the
 body layers and the position encode, as that tool does:
 
-* ``base`` is K1's function;
+* ``base`` is K1's function, computed on the 64-point WMMA tile of
+  ``csrc/fused_nerf_common.cuh`` (K1's bf16 tile before its wgmma
+  redesign; K3 runs it too), so the modes split that tile's time, not
+  the wgmma kernel's, and ``base`` holds K1's bf16 output within K1's
+  atol 0.05, not bit for bit;
 * ``no-view`` skips the bottleneck, the view encode, the hidden layer
   and the color head, and sets the color to ``opacity * 0 + color
   bias``;

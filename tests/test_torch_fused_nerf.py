@@ -96,6 +96,72 @@ def test_twin_bf16_matches_pallas(nerf, inputs, layout):
     np.testing.assert_allclose(ours, np.asarray(ref), atol=0.05)
 
 
+# K1 bf16's own limits against its twin, max and mean |d| (readings and
+# reasons at chip_smoke.py, K1_BF16_ATOL)
+K1_BF16_ATOL, K1_BF16_MEAN_ATOL = 4e-3, 5e-6
+
+
+@pytest.fixture(scope="module", params=["4x64", "flagship"])
+def bf16_pallas(request):
+    """(torch pack, positions, views, Pallas bf16 logits) for the small
+    model at 512 points and the flagship at 256."""
+    if request.param == "flagship":
+        from fourier_feature_nets_tpu.models import flagship_nerf
+        from fourier_feature_nets_torch.models import (
+            flagship_nerf as torch_flagship)
+        model = flagship_nerf()
+        params = model.init(jax.random.PRNGKey(0))
+        flat = {k: np.asarray(v) for k, v in _flatten(params).items()}
+        torch_model = params_from_jax(torch_flagship(), flat)
+        pos, views = _inputs(256)
+    else:
+        model, params, torch_model = _pair(BASE)
+        pos, views = _inputs(512)
+    weights = prepare_fused_nerf(model, params, dtype=jnp.bfloat16)
+    ref = np.asarray(fused_nerf_apply(model, weights, jnp.asarray(pos),
+                                      jnp.asarray(views), tile=128,
+                                      interpret=True))
+    return (port.prepare_fused_nerf(torch_model, torch.bfloat16),
+            torch.from_numpy(pos), torch.from_numpy(views), ref)
+
+
+def test_twin_bf16_within_k1_limits_of_pallas(bf16_pallas):
+    """The twin rounds where the Pallas kernel rounds: they differ by sum
+    order only, within K1's bf16 limits."""
+    weights, pos, views, ref = bf16_pallas
+    with torch.no_grad():
+        err = np.abs(port.fused_nerf_reference(weights, pos, views).numpy()
+                     - ref)
+    assert err.max() <= K1_BF16_ATOL
+    assert err.mean() <= K1_BF16_MEAN_ATOL
+
+
+@pytest.mark.parametrize("moved", port.MOVED_ROUNDINGS)
+def test_k1_limits_reject_a_moved_rounding_point(bf16_pallas, moved):
+    """With any one rounding point moved the twin stays within the max
+    limit, as a kernel rounding in the wrong place would, and its mean
+    error fails K1's bf16 limit."""
+    weights, pos, views, ref = bf16_pallas
+    with torch.no_grad():
+        err = np.abs(port.fused_nerf_reference(weights, pos, views,
+                                               moved).numpy() - ref)
+    assert err.max() <= K1_BF16_ATOL
+    assert err.mean() > K1_BF16_MEAN_ATOL
+
+
+def test_moved_rounding_changes_only_bf16_and_is_checked(nerf, inputs):
+    _, _, torch_model = nerf
+    pos, views = (torch.from_numpy(a) for a in inputs)
+    weights = port.prepare_fused_nerf(torch_model, torch.float32)
+    with torch.no_grad():
+        plain = port.fused_nerf_reference(weights, pos, views)
+        for moved in port.MOVED_ROUNDINGS:
+            assert torch.equal(
+                port.fused_nerf_reference(weights, pos, views, moved), plain)
+    with pytest.raises(ValueError, match="moved must be one of"):
+        port.fused_nerf_reference(weights, pos, views, "relu-before-cast")
+
+
 def test_twin_ragged_batch_matches_pallas(nerf, inputs):
     model, params, torch_model = nerf
     pos, views = inputs[0][:77], inputs[1][:77]
@@ -164,6 +230,54 @@ def test_pack_layout(nerf):
     torch.testing.assert_close(
         first_w[:n_pos].float(),
         torch_model.layers[0].weight.detach().T.to(torch.bfloat16).float())
+    # the bf16 kernel's slab image: ceil(K / 64) slabs of N x 64 a layer
+    assert weights.slabs.dtype == torch.bfloat16
+    assert not weights.slabs.requires_grad
+    assert weights.slabs.numel() == sum(-(-k // 64) * n * 64
+                                        for k, n in shapes)
+    for (w, _), back in zip(weights.layers, _decode_slabs(weights.slabs,
+                                                          shapes)):
+        assert torch.equal(back, w)
+    assert port.prepare_fused_nerf(torch_model, torch.float32).slabs is None
+
+
+def _decode_slabs(slabs, shapes):
+    """Each layer's (K, N) weight read back from a slab image as wgmma
+    reads a 128-byte swizzled K-major operand: row n of a slab holds 64
+    K-rows of column n, its 16-byte chunk q at chunk q ^ (n % 8)."""
+    layers, pos = [], 0
+    for k, n in shapes:
+        count = -(-k // 64)
+        blocks = slabs[pos:pos + count * n * 64].reshape(count, n, 8, 8)
+        rows = torch.arange(n)[:, None]
+        chunks = torch.arange(8)[None, :] ^ (rows % 8)
+        w = blocks[:, rows, chunks].reshape(count, n, 64).transpose(1, 2)
+        w = w.reshape(count * 64, n)
+        assert torch.count_nonzero(w[k:]) == 0       # zeros past K
+        layers.append(w[:k])
+        pos += count * n * 64
+    assert pos == slabs.numel()
+    return layers
+
+
+@pytest.mark.parametrize("config", [
+    dict(num_layers=2, num_channels=32, skips=[], include_inputs=False),
+    dict(num_layers=3, num_channels=96, skips=[1, 2], include_inputs=True),
+    dict(num_layers=8, num_channels=256, skips=[4], include_inputs=True),
+])
+def test_slab_image_decodes_to_the_pack(config):
+    model = TorchNeRF(max_log_scale_pos=6.0, num_freq_pos=7,
+                      max_log_scale_view=2.0, num_freq_view=3, **config,
+                      generator=torch.Generator().manual_seed(2))
+    weights = port.pack_fused_nerf(model, torch.bfloat16)
+    shapes = [tuple(w.shape) for w, _ in weights.layers]
+    for (w, _), back in zip(weights.layers,
+                            _decode_slabs(weights.slabs, shapes)):
+        assert torch.equal(back, w.detach())
+    # the index alone: -1 exactly where a slab runs past its layer's K
+    index = port.slab_index(shapes, weights.meta[8:8 + len(shapes)])
+    assert (index == -1).sum() == sum((-(-k // 64) * 64 - k) * n
+                                      for k, n in shapes)
 
 
 def test_cpu_wrapper_runs_twin_without_counting(nerf, inputs):
@@ -202,6 +316,15 @@ def test_cuda_input_checks(nerf, bad):
         views = torch.zeros(9, 3)
     with pytest.raises(ValueError):
         port._check_cuda_inputs(weights, pos, views)
+
+
+def test_bf16_pack_needs_its_slab_image(nerf):
+    _, _, torch_model = nerf
+    weights = port.prepare_fused_nerf(torch_model, torch.bfloat16)
+    with pytest.raises(ValueError, match="slab image"):
+        port._check_cuda_inputs(weights._replace(slabs=None),
+                                torch.zeros(2, 3), torch.zeros(2, 3))
+    port._check_cuda_inputs(weights, torch.zeros(2, 3), torch.zeros(2, 3))
 
 
 def test_kernel_limits_are_checked():

@@ -37,6 +37,11 @@ SMALL = dict(num_layers=4, num_channels=64, max_log_scale_pos=9.0,
 # P2 bf16-accum, max and mean |kernel - twin| (readings and reasons at
 # chip_smoke.py, ACCUM_ATOL)
 ACCUM_ATOL, ACCUM_MEAN_ATOL = 4e-3, 5e-6
+# K1 bf16, max and mean |kernel - twin| (readings and reasons at
+# chip_smoke.py, K1_BF16_ATOL); the mean is held from MEAN_POINTS points
+# on, below which one point's difference can carry it
+K1_BF16_ATOL, K1_BF16_MEAN_ATOL = 4e-3, 5e-6
+MEAN_POINTS = 1000
 
 
 @pytest.fixture
@@ -66,7 +71,9 @@ def _assert_matches_twin(weights, pos, views):
     if weights.weights.dtype == torch.float32:
         torch.testing.assert_close(out, twin, rtol=1e-3, atol=2e-4)
     else:
-        torch.testing.assert_close(out, twin, rtol=0, atol=0.05)
+        torch.testing.assert_close(out, twin, rtol=0, atol=K1_BF16_ATOL)
+        if pos.shape[0] >= MEAN_POINTS:
+            assert (out - twin).abs().mean().item() <= K1_BF16_MEAN_ATOL
 
 
 @pytest.mark.cuda
@@ -98,6 +105,104 @@ def test_flagship_matches_twin(cuda, dtype):
     model = flagship_nerf(torch.Generator().manual_seed(0)).to(cuda)
     _assert_matches_twin(port.prepare_fused_nerf(model, dtype),
                          *_inputs(50_001, cuda))
+
+
+# K1's bf16 wgmma kernel: a persistent grid of 128-point tiles streaming
+# the weights through a ring of stages whose mbarrier phases run on across
+# layers and tiles, so ragged tiles, a second pass over the grid and many
+# tiles a block are where its faults would show.
+
+
+@pytest.fixture(scope="module")
+def flagship_bf16():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernel has no CPU mode")
+    model = flagship_nerf(torch.Generator().manual_seed(0)).cuda()
+    return port.prepare_fused_nerf(model, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num", [1, 127, 128, 129, 4099])
+def test_wgmma_tile_edges_match_twin(cuda, flagship_bf16, num):
+    _assert_matches_twin(flagship_bf16, *_inputs(num, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", ["one more than the grid", "many a block"])
+def test_wgmma_persistent_grid_matches_twin(cuda, flagship_bf16, tiles):
+    if tiles == "many a block":
+        num = 786_431        # 6144 tiles, the last ragged: ~47 a block
+    else:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        num = sms * 128 + 1  # one point past one tile a block
+    _assert_matches_twin(flagship_bf16, *_inputs(num, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moved", port.MOVED_ROUNDINGS)
+@pytest.mark.parametrize("model", ["small", "flagship"])
+def test_k1_bf16_limits_reject_a_moved_rounding_point(cuda, flagship_bf16,
+                                                      model, moved):
+    """The control: against the twin with one rounding point moved, the
+    kernel fails the mean limit it holds against its twin."""
+    if model == "flagship":
+        weights = flagship_bf16
+    else:
+        weights = port.prepare_fused_nerf(
+            NeRF(**SMALL, generator=torch.Generator().manual_seed(1)).to(cuda),
+            torch.bfloat16)
+    pos, views = _inputs(50_001, cuda)
+    _assert_matches_twin(weights, pos, views)
+    with torch.no_grad():
+        out = port.fused_nerf_apply(weights, pos, views)
+        wrong = port.fused_nerf_reference(weights, pos, views, moved)
+    assert (out - wrong).abs().mean().item() > K1_BF16_MEAN_ATOL
+
+
+@pytest.mark.cuda
+def test_wgmma_refuses_a_model_too_wide_for_shared_memory(cuda):
+    # 256 channels with a 400-wide positional encode: the two warpgroups'
+    # activation rows and two ring stages exceed 227 KB
+    wide = NeRF(num_layers=2, num_channels=256, max_log_scale_pos=9.0,
+                num_freq_pos=64, max_log_scale_view=3.0, num_freq_view=4,
+                skips=[], include_inputs=True).to(cuda)
+    pos, views = _inputs(64, cuda)
+    with torch.no_grad(), pytest.raises(RuntimeError,
+                                        match="invalid argument"):
+        port.fused_nerf_apply(port.prepare_fused_nerf(wide, torch.bfloat16),
+                              pos, views)
+
+
+@pytest.mark.cuda
+def test_wgmma_relaunch_is_bit_equal(cuda, flagship_bf16):
+    # no atomics: every point's sums run in one fixed order
+    pos, views = _inputs(20_011, cuda)
+    with torch.no_grad():
+        first = port.fused_nerf_apply(flagship_bf16, pos, views)
+        second = port.fused_nerf_apply(flagship_bf16, pos, views)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_wgmma_launch_in_cuda_graph(cuda, flagship_bf16):
+    pos, views = _inputs(50_001, cuda)
+    with torch.no_grad():
+        eager = port.fused_nerf_apply(flagship_bf16, pos, views)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            port.fused_nerf_apply(flagship_bf16, pos, views)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = port.fused_nerf_apply.launches
+        with torch.cuda.graph(graph):
+            captured = port.fused_nerf_apply(flagship_bf16, pos, views)
+        assert port.fused_nerf_apply.launches == before + 1
+        captured.zero_()
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 @pytest.mark.cuda
@@ -624,13 +729,15 @@ def test_bf16_accum_refuses_an_f32_pack(cuda):
 
 @pytest.mark.cuda
 def test_ablation_base_is_k1(cuda):
+    # base runs the 64-point WMMA tile, K1 in bf16 the wgmma kernel: the
+    # same function with the products summed in other orders
     model = NeRF(**SMALL, generator=torch.Generator().manual_seed(1)).to(cuda)
     weights = port.prepare_fused_nerf(model, torch.bfloat16)
     pos, views = _inputs(4099, cuda)
     with torch.no_grad():
-        assert torch.equal(
+        torch.testing.assert_close(
             ablation.fused_nerf_ablation(weights, pos, views, "base"),
-            port.fused_nerf_apply(weights, pos, views))
+            port.fused_nerf_apply(weights, pos, views), rtol=0, atol=0.05)
 
 
 # ---------------------------------------------------------------------------
