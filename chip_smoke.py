@@ -17,7 +17,11 @@ and drives the port's paths at the flagship width:
   of one such frame by kernel; a low-resolution fused render against
   the plain render;
 * training: K2 against its plain twin in bf16 and f32 at the CLI batch
-  (1024 rays x 128 samples) and a ragged N; 30 steps of ``train_nerf``
+  (1024 rays x 128 samples) and a ragged N, and in bf16 within
+  ``fused_nerf_train.K2_BF16_MEAN_SHARE`` under the tail cotangent there
+  and under a margin cotangent at 3x256, a limit each twin with a
+  rounding point moved must fail, as the twin with dz left in f32 must
+  fail the same-sign limit; 30 steps of ``train_nerf``
   on the generated ``synthetic`` scene in bf16 and f32, ``--fused``
   (through K1 and K2, which must both launch) and ``--no-fused``, then
   at the CLI's defaults (f32, no fused flag), which must print the
@@ -52,6 +56,12 @@ per-kernel JSON record (every kernel with its launches on its path,
 error, time, its plain twin's time, bound and library time; the short
 kernels also with ``device_ms``, ``library_device_ms`` and ``host_us``)
 and ``{"ok": true, "device": ...}``.
+
+``--k2-limits [all|tail] [--tree DIR]`` prints only the readings behind
+K2's bf16 limits: its random, same-sign, tail and margin shares against
+the twin and against each twin with a rounding point moved, over several
+seeds, sizes and models (``tail``: the flagship's tail lines alone), for
+the port found in ``DIR``.
 
 ``--times-only [--tree DIR]`` prints only those three times for the
 kernels of the last item, the host cost of each launch-path step, K1-K3
@@ -104,35 +114,67 @@ K1_BF16_ATOL = 4e-3               # max |d|
 K1_BF16_MEAN_ATOL = 5e-6          # mean |d|
 # K2 vs its twin, per gradient leaf and cotangent: max|kernel - twin| <=
 # GRAD_SHARE * max|twin|. Readings at the flagship on an H100 80GB HBM3 at
-# 700 W, N = 131,072 / 100,003 (bf16; f32):
+# 700 W, N = 131,072 / 100,003 (bf16, the wgmma kernel; f32, the FFMA tile);
+# ``--k2-limits`` reads bf16 at four seeds and both N:
 # * random: N(0, 1); each gradient is a cancelling sum that grows like
-#   sqrt(N), so a few terms that differ stand out. (1.03e-2 / 6.98e-3;
-#   7.13e-3 / 1.04e-2.) In f32 they are ReLU-mask flips: K2 and the twin
-#   sum each pre-activation in another order, and one within rounding of 0
-#   takes the other side of the mask in each; zeroing the cotangent of the
-#   180 points within 1e-7 of a boundary takes 1.04e-2 to 5.6e-6, zeroing
-#   180 other points leaves it at 1.04e-2. In bf16 they are activations one
-#   bf16 step apart: K2 sums on the tensor cores, the twin in f32 FMAs, and
-#   a twin whose forward products run on the tensor cores (cuBLAS) sits
-#   6.4e-3 from the plain twin, as K2 does.
+#   sqrt(N), so a few terms that differ stand out: ReLU-mask flips. K2 and
+#   the twin sum each pre-activation in another order (in bf16, K2's sums
+#   are K1's wgmma chains and the twin's are f32 GEMMs), and one within
+#   rounding of 0 takes the other side of the mask in each; in f32, zeroing
+#   the cotangent of the 180 points within 1e-7 of a boundary takes 1.04e-2
+#   to 5.6e-6. In bf16 most flips follow a bf16 activation that rounds one
+#   step apart in the two, which no f32 sum order of the twin removes.
+#   (bf16 5.9e-3 to 1.6e-2 over the seeds, 5.0e-3 to 6.7e-3 at 262,143
+#   points; f32 7.13e-3 / 1.04e-2.)
 # * margin (f32): random with the cotangent zeroed on the ~2% of points that
 #   have a pre-activation within MARGIN of 0 (relu_margin); with the flips
 #   gone, what is left is rounding. (5.7e-6 / 5.3e-6.)
-# * same-sign: all ones, so the sums do not cancel. (6.5e-5 / 8.1e-5;
-#   5.8e-5 / 3.1e-5.)
+# * same-sign: all ones, so the sums do not cancel. A twin with dz left in
+#   f32 (SAME_SIGN_CATCHES) must fail it. (bf16 6.4e-5 to 9.7e-5, that twin
+#   2.52e-3 to 2.55e-3: the limit 5.2x above the one and 5.0x below the
+#   other; f32 5.8e-5 / 3.1e-5.)
 # * tail: random on the last GROUP points (at N = 100,003 the ragged last
-#   tile, 3 points) and on one other GROUP, zero elsewhere: those points make
-#   up the whole gradient, so a dropped or mis-masked tile cannot hide.
-#   (2.4e-3 / 7.7e-4; 6.9e-7 / 6.6e-7.)
-# At N = 100,003, a K2 that skips the ragged tile, drops its last point's
-# cotangent, or rounds f32 dz to bf16 fails tail (>= 0.14; >= 6.0e-3) and
-# the f32 margin check (>= 3.3e-3), and passes random and same-sign.
+#   tile, 35 points) and on one other GROUP, zero elsewhere: those points make
+#   up the whole gradient, so a dropped or mis-masked tile cannot hide. Over
+#   256 points one ReLU flip is ~1/16 of a leaf, so in bf16 each of those
+#   points is, of K2_BF16_TAIL_POOL drawn for it, the one farthest from every
+#   ReLU boundary (fused_nerf_train.far_from_relu; each then lies >= 3.5e-4
+#   from one). With no pick, one seed's N = 131,072 read 1.13e-2; points only
+#   1e-5 from a boundary still flipped (4.4e-2, 1.4e-2 in two pairs of
+#   eight). (bf16
+#   4.7e-4 to 1.3e-3 over the seeds; f32 8.7e-7 / 7.4e-7.) In bf16 the tail
+#   also carries the mean-share control below.
+# A K2 bf16 that skips the ragged tile fails tail at N = 100,003 in all four
+# seeds (max share >= 0.83), one that drops its last point's cotangent at
+# both N (>= 4.1e-2); in f32 those two and one that rounds dz to bf16 fail
+# tail (the f32 tile).
 GRAD_SHARE = {"random": {"bfloat16": 2e-2, "float32": 2e-2},
               "margin": {"float32": 5e-5},
-              "same-sign": {"bfloat16": 2e-3, "float32": 3e-4},
+              "same-sign": {"bfloat16": 5e-4, "float32": 3e-4},
               "tail": {"bfloat16": 1e-2, "float32": 2e-5}}
 MARGIN = {"float32": 1e-6}
-GROUP = 32    # K2's bf16 tile, two of its f32 tiles
+# the twins with a rounding point moved that bf16's same-sign limit must
+# fail: all-ones are exact in bf16, so cast-head-cotangent is the twin there
+SAME_SIGN_CATCHES = ("uncast-dz",)
+# K2 bf16's control against a rounding point moved
+# (fused_nerf_train.K2_BF16_MEAN_SHARE): per leaf, mean|kernel - twin| <=
+# 1.5e-3 * mean|twin|, which each twin with a rounding point moved
+# (fused_nerf_train.MOVED_BACKWARD_ROUNDINGS) must fail. Under a random
+# cotangent at the flagship's depth, ReLU flips between the kernel's wgmma
+# sums and the twin's f32 GEMMs move every statistic as much as a moved
+# rounding point does (mean share: the kernel 4.2e-3 to 7.0e-3, the moved
+# twins from 6.2e-3). So the control runs under two cotangents with
+# no point near a ReLU boundary: the flagship's tail (above), and, at the
+# flagship's width cut to 3 layers (K2_BF16_CONTROL_MODEL), random zeroed on
+# the points within K2_BF16_MARGIN of a boundary, where a third of the
+# points are left. Readings (``--k2-limits``): at 3x256, 4x64 and 3x96, N =
+# 3,001 and 20,011, two seeds each, the kernel 3.0e-5 to 7.5e-4, the moved
+# twins 3.1e-3 to 8.6e-3; the flagship's tail, four seeds and both N, the
+# kernel 1.4e-4 to 5.4e-4, the moved twins 4.7e-3 to 9.3e-3. So 1.5e-3:
+# 2.0x above the highest reading, 2.1x below the nearest moved twin.
+CONTROL_POINTS = 20_011
+MANY_POINTS = 262_143   # --k2-limits: 2048 tiles, ~16 a block, the last ragged
+GROUP = 128   # K2's bf16 tile, eight of its f32 tiles
 RENDER_RAYS = 16384            # one frame chunk / bench.py's render batch
 RAGGED_RAYS = 1001             # not a multiple of any ray block
 PLAIN_RENDER_ATOL = 5e-3       # tools/validate_kernels_tpu.py:167-170
@@ -627,26 +669,43 @@ def phase_fused_vs_plain(model):
             raise AssertionError("fused render disagrees with plain render")
 
 
-def backward_cotangents(weights, positions, views, rng):
+def tail_rows(num: int, device) -> torch.Tensor:
+    """The points of the tail cotangent: the last GROUP (the ragged last
+    tile at a ragged N) and one full GROUP in the middle."""
+    last = num % GROUP or GROUP
+    mid = num // GROUP // 2 * GROUP
+    return torch.cat([torch.arange(mid, mid + GROUP, device=device),
+                      torch.arange(num - last, num, device=device)])
+
+
+def backward_cotangents(weights, positions, views, rng, pool=None):
     """The (N, 4) cotangents K2 is held to its twin with, by name (see
-    GRAD_SHARE)."""
+    GRAD_SHARE). In bf16 the tail's points are first replaced, in
+    ``positions`` and ``views``, by those of ``pool`` (default
+    K2_BF16_TAIL_POOL) random points drawn for each that lie farthest from
+    every ReLU boundary; returns the cotangents and the smallest ReLU
+    margin among the tail's points (None in f32)."""
     from fourier_feature_nets_torch.kernels.fused_nerf_train import (
-        relu_margin)
+        K2_BF16_TAIL_POOL, far_from_relu, relu_margin)
     num = positions.shape[0]
+    name = str(weights.weights.dtype)[6:]
+    rows = tail_rows(num, positions.device)
+    least = None
+    if name == "bfloat16":
+        positions[rows], views[rows], least = far_from_relu(
+            weights, rows.numel(), rows.numel() * (pool or K2_BF16_TAIL_POOL),
+            lambda n: random_points(n, rng, positions.device))
     random = torch.from_numpy(rng.normal(size=(num, 4)).astype(
         np.float32)).to(positions.device)
     tail = torch.zeros_like(random)
-    last = num % GROUP or GROUP
-    mid = num // GROUP // 2 * GROUP
-    tail[num - last:] = random[num - last:]
-    tail[mid:mid + GROUP] = random[mid:mid + GROUP]
+    tail[rows] = random[rows]
     gs = {"random": random, "same-sign": torch.ones_like(random),
           "tail": tail}
-    name = str(weights.weights.dtype)[6:]
     if name in MARGIN:
-        far = relu_margin(weights, positions, views) >= MARGIN[name]
-        gs["margin"] = torch.where(far[:, None], random, 0.0)
-    return gs
+        margin = relu_margin(weights, positions, views)
+        gs["margin"] = torch.where((margin >= MARGIN[name])[:, None], random,
+                                   0.0)
+    return gs, least
 
 
 def backward_errors(weights, positions, views, g):
@@ -674,8 +733,9 @@ def phase_backward_vs_twin(model):
     from fourier_feature_nets_torch.kernels.fused_nerf import (
         prepare_fused_nerf)
     from fourier_feature_nets_torch.kernels.fused_nerf_train import (
-        fused_nerf_backward, fused_nerf_backward_reference)
+        fused_nerf_backward, fused_nerf_backward_reference, scratch_bytes)
     rng = np.random.default_rng(SEED + 1)
+    control = {}
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype)[6:]
@@ -684,11 +744,18 @@ def phase_backward_vs_twin(model):
             + ", ".join(f"{k} {v[name]:g}" for k, v in GRAD_SHARE.items()
                         if name in v))
         weights = prepare_fused_nerf(model, dtype)
+        if dtype == torch.bfloat16:
+            parked = scratch_bytes(weights, TRAIN_POINTS,
+                                   torch.device("cuda", 0))
+            log(f"  {name}: the wgmma kernel parks its tiles' activations in "
+                f"{parked:,d} bytes of scratch at N={TRAIN_POINTS:,d}")
         for num in (TRAIN_POINTS, RAGGED_POINTS):
             positions, views = random_points(num, rng, "cuda")
-            gs = backward_cotangents(weights, positions, views, rng)
+            gs, least = backward_cotangents(weights, positions, views, rng)
             log(f"  {name:8s} N={num:>7,d}: tail cotangent on "
                 f"{int(torch.count_nonzero(gs['tail'][:, 0]))} points"
+                + (f" (each at least {least:.2e} from a ReLU boundary)"
+                   if least is not None else "")
                 + (f"; margin cotangent zero on the "
                    f"{num - int(torch.count_nonzero(gs['margin'][:, 0])):,d} "
                    f"points within {MARGIN[name]:g} of a ReLU boundary"
@@ -710,6 +777,14 @@ def phase_backward_vs_twin(model):
             if failed:
                 raise AssertionError(f"K2 {name} N={num} disagrees with its "
                                      f"plain twin: {failed}")
+            if name == "bfloat16":
+                control[num] = {
+                    "same-sign": same_sign_control(
+                        weights, positions, views, gs["same-sign"],
+                        f"flagship N={num:,d}"),
+                    "tail": mean_share_control(
+                        weights, positions, views, gs["tail"],
+                        f"flagship N={num:,d}, tail cotangent")}
             g = gs["random"]
             out = fused_nerf_backward(weights, positions, views, g)
             again = fused_nerf_backward(weights, positions, views, g)
@@ -724,16 +799,98 @@ def phase_backward_vs_twin(model):
                     weights, positions, views, g), 5)
                 log(f"  {name:8s} N={num:>7,d}: K2 {kernel_ms:.3f} ms, plain "
                     f"twin {plain_ms:.3f} ms (CUDA events, mean of 5)")
-                results[name] = {
+                results.setdefault(name, {}).update({
                     "max_abs_err": max(r[1] for r in table["random"]),
                     "max_rel_err": {key: max(r[2] for r in rows)
                                     for key, rows in table.items()},
                     "ms": kernel_ms, "plain_ms": plain_ms,
-                    "bitwise_equal": bitwise}
+                    "bitwise_equal": bitwise})
             del positions, views, gs, g, out, again
         del weights
         torch.cuda.empty_cache()
+    results["bfloat16"]["flagship_control"] = control
     return results
+
+
+def leaf_max_share(weights, out, twin) -> float:
+    """The largest per-leaf max|out - twin| / max|twin|."""
+    return max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+               for (_, a), (_, b) in zip(weights.split_flat(*out),
+                                         weights.split_flat(*twin)))
+
+
+def same_sign_control(weights, positions, views, g, what: str) -> dict:
+    """K2 bf16's same-sign limit against each twin with a rounding point
+    moved that a same-sign cotangent can show (SAME_SIGN_CATCHES): logs
+    and returns the largest per-leaf max share of each, and raises unless
+    each is beyond GRAD_SHARE["same-sign"]."""
+    from fourier_feature_nets_torch.kernels.fused_nerf_train import (
+        fused_nerf_backward, fused_nerf_backward_reference)
+    limit = GRAD_SHARE["same-sign"]["bfloat16"]
+    out = fused_nerf_backward(weights, positions, views, g)
+    shares = {name: leaf_max_share(weights, out, fused_nerf_backward_reference(
+        weights, positions, views, g, name)) for name in SAME_SIGN_CATCHES}
+    log(f"  bfloat16 {what}, same-sign: largest per-leaf max|d| / max|twin| "
+        f"against the twin with a rounding point moved: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in shares.items()) + f" (limit {limit:g})")
+    passed = sorted(k for k, v in shares.items() if v <= limit)
+    if passed:
+        raise AssertionError(f"K2's bf16 same-sign limit passes a twin with "
+                             f"a rounding point moved: {passed}")
+    return shares
+
+
+def mean_share_control(weights, positions, views, g, what: str) -> dict:
+    """K2 bf16 under the cotangent ``g`` against the twin and against each
+    twin with a rounding point moved: logs and returns the largest
+    per-leaf mean share of each, by name ("kernel" for the twin). Raises
+    unless the kernel is within K2_BF16_MEAN_SHARE and every moved twin
+    beyond it."""
+    from fourier_feature_nets_torch.kernels.fused_nerf_train import (
+        K2_BF16_MEAN_SHARE, MOVED_BACKWARD_ROUNDINGS, fused_nerf_backward,
+        fused_nerf_backward_reference, leaf_mean_share)
+    out = fused_nerf_backward(weights, positions, views, g)
+    shares = {name or "kernel": leaf_mean_share(
+        weights, out,
+        fused_nerf_backward_reference(weights, positions, views, g, name))
+        for name in (None, *MOVED_BACKWARD_ROUNDINGS)}
+    log(f"  bfloat16 {what}: largest per-leaf mean|d| / mean|twin|: kernel "
+        f"{shares['kernel']:.3e}; against the twin with a rounding point "
+        f"moved: " + ", ".join(f"{k} {v:.3e}" for k, v in shares.items()
+                               if k != "kernel")
+        + f" (limit {K2_BF16_MEAN_SHARE:g})")
+    if shares["kernel"] > K2_BF16_MEAN_SHARE:
+        raise AssertionError(f"K2 bf16 disagrees with its twin under {what}")
+    passed = sorted(k for k, v in shares.items()
+                    if k != "kernel" and v <= K2_BF16_MEAN_SHARE)
+    if passed:
+        raise AssertionError(f"K2's bf16 limit under {what} passes a twin "
+                             f"with a rounding point moved: {passed}")
+    return shares
+
+
+def phase_backward_control():
+    """K2 bf16's mean-share control (mean_share_control) under the margin
+    cotangent at K2_BF16_CONTROL_MODEL."""
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        prepare_fused_nerf)
+    from fourier_feature_nets_torch.kernels.fused_nerf_train import (
+        K2_BF16_CONTROL_MODEL, K2_BF16_MARGIN, relu_margin)
+    from fourier_feature_nets_torch.models import NeRF
+    model = NeRF(**K2_BF16_CONTROL_MODEL,
+                 generator=torch.Generator().manual_seed(SEED + 1)).cuda()
+    weights = prepare_fused_nerf(model, torch.bfloat16)
+    rng = np.random.default_rng(SEED + 2)
+    positions, views = random_points(CONTROL_POINTS, rng, "cuda")
+    g = torch.from_numpy(rng.normal(size=(CONTROL_POINTS, 4)).astype(
+        np.float32)).cuda()
+    far = relu_margin(weights, positions, views) >= K2_BF16_MARGIN
+    g = torch.where(far[:, None], g, 0.0)
+    return mean_share_control(
+        weights, positions, views, g,
+        f"{K2_BF16_CONTROL_MODEL['num_layers']}x"
+        f"{K2_BF16_CONTROL_MODEL['num_channels']} N={CONTROL_POINTS:,d}, "
+        f"margin cotangent on {int(far.sum())} points")
 
 
 def run_train_nerf(results: str, steps: int, flags, report: int = 10):
@@ -1530,6 +1687,20 @@ def phase_times(flagship: bool) -> dict:
         fused_nerf_train_apply(packed, pos, views).sum().backward()
 
     timed("fused_train_core_bf16", fused_train_core)
+    # the same core split: the host's time to issue one (host clock, no
+    # synchronise) and the device time of the kernels it launches
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(FLAGSHIP_REPS):
+        fused_train_core()
+    rows["fused_train_core_bf16_host_ms"] = (
+        (time.perf_counter() - start) * 1e3 / FLAGSHIP_REPS)
+    torch.cuda.synchronize()
+    rows["fused_train_core_bf16_device_ms"] = profiler_kernel_ms(
+        fused_train_core, FLAGSHIP_REPS)
+    log(f"  fused_train_core_bf16: host issue "
+        f"{rows['fused_train_core_bf16_host_ms']:.4f} ms, device "
+        f"{rows['fused_train_core_bf16_device_ms']} ms a call")
     model.zero_grad(set_to_none=True)
     del model, pos, views
     torch.cuda.empty_cache()
@@ -1542,6 +1713,116 @@ def phase_times(flagship: bool) -> dict:
             f"{rows[f'train_step_bf16_{path}']:.4f} ms/step over steps "
             f"2..{TIMED_TRAIN_STEPS + 1}")
     return rows
+
+
+def run_k2_limits(which: str) -> int:
+    """--k2-limits: the readings behind K2's bf16 limits, one line each:
+    max share and mean share against the twin and against each twin with
+    a rounding point moved. At the flagship, four seeds and both N, the
+    random, same-sign and tail cotangents as phase_backward_vs_twin builds
+    them, the tail also with its points picked from other pools (each
+    with the verdict of the tail's checks); at MANY_POINTS, random, and
+    random on the quarter of 4 x MANY_POINTS points farthest from the ReLU
+    boundaries; at three shallow models, two N and two seeds, the margin
+    cotangent (K2_BF16_MARGIN). ``which == "tail"``: the flagship's tail
+    lines at K2_BF16_TAIL_POOL alone."""
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        prepare_fused_nerf)
+    from fourier_feature_nets_torch.kernels.fused_nerf_train import (
+        K2_BF16_CONTROL_MODEL, K2_BF16_MARGIN, K2_BF16_MEAN_SHARE,
+        K2_BF16_TAIL_POOL, MOVED_BACKWARD_ROUNDINGS, far_from_relu,
+        fused_nerf_backward, fused_nerf_backward_reference, leaf_mean_share,
+        relu_margin)
+    from fourier_feature_nets_torch.models import NeRF, flagship_nerf
+    import fourier_feature_nets_torch
+    phase_device()
+    log(f"readings of the port in "
+        f"{os.path.dirname(fourier_feature_nets_torch.__file__)}")
+
+    def shares(weights, positions, views, g):
+        """[(twin, max share, mean share)] of K2 against the twin and
+        each moved twin; the max share is the largest per leaf."""
+        out = fused_nerf_backward(weights, positions, views, g)
+        rows = []
+        for moved in (None, *MOVED_BACKWARD_ROUNDINGS):
+            twin = fused_nerf_backward_reference(weights, positions, views, g,
+                                                 moved)
+            rows.append((moved or "twin", leaf_max_share(weights, out, twin),
+                         leaf_mean_share(weights, out, twin)))
+        return rows
+
+    def text(rows):
+        return "; ".join(f"{name} max {worst:.2e} mean {mean:.2e}"
+                         for name, worst, mean in rows)
+
+    flagship = prepare_fused_nerf(
+        flagship_nerf(torch.Generator().manual_seed(SEED)).cuda(),
+        torch.bfloat16)
+    pools = ((K2_BF16_TAIL_POOL,) if which == "tail"
+             else (K2_BF16_TAIL_POOL, 1, 16, 256))
+    for seed in (SEED + 1, 11, 12, 13):
+        for pool in pools:
+            # at K2_BF16_TAIL_POOL and seed 1: the inputs of
+            # phase_backward_vs_twin
+            rng = np.random.default_rng(seed)
+            for num in (TRAIN_POINTS, RAGGED_POINTS):
+                positions, views = random_points(num, rng, "cuda")
+                gs, least = backward_cotangents(flagship, positions, views,
+                                                rng, pool)
+                keys = ("tail",)
+                if pool == K2_BF16_TAIL_POOL and which == "all":
+                    keys = ("random", "same-sign", "tail")
+                for key in keys:
+                    rows = shares(flagship, positions, views, gs[key])
+                    verdict = ""
+                    if key == "tail":
+                        bad = (rows[0][1] > GRAD_SHARE["tail"]["bfloat16"]
+                               or rows[0][2] > K2_BF16_MEAN_SHARE)
+                        verdict = (f", pool {pool} a point, margin >= "
+                                   f"{least:.2e}; tail check: "
+                                   + ("FAIL" if bad else "pass"))
+                    log(f"flagship seed {seed} N={num:,d} {key}{verdict}: "
+                        + text(rows))
+    if which == "tail":
+        return 0
+    for seed in (SEED + 1, 11, 12, 13):
+        rng = np.random.default_rng(seed)
+        positions, views = random_points(MANY_POINTS, rng, "cuda")
+        g = torch.from_numpy(rng.normal(size=(MANY_POINTS, 4)).astype(
+            np.float32)).cuda()
+        log(f"flagship seed {seed} N={MANY_POINTS:,d} random: "
+            + text(shares(flagship, positions, views, g)))
+        positions, views, least = far_from_relu(
+            flagship, MANY_POINTS, 4 * MANY_POINTS,
+            lambda n: random_points(n, rng, "cuda"))
+        log(f"flagship seed {seed} N={MANY_POINTS:,d} random, the quarter "
+            f"farthest from a boundary (margin >= {least:.2e}): "
+            + text(shares(flagship, positions, views, g)))
+    del flagship
+    shallow = {"3x256": K2_BF16_CONTROL_MODEL,
+               "4x64": dict(num_layers=4, num_channels=64, skips=[2],
+                            include_inputs=True, max_log_scale_pos=9.0,
+                            num_freq_pos=10, max_log_scale_view=3.0,
+                            num_freq_view=4),
+               "3x96": dict(K2_BF16_CONTROL_MODEL, num_channels=96,
+                            include_inputs=False)}
+    for name, config in shallow.items():
+        weights = prepare_fused_nerf(
+            NeRF(**config, generator=torch.Generator().manual_seed(
+                SEED + 1)).cuda(), torch.bfloat16)
+        for seed in (SEED + 2, 21):
+            rng = np.random.default_rng(seed)
+            for num in (3001, CONTROL_POINTS):
+                positions, views = random_points(num, rng, "cuda")
+                g = torch.from_numpy(rng.normal(size=(num, 4)).astype(
+                    np.float32)).cuda()
+                far = relu_margin(weights, positions, views) \
+                    >= K2_BF16_MARGIN
+                log(f"{name} seed {seed} N={num:,d} margin, "
+                    f"{int(far.sum())} points: " + text(shares(
+                        weights, positions, views,
+                        torch.where(far[:, None], g, 0.0))))
+    return 0
 
 
 def run_times(tree: str) -> int:
@@ -1565,9 +1846,14 @@ def main(argv=None) -> int:
     parser.add_argument("--times-only", action="store_true",
                         help="only time the short kernels, their library "
                              "calls and K1-K3 (one JSON line)")
+    parser.add_argument("--k2-limits", nargs="?", const="all",
+                        choices=("all", "tail"),
+                        help="only print the readings behind K2's bf16 "
+                             "limits (tail: the flagship's tail alone)")
     parser.add_argument("--tree", default=ROOT,
-                        help="with --times-only: import the port from this "
-                             "checkout (e.g. an unpacked parent commit)")
+                        help="with --times-only or --k2-limits: import the "
+                             "port from this checkout (e.g. an unpacked "
+                             "parent commit)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1575,8 +1861,11 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.times_only:
+    if args.k2_limits or args.times_only:
         sys.path.insert(0, os.path.abspath(args.tree))
+    if args.k2_limits:
+        return run_k2_limits(args.k2_limits)
+    if args.times_only:
         return run_times(args.tree)
     from fourier_feature_nets_torch.kernels.fused_nerf import (
         prepare_fused_nerf)
@@ -1594,6 +1883,8 @@ def main(argv=None) -> int:
     phase_fused_vs_plain(model)
     log("K2 vs plain twin, flagship:")
     backward = phase_backward_vs_twin(model)
+    log("K2 bf16's limit against a moved rounding point:")
+    backward["bfloat16"]["control"] = phase_backward_control()
     del model
     torch.cuda.empty_cache()
     step_ms, train_launches, checkpoint = phase_train()
@@ -1686,6 +1977,9 @@ def main(argv=None) -> int:
         "max_rel_err_by_cotangent": backward["bfloat16"]["max_rel_err"],
         "f32_max_rel_err_by_cotangent": backward["float32"]["max_rel_err"],
         "bitwise_equal": backward["bfloat16"]["bitwise_equal"],
+        "moved_rounding_control": {
+            "margin_3x256": backward["bfloat16"]["control"],
+            "flagship": backward["bfloat16"]["flagship_control"]},
         "train_ms_per_step": step_ms,
     }, {
         "name": "fused_ray_render",

@@ -21,7 +21,8 @@
 // block barriers per layer) ran at ~11% of the dense peak and was bound by
 // its issue side, not by L2 or latency.
 //
-// bf16: fused_nerf_bf16_kernel, a persistent, warp-specialised wgmma kernel.
+// bf16: fused_nerf_bf16_kernel, a persistent, warp-specialised wgmma kernel
+// (its tile's routines, shared with K2, are in fused_nerf_wgmma.cuh).
 // * One block per SM walks tiles of 128 points (tile += gridDim.x). Two
 //   consumer warpgroups own 64 rows each. In the producer warpgroup one warp
 //   only issues copies and three warps encode. setmaxnreg gives the
@@ -61,9 +62,11 @@
 //   no product in flight.
 // Both warpgroups run their epilogues at once, because they share the ring;
 // staggering them needs a ring that holds a layer longer than 227 KB allows.
-// wgmma sums a layer's products in another order than the twin's f32 GEMM
-// and than K2's WMMA recompute; near-zero pre-activations may take the other
-// side of a ReLU (PERF.md, ROADMAP.md section 3).
+// wgmma sums a layer's products in another order than the twin's f32 GEMM,
+// so a near-zero pre-activation may take the other side of a ReLU in each
+// (PERF.md, ROADMAP.md section 3). K2's bf16 recompute runs this kernel's
+// routines (fused_nerf_wgmma.cuh) on the same slab image: its forward is
+// this one, bit for bit.
 //
 // f32: exact f32 FFMA on the CUDA cores over 64-point tiles (the tile code in
 // fused_nerf_common.cuh), weight rows staged through shared memory in chunks
@@ -80,6 +83,7 @@
 // stream and allocate nothing; the entry point returns cudaGetLastError().
 
 #include "fused_nerf_common.cuh"
+#include "fused_nerf_wgmma.cuh"
 #include "hopper.cuh"
 #include "shared_limit.cuh"
 
@@ -87,212 +91,15 @@ namespace {
 
 using ffn::Desc;
 using ffn::kHeadWidth;
+using namespace ffn::wgmma;
 
 // ---------------------------------------------------------------------------
-// bf16: the wgmma kernel
+// bf16: the wgmma kernel (the tile's routines are in fused_nerf_wgmma.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int kWgRows = 64;                  // rows a consumer warpgroup owns
-constexpr int kTileRows = 2 * kWgRows;       // points a tile
-constexpr int kSlabK = 64;                   // K rows a weight slab
-constexpr uint32_t kBlockBytes = kWgRows * 128;   // 64 columns of 64 rows
-constexpr int kBf16Threads = 384;            // 2 consumer warpgroups, 1 producer
-constexpr int kConsumerWarps = 8;            // arrivals that free a stage
-constexpr int kEncoderWarps = 3;             // the producer warpgroup's warps 1-3
-constexpr int kEncoderThreads = 32 * kEncoderWarps;
-constexpr int kMaxStages = 8;
-// setmaxnreg's split of the 64K registers: 2 x 128 x 208 + 128 x 88. With
-// 40 for the producer warpgroup the encoders spilled (152 bytes) and K1
-// ran slower; 208 hold a consumer's 128 accumulators with no spill.
-constexpr uint32_t kConsumerRegs = 208;
-constexpr uint32_t kProducerRegs = 88;
-static_assert(2 * 128 * kConsumerRegs + 128 * kProducerRegs <= 65536,
-              "registers of one block");
-constexpr int kSharedLimit = 232448;         // 227 KB a block
-constexpr int kAlignSlack = 1024;            // swizzled blocks start 1024-aligned
 // full and empty per stage; per consumer warpgroup, ready and free for its
 // positional and its view features
 constexpr int kBarrierBytes = (2 * kMaxStages + 8) * 8;
-
-// (K, N) of packed layer j: body 0..L-1, opacity head, bottleneck, hidden,
-// color head.
-__device__ __forceinline__ void layer_shape(const Desc& d, int j, int* K,
-                                            int* N) {
-  const int C = d.channels;
-  const int L = d.num_layers;
-  if (j < L) {
-    *N = C;
-    *K = j == 0 ? d.pos_width
-                : C + (((d.skip_mask >> j) & 1u) ? d.pos_width : 0);
-  } else if (j == L) {
-    *K = C;
-    *N = kHeadWidth;
-  } else if (j == L + 1) {
-    *K = C;
-    *N = C;
-  } else if (j == L + 2) {
-    *K = C + d.view_width;
-    *N = C / 2;
-  } else {
-    *K = C / 2;
-    *N = kHeadWidth;
-  }
-}
-
-// The shared-memory byte address of (row, col) of a warpgroup's activations.
-__device__ __forceinline__ uint32_t act_addr(uint32_t base, int row, int col) {
-  return base + (col >> 6) * kBlockBytes + row * 128
-         + ((((col >> 3) & 7) ^ (row & 7)) << 4) + (col & 7) * 2;
-}
-
-__device__ __forceinline__ void st_bf16(uint32_t addr, float v) {
-  const __nv_bfloat16 h = __float2bfloat16_rn(v);
-  asm volatile("st.shared.b16 [%0], %1;\n"
-               :: "r"(addr), "h"(*reinterpret_cast<const uint16_t*>(&h)));
-}
-
-// The consumer side of the weight ring. Every consumer thread walks the same
-// slab sequence; stage and phase run on across layers and tiles.
-struct Ring {
-  uint32_t base;          // stage 0
-  uint32_t stage_bytes;
-  uint32_t full;          // full barriers, 8 bytes each
-  uint32_t empty;         // empty barriers
-  int stages;
-  int stage;
-  uint32_t phase;
-
-  __device__ __forceinline__ void advance() {
-    if (++stage == stages) {
-      stage = 0;
-      phase ^= 1u;
-    }
-  }
-};
-
-// acc = A[:, col(k)] W for the layer's K rows, k streamed slab by slab;
-// col(k) = k below `split`, k + `shift` from it. Returns with the products
-// complete and every slab released.
-template <int N>
-__device__ __forceinline__ void layer_product(float* acc, Ring& ring,
-                                              uint32_t act, int K, int split,
-                                              int shift, bool releases) {
-  hopper::fence_registers<N / 2>(acc);
-  hopper::wgmma_fence();
-  int held = -1;
-  for (int k0 = 0; k0 < K; k0 += kSlabK) {
-    hopper::mbar_wait(ring.full + 8 * ring.stage, ring.phase);
-    const uint32_t slab = ring.base + ring.stage * ring.stage_bytes;
-    const int k_end = min(k0 + kSlabK, K);
-    for (int k = k0; k < k_end; k += 16) {
-      const int col = k < split ? k : k + shift;
-      hopper::mma<N>(acc,
-                     hopper::desc_sw128(act + (col >> 6) * kBlockBytes
-                                        + (col & 63) * 2),
-                     hopper::desc_sw128(slab + (k & 63) * 2), k > 0);
-    }
-    hopper::wgmma_commit();
-    if (held >= 0) {
-      hopper::wgmma_wait<1>();
-      if (releases) hopper::mbar_arrive(ring.empty + 8 * held);
-    }
-    held = ring.stage;
-    ring.advance();
-  }
-  hopper::wgmma_wait<0>();
-  hopper::fence_registers<N / 2>(acc);
-  if (releases) hopper::mbar_arrive(ring.empty + 8 * held);
-}
-
-// Where this thread's accumulator fragment lands in its warpgroup's rows:
-// rows r0 = 16 warp + lane / 4 and r0 + 8, column pair 2 (lane % 4) of each
-// 8-column group j. stmatrix stores four 8x8 tiles from such fragments:
-// rows 0-7 and 8-15 of the warp's 16, for groups j and j + 1, each tile row
-// (16 bytes) at the address one lane gives: lane l the row 8 ((l / 8) % 2) +
-// l % 8 of group j + l / 16.
-struct Fragment {
-  uint32_t row_bytes;   // the row this lane addresses, times 128
-  uint32_t key;         // its swizzle, row % 8
-  uint32_t group;       // 0 or 1: group j or j + 1
-};
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi,
-                                                bool relu) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  if (relu) v = __hmax2(v, __float2bfloat162_rn(0.0f));
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// h[:, 0:N] = bf16(acc + bias), then ReLU'd if kRelu, into the swizzled rows.
-template <int N, bool kRelu>
-__device__ __forceinline__ void store_layer(const float* acc,
-                                            const float* __restrict__ bias,
-                                            uint32_t act, const Fragment& f,
-                                            int pair) {
-#pragma unroll
-  for (int j = 0; j < N / 8; j += 2) {
-    const float2 b =
-        __ldg(reinterpret_cast<const float2*>(bias + 8 * j + pair));
-    const float2 c =
-        __ldg(reinterpret_cast<const float2*>(bias + 8 * j + 8 + pair));
-    const uint32_t addr = act + (j / 8) * kBlockBytes + f.row_bytes
-                          + ((((j % 8) + f.group) ^ f.key) << 4);
-    asm volatile(
-        "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
-        :: "r"(addr),
-           "r"(pack_bf16x2(acc[4 * j] + b.x, acc[4 * j + 1] + b.y, kRelu)),
-           "r"(pack_bf16x2(acc[4 * j + 2] + b.x, acc[4 * j + 3] + b.y, kRelu)),
-           "r"(pack_bf16x2(acc[4 * j + 4] + c.x, acc[4 * j + 5] + c.y, kRelu)),
-           "r"(pack_bf16x2(acc[4 * j + 6] + c.x, acc[4 * j + 7] + c.y, kRelu)));
-  }
-}
-
-// Publishes a warpgroup's shared-memory stores to its next wgmma.
-__device__ __forceinline__ void rows_ready(uint32_t barrier_id) {
-  hopper::fence_async_shared();
-  hopper::named_barrier(barrier_id, 128);
-}
-
-// [cos(xB) | sin(xB) | x (optional) | zeros] of `width` columns at col0 for
-// 64 rows from row0 (rows past num_points encode 0), by `warps` warps: warp
-// w takes rows w, w + warps, ...; lane e takes phase e (then e + 32, ...),
-// with its column of B in registers.
-__device__ __forceinline__ void encode_rows(const float* __restrict__ x,
-                                            long long row0,
-                                            long long num_points,
-                                            const float* __restrict__ enc,
-                                            int E, int include_inputs,
-                                            int width, uint32_t act, int col0,
-                                            int warp, int warps, int lane) {
-  for (int e = lane; e < E; e += 32) {
-    const float b0 = __ldg(enc + e);
-    const float b1 = __ldg(enc + E + e);
-    const float b2 = __ldg(enc + 2 * E + e);
-#pragma unroll 4
-    for (int row = warp; row < kWgRows; row += warps) {
-      const long long g = row0 + row;
-      float x0 = 0.0f, x1 = 0.0f, x2 = 0.0f;
-      if (g < num_points) {
-        x0 = __ldg(x + 3 * g);
-        x1 = __ldg(x + 3 * g + 1);
-        x2 = __ldg(x + 3 * g + 2);
-      }
-      float s, c;
-      ffn::fast_sincos(fmaf(x2, b2, fmaf(x1, b1, x0 * b0)), &s, &c);
-      st_bf16(act_addr(act, row, col0 + e), c);
-      st_bf16(act_addr(act, row, col0 + E + e), s);
-    }
-  }
-  const int tail = width - 2 * E;   // raw inputs and zero padding, < 32
-  if (lane < tail) {
-    for (int row = warp; row < kWgRows; row += warps) {
-      const long long g = row0 + row;
-      const float v = (include_inputs && lane < 3 && g < num_points)
-                          ? __ldg(x + 3 * g + lane) : 0.0f;
-      st_bf16(act_addr(act, row, col0 + 2 * E + lane), v);
-    }
-  }
-}
 
 template <int C>
 __global__ void __launch_bounds__(kBf16Threads, 1)
@@ -406,10 +213,7 @@ fused_nerf_bf16_kernel(const float* __restrict__ positions,
     const bool releases = lane == 0;
     const int r0 = 16 * warp + (lane >> 2);
     const int pair = 2 * (lane & 3);
-    const Fragment f{
-        static_cast<uint32_t>((16 * warp + 8 * ((lane >> 3) & 1) + (lane & 7))
-                              * 128),
-        static_cast<uint32_t>(lane & 7), static_cast<uint32_t>(lane >> 4)};
+    const Fragment f = fragment_of(warp, lane);
     Ring ring{ring_base, stage_bytes, full, empty, stages, 0, 0u};
     const int L = d.num_layers;
     const int P = d.pos_width;

@@ -1,22 +1,30 @@
-// Hopper (sm_90a) building blocks in inline PTX for K1's bf16 forward
-// (fused_nerf.cu): mbarriers, bulk asynchronous copies (the copy engine
-// behind TMA), warpgroup matrix products (wgmma) on shared-memory operands
-// in the 128-byte swizzled K-major layout, and the fences and barriers
-// between them.
+// Hopper (sm_90a) building blocks in inline PTX for the bf16 kernels of K1
+// (fused_nerf.cu) and K2 (fused_nerf_train.cu): mbarriers, bulk
+// asynchronous copies (the copy engine behind TMA) in both directions,
+// warpgroup matrix products (wgmma) on shared-memory operands in the
+// 128-byte swizzled layout, and the fences and barriers between them.
 //
-// The layout. An operand is stored as blocks of 64 K-columns (128 bytes of
-// bf16 a row); the 16-byte chunk q of row r sits at chunk q ^ (r % 8) of its
-// row, and each block starts on a 1024-byte boundary. A wgmma descriptor
-// names the start of a k16 step (block + 32 bytes per step, so bits 7-9 of
-// the start address stay 0 and the base offset field is 0), the
-// 1024-byte stride between 8-row groups (SBO) and the 128-byte swizzle; the
-// leading offset is unused in this layout.
+// The layout. An operand is stored as blocks of 128-byte rows (64 bf16);
+// the 16-byte chunk q of row r sits at chunk q ^ (r % 8) of its row, and
+// each block starts on a 1024-byte boundary.
+// * K-major (desc_sw128): a row holds 64 K-values of one M or N index. The
+//   descriptor names the start of a k16 step (block + 32 bytes per step, so
+//   bits 7-9 of the start address stay 0 and the base offset field is 0),
+//   the 1024-byte stride between 8-row groups (SBO) and the 128-byte
+//   swizzle; the leading offset is unused.
+// * MN-major (desc_sw128_mn, wgmma's imm-trans = 1): a row holds 64 M or N
+//   values of one K index, so the same bytes read as the transpose. A k16
+//   step starts 16 rows (2048 bytes) on; SBO is again the 1024 bytes
+//   between 8-row K groups, and LBO the stride between 64-wide M or N atoms
+//   (kMnAtomStride: the next 8 KB block of 64 rows).
 
 #pragma once
 
 #include <cstdint>
 
 namespace hopper {
+
+constexpr uint32_t kMnAtomStride = 64 * 128;   // bytes between MN atoms
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -69,6 +77,31 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
+// One bulk copy of `bytes` from shared to global memory, in this thread's
+// current bulk group (bulk_commit closes it).
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      :: "l"(dst), "r"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until this thread's bulk groups have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Waits until this thread's bulk groups are complete, their writes to
+// global memory visible, and orders them before later async-proxy reads.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // ---- fences, barriers, registers -----------------------------------------
 
 // Orders this thread's generic-proxy stores to shared memory before later
@@ -103,6 +136,16 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          | (kSbo << 32) | (kSwizzle128 << 62);
 }
 
+// The MN-major descriptor: SBO the 1024 bytes between 8-row K groups, LBO
+// the kMnAtomStride bytes between 64-column MN atoms.
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr) {
+  constexpr uint64_t kSbo = 1024 >> 4;
+  constexpr uint64_t kLbo = kMnAtomStride >> 4;
+  constexpr uint64_t kSwizzle128 = 1;
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (kLbo << 16)
+         | (kSbo << 32) | (kSwizzle128 << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -127,29 +170,30 @@ __device__ __forceinline__ void fence_registers(float* d) {
 }
 
 // D (64 x N, f32, the warpgroup's fragment) = A (64 x 16) * B (16 x N)
-// [+ D when `accumulate`], both operands bf16 K-major in shared memory.
+// [+ D when `accumulate`], both operands bf16 in shared memory, each
+// K-major or, with its transpose immediate 1, MN-major.
 // Thread t of the warpgroup holds d[4j + 2h + c] at row
 // 16 (t / 32) + (t % 32) / 4 + 8h, column 8j + 2 (t % 4) + c.
-template <int N>
+template <int N, int kTransA, int kTransB>
 struct Mma;
 
-template <>
-struct Mma<16> {
+template <int kTransA, int kTransB>
+struct Mma<16, kTransA, kTransB> {
   static __device__ __forceinline__ void run(float* d, uint64_t a,
                                              uint64_t b, int accumulate) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
   }
 };
 
-template <>
-struct Mma<32> {
+template <int kTransA, int kTransB>
+struct Mma<32, kTransA, kTransB> {
   static __device__ __forceinline__ void run(float* d, uint64_t a,
                                              uint64_t b, int accumulate) {
     asm volatile(
@@ -157,17 +201,17 @@ struct Mma<32> {
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
         "%14, %15"
-        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
           "+f"(d[15])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
   }
 };
 
-template <>
-struct Mma<64> {
+template <int kTransA, int kTransB>
+struct Mma<64, kTransA, kTransB> {
   static __device__ __forceinline__ void run(float* d, uint64_t a,
                                              uint64_t b, int accumulate) {
     asm volatile(
@@ -176,7 +220,7 @@ struct Mma<64> {
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
         "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
         "%26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -184,12 +228,12 @@ struct Mma<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
   }
 };
 
-template <>
-struct Mma<128> {
+template <int kTransA, int kTransB>
+struct Mma<128, kTransA, kTransB> {
   static __device__ __forceinline__ void run(float* d, uint64_t a,
                                              uint64_t b, int accumulate) {
     asm volatile(
@@ -201,7 +245,7 @@ struct Mma<128> {
         "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
         "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
         "%62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -215,12 +259,12 @@ struct Mma<128> {
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
   }
 };
 
-template <>
-struct Mma<256> {
+template <int kTransA, int kTransB>
+struct Mma<256, kTransA, kTransB> {
   static __device__ __forceinline__ void run(float* d, uint64_t a,
                                              uint64_t b, int accumulate) {
     asm volatile(
@@ -237,7 +281,7 @@ struct Mma<256> {
         "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
         "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
         "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -265,22 +309,29 @@ struct Mma<256> {
           "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
           "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
   }
 };
 
-// An N that is not a power of two runs as the largest power of two below
-// it and the rest: the accumulator runs on, B's descriptor moves on by the
-// N-rows already done (128 bytes each).
-template <int N>
+// D = op(A) op(B) [+ D]: kTransA / kTransB = 1 reads that operand MN-major
+// (desc_sw128_mn). An N that is not a power of two runs as the largest
+// power of two below it and the rest: the accumulator runs on, B's
+// descriptor moves on by the N already done (kDone): 128 bytes a row
+// K-major; MN-major, kMnAtomStride bytes a 64-column atom and 2 bytes a
+// column within one.
+template <int N, int kTransA = 0, int kTransB = 0, int kDone = 0>
 __device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b,
                                     int accumulate) {
   constexpr int kHead = (N >= 256) ? 256 : (N >= 128) ? 128 : (N >= 64) ? 64
                         : (N >= 32) ? 32 : 16;
   static_assert(N % 16 == 0 && N >= 16 && N <= 256, "N: 16..256 by 16");
-  Mma<kHead>::run(d, a, b, accumulate);
+  constexpr uint32_t kOffset =
+      kTransB ? (kDone / 64) * kMnAtomStride + (kDone % 64) * 2
+              : kDone * 128;
+  Mma<kHead, kTransA, kTransB>::run(d, a, b + (kOffset >> 4), accumulate);
   if constexpr (N > kHead) {
-    mma<N - kHead>(d + kHead / 2, a, b + ((kHead * 128) >> 4), accumulate);
+    mma<N - kHead, kTransA, kTransB, kDone + kHead>(d + kHead / 2, a, b,
+                                                    accumulate);
   }
 }
 

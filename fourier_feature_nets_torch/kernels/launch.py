@@ -14,6 +14,9 @@ entry point is typed once then and kept, so a call looks nothing up.
   entry point returns a non-zero ``cudaError_t``, and otherwise adds
   one to the wrapper's ``launches``.
 
+:meth:`KernelLibrary.call` does the same for an entry point that
+launches no kernel (a query) and counts nothing.
+
 Only CUDA tensors reach it: a wrapper runs its plain twin for CPU
 tensors (:func:`on_cuda`) and has no fallback from a kernel to a twin.
 """
@@ -96,15 +99,23 @@ class KernelLibrary:
         A non-zero ``cudaError_t`` raises with the library's text for it
         and counts nothing; a launch that succeeds adds one to
         ``wrapper.launches``."""
+        self._call(name, device, args, "kernel launch")
+        wrapper.launches += 1
+
+    def call(self, name: str, device: torch.device, *args) -> None:
+        """Calls entry point ``name`` as :meth:`launch` does but counts
+        nothing: for an entry point that launches no kernel (a query)."""
+        self._call(name, device, args, "call")
+
+    def _call(self, name: str, device: torch.device, args, what: str) -> None:
         if self._built is None:
             self.load()
         index = device.index
         if index != torch.cuda.current_device():
             with torch.cuda.device(index):
-                return self.launch(wrapper, name, device, *args)
+                return self._call(name, device, args, what)
         code = self.entries[name](*args, current_stream(index))
         if code != 0:
-            raise RuntimeError(f"{name} kernel launch failed: "
+            raise RuntimeError(f"{name} {what} failed: "
                                f"{self.error_string(code)} (cudaError {code})")
-        wrapper.launches += 1
         return None

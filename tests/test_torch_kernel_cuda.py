@@ -52,12 +52,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(num, device, seed=3):
-    rng = np.random.default_rng(seed)
+def _points(rng, num, device):
     pos = rng.uniform(-1.5, 1.5, (num, 3)).astype(np.float32)
     views = rng.normal(size=(num, 3)).astype(np.float32)
     views /= np.linalg.norm(views, axis=-1, keepdims=True)
     return torch.from_numpy(pos).to(device), torch.from_numpy(views).to(device)
+
+
+def _inputs(num, device, seed=3):
+    return _points(np.random.default_rng(seed), num, device)
 
 
 def _assert_matches_twin(weights, pos, views):
@@ -248,16 +251,48 @@ def test_fused_frame_matches_plain_frame(cuda):
 
 # per-leaf bound on max|kernel - twin| as a share of max|twin|, by cotangent;
 # chip_smoke.py's GRAD_SHARE says what each holds and what it reads at the
-# flagship. random: a cancelling sum, in which a few terms that differ (in
-# f32, ReLU-mask flips) stand out: up to 1.43e-2 here. margin (f32): random
-# with zero cotangent on the points near a ReLU boundary; same-sign: sums
-# that do not cancel; tail: only the ragged last tile and one full tile.
+# flagship. random: a cancelling sum, in which a few terms that differ (ReLU-
+# mask flips) stand out: up to 1.43e-2 here. margin: random with zero
+# cotangent on the points within MARGIN of a ReLU boundary; clear (bf16):
+# random on the quarter of four times as many points that lie farthest from
+# the boundaries; same-sign: sums that do not cancel; tail: only the ragged
+# last tile and one full tile, in bf16 on the points farthest from the
+# boundaries of K2_BF16_TAIL_POOL drawn for each.
 GRAD_SHARE = {"random": {torch.float32: 2e-2, torch.bfloat16: 2e-2},
-              "margin": {torch.float32: 5e-5},
-              "same-sign": {torch.float32: 3e-4, torch.bfloat16: 2e-3},
+              "margin": {torch.float32: 5e-5, torch.bfloat16: 2e-2},
+              "clear": {torch.bfloat16: 2e-2},
+              "same-sign": {torch.float32: 3e-4, torch.bfloat16: 5e-4},
               "tail": {torch.float32: 2e-5, torch.bfloat16: 1e-2}}
-MARGIN = 1e-6
-GROUP = 32    # K2's bf16 tile, two of its f32 tiles
+MARGIN = {torch.float32: 1e-6, torch.bfloat16: train.K2_BF16_MARGIN}
+GROUP = 128   # K2's bf16 tile, eight of its f32 tiles
+
+
+def _tail_rows(num, device):
+    """The ragged last tile (or the last full one) and one full tile."""
+    mid = num // GROUP // 2 * GROUP
+    keep = torch.zeros(num, dtype=torch.bool, device=device)
+    keep[num - (num % GROUP or GROUP):] = True
+    keep[mid:mid + GROUP] = True
+    return keep.nonzero()[:, 0]
+
+
+def _off_boundaries(kind, weights, pos, views, seed=7):
+    """In bf16, for the tail and clear cotangents: copies of pos and
+    views whose points that the cotangent holds are each the farthest
+    from every ReLU boundary of a pool drawn for it."""
+    if weights.weights.dtype != torch.bfloat16 or kind not in ("tail",
+                                                                "clear"):
+        return pos, views
+    pos, views = pos.clone(), views.clone()
+    num = pos.shape[0]
+    rows, pool = ((_tail_rows(num, pos.device), train.K2_BF16_TAIL_POOL)
+                  if kind == "tail"
+                  else (torch.arange(num, device=pos.device), 4))
+    rng = np.random.default_rng(seed)
+    pos[rows], views[rows], _ = train.far_from_relu(
+        weights, rows.numel(), rows.numel() * pool,
+        lambda n: _points(rng, n, pos.device))
+    return pos, views
 
 
 def _cotangent(kind, weights, pos, views, seed=5):
@@ -270,15 +305,19 @@ def _cotangent(kind, weights, pos, views, seed=5):
     if kind == "same-sign":
         return torch.ones_like(g)
     if kind == "margin":
-        keep = train.relu_margin(weights, pos, views) >= MARGIN
+        keep = train.relu_margin(weights, pos, views) \
+            >= MARGIN[weights.weights.dtype]
     elif kind == "tail":
         keep[:] = False
-        keep[num - (num % GROUP or GROUP):] = True
-        keep[num // GROUP // 2 * GROUP:][:GROUP] = True
+        keep[_tail_rows(num, pos.device)] = True
     return torch.where(keep[:, None], g, 0.0)
 
 
 def _assert_backward_matches_twin(weights, pos, views, kind="random"):
+    """K2 within GRAD_SHARE[kind] of its twin (in bf16 under the margin
+    and tail cotangents also within the mean share); returns its
+    gradients and the inputs it ran on."""
+    pos, views = _off_boundaries(kind, weights, pos, views)
     g = _cotangent(kind, weights, pos, views)
     before = train.fused_nerf_backward.launches
     out = train.fused_nerf_backward(weights, pos, views, g)
@@ -291,6 +330,10 @@ def _assert_backward_matches_twin(weights, pos, views, kind="random"):
         assert torch.isfinite(a).all(), name
         bound = share * b.abs().max().item() + 1e-6
         assert (a - b).abs().max().item() <= bound, name
+    if weights.weights.dtype == torch.bfloat16 and kind in ("margin", "tail"):
+        assert train.leaf_mean_share(weights, out, twin) \
+            <= train.K2_BF16_MEAN_SHARE
+    return out, pos, views
 
 
 @pytest.mark.cuda
@@ -336,6 +379,22 @@ def test_backward_flagship_coherent_cotangent(cuda, dtype):
 
 
 @pytest.mark.cuda
+def test_k2_bf16_same_sign_limit_rejects_uncast_dz(cuda, flagship_bf16):
+    """Sums that do not cancel carry dz left in f32 past the same-sign
+    limit that the kernel holds. (All-ones are exact in bf16, so the twin
+    with the heads' cotangent cast is the twin itself here.)"""
+    out, pos, views = _assert_backward_matches_twin(
+        flagship_bf16, *_inputs(20_011, cuda), kind="same-sign")
+    wrong = train.fused_nerf_backward_reference(
+        flagship_bf16, pos, views, torch.ones(20_011, 4, device=cuda),
+        "uncast-dz")
+    share = GRAD_SHARE["same-sign"][torch.bfloat16]
+    assert any((a - b).abs().max().item() > share * b.abs().max().item()
+               for (_, a), (_, b) in zip(flagship_bf16.split_flat(*out),
+                                         flagship_bf16.split_flat(*wrong)))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype, kind", [(torch.bfloat16, "tail"),
                                          (torch.float32, "tail"),
                                          (torch.float32, "margin")])
@@ -347,6 +406,154 @@ def test_backward_flagship_ragged_tight_cotangents(cuda, dtype, kind):
     model = flagship_nerf(torch.Generator().manual_seed(0)).to(cuda)
     _assert_backward_matches_twin(port.prepare_fused_nerf(model, dtype),
                                   *_inputs(20_011, cuda), kind=kind)
+
+
+# K2's bf16 wgmma kernel: K1's persistent grid of 128-point tiles, with each
+# tile's activations parked in a scratch buffer and its dW added across the
+# grid with atomics, so ragged tiles, a second pass over the grid, many
+# tiles a block, every channel width and the shared-memory budget are where
+# its faults would show.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num", [1, 127, 128, 129, 4099])
+def test_backward_wgmma_tile_edges_match_twin(cuda, flagship_bf16, num):
+    _assert_backward_matches_twin(flagship_bf16, *_inputs(num, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", ["one more than the grid", "many a block"])
+def test_backward_wgmma_persistent_grid_matches_twin(cuda, flagship_bf16,
+                                                     tiles):
+    if tiles == "many a block":
+        num = 262_143        # 2048 tiles, the last ragged: ~16 a block
+    else:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        num = sms * 128 + 1  # one point past one tile a block
+    # random, on points kept off the ReLU boundaries: at 262,143 points the
+    # plain random cotangent's flips read up to 2.1e-2 (PERF.md)
+    _, pos, views = _assert_backward_matches_twin(
+        flagship_bf16, *_inputs(num, cuda), kind="clear")
+    # every point's share is the kernel's own, whichever block and pass take
+    # its tile: the gradient of all points is the sum of those of two parts
+    # split at a tile boundary, up to the order of the f32 atomics
+    g = _cotangent("random", flagship_bf16, pos, views)
+    cut = num // 2 // GROUP * GROUP
+    whole = train.fused_nerf_backward(flagship_bf16, pos, views, g)
+    parts = [train.fused_nerf_backward(flagship_bf16, pos[s], views[s], g[s])
+             for s in (slice(0, cut), slice(cut, num))]
+    summed = [a + b for a, b in zip(*parts)]
+    for (name, a), (_, b) in zip(flagship_bf16.split_flat(*whole),
+                                 flagship_bf16.split_flat(*summed)):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [32, 64, 96, 128, 160, 192, 224, 256])
+def test_backward_wgmma_every_width_matches_twin(cuda, channels):
+    """Every channel width the kernel takes, with a skip layer, raw inputs
+    at every other width, under the margin and tail cotangents (random
+    ones with no cotangent near a ReLU boundary, or on points picked far
+    from one: at 3,001 points one flip can carry a leaf past the random
+    limit)."""
+    model = NeRF(num_layers=3, num_channels=channels, skips=[2],
+                 include_inputs=channels % 64 == 0, max_log_scale_pos=6.0,
+                 num_freq_pos=7, max_log_scale_view=2.0, num_freq_view=3,
+                 generator=torch.Generator().manual_seed(channels)).to(cuda)
+    weights = port.prepare_fused_nerf(model, torch.bfloat16)
+    pos, views = _inputs(3001, cuda)
+    _assert_backward_matches_twin(weights, pos, views, kind="margin")
+    _assert_backward_matches_twin(weights, pos, views, kind="tail")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moved", train.MOVED_BACKWARD_ROUNDINGS)
+@pytest.mark.parametrize("model, kind", [("small", "margin"),
+                                         ("flagship width", "margin"),
+                                         ("flagship", "tail")])
+def test_k2_bf16_limits_reject_a_moved_rounding_point(cuda, model, kind,
+                                                      moved):
+    """The control: under the margin cotangent (the tail at the flagship's
+    depth, where the margin leaves no point) the kernel is within the mean
+    limit of its twin, and beyond it from the twin with one rounding point
+    moved."""
+    if model == "flagship":
+        net = flagship_nerf(torch.Generator().manual_seed(0))
+    else:
+        config = SMALL if model == "small" else train.K2_BF16_CONTROL_MODEL
+        net = NeRF(**config, generator=torch.Generator().manual_seed(1))
+    weights = port.prepare_fused_nerf(net.to(cuda), torch.bfloat16)
+    out, pos, views = _assert_backward_matches_twin(
+        weights, *_inputs(20_011, cuda), kind=kind)
+    g = _cotangent(kind, weights, pos, views)
+    wrong = train.fused_nerf_backward_reference(weights, pos, views, g, moved)
+    assert train.leaf_mean_share(weights, out, wrong) \
+        > train.K2_BF16_MEAN_SHARE
+
+
+@pytest.mark.cuda
+def test_backward_wgmma_relaunch_agrees(cuda, flagship_bf16):
+    # the cross-tile dW sums are atomics in no fixed order: two launches
+    # agree within the limits, not bit for bit
+    pos, views = _inputs(20_011, cuda)
+    g = _cotangent("random", flagship_bf16, pos, views)
+    first = train.fused_nerf_backward(flagship_bf16, pos, views, g)
+    second = train.fused_nerf_backward(flagship_bf16, pos, views, g)
+    torch.cuda.synchronize()
+    assert train.leaf_mean_share(flagship_bf16, first, second) \
+        <= train.K2_BF16_MEAN_SHARE
+    for (name, a), (_, b) in zip(flagship_bf16.split_flat(*first),
+                                 flagship_bf16.split_flat(*second)):
+        bound = GRAD_SHARE["same-sign"][torch.bfloat16] * b.abs().max().item()
+        assert (a - b).abs().max().item() <= bound + 1e-6, name
+
+
+@pytest.mark.cuda
+def test_backward_wgmma_launch_in_cuda_graph(cuda, flagship_bf16):
+    pos, views = _inputs(50_001, cuda)
+    g = _cotangent("random", flagship_bf16, pos, views)
+    eager = train.fused_nerf_backward(flagship_bf16, pos, views, g)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        train.fused_nerf_backward(flagship_bf16, pos, views, g)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = train.fused_nerf_backward.launches
+    with torch.cuda.graph(graph):
+        captured = train.fused_nerf_backward(flagship_bf16, pos, views, g)
+    assert train.fused_nerf_backward.launches == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert train.leaf_mean_share(flagship_bf16, captured, eager) \
+        <= train.K2_BF16_MEAN_SHARE
+
+
+@pytest.mark.cuda
+def test_backward_wgmma_refuses_a_model_too_wide_for_shared_memory(cuda):
+    # 256 channels with a 128-wide positional encode: two warpgroups' dz,
+    # h and feature blocks and two ring stages exceed 227 KB
+    wide = NeRF(num_layers=2, num_channels=256, max_log_scale_pos=9.0,
+                num_freq_pos=20, max_log_scale_view=3.0, num_freq_view=4,
+                skips=[], include_inputs=True).to(cuda)
+    weights = port.prepare_fused_nerf(wide, torch.bfloat16)
+    pos, views = _inputs(64, cuda)
+    g = torch.ones(64, 4, device=cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        train.fused_nerf_backward(weights, pos, views, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num", [1, 129, 262_143])
+def test_backward_wgmma_scratch_is_a_block_per_tile_up_to_the_sms(
+        cuda, flagship_bf16, num):
+    # each block parks two warpgroups' 8 body layers of 256 columns: 2 x 8 x
+    # 4 blocks of 8 KB; there are min(tiles, SMs) blocks
+    device = flagship_bf16.weights.device
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = min(-(-num // GROUP), sms)
+    assert train.scratch_bytes(flagship_bf16, num, device) \
+        == blocks * 2 * 8 * 4 * 8192
 
 
 @pytest.mark.cuda

@@ -82,6 +82,17 @@ def test_nonzero_return_raises_with_the_error_string_and_counts_none(
     assert wrapper.launches == 0
 
 
+def test_call_passes_the_stream_and_counts_nothing(current, library):
+    wrapper = _wrapper()
+    library.library.call("fake_entry", CUDA0, 5, 6)
+    assert library.entry.calls == [(5, 6, 4242)]
+    assert wrapper.launches == 0
+    library.entry.code = 98
+    with pytest.raises(RuntimeError, match=r"fake_entry call failed: "
+                       r"invalid device function \(cudaError 98\)"):
+        library.library.call("fake_entry", CUDA0, 7, 8)
+
+
 def test_another_device_is_entered_only_when_not_current(monkeypatch,
                                                          current, library):
     entered = []

@@ -37,6 +37,10 @@ TILE = 128
 F32_RTOL, F32_ATOL = 2e-3, 2e-4
 # bf16, per leaf: max|port - jax| <= BF16_SHARE * max|jax|
 BF16_SHARE = 2e-2
+# K2 bf16, per leaf: mean|kernel - twin| <= BF16_MEAN_SHARE * mean|twin|
+# (readings at chip_smoke.py's GRAD_SHARE), a limit that each twin with a
+# rounding point moved must fail
+BF16_MEAN_SHARE = port.K2_BF16_MEAN_SHARE
 
 
 def _pair(config, seed=0):
@@ -142,6 +146,62 @@ def test_twin_backward_matches_pallas(nerf, inputs, layout, dtype):
     _assert_grads_close(ours, ref, jax_dtype)
 
 
+def _mean_share(ours, ref):
+    """The largest per-leaf mean|ours - ref| / mean|ref|."""
+    return max(np.abs(ours[key] - ref[key]).mean()
+               / max(np.abs(ref[key]).mean(), 1e-30) for key in ref)
+
+
+@pytest.fixture(scope="module")
+def bf16_pallas_grads(nerf, inputs):
+    model, params, _ = nerf
+    return _jax_fused_grads(model, params, jnp.bfloat16, "rm", *inputs)
+
+
+def _moved_twin_grads(torch_model, moved, pos, views, g):
+    """The port's bf16 gradients through the twin with a rounding point
+    moved, in the JAX layout."""
+    torch_model.zero_grad()
+    packed = port_fwd.pack_fused_nerf(torch_model, torch.bfloat16)
+    with torch.no_grad():
+        d_w, d_b = port.fused_nerf_backward_reference(
+            packed, torch.from_numpy(pos), torch.from_numpy(views),
+            torch.from_numpy(g), moved)
+    # the pack's flat gradients reach the parameters through autograd
+    torch.autograd.backward([packed.weights, packed.biases],
+                            [d_w.to(torch.bfloat16), d_b])
+    return _grads_in_jax_layout(torch_model)
+
+
+@pytest.mark.parametrize("moved", port.MOVED_BACKWARD_ROUNDINGS)
+def test_k2_limits_reject_a_moved_rounding_point(nerf, inputs,
+                                                 bf16_pallas_grads, moved):
+    """Against ``_bwd_call`` in interpret mode the twin lies within K2's
+    bf16 mean limit, and the twin with one rounding point moved lies
+    beyond it, farther than the twin by a wide margin."""
+    _, _, torch_model = nerf
+    twin = _mean_share(_moved_twin_grads(torch_model, None, *inputs),
+                       bf16_pallas_grads)
+    wrong = _mean_share(_moved_twin_grads(torch_model, moved, *inputs),
+                        bf16_pallas_grads)
+    assert twin <= BF16_MEAN_SHARE < wrong
+    assert wrong > 100 * twin
+
+
+def test_moved_backward_rounding_changes_only_bf16_and_is_checked(nerf,
+                                                                  inputs):
+    _, _, torch_model = nerf
+    pos, views, g = (torch.from_numpy(a) for a in inputs)
+    weights = port_fwd.prepare_fused_nerf(torch_model, torch.float32)
+    plain = port.fused_nerf_backward_reference(weights, pos, views, g)
+    for moved in port.MOVED_BACKWARD_ROUNDINGS:
+        for a, b in zip(port.fused_nerf_backward_reference(
+                weights, pos, views, g, moved), plain):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="moved must be one of"):
+        port.fused_nerf_backward_reference(weights, pos, views, g, "cast-x")
+
+
 def _jax_autodiff_grads(model, params, pos, views, g):
     def loss(p):
         return jnp.sum(model.apply(p, jnp.asarray(pos), jnp.asarray(views))
@@ -235,6 +295,42 @@ def test_relu_margin_is_smallest_pre_activation(nerf, inputs):
     ref = torch.stack([z.abs().amin(-1) for z in zs]).amin(0)
     assert margin.shape == (NUM,) and margin.dtype == torch.float32
     torch.testing.assert_close(margin, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_far_from_relu_keeps_the_points_with_the_largest_margins(nerf, dtype):
+    """Of the pool drawn, the points kept are those with the largest
+    ReLU margins, in the order drawn, with the least of those margins."""
+    _, _, torch_model = nerf
+    weights = port_fwd.prepare_fused_nerf(torch_model, dtype)
+    pos, views, _ = (torch.from_numpy(a) for a in _inputs(NUM))
+    margin = port.relu_margin(weights, pos, views)
+    calls = []
+
+    def draw(n):
+        calls.append(n)
+        return pos[:n], views[:n]
+
+    kept_pos, kept_views, least = port.far_from_relu(weights, 40, NUM, draw)
+    assert calls == [NUM]
+    keep = margin.argsort(descending=True)[:40].sort().values
+    assert torch.equal(kept_pos, pos[keep])
+    assert torch.equal(kept_views, views[keep])
+    assert least == margin[keep].min().item()
+    assert least >= margin.quantile(1 - 40 / NUM).item() - 1e-12
+
+
+def test_leaf_mean_share_is_the_worst_leaf(nerf, inputs):
+    _, _, torch_model = nerf
+    weights = port_fwd.prepare_fused_nerf(torch_model, torch.float32)
+    pos, views, g = (torch.from_numpy(a) for a in inputs)
+    twin = port.fused_nerf_backward_reference(weights, pos, views, g)
+    assert port.leaf_mean_share(weights, twin, twin) == 0.0
+    d_weights, d_biases = twin[0].clone(), twin[1].clone()
+    leaf = weights.split_flat(d_weights, d_biases)[-1][1]
+    leaf.mul_(1.5)   # a view into d_biases: that leaf alone moves by half
+    assert port.leaf_mean_share(weights, (d_weights, d_biases), twin) \
+        == pytest.approx(0.5, rel=1e-6)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
