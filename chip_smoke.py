@@ -11,7 +11,10 @@ and drives the port's paths at the flagship width:
 * serving: K1 against its plain twin (and timed beside it at the bench
   batch, the frame chunk and the train batch), in bf16 within
   K1_BF16_ATOL and K1_BF16_MEAN_ATOL, limits that each twin with a
-  rounding point moved must fail; three 800x800 ``--preset
+  rounding point moved must fail, in f32 (3xTF32 products) within the
+  JAX suite's rtol / atol and K1_F32_MEAN_ATOL, which the twin on single
+  tf32 products (``allow_tf32=True``) must fail; each type's slab image
+  (bytes, build time); three 800x800 ``--preset
   fast`` frames of a seeded random flagship NeRF through
   ``orbit_video``, which must go through K1; a ``torch.profiler`` split
   of one such frame by kernel; a low-resolution fused render against
@@ -21,11 +24,13 @@ and drives the port's paths at the flagship width:
   ``fused_nerf_train.K2_BF16_MEAN_SHARE`` under the tail cotangent there
   and under a margin cotangent at 3x256, a limit each twin with a
   rounding point moved must fail, as the twin with dz left in f32 must
-  fail the same-sign limit; 30 steps of ``train_nerf``
+  fail the same-sign limit; in f32 the twin on single tf32 products must
+  fail the tail or the same-sign limit; 30 steps of ``train_nerf``
   on the generated ``synthetic`` scene in bf16 and f32, ``--fused``
   (through K1 and K2, which must both launch) and ``--no-fused``, then
-  at the CLI's defaults (f32, no fused flag), which must print the
-  plain path and launch neither; the trained checkpoint then renders an
+  at the CLI's defaults (f32, no fused flag), which must train the path
+  ``render/raycaster.py::resolve_fused`` gives (fused: K1 and K2 must
+  launch; plain: neither); the trained checkpoint then renders an
   800x800 frame through ``orbit_video``;
 * kernel validation: K3 against its plain twin in bf16 and f32 at
   S = 42, 48 and 128, a ragged R and a case where only the last ray
@@ -66,9 +71,10 @@ the port found in ``DIR``.
 ``--times-only [--tree DIR]`` prints only those three times for the
 kernels of the last item, the host cost of each launch-path step, K1-K3
 at their PERF.md sizes, P2 in each of its modes, the fused core of a
-bf16 train step and whole bf16 ``train_nerf`` steps, fused and plain,
-as one JSON line, for the port found in ``DIR`` (an unpacked parent
-commit, say), so that two trees can be timed in turns on one card.
+train step and whole ``train_nerf`` steps, fused and plain, each in bf16
+and f32, as one JSON line, for the port found in ``DIR`` (an unpacked
+parent commit, say), so that two trees can be timed in turns on one
+card.
 
 Needs one CUDA device; on a machine without one it exits with code 2.
 Outputs go to ``smoke_out/`` inside the checkout.
@@ -112,27 +118,40 @@ BF16_ATOL = 0.05                  # tests/test_fused_nerf.py:64
 # small, structural and sweep models to the same limits.
 K1_BF16_ATOL = 4e-3               # max |d|
 K1_BF16_MEAN_ATOL = 5e-6          # mean |d|
+# K1 f32 (3xTF32 products) against its twin: |d| <= F32_ATOL + F32_RTOL |ref|
+# and mean |d| <= K1_F32_MEAN_ATOL. Its control is the twin on single tf32
+# products (allow_tf32=True), which must fail them; it passes the first (max
+# 1.0e-4 to 1.8e-4 against the twin), so the mean limit tells them apart.
+# Readings, at the flagship (N = 100,003 to 2,097,152) and at 4x64, 2x32 and
+# 3x96 (N = 63 to 4,099), H100 80GB HBM3, 700 W: the kernel mean 2.5e-8 to
+# 4.1e-8 (max 6e-8 to 2.4e-7), the single-tf32 twin 1.31e-5 to 2.7e-5. So
+# 1e-6: 24x above the one, 13x below the other.
+K1_F32_MEAN_ATOL = 1e-6
 # K2 vs its twin, per gradient leaf and cotangent: max|kernel - twin| <=
 # GRAD_SHARE * max|twin|. Readings at the flagship on an H100 80GB HBM3 at
-# 700 W, N = 131,072 / 100,003 (bf16, the wgmma kernel; f32, the FFMA tile);
-# ``--k2-limits`` reads bf16 at four seeds and both N:
+# 700 W, N = 131,072 / 100,003 (bf16 and f32, the wgmma kernels; f32 also
+# the twin on single tf32 products, which must fail the tail or the
+# same-sign limit and read past all four); ``--k2-limits`` reads bf16 at
+# four seeds and both N:
 # * random: N(0, 1); each gradient is a cancelling sum that grows like
 #   sqrt(N), so a few terms that differ stand out: ReLU-mask flips. K2 and
 #   the twin sum each pre-activation in another order (in bf16, K2's sums
 #   are K1's wgmma chains and the twin's are f32 GEMMs), and one within
-#   rounding of 0 takes the other side of the mask in each; in f32, zeroing
-#   the cotangent of the 180 points within 1e-7 of a boundary takes 1.04e-2
-#   to 5.6e-6. In bf16 most flips follow a bf16 activation that rounds one
-#   step apart in the two, which no f32 sum order of the twin removes.
-#   (bf16 5.9e-3 to 1.6e-2 over the seeds, 5.0e-3 to 6.7e-3 at 262,143
-#   points; f32 7.13e-3 / 1.04e-2.)
+#   rounding of 0 takes the other side of the mask in each (in f32, with
+#   the FFMA tile the kernel had, zeroing the cotangent of the 180 points
+#   within 1e-7 of a boundary took 1.04e-2 to 5.6e-6). In bf16 most flips
+#   follow a bf16 activation that rounds one step apart in the two, which
+#   no f32 sum order of the twin removes. (bf16 5.9e-3 to 1.6e-2 over the
+#   seeds, 5.0e-3 to 6.7e-3 at 262,143 points; f32 5.2e-3 / 6.4e-3, the
+#   single-tf32 twin 3.5e-2 / 4.7e-2.)
 # * margin (f32): random with the cotangent zeroed on the ~2% of points that
 #   have a pre-activation within MARGIN of 0 (relu_margin); with the flips
-#   gone, what is left is rounding. (5.7e-6 / 5.3e-6.)
+#   gone, what is left is rounding. (1.29e-5 / 1.27e-5; the single-tf32
+#   twin 3.4e-2 / 4.7e-2.)
 # * same-sign: all ones, so the sums do not cancel. A twin with dz left in
 #   f32 (SAME_SIGN_CATCHES) must fail it. (bf16 6.4e-5 to 9.7e-5, that twin
 #   2.52e-3 to 2.55e-3: the limit 5.2x above the one and 5.0x below the
-#   other; f32 5.8e-5 / 3.1e-5.)
+#   other; f32 4.3e-5 / 4.8e-5, the single-tf32 twin 7.3e-4 / 8.1e-4.)
 # * tail: random on the last GROUP points (at N = 100,003 the ragged last
 #   tile, 35 points) and on one other GROUP, zero elsewhere: those points make
 #   up the whole gradient, so a dropped or mis-masked tile cannot hide. Over
@@ -142,12 +161,13 @@ K1_BF16_MEAN_ATOL = 5e-6          # mean |d|
 #   from one). With no pick, one seed's N = 131,072 read 1.13e-2; points only
 #   1e-5 from a boundary still flipped (4.4e-2, 1.4e-2 in two pairs of
 #   eight). (bf16
-#   4.7e-4 to 1.3e-3 over the seeds; f32 8.7e-7 / 7.4e-7.) In bf16 the tail
-#   also carries the mean-share control below.
+#   4.7e-4 to 1.3e-3 over the seeds; f32 1.16e-5 / 1.24e-5, the single-tf32
+#   twin 0.216 / 0.202.) In bf16 the tail also carries the mean-share
+#   control below.
 # A K2 bf16 that skips the ragged tile fails tail at N = 100,003 in all four
 # seeds (max share >= 0.83), one that drops its last point's cotangent at
-# both N (>= 4.1e-2); in f32 those two and one that rounds dz to bf16 fail
-# tail (the f32 tile).
+# both N (>= 4.1e-2); in f32 those two and one that rounds dz to bf16
+# failed tail with the FFMA tile (PR 2; not run on the 3xTF32 kernel).
 GRAD_SHARE = {"random": {"bfloat16": 2e-2, "float32": 2e-2},
               "margin": {"float32": 5e-5},
               "same-sign": {"bfloat16": 5e-4, "float32": 3e-4},
@@ -210,7 +230,10 @@ IO_POINTS = 16384 * 48         # the IO-floor CLI: rays x samples
 # the least time the card could take: the larger of operations over the
 # peak and bytes (each input read once, each output written once) over
 # the HBM rate.
-PEAK = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+# "tf32x3": the f32 kernels' 3xTF32 products, three tf32 products (495
+# TFLOP/s dense) for each f32 one.
+PEAK = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12,
+        "tf32x3": 494.7e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 TIME_REPS = 200      # back-to-back calls for wrapper ms and host us
 GRAPH_CALLS = 100    # calls captured in one CUDA graph for device ms
@@ -332,6 +355,24 @@ def with_times(row: dict, times: dict) -> dict:
     return merged
 
 
+def k1_f32_within(out, ref) -> bool:
+    """K1 f32's limits against its twin."""
+    err = (out - ref).abs()
+    return bool((err <= F32_ATOL + F32_RTOL * ref.abs()).all()) \
+        and err.mean().item() <= K1_F32_MEAN_ATOL
+
+
+@contextlib.contextmanager
+def single_tf32():
+    """PyTorch's f32 matrix products on single tf32 products
+    (allow_tf32=True) inside, full f32 again after."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def bound(ops: float, kind: str, num_bytes: float):
     """{"bound_ms", "bound_by"}: the larger of ops over the ``kind``
     peak and bytes over the HBM rate, in ms."""
@@ -368,11 +409,14 @@ def pack_bytes(weights) -> int:
 def flagship_bounds(packs):
     """The bounds of K1, K2 and K3 at the shapes they are timed at, for
     the flagship packs {dtype: pack}: K1 at BENCH_POINTS (40 B a point:
-    positions, views, logits); K2 at TRAIN_POINTS, three times K1's
-    products (the recompute, then the products for dX and dW), 40 B a
-    point (positions, views, cotangents) and f32 gradients the size of
-    the pack; K3 at RENDER_RAYS x 128 and x 48, its view rows once per
-    ray, 16 B a sample (position, depth) and 28 B a ray."""
+    positions, views, logits; also at CHUNK_POINTS and TRAIN_POINTS);
+    K2 at TRAIN_POINTS, three times K1's products (the recompute, then
+    the products for dX and dW), 40 B a point (positions, views,
+    cotangents) and f32 gradients the size of the pack; K3 at
+    RENDER_RAYS x 128 and x 48, its view rows once per ray, 16 B a
+    sample (position, depth) and 28 B a ray. An f32 pack's K1 and K2
+    have two: f32 FFMA ("f32") and 3xTF32 on the tensor cores
+    ("tf32x3"), the rate their products run at."""
     bounds = {"fused_nerf": {}, "fused_nerf_train": {},
               "fused_ray_render": {}}
     for dtype, pack in packs.items():
@@ -380,11 +424,19 @@ def flagship_bounds(packs):
         weights = pack_bytes(pack)
         grads = (pack.weights.numel() + pack.biases.numel()) * 4
         macs = nerf_macs(pack)
-        bounds["fused_nerf"][kind] = bound(
-            2 * macs * BENCH_POINTS, kind, 40 * BENCH_POINTS + weights)
-        bounds["fused_nerf_train"][kind] = bound(
-            3 * 2 * macs * TRAIN_POINTS, kind,
-            40 * TRAIN_POINTS + weights + grads)
+        # K1 and K2 in f32 also on the tensor cores, at 3xTF32 (the heads'
+        # few operations counted there too)
+        for peak in ((kind, "tf32x3") if kind == "f32" else (kind,)):
+            key = kind if peak == kind else peak
+            bounds["fused_nerf"][key] = bound(
+                2 * macs * BENCH_POINTS, peak, 40 * BENCH_POINTS + weights)
+            bounds["fused_nerf"][f"{key}_n{CHUNK_POINTS}"] = bound(
+                2 * macs * CHUNK_POINTS, peak, 40 * CHUNK_POINTS + weights)
+            bounds["fused_nerf"][f"{key}_n{TRAIN_POINTS}"] = bound(
+                2 * macs * TRAIN_POINTS, peak, 40 * TRAIN_POINTS + weights)
+            bounds["fused_nerf_train"][key] = bound(
+                3 * 2 * macs * TRAIN_POINTS, peak,
+                40 * TRAIN_POINTS + weights + grads)
         for samples, key in ((128, kind), (48, f"{kind}_s48")):
             points = RENDER_RAYS * samples
             bounds["fused_ray_render"][key] = bound(
@@ -461,8 +513,8 @@ def phase_kernel_vs_twin(model):
     at the first three. In bf16 also against the twin with each of its
     rounding points moved, which the limits must reject."""
     from fourier_feature_nets_torch.kernels.fused_nerf import (
-        MOVED_ROUNDINGS, fused_nerf_apply, fused_nerf_reference,
-        prepare_fused_nerf, slab_image)
+        MOVED_ROUNDINGS, f32_slab_image, fused_nerf_apply,
+        fused_nerf_reference, prepare_fused_nerf, slab_image)
     log("kernel vs plain twin: torch.backends.cuda.matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32} (the twin's f32 GEMMs "
         "are full f32)")
@@ -470,17 +522,22 @@ def phase_kernel_vs_twin(model):
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         weights = prepare_fused_nerf(model, dtype)
+        name = str(dtype)[6:]
         row = {"times": {}}
-        if weights.slabs is not None:
-            log(f"  bfloat16 slab image: {weights.slabs.numel() * 2:,d} "
-                f"bytes, streamed once a 128-point tile")
-            shapes = [tuple(w.shape) for w, _ in weights.layers]
-            offsets = weights.meta[8:8 + len(shapes)]
-            row["slab_image_ms"] = cuda_ms(
-                lambda: slab_image(weights.weights, shapes, offsets), 20)
-            log(f"  bfloat16 slab image (one gather, built with every "
-                f"pack): {row['slab_image_ms']:.4f} ms a pack (CUDA "
-                f"events, mean of 20)")
+        shapes = [tuple(w.shape) for w, _ in weights.layers]
+        offsets = weights.meta[8:8 + len(shapes)]
+        image = slab_image if dtype == torch.bfloat16 else f32_slab_image
+        row["slab_image_bytes"] = (weights.slabs.numel()
+                                   * weights.slabs.element_size())
+        row["slab_image_ms"] = cuda_ms(
+            lambda: image(weights.weights, shapes, offsets), 20)
+        log(f"  {name} slab image: {row['slab_image_bytes']:,d} bytes "
+            + ("(streamed once a 128-point tile)" if dtype == torch.bfloat16
+               else "(tf32 hi and lo: K1 streams its forward part once a "
+                    "128-point tile, K2 all but the heads once a 64-point "
+                    "tile)")
+            + f"; built with every pack in {row['slab_image_ms']:.4f} ms "
+              f"(CUDA events, mean of 20)")
         for num in (*K1_TIMED_POINTS, RAGGED_POINTS):
             positions, views = random_points(num, rng, "cuda")
             with torch.no_grad():
@@ -494,9 +551,23 @@ def phase_kernel_vs_twin(model):
             mean_abs = err.mean().item()
             max_rel = (err / ref.abs().clamp(min=1e-3)).max().item()
             if dtype == torch.float32:
-                bound = F32_ATOL + F32_RTOL * ref.abs()
-                ok = bool((err <= bound).all())
-                stated = f"|d| <= {F32_ATOL} + {F32_RTOL}|ref|"
+                ok = k1_f32_within(out, ref)
+                stated = (f"|d| <= {F32_ATOL} + {F32_RTOL}|ref|, mean |d| <= "
+                          f"{K1_F32_MEAN_ATOL}")
+                # the control: the twin on single tf32 products must fail
+                with torch.no_grad(), single_tf32():
+                    one = fused_nerf_reference(weights, positions, views)
+                d = (one - ref).abs()
+                log(f"  float32  N={num:>9,d}: the twin on single tf32 "
+                    f"products (allow_tf32=True) against the twin: max "
+                    f"{d.max().item():.3e}, mean {d.mean().item():.3e}")
+                if k1_f32_within(one, ref):
+                    raise AssertionError("K1's f32 limits pass the twin on "
+                                         "single tf32 products")
+                low = row.setdefault("single_tf32_min", [np.inf, np.inf])
+                low[0] = min(low[0], d.max().item())
+                low[1] = min(low[1], d.mean().item())
+                del one, d
             else:
                 ok = max_abs <= K1_BF16_ATOL and mean_abs <= K1_BF16_MEAN_ATOL
                 stated = (f"max |d| <= {K1_BF16_ATOL}, mean |d| <= "
@@ -735,7 +806,7 @@ def phase_backward_vs_twin(model):
     from fourier_feature_nets_torch.kernels.fused_nerf_train import (
         fused_nerf_backward, fused_nerf_backward_reference, scratch_bytes)
     rng = np.random.default_rng(SEED + 1)
-    control = {}
+    control = {"bfloat16": {}, "float32": {}}
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype)[6:]
@@ -778,13 +849,16 @@ def phase_backward_vs_twin(model):
                 raise AssertionError(f"K2 {name} N={num} disagrees with its "
                                      f"plain twin: {failed}")
             if name == "bfloat16":
-                control[num] = {
+                control[name][num] = {
                     "same-sign": same_sign_control(
                         weights, positions, views, gs["same-sign"],
                         f"flagship N={num:,d}"),
                     "tail": mean_share_control(
                         weights, positions, views, gs["tail"],
                         f"flagship N={num:,d}, tail cotangent")}
+            else:
+                control[name][num] = single_tf32_control(
+                    weights, positions, views, gs, num)
             g = gs["random"]
             out = fused_nerf_backward(weights, positions, views, g)
             again = fused_nerf_backward(weights, positions, views, g)
@@ -808,8 +882,37 @@ def phase_backward_vs_twin(model):
             del positions, views, gs, g, out, again
         del weights
         torch.cuda.empty_cache()
-    results["bfloat16"]["flagship_control"] = control
+    results["bfloat16"]["flagship_control"] = control["bfloat16"]
+    results["float32"]["single_tf32_control"] = control["float32"]
     return results
+
+
+def single_tf32_control(weights, positions, views, gs, num) -> dict:
+    """K2 f32's limits against the twin on single tf32 products
+    (allow_tf32=True), which no f32 path runs: logs, per cotangent, the
+    largest per-leaf max share of that twin against the twin beside the
+    kernel's, and raises unless at least the tail or the same-sign limit
+    fails it."""
+    from fourier_feature_nets_torch.kernels.fused_nerf_train import (
+        fused_nerf_backward, fused_nerf_backward_reference)
+    readings = {}
+    for key, g in gs.items():
+        out = fused_nerf_backward(weights, positions, views, g)
+        twin = fused_nerf_backward_reference(weights, positions, views, g)
+        with single_tf32():
+            one = fused_nerf_backward_reference(weights, positions, views, g)
+        readings[key] = {"kernel": leaf_max_share(weights, out, twin),
+                         "single_tf32": leaf_max_share(weights, one, twin)}
+    log(f"  float32  N={num:>7,d}: largest per-leaf max share, kernel / twin "
+        f"on single tf32 products: " + ", ".join(
+            f"{key} {r['kernel']:.3e} / {r['single_tf32']:.3e}"
+            + (" (fails)" if r["single_tf32"] > GRAD_SHARE[key]["float32"]
+               else "") for key, r in readings.items()))
+    if not any(readings[key]["single_tf32"] > GRAD_SHARE[key]["float32"]
+               for key in ("tail", "same-sign")):
+        raise AssertionError("K2's f32 tail and same-sign limits pass the "
+                             "twin on single tf32 products")
+    return readings
 
 
 def leaf_max_share(weights, out, twin) -> float:
@@ -935,18 +1038,21 @@ def _read_log(path):
 def phase_train():
     """The training path: train_nerf on the generated synthetic scene,
     --fused (K1 + K2) and --no-fused, in bf16 and f32; then at the CLI's
-    defaults (f32, no fused flag), which must train plain."""
+    defaults (f32, no fused flag), which must train the path
+    ``resolve_fused`` gives a NeRF on CUDA in f32."""
     from fourier_feature_nets_torch.kernels.fused_nerf import (
         fused_nerf_apply)
     from fourier_feature_nets_torch.kernels.fused_nerf_train import (
         fused_nerf_backward)
+    from fourier_feature_nets_torch.render.raycaster import resolve_fused
     step_ms, launches, checkpoint = {}, {"fused_nerf": 0,
                                          "fused_nerf_train": 0}, None
     runs = [(f"{dtype}, {'fused' if fused else 'plain'}",
              ["--compute-dtype", dtype, "--fused" if fused else "--no-fused"],
              fused)
             for dtype in ("bfloat16", "float32") for fused in (True, False)]
-    runs.append(("float32, defaults", [], False))
+    runs.append(("float32, defaults", [],
+                 resolve_fused(None, True, torch.float32)))
     for label, flags, fused in runs:
         results = os.path.join(OUT_DIR, "train", label.replace(", ", "_"))
         fused_nerf_apply.launches = 0
@@ -1678,40 +1784,42 @@ def phase_times(flagship: bool) -> dict:
                 timed(name, lambda: fused_nerf_apply(weights, pos, views))
     del packs
     torch.cuda.empty_cache()
-    # the fused part of a bf16 train step: pack (with the slab image),
-    # K1 forward and K2 backward through autograd, at the train batch
+    # the fused part of a train step in each type: pack (with the slab
+    # image), K1 forward and K2 backward through autograd, at the train batch
     pos, views = random_points(TRAIN_POINTS, rng, "cuda")
+    for kind, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        def fused_train_core():
+            packed = pack_fused_nerf(model, dtype)
+            fused_nerf_train_apply(packed, pos, views).sum().backward()
 
-    def fused_train_core():
-        packed = pack_fused_nerf(model, torch.bfloat16)
-        fused_nerf_train_apply(packed, pos, views).sum().backward()
-
-    timed("fused_train_core_bf16", fused_train_core)
-    # the same core split: the host's time to issue one (host clock, no
-    # synchronise) and the device time of the kernels it launches
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    for _ in range(FLAGSHIP_REPS):
-        fused_train_core()
-    rows["fused_train_core_bf16_host_ms"] = (
-        (time.perf_counter() - start) * 1e3 / FLAGSHIP_REPS)
-    torch.cuda.synchronize()
-    rows["fused_train_core_bf16_device_ms"] = profiler_kernel_ms(
-        fused_train_core, FLAGSHIP_REPS)
-    log(f"  fused_train_core_bf16: host issue "
-        f"{rows['fused_train_core_bf16_host_ms']:.4f} ms, device "
-        f"{rows['fused_train_core_bf16_device_ms']} ms a call")
+        name = f"fused_train_core_{kind}"
+        timed(name, fused_train_core)
+        # the same core split: the host's time to issue one (host clock, no
+        # synchronise) and the device time of the kernels it launches
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(FLAGSHIP_REPS):
+            fused_train_core()
+        rows[f"{name}_host_ms"] = (
+            (time.perf_counter() - start) * 1e3 / FLAGSHIP_REPS)
+        torch.cuda.synchronize()
+        rows[f"{name}_device_ms"] = profiler_kernel_ms(fused_train_core,
+                                                       FLAGSHIP_REPS)
+        log(f"  {name}: host issue {rows[f'{name}_host_ms']:.4f} ms, device "
+            f"{rows[f'{name}_device_ms']} ms a call")
     model.zero_grad(set_to_none=True)
     del model, pos, views
     torch.cuda.empty_cache()
-    # whole bf16 train steps through the CLI, fused and plain: its summary's
-    # ms/step (CUDA events around each step, validation left out)
-    for path, flag in (("fused", "--fused"), ("plain", "--no-fused")):
-        rows[f"train_step_bf16_{path}"] = train_step_ms(
-            ["--compute-dtype", "bfloat16", flag], TIMED_TRAIN_STEPS, path)
-        log(f"  train_step_bf16_{path}: "
-            f"{rows[f'train_step_bf16_{path}']:.4f} ms/step over steps "
-            f"2..{TIMED_TRAIN_STEPS + 1}")
+    # whole train steps through the CLI, fused and plain, in both types: its
+    # summary's ms/step (CUDA events around each step, validation left out)
+    for dtype in ("bfloat16", "float32"):
+        kind = "bf16" if dtype == "bfloat16" else "f32"
+        for path, flag in (("fused", "--fused"), ("plain", "--no-fused")):
+            name = f"train_step_{kind}_{path}"
+            rows[name] = train_step_ms(["--compute-dtype", dtype, flag],
+                                       TIMED_TRAIN_STEPS, path)
+            log(f"  {name}: {rows[name]:.4f} ms/step over steps "
+                f"2..{TIMED_TRAIN_STEPS + 1}")
     return rows
 
 
@@ -1948,8 +2056,17 @@ def main(argv=None) -> int:
         "moved_rounding_min_mean_abs_err":
             bf16["moved_rounding_min_mean_abs_err"],
         "slab_image_ms": bf16["slab_image_ms"],
+        "slab_image_bytes": bf16["slab_image_bytes"],
         "f32_bound_ms": bounds["fused_nerf"]["f32"]["bound_ms"],
+        "f32_tf32x3_bound_ms": bounds["fused_nerf"]["tf32x3"]["bound_ms"],
+        **{f"f32_tf32x3_n{num}_bound_ms":
+           bounds["fused_nerf"][f"tf32x3_n{num}"]["bound_ms"]
+           for num in (CHUNK_POINTS, TRAIN_POINTS)},
         "f32_max_abs_err": f32["max_abs_err"],
+        "f32_mean_abs_err": f32["mean_abs_err"],
+        "f32_single_tf32_min_max_mean_abs_err": f32["single_tf32_min"],
+        "f32_slab_image_ms": f32["slab_image_ms"],
+        "f32_slab_image_bytes": f32["slab_image_bytes"],
         "f32_ms": f32["times"][BENCH_POINTS][0],
         "f32_plain_ms": f32["times"][BENCH_POINTS][1],
         **{f"f32_n{num}_{key}": f32["times"][num][i]
@@ -1971,6 +2088,10 @@ def main(argv=None) -> int:
         "library_ms": None,
         "shape": f"N={TRAIN_POINTS} (ms) and f32 (f32_*)",
         "f32_bound_ms": bounds["fused_nerf_train"]["f32"]["bound_ms"],
+        "f32_tf32x3_bound_ms":
+            bounds["fused_nerf_train"]["tf32x3"]["bound_ms"],
+        "f32_single_tf32_control":
+            backward["float32"]["single_tf32_control"],
         "f32_max_abs_err": backward["float32"]["max_abs_err"],
         "f32_ms": backward["float32"]["ms"],
         "f32_plain_ms": backward["float32"]["plain_ms"],

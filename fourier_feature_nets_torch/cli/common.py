@@ -50,7 +50,8 @@ def add_common_train_args(parser):
                         help="Force the fused NeRF kernels for rendering "
                              "and training (default: on for a NeRF on a "
                              "CUDA device with --compute-dtype bfloat16, "
-                             "where they beat the plain path; off in f32)")
+                             "where they beat the plain path; off in f32, "
+                             "where a whole step did not in every run)")
     parser.add_argument("--no-fused", dest="fused", action="store_false",
                         help="Force the plain PyTorch autograd/render path")
     parser.add_argument("--steps-per-call", type=int, default=1)

@@ -5,8 +5,9 @@ defaults plus ``--device`` (default ``cuda``). On a CUDA device with
 ``--compute-dtype bfloat16``, or with ``--fused``, each training step
 runs the fused NeRF forward (K1) and recompute backward (K2) Hopper
 kernels; at the f32 default, or with ``--no-fused``, it trains through
-autograd of the plain model, which is the faster path in f32 on an
-H100. Flags whose path is not ported yet (``--opacity-model``,
+autograd of the plain model, which a fused f32 step (3xTF32 kernels)
+did not beat in every run on an H100. Flags whose path is not ported
+yet (``--opacity-model``,
 ``--make-video``, ``--data-parallel``, ``--resume``,
 ``--checkpoint-interval``, ``--occupancy-*``, ``--steps-per-call``)
 raise ``NotImplementedError`` naming their ROADMAP.md item.

@@ -68,21 +68,42 @@
 // routines (fused_nerf_wgmma.cuh) on the same slab image: its forward is
 // this one, bit for bit.
 //
-// f32: exact f32 FFMA on the CUDA cores over 64-point tiles (the tile code in
-// fused_nerf_common.cuh), weight rows staged through shared memory in chunks
-// of kStageK.
-//
-// Layout of the f32 tile. Activation rows are [h (C) | features (R)], R =
-// max(P, V): P is the positional encode width [cos E | sin E | raw 3 | zero
-// pad] rounded up to 16, V the same for the view encode; the view encode
-// overwrites the positional features after the bottleneck. Weights arrive
-// packed (in, out) row-major with K padded to the features' padded width and
-// the two heads padded to 16 output columns.
-//
+// f32: fused_nerf_tf32_kernel, the same persistent, warp-specialised shape
+// (one block per SM, 128-point tiles, two consumer warpgroups, one copy warp,
+// three encoder warps) with f32 activations and 3xTF32 products; its tile's
+// routines, shared with K2's f32 recompute, are in fused_nerf_tf32.cuh.
+// * Products. Each f32 operand is split into tf32 hi and lo (cvt.rna, then
+//   cvt.rna of the rest) and each product summed as lo hi + hi lo + hi hi in
+//   the f32 accumulator: f32 accuracy, no single tf32 product anywhere. wgmma
+//   reads a tf32 operand in shared memory only K-major, so A (the
+//   activations) comes from registers (ldmatrix, split there) and B from the
+//   f32 slab image (kernels/fused_nerf.py::f32_slab_image), whose slabs of 32
+//   K-rows hold W's hi and lo parts, made once a pack, in pieces of at most
+//   128 columns: one piece (32 KB at the flagship) is one ring stage.
+// * Shared memory is the binding constraint (tf32_shared_bytes is the one
+//   budget): a warpgroup's 64 rows of [h (C) | features] in f32, where the
+//   view features overwrite the positional ones once the body has read them
+//   (80 KB at the flagship), and two 32 KB stages: 230,576 bytes. The
+//   encoders alternate: a tile's view features once its body is done, the
+//   next tile's positional features once its hidden layer is done.
+// * L2 traffic: each 128-point tile streams the forward part of the image,
+//   hi and lo (4.75 MB at the flagship, 37 KB a point, four times bf16's).
+//   Bound: 3xTF32 is three tf32 products (495 TFLOP/s dense) for each f32
+//   one, 15.1 ms at 2,097,152 points against 37.2 for f32 FFMA.
+// * The epilogue adds the bias and applies the ReLU in registers and stores
+//   the rows in place (st.shared.v2, each warp its own 16 rows: no barrier,
+//   no proxy fence, since A is read with ldmatrix). The heads run in f32 on
+//   the CUDA cores with the pack's exact head weights (kept at the end of the
+//   image), two lanes a point.
+// * A slab's A registers are reloaded only after its products complete
+//   (wgmma.wait_group 0), so a warpgroup's products pause at each slab; the
+//   other warpgroup's fill the tensor cores then.
+
 // Both kernels mask the ragged last tile themselves, launch on the caller's
 // stream and allocate nothing; the entry point returns cudaGetLastError().
 
 #include "fused_nerf_common.cuh"
+#include "fused_nerf_tf32.cuh"
 #include "fused_nerf_wgmma.cuh"
 #include "hopper.cuh"
 #include "shared_limit.cuh"
@@ -315,106 +336,252 @@ cudaError_t launch_bf16(const void* positions, const void* views,
 }
 
 // ---------------------------------------------------------------------------
-// f32: the FFMA tile
+// f32: the 3xTF32 wgmma kernel (the tile's routines are in fused_nerf_tf32.cuh)
 // ---------------------------------------------------------------------------
 
-using ffn::dense;
-using ffn::kCast;
-using ffn::kReluCast;
-using ffn::kRowPad;
-using ffn::kScratchFloats;
-using ffn::kThreads;
-using ffn::kTile;
-using ffn::kToOutput;
+// full and empty per stage; per consumer warpgroup, its features written
+// (positional, view) and its feature columns read
+constexpr int kTf32BarrierBytes = (2 * kMaxStages + 6) * 8;
 
-size_t f32_shared_bytes(const Desc& d) {
-  const int region = d.pos_width > d.view_width ? d.pos_width : d.view_width;
-  const size_t lda = d.channels + region + kRowPad;
-  return kScratchFloats * sizeof(float) + kTile * lda * sizeof(float)
-         + 2 * kTile * 3 * sizeof(float);
+// One warp's part of a head over its 16 rows of `act`, on the CUDA cores in
+// f32: lane l takes row 16 warp + l / 2 and half l % 2 of the K inputs, and
+// the pair of lanes adds its two halves. w is the head's exact (K, 16)
+// weight; returns its columns 0 .. kOuts - 1 without the bias.
+template <int kOuts>
+__device__ __forceinline__ void head_f32(uint32_t act, int K,
+                                         const float* __restrict__ w,
+                                         int warp, int lane, float* sums) {
+  const int row = 16 * warp + (lane >> 1);
+  const int c0 = (lane & 1) * (K / 2);
+#pragma unroll
+  for (int o = 0; o < kOuts; ++o) sums[o] = 0.0f;
+  for (int c = c0; c < c0 + K / 2; c += 4) {
+    const float4 h = ffn::tf32::ld_f32x4(ffn::tf32::f32_addr(act, row, c));
+#pragma unroll
+    for (int o = 0; o < kOuts; ++o) {
+      sums[o] = fmaf(h.x, __ldg(w + (c + 0) * kHeadWidth + o), sums[o]);
+      sums[o] = fmaf(h.y, __ldg(w + (c + 1) * kHeadWidth + o), sums[o]);
+      sums[o] = fmaf(h.z, __ldg(w + (c + 2) * kHeadWidth + o), sums[o]);
+      sums[o] = fmaf(h.w, __ldg(w + (c + 3) * kHeadWidth + o), sums[o]);
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < kOuts; ++o) {
+    sums[o] += __shfl_xor_sync(0xffffffffu, sums[o], 1);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_nerf_f32_kernel(const float* __restrict__ positions,
-                      const float* __restrict__ views,
-                      const float* __restrict__ pos_enc,
-                      const float* __restrict__ view_enc,
-                      const float* __restrict__ weights,
-                      const float* __restrict__ biases, float* __restrict__ out,
-                      long long num_points, Desc d) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int C = d.channels;
-  const int region = d.pos_width > d.view_width ? d.pos_width : d.view_width;
-  const int lda = C + region + kRowPad;
-  float* scratch = reinterpret_cast<float*>(smem);
-  float* act = reinterpret_cast<float*>(smem + kScratchFloats * sizeof(float));
-  float* xs = act + kTile * lda;
-  float* vs = xs + kTile * 3;
-
-  const long long row0 = static_cast<long long>(blockIdx.x) * kTile;
-  for (int idx = threadIdx.x; idx < kTile * 3; idx += kThreads) {
-    const bool live = row0 + idx / 3 < num_points;   // ragged last tile
-    xs[idx] = live ? positions[row0 * 3 + idx] : 0.0f;
-    vs[idx] = live ? views[row0 * 3 + idx] : 0.0f;
+template <int C>
+__global__ void __launch_bounds__(kBf16Threads, 1)
+fused_nerf_tf32_kernel(const float* __restrict__ positions,
+                       const float* __restrict__ views,
+                       const float* __restrict__ pos_enc,
+                       const float* __restrict__ view_enc,
+                       const float* __restrict__ image,
+                       const float* __restrict__ biases,
+                       float* __restrict__ out, long long num_points, Desc d,
+                       int stages, int act_blocks, long long opacity_at,
+                       long long color_at) {
+  namespace t32 = ffn::tf32;
+  extern __shared__ __align__(1024) unsigned char tf32_smem[];
+  const uint32_t base = (hopper::smem_addr(tf32_smem) + kAlignSlack - 1)
+                        & ~static_cast<uint32_t>(kAlignSlack - 1);
+  const uint32_t act_bytes = act_blocks * t32::kBlockBytes;   // a warpgroup's
+  const uint32_t ring_base = base + 2 * act_bytes;
+  const uint32_t slot_bytes = t32::stage_bytes(C);
+  const uint32_t full = ring_base + stages * slot_bytes;
+  const uint32_t empty = full + 8 * kMaxStages;
+  // [warpgroup]: positional features written, view features written, and
+  // the feature columns read (twice a tile: after the body, which read the
+  // positional features, and after the hidden layer, which read the view's)
+  const uint32_t pos_ready = empty + 8 * kMaxStages;
+  const uint32_t view_ready = pos_ready + 16;
+  const uint32_t feat_free = view_ready + 16;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(full + 8 * s, 1);
+      hopper::mbar_init(empty + 8 * s, kConsumerWarps);
+    }
+    for (int w = 0; w < 2; ++w) {
+      hopper::mbar_init(pos_ready + 8 * w, kEncoderThreads);
+      hopper::mbar_init(view_ready + 8 * w, kEncoderThreads);
+      hopper::mbar_init(feat_free + 8 * w, kConsumerWarps / 2);
+    }
+    hopper::mbar_fence_init();
   }
   __syncthreads();
-  ffn::encode<kTile, kThreads, float>(xs, pos_enc, d.e_pos, d.include_inputs,
-                                      d.pos_width, act, lda, C);
-  __syncthreads();
 
+  const long long num_tiles = (num_points + kTileRows - 1) / kTileRows;
   const int L = d.num_layers;
-  dense(act, act, lda, C, d.pos_width, weights + d.w_off[0], C,
-        biases + d.b_off[0], kReluCast, out, row0, num_points, 0, 0, scratch);
-  for (int i = 1; i < L; ++i) {
-    const int K = ((d.skip_mask >> i) & 1u) ? C + d.pos_width : C;
-    dense(act, act, lda, 0, K, weights + d.w_off[i], C, biases + d.b_off[i],
-          kReluCast, out, row0, num_points, 0, 0, scratch);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    hopper::regs_decrease<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      // Producer: one thread streams each tile's slabs, the forward part of
+      // the image (body, bottleneck, hidden: the heads run on the CUDA
+      // cores), from its start.
+      int stage = 0;
+      uint32_t phase = 0;
+      for (long long tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+        const char* src = reinterpret_cast<const char*>(image);
+        for (int j = 0; j < L + 3; ++j) {
+          if (j == L) continue;
+          int K, N;
+          layer_shape(d, j, &K, &N);
+          src = t32::stream_slabs(src, K, N, ring_base, slot_bytes, full,
+                                  empty, stages, &stage, &phase);
+        }
+      }
+      for (int s = 0; s < stages; ++s) {
+        hopper::mbar_wait(empty + 8 * stage, phase ^ 1u);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    } else if (threadIdx.x >= 256 + 32) {
+      // Encoders: the positional and the view features share a warpgroup's
+      // feature columns. A tile's positional features go in once the last
+      // tile's hidden layer has read its view features (for the first tile,
+      // at once), its view features once its body has read the positional.
+      const int warp = (threadIdx.x - 256) / 32 - 1;   // 0..2
+      const int lane = threadIdx.x & 31;
+      for (long long tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+        for (int w = 0; w < 2; ++w) {
+          hopper::mbar_wait(feat_free + 8 * w, 1u);
+          t32::encode_rows_f32(positions, tile * kTileRows + w * kWgRows,
+                               num_points, pos_enc, d.e_pos, d.include_inputs,
+                               d.pos_width, base + w * act_bytes, C, warp,
+                               kEncoderWarps, lane);
+          hopper::mbar_arrive(pos_ready + 8 * w);
+        }
+        for (int w = 0; w < 2; ++w) {
+          hopper::mbar_wait(feat_free + 8 * w, 0u);
+          t32::encode_rows_f32(views, tile * kTileRows + w * kWgRows,
+                               num_points, view_enc, d.e_view,
+                               d.include_inputs, d.view_width,
+                               base + w * act_bytes, C, warp, kEncoderWarps,
+                               lane);
+          hopper::mbar_arrive(view_ready + 8 * w);
+        }
+      }
+    }
+    return;
   }
-  // opacity head -> out[:, 3]
-  dense(act, act, lda, 0, C, weights + d.w_off[L], kHeadWidth,
-        biases + d.b_off[L], kToOutput, out, row0, num_points, 3, 1, scratch);
-  // bottleneck
-  dense(act, act, lda, 0, C, weights + d.w_off[L + 1], C,
-        biases + d.b_off[L + 1], kCast, out, row0, num_points, 0, 0, scratch);
-  ffn::encode<kTile, kThreads, float>(vs, view_enc, d.e_view,
-                                      d.include_inputs, d.view_width, act,
-                                      lda, C);
-  __syncthreads();
-  // hidden layer over [bottleneck | view features]
-  dense(act, act, lda, 0, C + d.view_width, weights + d.w_off[L + 2], C / 2,
-        biases + d.b_off[L + 2], kReluCast, out, row0, num_points, 0, 0,
-        scratch);
-  // color head -> out[:, 0:3]
-  dense(act, act, lda, 0, C / 2, weights + d.w_off[L + 3], kHeadWidth,
-        biases + d.b_off[L + 3], kToOutput, out, row0, num_points, 0, 3,
-        scratch);
+
+  hopper::regs_increase<kConsumerRegs>();
+  const int t = threadIdx.x & 127;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const uint32_t act = base + wg * act_bytes;
+  const bool releases = lane == 0;
+  const int r0 = 16 * warp + (lane >> 2);
+  const int pair = 2 * (lane & 3);
+  Ring ring{ring_base, slot_bytes, full, empty, stages, 0, 0u};
+  const int P = d.pos_width;
+  const int V = d.view_width;
+  float acc[C / 2];
+  uint32_t parity = 0;
+  for (long long tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    // body: layer 0 reads the features at column C, a skip layer [h | pos]
+    hopper::mbar_wait(pos_ready + 8 * wg, parity);
+    for (int i = 0; i < L; ++i) {
+      const int K = i == 0 ? P : C + (((d.skip_mask >> i) & 1u) ? P : 0);
+      t32::layer_tf32<C>(acc, ring, K,
+                         t32::point_major_a(act, warp, lane, i == 0 ? 0 : K,
+                                            i == 0 ? C : 0),
+                         releases);
+      if (i == L - 1 && releases) hopper::mbar_arrive(feat_free + 8 * wg);
+      t32::store_f32<C, true>(acc, biases + d.b_off[i], act, r0, pair);
+      __syncwarp();
+    }
+    // opacity head, f32 on the CUDA cores, before the bottleneck overwrites h
+    float opacity;
+    head_f32<1>(act, C, image + opacity_at, warp, lane, &opacity);
+    opacity += __ldg(biases + d.b_off[L]);
+    // bottleneck, in place
+    t32::layer_tf32<C>(acc, ring, C, t32::point_major_a(act, warp, lane, C, 0),
+                       releases);
+    t32::store_f32<C, false>(acc, biases + d.b_off[L + 1], act, r0, pair);
+    __syncwarp();
+    // hidden layer over [bottleneck | view features at column C]
+    hopper::mbar_wait(view_ready + 8 * wg, parity);
+    t32::layer_tf32<C / 2>(acc, ring, C + V,
+                           t32::point_major_a(act, warp, lane, C + V, 0),
+                           releases);
+    if (releases) hopper::mbar_arrive(feat_free + 8 * wg);
+    t32::store_f32<C / 2, true>(acc, biases + d.b_off[L + 2], act, r0, pair);
+    __syncwarp();
+    // color head, f32 on the CUDA cores; one float4 a point
+    float color[3];
+    head_f32<3>(act, C / 2, image + color_at, warp, lane, color);
+    if ((lane & 1) == 0) {
+      const long long g = tile * kTileRows + wg * kWgRows + 16 * warp
+                          + (lane >> 1);
+      const float* color_bias = biases + d.b_off[L + 3];
+      if (g < num_points) {
+        reinterpret_cast<float4*>(out)[g] = make_float4(
+            color[0] + __ldg(color_bias), color[1] + __ldg(color_bias + 1),
+            color[2] + __ldg(color_bias + 2), opacity);
+      }
+    }
+    parity ^= 1u;
+  }
 }
 
-cudaError_t launch_f32(const void* positions, const void* views,
-                       const void* pos_enc, const void* view_enc,
-                       const void* weights, const void* biases, void* out,
-                       long long num_points, const Desc& d,
-                       cudaStream_t stream) {
-  const size_t smem = f32_shared_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_nerf_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// The shared memory an f32 launch needs (0 if the model does not fit with
+// two stages) and the stages it gets: per warpgroup 64 rows of [h (C) |
+// features (the larger of P and V)] in 32-column blocks, then the ring.
+size_t tf32_shared_bytes(const Desc& d, int* stages, int* act_blocks) {
+  const int features = d.pos_width > d.view_width ? d.pos_width
+                                                   : d.view_width;
+  *act_blocks = (d.channels + 31) / 32 + (features + 31) / 32;
+  const size_t fixed = kAlignSlack
+                       + 2ull * *act_blocks * ffn::tf32::kBlockBytes
+                       + kTf32BarrierBytes;
+  const size_t stage = ffn::tf32::stage_bytes(d.channels);
+  if (fixed + 2 * stage > kSharedLimit) return 0;
+  const size_t fit = (kSharedLimit - fixed) / stage;
+  *stages = static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
+  return fixed + *stages * stage;
+}
+
+template <int C>
+cudaError_t launch_tf32(const void* positions, const void* views,
+                        const void* pos_enc, const void* view_enc,
+                        const void* image, const void* biases, void* out,
+                        long long num_points, const Desc& d,
+                        cudaStream_t stream) {
+  static ffn::SharedLimit limit;
+  int stages = 0, act_blocks = 0;
+  const size_t smem = tf32_shared_bytes(d, &stages, &act_blocks);
+  if (smem == 0) return cudaErrorInvalidValue;
+  cudaError_t err =
+      ffn::reserve_shared(fused_nerf_tf32_kernel<C>, smem, limit);
   if (err != cudaSuccess) return err;
-  const long long blocks = (num_points + kTile - 1) / kTile;
-  fused_nerf_f32_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                          stream>>>(
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long opacity_at = ffn::tf32::heads_at(d);
+  const long long tiles = (num_points + kTileRows - 1) / kTileRows;
+  const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  fused_nerf_tf32_kernel<C><<<grid, kBf16Threads, smem, stream>>>(
       static_cast<const float*>(positions), static_cast<const float*>(views),
       static_cast<const float*>(pos_enc), static_cast<const float*>(view_enc),
-      static_cast<const float*>(weights), static_cast<const float*>(biases),
-      static_cast<float*>(out), num_points, d);
+      static_cast<const float*>(image), static_cast<const float*>(biases),
+      static_cast<float*>(out), num_points, d, stages, act_blocks,
+      opacity_at, opacity_at + d.channels * kHeadWidth);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // meta: the host int64 descriptor of ffn::parse_desc (fused_nerf_common.cuh).
-// weight_dtype: 0 = f32, `weights` the flat (in, out) pack; 1 = bf16,
-// `weights` the slab image of kernels/fused_nerf.py::slab_image.
+// weight_dtype: 0 = f32, `weights` the f32 slab image of kernels/
+// fused_nerf.py::f32_slab_image; 1 = bf16, `weights` the slab image of
+// kernels/fused_nerf.py::slab_image.
 extern "C" int fused_nerf_forward(const void* positions, const void* views,
                                   const void* pos_enc, const void* view_enc,
                                   const void* weights, const void* biases,
@@ -448,8 +615,24 @@ extern "C" int fused_nerf_forward(const void* positions, const void* views,
         err = cudaErrorInvalidValue;
     }
   } else if (weight_dtype == 0) {
-    err = launch_f32(positions, views, pos_enc, view_enc, weights, biases, out,
-                     num_points, d, s);
+    switch (d.channels) {
+#define FFN_TF32_CASE(C)                                                     \
+  case C:                                                                    \
+    err = launch_tf32<C>(positions, views, pos_enc, view_enc, weights,       \
+                         biases, out, num_points, d, s);                     \
+    break;
+      FFN_TF32_CASE(32)
+      FFN_TF32_CASE(64)
+      FFN_TF32_CASE(96)
+      FFN_TF32_CASE(128)
+      FFN_TF32_CASE(160)
+      FFN_TF32_CASE(192)
+      FFN_TF32_CASE(224)
+      FFN_TF32_CASE(256)
+#undef FFN_TF32_CASE
+      default:
+        err = cudaErrorInvalidValue;
+    }
   } else {
     err = cudaErrorInvalidValue;
   }

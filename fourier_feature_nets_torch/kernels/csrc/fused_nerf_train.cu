@@ -11,8 +11,9 @@
 //
 // What bounds it on an H100. Three products a layer (the recompute, dX and
 // dW), ~3.6 MFLOP a point at the 8x256 flagship: 0.47 ms of bf16 tensor-core
-// time for a 131,072-point step. The TPU kernel kept every weight and every
-// gradient accumulator resident in VMEM across a sequential grid. Here
+// time for a 131,072-point step, 2.83 ms in f32 as 3xTF32. The TPU kernel
+// kept every weight and every gradient accumulator resident in VMEM across
+// a sequential grid. Here
 // blocks run in parallel, and neither the ~1.2 MB pack nor its 2.4 MB of f32
 // gradients fits a block, so every tile pays for them: its slabs stream from
 // L2 twice (recompute, dX) and its partial dW goes to the f32 buffer with
@@ -55,10 +56,41 @@
 // budget is bf16_shared_bytes, and a model that does not fit makes the
 // launch raise.
 //
-// f32: exact FFMA on the CUDA cores over 16-point tiles. Every activation of
-// the tile stays in shared memory; weights are read from global memory (L2)
-// with their rows staged in chunks of kStageK; each block adds its tile's
-// partial dW = h^T dz into the global f32 buffer with float4 atomicAdd.
+// f32: fused_nerf_backward_tf32_kernel, persistent and warp-specialised on
+// K1's f32 routines (fused_nerf_tf32.cuh): 3xTF32 products (tf32 hi and lo
+// of each operand, lo hi + hi lo + hi hi summed in f32), one block per SM
+// walking 64-point tiles with one consumer warpgroup; in the producer
+// warpgroup one thread streams the f32 slab image, three warps encode.
+// * Shared memory is the binding constraint (tf32_shared_bytes, the one
+//   budget): f32 rows of 64 points take 64 KB of dz^T and 88 KB of x ([h |
+//   positional | view]) at the flagship, and two 32 KB ring stages, 222,376
+//   bytes in all. A 128-point tile would need twice the rows: so 64 points,
+//   one warpgroup, and twice bf16's atomics and L2 slab reads a point.
+// * The recompute is K1's code (layer_tf32, store_f32, encode_rows_f32) over
+//   the same image, so the forward K2 differentiates is K1's, bit for bit.
+//   Body layers' h are parked in the wrapper's scratch (L x 64 KB a block)
+//   with one bulk copy each and reloaded during dX; the hidden layer's output
+//   stays in registers and where dz^T goes.
+// * dX = dz W^T on wgmma: A = dz, read into registers from dz^T (which lies
+//   feature-major, K-major for dW's B below), B = the image's transposed
+//   slabs (W^T of the first C rows, K-major: tf32 has no MN-major operand).
+//   The epilogue adds the opacity head's f32 term (bottleneck), applies the
+//   ReLU mask of the input's h (bits read before the next reload) and stores
+//   dz^T.
+// * dW = X^T dz on mma.sync m16n8k8 (dw_sync): with tf32 both wgmma operands
+//   would have to lie in shared memory K-major, that is point-contiguous, as
+//   hi and lo copies, which the budget has no room for; mma.sync loads its
+//   fragments from any layout into registers (X point-major by scalar loads,
+//   dz^T by ldmatrix), where they are split. The consumer's four warps and
+//   the three encoder warps (idle by then) take its chunks in turn; each
+//   pair of lanes adds its fragments with float4 atomics. It is the largest
+//   suspect for what holds the kernel (PERF.md, section 7).
+// * Biases and heads on the CUDA cores, each summed over the tile's 64
+//   points before its atomic; the heads use the pack's exact weights (the
+//   end of the image).
+// L2 traffic a 64-point tile, at the flagship: the image's forward and dX
+// slabs, hi and lo (9.2 MB, 144 KB a point) and 2.4 MB of f32 dW reductions
+// (37.5 KB a point); bf16 read 18 KB and reduced 18.6 KB a point.
 //
 // Rounding points (bf16). Each body layer's f32 sum + bias is cast and then
 // ReLU'd, the bottleneck is cast, the hidden layer is ReLU'd and cast (K1).
@@ -72,14 +104,19 @@
 // (kernels/fused_nerf_train.py holds K2_BF16_*, the ones chip_smoke.py and
 // the card tests share).
 //
+// In f32 nothing is cast: every sum, dz and head is f32 (the plain twin's
+// f32 GEMMs), and the limits against the twin are chip_smoke.py's GRAD_SHARE
+// f32, which the twin on single tf32 products fails.
+//
 // Both kernels mask the ragged last tile themselves (zero inputs and zero
 // cotangent rows, so dead points add nothing) and launch on the caller's
-// stream; the entry point returns cudaGetLastError(). The bf16 kernel's one
-// allocation, the scratch its tiles park their activations in, is the
-// wrapper's (torch.empty, of the size fused_nerf_backward_scratch_bytes
-// gives); neither kernel allocates.
+// stream; the entry point returns cudaGetLastError(). Their one allocation,
+// the scratch their tiles park their activations in, is the wrapper's
+// (torch.empty, of the size fused_nerf_backward_scratch_bytes gives);
+// neither kernel allocates.
 
 #include "fused_nerf_common.cuh"
+#include "fused_nerf_tf32.cuh"
 #include "fused_nerf_wgmma.cuh"
 #include "hopper.cuh"
 #include "shared_limit.cuh"
@@ -88,480 +125,6 @@ namespace {
 
 using ffn::Desc;
 using ffn::kHeadWidth;
-using ffn::kMaxChannels;
-using ffn::to_f;
-using ffn::to_t;
-
-constexpr int kRowPad = 8;      // elements of padding per shared row
-constexpr int kStageK = 16;     // f32 weight rows staged per chunk
-
-// Points per block and threads per block of the f32 tile: its warps each
-// own two tile rows, which ran faster with 8 warps than with 16 (40 vs 45
-// ms at the flagship's 131,072 points on an H100 80GB HBM3 at 700 W).
-template <typename T>
-struct Tile;
-template <>
-struct Tile<float> {
-  static constexpr int kRows = 16;
-  static constexpr int kThreads = 256;
-  static constexpr int kWarps = kThreads / 32;
-};
-
-// f32: kStageK staged weight rows (the transposed stage of dh has one
-// column of padding per row)
-constexpr int kScratchFloats = kStageK * (kMaxChannels + 4);
-
-// An input of K columns read from one or two column ranges of the
-// activation row: columns [0, len0) at col0, the rest at col1. len0 is a
-// multiple of 16, so no 16-wide k step straddles the two.
-struct Seg {
-  int col0;
-  int len0;
-  int col1;
-  __device__ __forceinline__ int at(int k) const {
-    return k < len0 ? col0 + k : col1 + (k - len0);
-  }
-};
-
-// Where the tile's values live in shared memory.
-struct Layout {
-  int C, L, P, V;
-  int lda;   // activation row: [enc P | venc V | h_0..h_{L-1} | bott | hidden]
-  int ldd;   // dz row
-  __device__ __forceinline__ int enc() const { return 0; }
-  __device__ __forceinline__ int venc() const { return P; }
-  __device__ __forceinline__ int h(int i) const { return P + V + i * C; }
-  __device__ __forceinline__ int bottleneck() const { return h(L); }
-  __device__ __forceinline__ int hidden() const { return h(L) + C; }
-};
-
-__host__ __device__ inline int act_width(const Desc& d) {
-  return d.pos_width + d.view_width + (d.num_layers + 1) * d.channels
-         + d.channels / 2;
-}
-
-__device__ __forceinline__ void atomic_add4(float* p, float4 v) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-  atomicAdd(reinterpret_cast<float4*>(p), v);
-#else
-  atomicAdd(p, v.x);
-  atomicAdd(p + 1, v.y);
-  atomicAdd(p + 2, v.z);
-  atomicAdd(p + 3, v.w);
-#endif
-}
-
-// Finished forward value of a body/hidden layer (relu=true: cast, then
-// ReLU, which commutes with the rounding) or the bottleneck (cast).
-template <typename T>
-__device__ __forceinline__ T forward_value(float v, bool relu) {
-  const T t = to_t<T>(v);
-  return relu ? to_t<T>(fmaxf(to_f(t), 0.0f)) : t;
-}
-
-// dh epilogue: adds the opacity head's f32 term, applies the ReLU mask of
-// the activation at mask_col (mask_col < 0: no mask), casts.
-template <typename T>
-__device__ __forceinline__ T dz_value(float v, int row, int col,
-                                      const T* act, int lda, int mask_col,
-                                      const T* __restrict__ opacity_w,
-                                      const float* gs) {
-  if (opacity_w != nullptr) {
-    v += gs[row * 4 + 3] * to_f(opacity_w[col * kHeadWidth]);
-  }
-  if (mask_col >= 0 && !(to_f(act[row * lda + mask_col + col]) > 0.0f)) {
-    v = 0.0f;
-  }
-  return to_t<T>(v);
-}
-
-// ---------------------------------------------------------------------------
-// f32: exact FFMA on the CUDA cores. Warp w owns tile rows [2w, 2w + 2) of
-// the row-output products; lane l owns columns l + 32j.
-// ---------------------------------------------------------------------------
-
-constexpr int kRowsF32 = Tile<float>::kRows;
-constexpr int kThreadsF32 = Tile<float>::kThreads;
-constexpr int kWarpsF32 = Tile<float>::kWarps;
-constexpr int kWarpRows = kRowsF32 / kWarpsF32;
-constexpr int kLaneCols = kMaxChannels / 32;
-
-__device__ void forward_layer(float* act, int lda, Seg in, int K,
-                              const float* __restrict__ w, int N,
-                              const float* __restrict__ bias, bool relu,
-                              int out_col, float* stage) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float acc[kWarpRows][kLaneCols];
-#pragma unroll
-  for (int r = 0; r < kWarpRows; ++r) {
-#pragma unroll
-    for (int j = 0; j < kLaneCols; ++j) acc[r][j] = 0.0f;
-  }
-  const int row_quads = N / 4;
-  for (int k0 = 0; k0 < K; k0 += kStageK) {   // K is a multiple of kStageK
-    const float4* src =
-        reinterpret_cast<const float4*>(w + static_cast<long long>(k0) * N);
-    float4* dst = reinterpret_cast<float4*>(stage);
-    for (int idx = threadIdx.x; idx < kStageK * row_quads;
-         idx += kThreadsF32) {
-      dst[idx] = __ldg(src + idx);
-    }
-    __syncthreads();
-    const float* a_rows = act + warp * kWarpRows * lda + in.at(k0);
-#pragma unroll 4
-    for (int kk = 0; kk < kStageK; ++kk) {
-      float a[kWarpRows];
-#pragma unroll
-      for (int r = 0; r < kWarpRows; ++r) a[r] = a_rows[r * lda + kk];
-      const float* w_row = stage + kk * N;
-#pragma unroll
-      for (int j = 0; j < kLaneCols; ++j) {
-        const int col = lane + 32 * j;
-        if (col < N) {
-          const float wv = w_row[col];
-#pragma unroll
-          for (int r = 0; r < kWarpRows; ++r) {
-            acc[r][j] = fmaf(a[r], wv, acc[r][j]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // stage reused by the next chunk
-  }
-#pragma unroll
-  for (int r = 0; r < kWarpRows; ++r) {
-#pragma unroll
-    for (int j = 0; j < kLaneCols; ++j) {
-      const int col = lane + 32 * j;
-      if (col < N) {
-        act[(warp * kWarpRows + r) * lda + out_col + col] =
-            forward_value<float>(acc[r][j] + __ldg(bias + col), relu);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// grad[K, N] += act[:, in]^T @ dz[:, 0:N]. Warp w owns groups of four
-// consecutive output rows (4g .. 4g+3 for g = w, w + 8, ...); lane l owns
-// columns 4l + 128j .. +3, added with float4 atomics.
-__device__ void weight_grad(const float* act, int lda, Seg in, int K,
-                            const float* dz, int ldd, int N,
-                            float* __restrict__ grad, float*) {
-  constexpr int kGroupCols = kMaxChannels / 128;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int g = warp; g < K / 4; g += kWarpsF32) {
-    const int src = in.at(4 * g);
-    float4 acc[4][kGroupCols];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-#pragma unroll
-      for (int j = 0; j < kGroupCols; ++j) {
-        acc[q][j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      }
-    }
-#pragma unroll 4
-    for (int m = 0; m < kRowsF32; ++m) {
-      float a[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) a[q] = act[m * lda + src + q];
-#pragma unroll
-      for (int j = 0; j < kGroupCols; ++j) {
-        const int col = 4 * lane + 128 * j;
-        if (col < N) {
-          const float4 b =
-              *reinterpret_cast<const float4*>(dz + m * ldd + col);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            acc[q][j].x = fmaf(a[q], b.x, acc[q][j].x);
-            acc[q][j].y = fmaf(a[q], b.y, acc[q][j].y);
-            acc[q][j].z = fmaf(a[q], b.z, acc[q][j].z);
-            acc[q][j].w = fmaf(a[q], b.w, acc[q][j].w);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kGroupCols; ++j) {
-      const int col = 4 * lane + 128 * j;
-      if (col < N) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          atomic_add4(grad + static_cast<long long>(4 * g + q) * N + col,
-                      acc[q][j]);
-        }
-      }
-    }
-  }
-}
-
-// dz[:, 0:Kout] = dz_value(dz[:, 0:N] @ W[0:Kout, :]^T). kStageK columns of
-// W at a time are staged transposed (stage[n][k], one float of padding per
-// row against bank conflicts), so lanes read consecutive k.
-__device__ void input_grad(float* dz, int ldd, int N,
-                           const float* __restrict__ w, int Kout,
-                           const float* act, int lda, int mask_col,
-                           const float* __restrict__ opacity_w,
-                           const float* gs, float* stage) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int lds = Kout + 1;
-  float acc[kWarpRows][kLaneCols];
-#pragma unroll
-  for (int r = 0; r < kWarpRows; ++r) {
-#pragma unroll
-    for (int j = 0; j < kLaneCols; ++j) acc[r][j] = 0.0f;
-  }
-  for (int n0 = 0; n0 < N; n0 += kStageK) {   // N is a multiple of kStageK
-    for (int idx = threadIdx.x; idx < Kout * kStageK; idx += kThreadsF32) {
-      const int k = idx / kStageK;
-      const int nn = idx - k * kStageK;
-      stage[nn * lds + k] = __ldg(w + static_cast<long long>(k) * N + n0 + nn);
-    }
-    __syncthreads();
-    const float* a_rows = dz + warp * kWarpRows * ldd + n0;
-#pragma unroll 4
-    for (int nn = 0; nn < kStageK; ++nn) {
-      float a[kWarpRows];
-#pragma unroll
-      for (int r = 0; r < kWarpRows; ++r) a[r] = a_rows[r * ldd + nn];
-      const float* w_col = stage + nn * lds;
-#pragma unroll
-      for (int j = 0; j < kLaneCols; ++j) {
-        const int col = lane + 32 * j;
-        if (col < Kout) {
-          const float wv = w_col[col];
-#pragma unroll
-          for (int r = 0; r < kWarpRows; ++r) {
-            acc[r][j] = fmaf(a[r], wv, acc[r][j]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // stage reused; after the last chunk, dz fully read
-  }
-#pragma unroll
-  for (int r = 0; r < kWarpRows; ++r) {
-    const int row = warp * kWarpRows + r;
-#pragma unroll
-    for (int j = 0; j < kLaneCols; ++j) {
-      const int col = lane + 32 * j;
-      if (col < Kout) {
-        dz[row * ldd + col] = dz_value<float>(acc[r][j], row, col, act, lda,
-                                              mask_col, opacity_w, gs);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// f32: the biases and the heads
-// ---------------------------------------------------------------------------
-
-// db[0:N] += column sums of dz (working-type values summed in f32).
-template <typename T>
-__device__ void bias_grad(const T* dz, int ldd, int N, int rows,
-                          float* __restrict__ grad) {
-  for (int n = threadIdx.x; n < N; n += Tile<T>::kThreads) {
-    float s = 0.0f;
-    for (int m = 0; m < rows; ++m) s += to_f(dz[m * ldd + n]);
-    atomicAdd(grad + n, s);
-  }
-}
-
-// The heads, in f32 on the CUDA cores: the color head's weight and bias
-// gradients and dz of the hidden layer (written to dz[:, 0:C/2]), and the
-// opacity head's weight and bias gradients.
-template <typename T, int kRows>
-__device__ void head_grads(const T* act, const Layout& lay, T* dz,
-                           const float* gs, const T* __restrict__ color_w,
-                           const T* __restrict__ opacity_w, float* d_color_w,
-                           float* d_color_b, float* d_opacity_w,
-                           float* d_opacity_b) {
-  const int half = lay.C / 2;
-  const int hidden = lay.hidden();
-  for (int idx = threadIdx.x; idx < kRows * half;
-       idx += Tile<T>::kThreads) {
-    const int m = idx / half;
-    const int c = idx - m * half;
-    const float* g = gs + m * 4;
-    const T* w = color_w + c * kHeadWidth;
-    const float dh = fmaf(g[2], to_f(w[2]),
-                          fmaf(g[1], to_f(w[1]), g[0] * to_f(w[0])));
-    const bool live = to_f(act[m * lay.lda + hidden + c]) > 0.0f;
-    dz[m * lay.ldd + c] = to_t<T>(live ? dh : 0.0f);
-  }
-  const int last = lay.h(lay.L - 1);
-  for (int c = threadIdx.x; c < lay.C; c += Tile<T>::kThreads) {
-    float op = 0.0f;
-    for (int m = 0; m < kRows; ++m) {
-      op = fmaf(to_f(act[m * lay.lda + last + c]), gs[m * 4 + 3], op);
-    }
-    atomicAdd(d_opacity_w + c * kHeadWidth, op);
-    if (c < half) {
-      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-      for (int m = 0; m < kRows; ++m) {
-        const float h = to_f(act[m * lay.lda + hidden + c]);
-        s0 = fmaf(h, gs[m * 4 + 0], s0);
-        s1 = fmaf(h, gs[m * 4 + 1], s1);
-        s2 = fmaf(h, gs[m * 4 + 2], s2);
-      }
-      atomicAdd(d_color_w + c * kHeadWidth + 0, s0);
-      atomicAdd(d_color_w + c * kHeadWidth + 1, s1);
-      atomicAdd(d_color_w + c * kHeadWidth + 2, s2);
-    }
-  }
-  if (threadIdx.x < 4) {
-    float s = 0.0f;
-    for (int m = 0; m < kRows; ++m) s += gs[m * 4 + threadIdx.x];
-    atomicAdd(threadIdx.x < 3 ? d_color_b + threadIdx.x : d_opacity_b, s);
-  }
-  __syncthreads();
-}
-
-template <typename T>
-size_t shared_bytes(const Desc& d) {
-  constexpr int kRows = Tile<T>::kRows;
-  const size_t lda = act_width(d) + kRowPad;
-  const size_t ldd = d.channels + kRowPad;
-  return kScratchFloats * sizeof(float) + kRows * lda * sizeof(T)
-         + kRows * ldd * sizeof(T) + kRows * 10 * sizeof(float);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(Tile<T>::kThreads)
-fused_nerf_backward_kernel(const float* __restrict__ positions,
-                           const float* __restrict__ views,
-                           const float* __restrict__ pos_enc,
-                           const float* __restrict__ view_enc,
-                           const T* __restrict__ weights,
-                           const float* __restrict__ biases,
-                           const float* __restrict__ g,
-                           float* __restrict__ d_weights,
-                           float* __restrict__ d_biases,
-                           long long num_points, Desc d) {
-  constexpr int kRows = Tile<T>::kRows;
-  constexpr int kThreads = Tile<T>::kThreads;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Layout lay;
-  lay.C = d.channels;
-  lay.L = d.num_layers;
-  lay.P = d.pos_width;
-  lay.V = d.view_width;
-  lay.lda = act_width(d) + kRowPad;
-  lay.ldd = d.channels + kRowPad;
-  const int C = lay.C;
-  const int L = lay.L;
-  float* scratch = reinterpret_cast<float*>(smem);
-  T* act = reinterpret_cast<T*>(smem + kScratchFloats * sizeof(float));
-  T* dz = act + kRows * lay.lda;
-  float* xs = reinterpret_cast<float*>(dz + kRows * lay.ldd);
-  float* vs = xs + kRows * 3;
-  float* gs = vs + kRows * 3;
-
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
-  for (int idx = threadIdx.x; idx < kRows * 3; idx += kThreads) {
-    const bool live = row0 + idx / 3 < num_points;   // ragged last tile
-    xs[idx] = live ? positions[row0 * 3 + idx] : 0.0f;
-    vs[idx] = live ? views[row0 * 3 + idx] : 0.0f;
-  }
-  for (int idx = threadIdx.x; idx < kRows * 4; idx += kThreads) {
-    gs[idx] = row0 + idx / 4 < num_points ? g[row0 * 4 + idx] : 0.0f;
-  }
-  __syncthreads();
-  ffn::encode<kRows, kThreads, T>(xs, pos_enc, d.e_pos, d.include_inputs,
-                                  lay.P, act, lay.lda, lay.enc());
-  ffn::encode<kRows, kThreads, T>(vs, view_enc, d.e_view, d.include_inputs,
-                                  lay.V, act, lay.lda, lay.venc());
-  __syncthreads();
-
-  // the inputs of body layer i, as one K range
-  auto body_input = [&](int i, int* K) {
-    if (i == 0) {
-      *K = lay.P;
-      return Seg{lay.enc(), lay.P, 0};
-    }
-    if ((d.skip_mask >> i) & 1u) {
-      *K = C + lay.P;
-      return Seg{lay.h(i - 1), C, lay.enc()};
-    }
-    *K = C;
-    return Seg{lay.h(i - 1), C, 0};
-  };
-  const Seg hidden_in{lay.bottleneck(), C, lay.venc()};
-
-  // ---- forward recompute: every activation stays in shared memory ----
-  for (int i = 0; i < L; ++i) {
-    int K;
-    const Seg in = body_input(i, &K);
-    forward_layer(act, lay.lda, in, K, weights + d.w_off[i], C,
-                  biases + d.b_off[i], true, lay.h(i), scratch);
-  }
-  forward_layer(act, lay.lda, Seg{lay.h(L - 1), C, 0}, C,
-                weights + d.w_off[L + 1], C, biases + d.b_off[L + 1], false,
-                lay.bottleneck(), scratch);
-  forward_layer(act, lay.lda, hidden_in, C + lay.V, weights + d.w_off[L + 2],
-                C / 2, biases + d.b_off[L + 2], true, lay.hidden(), scratch);
-
-  // ---- backward ----
-  // heads: dz = dz of the hidden layer
-  head_grads<T, kRows>(act, lay, dz, gs, weights + d.w_off[L + 3],
-                       weights + d.w_off[L], d_weights + d.w_off[L + 3],
-                       d_biases + d.b_off[L + 3], d_weights + d.w_off[L],
-                       d_biases + d.b_off[L]);
-  // hidden layer; dz <- d_bottleneck (cast, no activation)
-  weight_grad(act, lay.lda, hidden_in, C + lay.V, dz, lay.ldd, C / 2,
-              d_weights + d.w_off[L + 2], scratch);
-  bias_grad(dz, lay.ldd, C / 2, kRows, d_biases + d.b_off[L + 2]);
-  input_grad(dz, lay.ldd, C / 2, weights + d.w_off[L + 2], C, act, lay.lda,
-             -1, static_cast<const T*>(nullptr), gs, scratch);
-  // bottleneck; dz <- dz of the last body layer, with the opacity term
-  weight_grad(act, lay.lda, Seg{lay.h(L - 1), C, 0}, C, dz, lay.ldd, C,
-              d_weights + d.w_off[L + 1], scratch);
-  bias_grad(dz, lay.ldd, C, kRows, d_biases + d.b_off[L + 1]);
-  input_grad(dz, lay.ldd, C, weights + d.w_off[L + 1], C, act, lay.lda,
-             lay.h(L - 1), weights + d.w_off[L], gs, scratch);
-  // body, last layer to first
-  for (int i = L - 1; i >= 0; --i) {
-    int K;
-    const Seg in = body_input(i, &K);
-    weight_grad(act, lay.lda, in, K, dz, lay.ldd, C, d_weights + d.w_off[i],
-                scratch);
-    bias_grad(dz, lay.ldd, C, kRows, d_biases + d.b_off[i]);
-    if (i > 0) {
-      input_grad(dz, lay.ldd, C, weights + d.w_off[i], C, act, lay.lda,
-                 lay.h(i - 1), static_cast<const T*>(nullptr), gs, scratch);
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* positions, const void* views,
-                   const void* pos_enc, const void* view_enc,
-                   const void* weights, const void* biases, const void* g,
-                   void* d_weights, void* d_biases, long long num_points,
-                   const Desc& d, cudaStream_t stream) {
-  constexpr int kRows = Tile<T>::kRows;
-  const size_t smem = shared_bytes<T>(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_nerf_backward_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const long long blocks = (num_points + kRows - 1) / kRows;
-  fused_nerf_backward_kernel<T><<<static_cast<unsigned>(blocks),
-                                  Tile<T>::kThreads,
-                                  smem, stream>>>(
-      static_cast<const float*>(positions), static_cast<const float*>(views),
-      static_cast<const float*>(pos_enc), static_cast<const float*>(view_enc),
-      static_cast<const T*>(weights), static_cast<const float*>(biases),
-      static_cast<const float*>(g), static_cast<float*>(d_weights),
-      static_cast<float*>(d_biases), num_points, d);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // bf16: the wgmma kernel
 // ---------------------------------------------------------------------------
@@ -1138,15 +701,15 @@ long long bf16_scratch_per_block(const Desc& d) {
   return 2ll * d.num_layers * region_of(d).H * kBlockBytes;
 }
 
-// The blocks of a bf16 launch on the current device: one per tile, at most
-// one per SM.
-cudaError_t bf16_grid(long long num_points, long long* grid) {
+// The blocks of a launch on the current device over tiles of `rows`
+// points: one per tile, at most one per SM.
+cudaError_t block_grid(long long num_points, int rows, long long* grid) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  const long long tiles = (num_points + kTileRows - 1) / kTileRows;
+  const long long tiles = (num_points + rows - 1) / rows;
   *grid = tiles < sms ? tiles : sms;
   return cudaSuccess;
 }
@@ -1166,7 +729,7 @@ cudaError_t launch_bf16(const void* positions, const void* views,
       ffn::reserve_shared(fused_nerf_backward_bf16_kernel<C>, smem, limit);
   if (err != cudaSuccess) return err;
   long long grid = 0;
-  err = bf16_grid(num_points, &grid);
+  err = block_grid(num_points, kTileRows, &grid);
   if (err != cudaSuccess) return err;
   if (grid <= 0 || scratch_bytes < grid * bf16_scratch_per_block(d)) {
     return cudaErrorInvalidValue;
@@ -1184,16 +747,640 @@ cudaError_t launch_bf16(const void* positions, const void* views,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32: the 3xTF32 kernel on K1's f32 routines (fused_nerf_tf32.cuh)
+// ---------------------------------------------------------------------------
+
+namespace t32 = ffn::tf32;
+
+constexpr int kTf32Threads = 256;     // one consumer warpgroup, one producer
+constexpr int kTf32Rows = 64;         // points a tile
+constexpr int kTf32ConsumerWarps = 4;
+// full and empty per stage; positional and view features written and read;
+// the arrival of the reloaded h
+constexpr int kTf32BarrierBytes = (2 * kMaxStages + 5) * 8;
+constexpr uint32_t kWgBarrier = 1;
+// dW's workers: the consumer warpgroup's four warps and the three encoder
+// warps, which meet at a barrier of their own before and after each layer's
+// dW
+constexpr int kDwWorkers = kTf32ConsumerWarps + kEncoderWarps;
+constexpr uint32_t kDwBarrier = 2;
+
+// The consumer warpgroup's shared memory: dz^T, feature-major (C rows of the
+// tile's 64 points, as two 32-column blocks of C rows), then x, point-major
+// (64 rows of [h (C) | positional features (Pb blocks) | view features (Vb
+// blocks)], 32-column blocks). The recompute writes h in x and the hidden
+// layer, point-major, where dz^T goes.
+struct Tf32Region {
+  int C, Pb, Vb;
+  __host__ __device__ uint32_t dzt_bytes() const { return C * 256u; }
+  __host__ __device__ uint32_t bytes() const {
+    return dzt_bytes() + (C / 32 + Pb + Vb) * t32::kBlockBytes;
+  }
+  __host__ __device__ int pos_col() const { return C; }
+  __host__ __device__ int view_col() const { return C + 32 * Pb; }
+};
+
+__host__ __device__ inline Tf32Region tf32_region_of(const Desc& d) {
+  return Tf32Region{d.channels, (d.pos_width + 31) / 32,
+                    (d.view_width + 31) / 32};
+}
+
+// A fragment loader for dz (points x outputs) from dz^T, which holds C rows:
+// a[0] = dz[r0][k + tig], a[1] row + 8, a[2] column + 4, a[3] both.
+struct FeatureMajorA {
+  uint32_t dzt;
+  int rows;
+  int r0;
+  int tig;
+  __device__ __forceinline__ void operator()(int k, uint32_t* x) const {
+    x[0] = __float_as_uint(t32::ld_f32(t32::f32_addr(dzt, k + tig, r0, rows)));
+    x[1] = __float_as_uint(
+        t32::ld_f32(t32::f32_addr(dzt, k + tig, r0 + 8, rows)));
+    x[2] = __float_as_uint(
+        t32::ld_f32(t32::f32_addr(dzt, k + tig + 4, r0, rows)));
+    x[3] = __float_as_uint(
+        t32::ld_f32(t32::f32_addr(dzt, k + tig + 4, r0 + 8, rows)));
+  }
+};
+
+// Columns [col, col + rows) of x that feed rows [out_row, out_row + rows)
+// of a layer's dW.
+struct XCols {
+  int col;
+  int rows;
+  int out_row;
+};
+
+// dW[out_row + f][n] += sum over the tile's 64 points of X[p][f] dz[p][n],
+// for each segment of X, on mma.sync m16n8k8 (3xTF32 as in layer_tf32: X
+// lies point-major and dz feature-major, and wgmma would need both K-major,
+// that is feature-major, in shared memory as hi and lo copies, which the
+// budget has no room for; mma.sync loads its fragments from any layout into
+// registers, where they are split). kDwWorkers warps (the consumer's four
+// and the three encoders, which are idle then) take chunks of 32 x 64 of dW
+// in turn; each pair of lanes adds its two fragments with two float4
+// atomics. X is read through a generic pointer to the shared rows (`x`), so
+// that the compiler may schedule those loads among the products.
+template <int N>
+__device__ __forceinline__ void dw_sync(const XCols* segs, int count,
+                                        const float* x, uint32_t dzt, int C,
+                                        float* __restrict__ grad, int worker,
+                                        int lane) {
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  int chunk = 0;
+  for (int s = 0; s < count; ++s) {
+    const XCols seg = segs[s];
+    for (int f0 = 0; f0 < seg.rows; f0 += 32) {
+      for (int n0 = 0; n0 < N; n0 += 64, ++chunk) {
+        if (chunk % kDwWorkers != worker) continue;
+        float acc[2][8][4] = {};
+        for (int k0 = 0; k0 < kTf32Rows; k0 += 8) {
+          uint32_t ah[2][4], al[2][4], bh[8][2], bl[8][2];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            if (f0 + 16 * mt < seg.rows) {
+              const int col = seg.col + f0 + 16 * mt + gid;
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const float v = x[t32::f32_addr(0, k0 + tig + 4 * (i >> 1),
+                                                col + 8 * (i & 1)) / 4];
+                hopper::tf32_split(v, &ah[mt][i], &al[mt][i]);
+              }
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < 8; nt += 2) {   // N is a multiple of 16
+            if (n0 + 8 * nt < N) {
+              // b[0], b[1] of tiles nt and nt + 1: four 8x4 f32 blocks
+              uint32_t b[4];
+              hopper::ldmatrix_x4(
+                  t32::f32_addr(dzt, n0 + 8 * (nt + (lane >> 4)) + (lane & 7),
+                                k0 + 4 * ((lane >> 3) & 1), C),
+                  b);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                hopper::tf32_split(__uint_as_float(b[i]),
+                                   &bh[nt + i / 2][i % 2],
+                                   &bl[nt + i / 2][i % 2]);
+              }
+            }
+          }
+          // the three terms in turn over all 16 tiles, so that no product
+          // waits on the one before it into the same sum
+#pragma unroll
+          for (int term = 0; term < 3; ++term) {
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+              for (int nt = 0; nt < 8; ++nt) {
+                if (f0 + 16 * mt < seg.rows && n0 + 8 * nt < N) {
+                  hopper::mma_sync_tf32(acc[mt][nt],
+                                        term == 0 ? al[mt] : ah[mt],
+                                        term == 1 ? bl[nt] : bh[nt]);
+                }
+              }
+            }
+          }
+        }
+        // one float4 atomic a lane and tile: a lane with even tig adds row
+        // gid, columns 2 tig .. 2 tig + 3 (its own pair and its neighbour's),
+        // its neighbour row gid + 8 at the same columns
+        const bool even = (tig & 1) == 0;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            if (f0 + 16 * mt < seg.rows && n0 + 8 * nt < N) {
+              const float* a = acc[mt][nt];
+              const float r0 = __shfl_xor_sync(0xffffffffu,
+                                               even ? a[2] : a[0], 1);
+              const float r1 = __shfl_xor_sync(0xffffffffu,
+                                               even ? a[3] : a[1], 1);
+              float* out = grad
+                           + static_cast<long long>(seg.out_row + f0 + 16 * mt
+                                                    + gid + (even ? 0 : 8))
+                                 * N
+                           + n0 + 8 * nt + 2 * (tig & 2);
+              atomicAdd(reinterpret_cast<float4*>(out),
+                        even ? make_float4(a[0], a[1], r0, r1)
+                             : make_float4(r0, r1, a[2], a[3]));
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// db[n] += sum over the tile's 64 points of dz[p][n], n < N: a thread a
+// column, its row of dz^T read a chunk at a time.
+__device__ __forceinline__ void bias_grad_f32(uint32_t dzt, int C, int N,
+                                              int t,
+                                              float* __restrict__ grad) {
+  for (int n = t; n < N; n += 128) {
+    float s = 0.0f;
+    for (int p = 0; p < kTf32Rows; p += 4) {
+      const float4 v = t32::ld_f32x4(t32::f32_addr(dzt, n, p, C));
+      s += v.x;
+      s += v.y;
+      s += v.z;
+      s += v.w;
+    }
+    atomicAdd(grad + n, s);
+  }
+}
+
+// The ReLU mask of this thread's dX fragment: bit 4 (j % 8) + 2 h + c of
+// word j / 8 says x[r0 + 8h][8j + pair + c] > 0.
+template <int C>
+__device__ __forceinline__ void relu_mask_f32(uint32_t* mask, uint32_t x,
+                                              int r0, int pair) {
+#pragma unroll
+  for (int w = 0; w < (C + 63) / 64; ++w) mask[w] = 0;
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float v =
+            t32::ld_f32(t32::f32_addr(x, r0 + 8 * h, 8 * j + pair + c));
+        mask[j >> 3] |= static_cast<uint32_t>(v > 0.0f)
+                        << (4 * (j & 7) + 2 * h + c);
+      }
+    }
+  }
+}
+
+// dz^T[:, rows r0, r0 + 8] = dX with the opacity head's f32 term g_op w_op
+// added (kOpacity; g0, g8 the rows' g_op, w_op the exact (C, 16) head) and
+// the ReLU mask applied (kMask).
+template <int C, bool kOpacity, bool kMask>
+__device__ __forceinline__ void store_dzt(const float* acc,
+                                          const uint32_t* mask, uint32_t dzt,
+                                          int r0, int pair, float g0,
+                                          float g8,
+                                          const float* __restrict__ w_op) {
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int n = 8 * j + pair + c;
+        float v = acc[4 * j + 2 * h + c];
+        if (kOpacity) v += (h ? g8 : g0) * __ldg(w_op + n * kHeadWidth);
+        if (kMask && !((mask[j >> 3] >> (4 * (j & 7) + 2 * h + c)) & 1u)) {
+          v = 0.0f;
+        }
+        t32::st_f32(t32::f32_addr(dzt, n, r0 + 8 * h, C), v);
+      }
+    }
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kTf32Threads, 1)
+fused_nerf_backward_tf32_kernel(const float* __restrict__ positions,
+                                const float* __restrict__ views,
+                                const float* __restrict__ pos_enc,
+                                const float* __restrict__ view_enc,
+                                const float* __restrict__ image,
+                                const float* __restrict__ biases,
+                                const float* __restrict__ g,
+                                float* __restrict__ d_weights,
+                                float* __restrict__ d_biases,
+                                char* __restrict__ scratch,
+                                long long num_points, Desc d,
+                                long long opacity_at, long long color_at,
+                                int stages) {
+  extern __shared__ __align__(1024) unsigned char tf32_smem[];
+  const uint32_t base = (hopper::smem_addr(tf32_smem) + kAlignSlack - 1)
+                        & ~static_cast<uint32_t>(kAlignSlack - 1);
+  const Tf32Region reg = tf32_region_of(d);
+  const uint32_t ring_base = base + reg.bytes();
+  const uint32_t slot_bytes = t32::stage_bytes(C);
+  const uint32_t full = ring_base + stages * slot_bytes;
+  const uint32_t empty = full + 8 * kMaxStages;
+  const uint32_t pos_ready = empty + 8 * kMaxStages;
+  const uint32_t pos_free = pos_ready + 8;
+  const uint32_t view_ready = pos_free + 8;
+  const uint32_t view_free = view_ready + 8;
+  const uint32_t x_full = view_free + 8;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(full + 8 * s, 1);
+      hopper::mbar_init(empty + 8 * s, kTf32ConsumerWarps);
+    }
+    hopper::mbar_init(pos_ready, kEncoderThreads);
+    hopper::mbar_init(pos_free, kTf32ConsumerWarps);
+    hopper::mbar_init(view_ready, kEncoderThreads);
+    hopper::mbar_init(view_free, kTf32ConsumerWarps);
+    hopper::mbar_init(x_full, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const long long num_tiles = (num_points + kTf32Rows - 1) / kTf32Rows;
+  const int L = d.num_layers;
+  const int P = d.pos_width;
+  const int V = d.view_width;
+  const int lane = threadIdx.x & 31;
+  const uint32_t dzt = base;
+  const uint32_t x = base + reg.dzt_bytes();
+  // x's rows through a generic pointer, for loads the compiler may schedule
+  const float* const x_rows = reinterpret_cast<const float*>(
+      tf32_smem + (x - hopper::smem_addr(tf32_smem)));
+  // The dW of backward step `step` (0 the hidden layer, 1 the bottleneck,
+  // 2 + k body layer L - 1 - k), worker `worker`'s chunks, between two
+  // barriers of all kDwWorkers warps.
+  auto dw_gate = [] {
+    hopper::named_barrier(kDwBarrier, 32 * kDwWorkers);
+  };
+  auto dw_step = [&](int step, int worker) {
+    if (step == 0) {
+      const XCols segs[2] = {{0, C, 0}, {reg.view_col(), V, C}};
+      dw_sync<C / 2>(segs, 2, x_rows, dzt, C, d_weights + d.w_off[L + 2],
+                     worker, lane);
+      return;
+    }
+    const int j = step == 1 ? L + 1 : L + 1 - step;
+    XCols segs[2] = {{0, C, 0}, {reg.pos_col(), P, C}};
+    int count = 1;
+    if (step >= 2 && j == 0) {
+      segs[0] = XCols{reg.pos_col(), P, 0};
+    } else if (step >= 2 && ((d.skip_mask >> j) & 1u)) {
+      count = 2;
+    }
+    dw_sync<C>(segs, count, x_rows, dzt, C, d_weights + d.w_off[j], worker,
+               lane);
+  };
+  if (threadIdx.x >= 128) {
+    if (threadIdx.x == 128) {
+      // Producer: one thread streams each tile's slabs, the recompute's
+      // (body, bottleneck, hidden layer) then the backward's dX operands
+      // (hidden, bottleneck, body L-1 .. 1): the image up to its heads, in
+      // order.
+      int stage = 0;
+      uint32_t phase = 0;
+      for (long long tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+        const char* src = reinterpret_cast<const char*>(image);
+        for (int j = 0; j < L + 3; ++j) {
+          if (j == L) continue;
+          int K, N;
+          layer_shape(d, j, &K, &N);
+          src = t32::stream_slabs(src, K, N, ring_base, slot_bytes, full,
+                                  empty, stages, &stage, &phase);
+        }
+        for (int j = L + 2; j >= 1; --j) {
+          if (j == L) continue;
+          int K, N;
+          layer_shape(d, j, &K, &N);
+          src = t32::stream_slabs(src, N, C, ring_base, slot_bytes, full,
+                                  empty, stages, &stage, &phase);
+        }
+      }
+      for (int s = 0; s < stages; ++s) {
+        hopper::mbar_wait(empty + 8 * stage, phase ^ 1u);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    } else if (threadIdx.x >= 128 + 32) {
+      // Encoders: a tile's features go into x once the backward has read
+      // the last tile's (view: after the hidden layer's dW; positional:
+      // after layer 0's); then the three warps work on each layer's dW
+      // beside the consumer's.
+      const int warp = (threadIdx.x - 128) / 32 - 1;   // 0..2
+      uint32_t parity = 0;
+      for (long long tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+        hopper::mbar_wait(pos_free, parity ^ 1u);
+        t32::encode_rows_f32(positions, tile * kTf32Rows, num_points,
+                             pos_enc, d.e_pos, d.include_inputs, d.pos_width,
+                             x, reg.pos_col(), warp, kEncoderWarps, lane);
+        hopper::mbar_arrive(pos_ready);
+        hopper::mbar_wait(view_free, parity ^ 1u);
+        t32::encode_rows_f32(views, tile * kTf32Rows, num_points, view_enc,
+                             d.e_view, d.include_inputs, d.view_width, x,
+                             reg.view_col(), warp, kEncoderWarps, lane);
+        hopper::mbar_arrive(view_ready);
+        for (int step = 0; step < L + 2; ++step) {
+          dw_gate();
+          dw_step(step, kTf32ConsumerWarps + warp);
+          dw_gate();
+        }
+        parity ^= 1u;
+      }
+    }
+    return;
+  }
+
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const bool releases = lane == 0;
+  const bool copies = t == 0;          // issues the warpgroup's bulk copies
+  const int r0 = 16 * warp + (lane >> 2);
+  const int pair = 2 * (lane & 3);
+  Ring ring{ring_base, slot_bytes, full, empty, stages, 0, 0u};
+  const uint32_t h_bytes = C * 256u;   // x's h: 64 rows of C
+  char* const slots = scratch + static_cast<long long>(blockIdx.x) * L
+                                    * h_bytes;
+  const FeatureMajorA dz_a{dzt, C, r0, lane & 3};
+  const float4* g4 = reinterpret_cast<const float4*>(g);
+  auto g_row = [&](long long p) {
+    return p < num_points ? __ldg(g4 + p) : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  auto wg_sync = [] { hopper::named_barrier(kWgBarrier, 128); };
+  auto park = [&](int i) {
+    if (copies) {
+      hopper::bulk_store(slots + static_cast<long long>(i) * h_bytes, x,
+                         h_bytes);
+      hopper::bulk_commit();
+    }
+  };
+  auto parked = [&] {
+    if (copies) hopper::bulk_wait_read();
+    wg_sync();
+  };
+  uint32_t x_phase = 0;
+  auto reload = [&](int i) {
+    if (copies) {
+      hopper::mbar_arrive_expect_tx(x_full, h_bytes);
+      hopper::bulk_load(x, slots + static_cast<long long>(i) * h_bytes,
+                        h_bytes, x_full);
+    }
+  };
+  auto reloaded = [&] {
+    hopper::mbar_wait(x_full, x_phase);
+    x_phase ^= 1u;
+  };
+  float acc[C / 2];
+  uint32_t mask[(C + 63) / 64];
+  uint32_t parity = 0;
+  for (long long tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const long long tile0 = tile * kTf32Rows;
+    // ---- the recompute: K1's products and epilogues, h_i parked ----
+    hopper::mbar_wait(pos_ready, parity);
+    for (int i = 0; i < L; ++i) {
+      const bool skip = i > 0 && ((d.skip_mask >> i) & 1u);
+      const int K = i == 0 ? P : C + (skip ? P : 0);
+      t32::layer_tf32<C>(acc, ring, K,
+                         t32::point_major_a(x, warp, lane, i == 0 ? 0 : K,
+                                            i == 0 ? reg.pos_col() : 0),
+                         releases);
+      if (i > 0) parked();
+      t32::store_f32<C, true>(acc, biases + d.b_off[i], x, r0, pair);
+      hopper::fence_async_shared();
+      wg_sync();
+      park(i);
+    }
+    // the bottleneck, in place over h_{L-1}
+    t32::layer_tf32<C>(acc, ring, C, t32::point_major_a(x, warp, lane, C, 0),
+                       releases);
+    parked();
+    t32::store_f32<C, false>(acc, biases + d.b_off[L + 1], x, r0, pair);
+    __syncwarp();
+    // the hidden layer over [bottleneck | view features], kept in registers
+    // and written point-major where dz^T goes
+    hopper::mbar_wait(view_ready, parity);
+    t32::layer_tf32<C / 2>(acc, ring, C + V,
+                           t32::point_major_a(x, warp, lane, C,
+                                              reg.view_col() - C),
+                           releases);
+    {
+      const float* bias = biases + d.b_off[L + 2];
+#pragma unroll
+      for (int j = 0; j < C / 16; ++j) {
+        const float2 b =
+            __ldg(reinterpret_cast<const float2*>(bias + 8 * j + pair));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* v = acc + 4 * j + 2 * h;
+          v[0] = fmaxf(v[0] + b.x, 0.0f);
+          v[1] = fmaxf(v[1] + b.y, 0.0f);
+          t32::st_f32x2(t32::f32_addr(dzt, r0 + 8 * h, 8 * j + pair), v[0],
+                        v[1]);
+        }
+      }
+    }
+    if (copies) hopper::bulk_wait();   // the parks are written: reloadable
+    wg_sync();
+
+    // ---- the heads, f32 on the CUDA cores, over the tile's 64 points ----
+    if (t < C / 2) {
+      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+      for (int p = 0; p < kTf32Rows; ++p) {
+        const float h = t32::ld_f32(t32::f32_addr(dzt, p, t));
+        const float4 gv = g_row(tile0 + p);
+        s0 = fmaf(h, gv.x, s0);
+        s1 = fmaf(h, gv.y, s1);
+        s2 = fmaf(h, gv.z, s2);
+      }
+      float* dw = d_weights + d.w_off[L + 3] + t * kHeadWidth;
+      atomicAdd(dw, s0);
+      atomicAdd(dw + 1, s1);
+      atomicAdd(dw + 2, s2);
+    }
+    if (t < 4) {
+      float s = 0.0f;
+      for (int p = 0; p < kTf32Rows; ++p) {
+        const float4 gv = g_row(tile0 + p);
+        s += t == 0 ? gv.x : t == 1 ? gv.y : t == 2 ? gv.z : gv.w;
+      }
+      atomicAdd(t < 3 ? d_biases + d.b_off[L + 3] + t : d_biases + d.b_off[L],
+                s);
+    }
+    wg_sync();
+    // dz of the hidden layer, over it: (g_color color_w^T) where h > 0
+    {
+      const float4 g0 = g_row(tile0 + r0);
+      const float4 g8 = g_row(tile0 + r0 + 8);
+      const float* color_w = image + color_at;
+#pragma unroll
+      for (int j = 0; j < C / 16; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4 gv = h ? g8 : g0;
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int n = 8 * j + pair + c;
+            const float* w = color_w + n * kHeadWidth;
+            const float dh = fmaf(gv.z, __ldg(w + 2),
+                                  fmaf(gv.y, __ldg(w + 1), gv.x * __ldg(w)));
+            t32::st_f32(t32::f32_addr(dzt, n, r0 + 8 * h, C),
+                        acc[4 * j + 2 * h + c] > 0.0f ? dh : 0.0f);
+          }
+        }
+      }
+    }
+
+    // ---- the hidden layer: dW over [bottleneck | view]; dz <- d bottleneck
+    {
+      dw_gate();
+      dw_step(0, warp);
+      bias_grad_f32(dzt, C, C / 2, t, d_biases + d.b_off[L + 2]);
+      dw_gate();
+      if (releases) hopper::mbar_arrive(view_free);
+      reload(L - 1);
+      t32::layer_tf32<C>(acc, ring, C / 2, dz_a, releases);
+      store_dzt<C, false, false>(acc, mask, dzt, r0, pair, 0.0f, 0.0f,
+                                 nullptr);
+      reloaded();
+      wg_sync();
+    }
+    // ---- the bottleneck over h_{L-1}, and the opacity head's dW ----
+    {
+      for (int c = t; c < C; c += 128) {
+        float s = 0.0f;
+        for (int p = 0; p < kTf32Rows; ++p) {
+          s = fmaf(t32::ld_f32(t32::f32_addr(x, p, c)), g_row(tile0 + p).w,
+                   s);
+        }
+        atomicAdd(d_weights + d.w_off[L] + c * kHeadWidth, s);
+      }
+      dw_gate();
+      dw_step(1, warp);
+      bias_grad_f32(dzt, C, C, t, d_biases + d.b_off[L + 1]);
+      relu_mask_f32<C>(mask, x, r0, pair);
+      dw_gate();
+      if (L >= 2) reload(L - 2);
+      t32::layer_tf32<C>(acc, ring, C, dz_a, releases);
+      store_dzt<C, true, true>(acc, mask, dzt, r0, pair,
+                               g_row(tile0 + r0).w, g_row(tile0 + r0 + 8).w,
+                               image + opacity_at);
+      if (L >= 2) reloaded();
+      wg_sync();
+    }
+    // ---- body layers, last to first: X = [h_{i-1} | pos] or pos ----
+    for (int i = L - 1; i >= 0; --i) {
+      dw_gate();
+      dw_step(L + 1 - i, warp);
+      bias_grad_f32(dzt, C, C, t, d_biases + d.b_off[i]);
+      if (i > 0) relu_mask_f32<C>(mask, x, r0, pair);
+      dw_gate();
+      if (i == 0) {
+        if (releases) hopper::mbar_arrive(pos_free);
+        break;
+      }
+      if (i >= 2) reload(i - 2);
+      t32::layer_tf32<C>(acc, ring, C, dz_a, releases);
+      store_dzt<C, false, true>(acc, mask, dzt, r0, pair, 0.0f, 0.0f,
+                                nullptr);
+      if (i >= 2) reloaded();
+      wg_sync();
+    }
+    parity ^= 1u;
+  }
+}
+
+// The shared memory an f32 launch needs (0 if the model does not fit with
+// two ring stages) and the stages it gets: the consumer's region and the
+// ring.
+size_t tf32_shared_bytes(const Desc& d, int* stages) {
+  const size_t fixed = kAlignSlack + tf32_region_of(d).bytes()
+                       + kTf32BarrierBytes;
+  const size_t stage = t32::stage_bytes(d.channels);
+  if (fixed + 2 * stage > kSharedLimit) return 0;
+  const size_t fit = (kSharedLimit - fixed) / stage;
+  *stages = static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
+  return fixed + *stages * stage;
+}
+
+// The scratch bytes one f32 block parks its tiles' activations in: L
+// layers' h, 64 rows of C.
+long long tf32_scratch_per_block(const Desc& d) {
+  return static_cast<long long>(d.num_layers) * d.channels * 256;
+}
+
+template <int C>
+cudaError_t launch_tf32(const void* positions, const void* views,
+                        const void* pos_enc, const void* view_enc,
+                        const void* image, const void* biases, const void* g,
+                        void* d_weights, void* d_biases, void* scratch,
+                        long long scratch_bytes, long long num_points,
+                        const Desc& d, cudaStream_t stream) {
+  static ffn::SharedLimit limit;
+  int stages = 0;
+  const size_t smem = tf32_shared_bytes(d, &stages);
+  if (smem == 0) return cudaErrorInvalidValue;
+  cudaError_t err =
+      ffn::reserve_shared(fused_nerf_backward_tf32_kernel<C>, smem, limit);
+  if (err != cudaSuccess) return err;
+  long long grid = 0;
+  err = block_grid(num_points, kTf32Rows, &grid);
+  if (err != cudaSuccess) return err;
+  if (grid <= 0 || scratch_bytes < grid * tf32_scratch_per_block(d)) {
+    return cudaErrorInvalidValue;
+  }
+  const long long opacity_at = t32::heads_at(d);
+  fused_nerf_backward_tf32_kernel<C>
+      <<<static_cast<unsigned>(grid), kTf32Threads, smem, stream>>>(
+          static_cast<const float*>(positions),
+          static_cast<const float*>(views),
+          static_cast<const float*>(pos_enc),
+          static_cast<const float*>(view_enc),
+          static_cast<const float*>(image), static_cast<const float*>(biases),
+          static_cast<const float*>(g), static_cast<float*>(d_weights),
+          static_cast<float*>(d_biases), static_cast<char*>(scratch),
+          num_points, d, opacity_at,
+          opacity_at + d.channels * kHeadWidth, stages);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // meta: the host int64 descriptor of ffn::parse_desc (fused_nerf_common.cuh).
 // g: (N, 4) f32 cotangent. d_weights / d_biases: f32 buffers in the pack's
 // layout, zeroed by the caller; the kernel adds into them.
-// weight_dtype: 0 = f32, `weights` the flat (in, out) pack, no scratch; 1 =
-// bf16, `weights` the slab image of kernels/fused_nerf.py::slab_image, and
-// `scratch` scratch_bytes of device memory for the activations the tiles
-// park, at least what fused_nerf_backward_scratch_bytes gives (else the
-// launch fails with cudaErrorInvalidValue).
+// weight_dtype: 0 = f32, `weights` the f32 slab image of kernels/
+// fused_nerf.py::f32_slab_image; 1 = bf16, `weights` the slab image of
+// kernels/fused_nerf.py::slab_image. `scratch`: scratch_bytes of device
+// memory for the activations the tiles park, at least what
+// fused_nerf_backward_scratch_bytes gives for the type (else the launch
+// fails with cudaErrorInvalidValue).
 extern "C" int fused_nerf_backward(const void* positions, const void* views,
                                    const void* pos_enc, const void* view_enc,
                                    const void* weights, const void* biases,
@@ -1230,29 +1417,54 @@ extern "C" int fused_nerf_backward(const void* positions, const void* views,
         err = cudaErrorInvalidValue;
     }
   } else if (weight_dtype == 0) {
-    err = launch<float>(positions, views, pos_enc, view_enc, weights, biases,
-                        g, d_weights, d_biases, num_points, d, s);
+    switch (d.channels) {
+#define FFN_TF32_CASE(C)                                                     \
+  case C:                                                                    \
+    err = launch_tf32<C>(positions, views, pos_enc, view_enc, weights,       \
+                         biases, g, d_weights, d_biases, scratch,            \
+                         scratch_bytes, num_points, d, s);                   \
+    break;
+      FFN_TF32_CASE(32)
+      FFN_TF32_CASE(64)
+      FFN_TF32_CASE(96)
+      FFN_TF32_CASE(128)
+      FFN_TF32_CASE(160)
+      FFN_TF32_CASE(192)
+      FFN_TF32_CASE(224)
+      FFN_TF32_CASE(256)
+#undef FFN_TF32_CASE
+      default:
+        err = cudaErrorInvalidValue;
+    }
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
 
-// *bytes: the scratch a bf16 launch of num_points points needs on the
-// current device, min(tiles, SMs) blocks of 2 L ceil(C / 64) x 8 KB. The
-// stream is unused (every entry point takes one).
+// *bytes: the scratch a launch of num_points points needs on the current
+// device: bf16 (weight_dtype 1), min(tiles of 128, SMs) blocks of 2 L
+// ceil(C / 64) x 8 KB; f32 (0), min(tiles of 64, SMs) blocks of L x 64
+// rows of C floats. The stream is unused (every entry point takes one).
 extern "C" int fused_nerf_backward_scratch_bytes(const void* meta,
                                                  long long num_points,
+                                                 int weight_dtype,
                                                  long long* bytes,
                                                  void* stream) {
   (void)stream;
   Desc d;
-  if (!ffn::parse_desc(static_cast<const long long*>(meta), &d)) {
+  *bytes = 0;
+  if (!ffn::parse_desc(static_cast<const long long*>(meta), &d)
+      || (weight_dtype != 0 && weight_dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   long long grid = 0;
-  const cudaError_t err = bf16_grid(num_points, &grid);
-  *bytes = err == cudaSuccess ? grid * bf16_scratch_per_block(d) : 0;
+  const cudaError_t err =
+      block_grid(num_points, weight_dtype == 1 ? kTileRows : kTf32Rows, &grid);
+  if (err == cudaSuccess) {
+    *bytes = grid * (weight_dtype == 1 ? bf16_scratch_per_block(d)
+                                       : tf32_scratch_per_block(d));
+  }
   return static_cast<int>(err);
 }
 

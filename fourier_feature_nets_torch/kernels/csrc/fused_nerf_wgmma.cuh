@@ -196,17 +196,19 @@ __device__ __forceinline__ void rows_ready(uint32_t barrier_id) {
   hopper::named_barrier(barrier_id, 128);
 }
 
-// [cos(xB) | sin(xB) | x (optional) | zeros] of `width` columns at col0 for
-// 64 rows from row0 (rows past num_points encode 0), by `warps` warps: warp
-// w takes rows w, w + warps, ...; lane e takes phase e (then e + 32, ...),
-// with its column of B in registers.
-__device__ __forceinline__ void encode_rows(const float* __restrict__ x,
-                                            long long row0,
-                                            long long num_points,
-                                            const float* __restrict__ enc,
-                                            int E, int include_inputs,
-                                            int width, uint32_t act, int col0,
-                                            int warp, int warps, int lane) {
+// [cos(xB) | sin(xB) | x (optional) | zeros] of `width` columns from col0
+// for 64 rows from row0 (rows past num_points encode 0), by `warps` warps,
+// each value handed to put(row, column, value): warp w takes rows w, w +
+// warps, ...; lane e takes phase e (then e + 32, ...), with its column of B
+// in registers.
+template <typename Put>
+__device__ __forceinline__ void encode_rows_to(const float* __restrict__ x,
+                                               long long row0,
+                                               long long num_points,
+                                               const float* __restrict__ enc,
+                                               int E, int include_inputs,
+                                               int width, int col0, int warp,
+                                               int warps, int lane, Put put) {
   for (int e = lane; e < E; e += 32) {
     const float b0 = __ldg(enc + e);
     const float b1 = __ldg(enc + E + e);
@@ -222,8 +224,8 @@ __device__ __forceinline__ void encode_rows(const float* __restrict__ x,
       }
       float s, c;
       fast_sincos(fmaf(x2, b2, fmaf(x1, b1, x0 * b0)), &s, &c);
-      st_bf16(act_addr(act, row, col0 + e), c);
-      st_bf16(act_addr(act, row, col0 + E + e), s);
+      put(row, col0 + e, c);
+      put(row, col0 + E + e, s);
     }
   }
   const int tail = width - 2 * E;   // raw inputs and zero padding, < 32
@@ -232,9 +234,23 @@ __device__ __forceinline__ void encode_rows(const float* __restrict__ x,
       const long long g = row0 + row;
       const float v = (include_inputs && lane < 3 && g < num_points)
                           ? __ldg(x + 3 * g + lane) : 0.0f;
-      st_bf16(act_addr(act, row, col0 + 2 * E + lane), v);
+      put(row, col0 + 2 * E + lane, v);
     }
   }
+}
+
+// encode_rows_to into the bf16 rows of a warpgroup at `act`.
+__device__ __forceinline__ void encode_rows(const float* __restrict__ x,
+                                            long long row0,
+                                            long long num_points,
+                                            const float* __restrict__ enc,
+                                            int E, int include_inputs,
+                                            int width, uint32_t act, int col0,
+                                            int warp, int warps, int lane) {
+  encode_rows_to(x, row0, num_points, enc, E, include_inputs, width, col0,
+                 warp, warps, lane, [act](int row, int col, float v) {
+                   st_bf16(act_addr(act, row, col), v);
+                 });
 }
 
 }  // namespace wgmma

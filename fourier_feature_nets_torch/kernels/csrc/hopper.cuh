@@ -1,8 +1,10 @@
-// Hopper (sm_90a) building blocks in inline PTX for the bf16 kernels of K1
+// Hopper (sm_90a) building blocks in inline PTX for the wgmma kernels of K1
 // (fused_nerf.cu) and K2 (fused_nerf_train.cu): mbarriers, bulk
 // asynchronous copies (the copy engine behind TMA) in both directions,
 // warpgroup matrix products (wgmma) on shared-memory operands in the
-// 128-byte swizzled layout, and the fences and barriers between them.
+// 128-byte swizzled layout, and the fences and barriers between them; for
+// the f32 kernels, tf32 rounding, the tf32 wgmma with A in registers, the
+// tf32 mma.sync and ldmatrix.
 //
 // The layout. An operand is stored as blocks of 128-byte rows (64 bf16);
 // the 16-byte chunk q of row r sits at chunk q ^ (r % 8) of its row, and
@@ -333,6 +335,178 @@ __device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b,
     mma<N - kHead, kTransA, kTransB, kDone + kHead>(d + kHead / 2, a, b,
                                                     accumulate);
   }
+}
+
+// ---- tf32: the products of the f32 kernels (3xTF32) ----------------------
+//
+// An f32 operand x is split into hi = tf32(x) and lo = tf32(x - hi), each
+// rounded to nearest (ties away from zero) with an explicit cvt.rna, so that
+// no product relies on how the tensor core treats the low 13 bits of its
+// inputs. x - hi is exact in f32, and lo keeps it to 2^-11 of itself: hi + lo
+// is x to about 2^-22 |x|. A product a b is then hi_a lo_b + lo_a hi_b +
+// hi_a hi_b, the two small terms summed first, all in the f32 accumulator
+// (as CUTLASS's 3xTF32 does); lo_a lo_b, about 2^-22 of the product, is
+// left out. No path runs a single tf32 product.
+//
+// For tf32 the transpose immediates do not exist: wgmma reads a
+// shared-memory operand only K-major, and these wrappers take none. In the
+// 128-byte swizzled K-major layout a row holds 32 tf32 values and a k8 step
+// is 32 bytes, so desc_sw128 serves tf32 operands unchanged.
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// hi and lo of x (see above).
+__device__ __forceinline__ void tf32_split(float x, uint32_t* hi,
+                                           uint32_t* lo) {
+  *hi = tf32_rna(x);
+  *lo = tf32_rna(x - __uint_as_float(*hi));
+}
+
+// Four 8x8 b16 matrices from shared memory, one row address a lane (lanes
+// 8m .. 8m + 7 give matrix m's rows). Read as f32, matrix m's 8 rows of 4
+// values land one value a lane: lane l holds row l / 4, value l % 4.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+template <int kCount>
+__device__ __forceinline__ void fence_registers(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < kCount; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// D (64 x N, f32, the fragment of Mma) = A (64 x 8) * B (8 x N) [+ D when
+// `accumulate`]: A tf32 in registers, thread t of the warpgroup holding a[0]
+// at row 16 (t / 32) + (t % 32) / 4, column t % 4, a[1] at row + 8, a[2] at
+// column + 4, a[3] at both; B tf32 in shared memory, K-major (desc_sw128).
+template <int N>
+struct MmaTf32;
+
+template <>
+struct MmaTf32<16> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t* a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+
+template <>
+struct MmaTf32<32> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t* a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+
+template <>
+struct MmaTf32<64> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t* a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+
+template <>
+struct MmaTf32<128> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t* a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate));
+  }
+};
+
+// The tf32 product of any N (16..256 by 16) as the power-of-two pieces of
+// mma: the accumulator runs on, B's descriptor moves on 128 bytes a row of N
+// already done (kDone). kTransB exists only to be refused: tf32 has no
+// MN-major operand.
+template <int N, int kTransB = 0, int kDone = 0>
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         uint64_t b, int accumulate) {
+  static_assert(kTransB == 0, "wgmma reads a tf32 operand K-major only");
+  static_assert(N % 16 == 0 && N >= 16 && N <= 256, "N: 16..256 by 16");
+  constexpr int kHead = (N >= 128) ? 128 : (N >= 64) ? 64 : (N >= 32) ? 32
+                        : 16;
+  MmaTf32<kHead>::run(d, a, b + ((kDone * 128) >> 4), accumulate);
+  if constexpr (N > kHead) {
+    mma_tf32<N - kHead, 0, kDone + kHead>(d + kHead / 2, a, b, accumulate);
+  }
+}
+
+// D (16 x 8) += A (16 x 8) B (8 x 8), one warp, tf32 in, f32 sum: lane l
+// holds a[0] at (l / 4, l % 4), a[1] row + 8, a[2] column + 4, a[3] both;
+// b[0] at (k = l % 4, n = l / 4), b[1] k + 4; d[0..1] at (l / 4, 2 (l % 4)
+// + c), d[2..3] row + 8.
+__device__ __forceinline__ void mma_sync_tf32(float* d, const uint32_t* a,
+                                              const uint32_t* b) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 }  // namespace hopper

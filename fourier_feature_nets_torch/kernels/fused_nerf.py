@@ -8,11 +8,14 @@ in two layouts. The source comment says what bounds them on an H100.
 * :func:`pack_fused_nerf` packs a :class:`~..models.nerf.NeRF` into
   one contiguous weight buffer (bf16 or f32), one f32 bias buffer and
   an offset table, differentiably; :func:`prepare_fused_nerf` is the
-  same pack without autograd. A bf16 pack also carries the weights
-  once more as the slab image the bf16 (wgmma) kernel streams
-  (:func:`slab_image`), built outside autograd.
+  same pack without autograd. A pack also carries the weights once
+  more as the slab image its kernels stream, built outside autograd:
+  bf16 (:func:`slab_image`) or f32 (:func:`f32_slab_image`, the tf32
+  hi and lo parts the 3xTF32 products read, :func:`tf32_split`).
 * :func:`fused_nerf_reference` is the plain PyTorch twin: the same
-  packed weights, the same rounding points and the same sin/cos.
+  packed weights, the same rounding points and the same sin/cos; with
+  ``products``, an f32 twin whose products are emulated 3xTF32 or
+  single tf32 (:data:`TF32_PRODUCTS`).
 * :func:`fused_nerf_apply` launches the kernel for CUDA tensors and
   runs the twin for CPU tensors. A CUDA call launches the kernel or
   raises; it never falls back.
@@ -28,14 +31,18 @@ from ..models.nerf import NeRF
 from ..ops.encoding import encode_phases
 from .launch import INT, LONG, PTR, KernelLibrary, on_cuda
 
-__all__ = ["FusedNeRFWeights", "MOVED_ROUNDINGS", "pack_fused_nerf",
-           "prepare_fused_nerf", "slab_index", "slab_image", "fast_sincos",
-           "fused_nerf_reference", "fused_nerf_apply", "load_kernel"]
+__all__ = ["FusedNeRFWeights", "MOVED_ROUNDINGS", "TF32_PRODUCTS",
+           "pack_fused_nerf", "prepare_fused_nerf", "slab_index",
+           "slab_image", "f32_slab_index", "f32_slab_image", "tf32_round",
+           "tf32_split", "fast_sincos", "fused_nerf_reference",
+           "fused_nerf_apply", "load_kernel"]
 
 HEAD_WIDTH = 16       # heads padded to the MMA tile width
 MAX_CHANNELS = 256    # kMaxChannels in csrc/fused_nerf_common.cuh
 MAX_LAYERS = 16       # kMaxLayers in csrc/fused_nerf_common.cuh
 SLAB_K = 64           # K rows of a slab: one 128-byte swizzled row of bf16
+F32_SLAB_K = 32       # the same row of f32
+MAX_PIECE = 128       # kMaxPiece in csrc/fused_nerf_tf32.cuh
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # One rounding point of the twin moved (``fused_nerf_reference(moved=...)``):
 # a body layer's sum cast before its bias is added and cast again after;
@@ -43,6 +50,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # bf16. Moving a ReLU across its cast is no such move: they commute.
 MOVED_ROUNDINGS = ("bias-after-cast", "uncast-bottleneck", "uncast-hidden",
                    "cast-heads")
+# The products of an f32 twin emulated on the tensor cores' terms
+# (``fused_nerf_reference(products=...)``): "3xtf32", the f32 kernels'
+# lo hi + hi lo + hi hi of tf32 parts (:func:`tf32_split`); "tf32", one
+# product of tf32-rounded operands, which no f32 path runs: the control
+# that the f32 limits must reject.
+TF32_PRODUCTS = ("3xtf32", "tf32")
 _SLAB_INDEX_CACHE = {}
 
 
@@ -57,8 +70,8 @@ class FusedNeRFWeights(NamedTuple):
     buffers, in packing order: body layers, opacity head, bottleneck,
     hidden layer, color head. Weights are (in, out); K is padded to the
     encoded features' padded width, the heads' N to 16. ``slabs`` is
-    the bf16 kernel's copy of ``weights`` (:func:`slab_image`; None in
-    an f32 pack).
+    the kernels' copy of ``weights``: :func:`slab_image` in a bf16 pack,
+    :func:`f32_slab_image` in an f32 one.
     """
 
     weights: torch.Tensor      # flat, bf16 or f32
@@ -145,11 +158,9 @@ def pack_fused_nerf(model: NeRF, dtype=torch.bfloat16) -> FusedNeRFWeights:
     meta = np.array([num_layers, channels, pos_width, view_width, e_pos,
                      e_view, int(model.include_inputs), skip_mask,
                      *w_offsets[:-1], *b_offsets[:-1]], np.int64)
-    slabs = None
-    if dtype == torch.bfloat16:
-        slabs = slab_image(weights.detach(),
-                           [tuple(w.shape) for w, _ in packed],
-                           w_offsets[:-1])
+    image = slab_image if dtype == torch.bfloat16 else f32_slab_image
+    slabs = image(weights.detach(), [tuple(w.shape) for w, _ in packed],
+                  w_offsets[:-1])
     return FusedNeRFWeights(
         weights=weights, biases=biases,
         pos_enc=model.pos_encoding.detach().float().contiguous(),
@@ -157,6 +168,30 @@ def pack_fused_nerf(model: NeRF, dtype=torch.bfloat16) -> FusedNeRFWeights:
         meta=meta, layers=layers, num_layers=num_layers, channels=channels,
         skips=skips, include_inputs=bool(model.include_inputs),
         pos_width=pos_width, view_width=view_width, slabs=slabs)
+
+
+def _slab_part(k_dim: int, n_dim: int, source, slab_k: int,
+               pieces: int = 1, copies: int = 1):
+    """The flat index (``-1`` for a zero) and the copy number of each
+    element of a (k_dim, n_dim) matrix stored as slabs: ceil(k_dim /
+    slab_k) slabs, each as ``pieces`` pieces of n_dim / pieces rows,
+    each piece ``copies`` times; row ``n`` of a piece holds slab_k
+    K-rows of column n, its 16-byte chunk ``q`` stored at chunk ``q ^
+    (n % 8)`` of the row (wgmma's 128-byte swizzled K-major layout).
+    ``source(krow, col)`` gives the flat index of element (krow, col)."""
+    width = n_dim // pieces
+    chunk = slab_k // 8
+    slab = np.arange(-(-k_dim // slab_k))[:, None, None, None, None]
+    piece = np.arange(pieces)[None, :, None, None, None]
+    copy = np.arange(copies)[None, None, :, None, None]
+    row = np.arange(width)[None, None, None, :, None]
+    pos = np.arange(slab_k)[None, None, None, None, :]
+    krow = slab * slab_k + ((pos // chunk) ^ (row % 8)) * chunk + pos % chunk
+    col = piece * width + row
+    index = np.where(krow < k_dim, source(krow, col), -1)
+    shape = np.broadcast_shapes(index.shape, copy.shape)
+    return (np.broadcast_to(index, shape).reshape(-1),
+            np.broadcast_to(copy, shape).reshape(-1))
 
 
 def slab_index(shapes, offsets) -> np.ndarray:
@@ -171,29 +206,108 @@ def slab_index(shapes, offsets) -> np.ndarray:
     at chunk ``q ^ (n % 8)`` of the row. That is wgmma's 128-byte
     swizzled K-major layout, so one slab is one contiguous copy into a
     1024-byte-aligned ring stage (``csrc/hopper.cuh``)."""
-    parts = []
-    for (k, n), offset in zip(shapes, offsets):
-        slab = np.arange(-(-k // SLAB_K))[:, None, None]
-        row = np.arange(n)[None, :, None]
-        pos = np.arange(SLAB_K)[None, None, :]
-        krow = slab * SLAB_K + ((pos // 8) ^ (row % 8)) * 8 + pos % 8
-        src = int(offset) + krow * n + row
-        parts.append(np.where(krow < k, src, -1).reshape(-1))
-    return np.concatenate(parts)
+    return np.concatenate([
+        _slab_part(k, n, lambda krow, col, o=int(offset), n=n:
+                   o + krow * n + col, SLAB_K)[0]
+        for (k, n), offset in zip(shapes, offsets)])
+
+
+def _cached(flat: torch.Tensor, key, build):
+    """The index arrays ``build()`` makes for ``key`` (the first an
+    index into ``flat``, -1 for a zero), on ``flat``'s device and cached
+    there, with each -1 turned into ``flat.numel()``: the zero the
+    gather appends to ``flat``."""
+    entry = _SLAB_INDEX_CACHE.get((key, flat.device))
+    if entry is None:
+        arrays = build()
+        arrays[0][arrays[0] < 0] = flat.numel()
+        entry = tuple(torch.from_numpy(a).to(flat.device) for a in arrays)
+        _SLAB_INDEX_CACHE[(key, flat.device)] = entry
+    return entry
 
 
 def slab_image(flat: torch.Tensor, shapes, offsets) -> torch.Tensor:
     """The bf16 kernel's slab image of the flat weights (see
     :func:`slab_index`): one gather on ``flat``'s device, with the index
     cached for the model's shape."""
-    key = (tuple(shapes), tuple(int(o) for o in offsets), flat.device)
-    index = _SLAB_INDEX_CACHE.get(key)
-    if index is None:
-        host = slab_index(shapes, offsets)
-        host[host < 0] = flat.numel()    # the zero appended below
-        index = torch.from_numpy(host).to(flat.device)
-        _SLAB_INDEX_CACHE[key] = index
+    key = ("bf16", tuple(shapes), tuple(int(o) for o in offsets))
+    index, = _cached(flat, key, lambda: (slab_index(shapes, offsets),))
     return F.pad(flat, (0, 1))[index]
+
+
+def _pieces(n: int) -> int:
+    return 2 if n > MAX_PIECE else 1
+
+
+def f32_slab_index(shapes, offsets):
+    """Where each element of the f32 kernels' slab image comes from (an
+    index into the flat weights, ``-1`` for a zero) and what it holds:
+    0 the tf32 ``hi`` of that weight, 1 its ``lo`` (:func:`tf32_split`),
+    2 the weight itself.
+
+    The image (``csrc/fused_nerf_tf32.cuh``) holds, in this order:
+    the forward's layers (body 0..L-1, bottleneck, hidden), each (K, N)
+    as ceil(K / 32) slabs of 32 K-rows in ``_pieces(N)`` pieces of N
+    rows (128 columns at most), each piece its hi rows then its lo
+    rows, swizzled as :func:`slab_index` (16-byte chunks of 4 values);
+    the backward's dX operands, W^T of the first C rows of the hidden
+    layer, the bottleneck and body layers L-1 .. 1, each a (N, C)
+    matrix stored the same way; then the opacity and the color head as
+    they lie in the flat weights (kind 2)."""
+    num_layers = len(shapes) - 4
+    channels = shapes[0][1]
+    offsets = [int(o) for o in offsets]
+    parts = []
+    forward = [*range(num_layers), num_layers + 1, num_layers + 2]
+    for j in forward:
+        k, n = shapes[j]
+        parts.append(_slab_part(k, n, lambda krow, col, o=offsets[j], n=n:
+                                o + krow * n + col, F32_SLAB_K, _pieces(n),
+                                2))
+    backward = [num_layers + 2, num_layers + 1,
+                *range(num_layers - 1, 0, -1)]
+    for j in backward:
+        _, n = shapes[j]
+        # W^T[k][c] = W[c][k]: K = the layer's outputs, N = its first C
+        # inputs
+        parts.append(_slab_part(n, channels,
+                                lambda krow, col, o=offsets[j], n=n:
+                                o + col * n + krow, F32_SLAB_K,
+                                _pieces(channels), 2))
+    for j in (num_layers, num_layers + 3):
+        k, n = shapes[j]
+        index = offsets[j] + np.arange(k * n)
+        parts.append((index, np.full(index.shape, 2)))
+    return (np.concatenate([index for index, _ in parts]),
+            np.concatenate([kind for _, kind in parts]).astype(np.int8))
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (f32) rounded to tf32, to nearest with ties away from zero,
+    as ``cvt.rna.tf32.f32``: the low 13 bits of the significand
+    zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) of f32 ``x``: hi = tf32(x), lo = x - hi, which is exact,
+    so hi + lo == x. The 3xTF32 products read hi and tf32(lo)."""
+    hi = tf32_round(x)
+    return hi, x - hi
+
+
+def f32_slab_image(flat: torch.Tensor, shapes, offsets) -> torch.Tensor:
+    """The f32 kernels' slab image of the flat f32 weights (see
+    :func:`f32_slab_index`): one gather on ``flat``'s device, then each
+    element's tf32 part, with the index cached for the model's
+    shape."""
+    key = ("f32", tuple(shapes), tuple(int(o) for o in offsets))
+    index, kind = _cached(flat, key, lambda: f32_slab_index(shapes, offsets))
+    values = F.pad(flat, (0, 1))[index]
+    hi, lo = tf32_split(values)
+    return torch.where(kind == 0, hi,
+                       torch.where(kind == 1, tf32_round(lo), values))
 
 
 def prepare_fused_nerf(model: NeRF, dtype=torch.bfloat16) -> FusedNeRFWeights:
@@ -233,16 +347,28 @@ def _features(x, encoding, width, include_inputs, dtype):
     return feats.to(dtype)
 
 
-def _dense(x, layer):
-    """bf16/f32 inputs and weights, f32 products and sum, f32 bias."""
+def _dense(x, layer, products: Optional[str] = None):
+    """bf16/f32 inputs and weights, f32 products and sum, f32 bias; with
+    ``products`` (:data:`TF32_PRODUCTS`), the products emulated on tf32
+    parts."""
     weight, bias = layer
-    return x.float() @ weight.float() + bias
+    a, b = x.float(), weight.float()
+    if products is None:
+        return a @ b + bias
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    if products == "tf32":
+        return a_hi @ b_hi + bias
+    return (tf32_round(a_lo) @ b_hi + a_hi @ tf32_round(b_lo)) \
+        + a_hi @ b_hi + bias
 
 
 def _trunk(weights: FusedNeRFWeights, positions: torch.Tensor,
-           moved: Optional[str] = None):
+           moved: Optional[str] = None, products: Optional[str] = None):
     """The twin's per-point body: the (N, 1) f32 opacity logit and the
-    bottleneck in the working type (see :data:`MOVED_ROUNDINGS`)."""
+    bottleneck in the working type (see :data:`MOVED_ROUNDINGS` and
+    :data:`TF32_PRODUCTS`: the heads are f32 on the CUDA cores, so only
+    the layers' products take ``products``)."""
     dtype = weights.weights.dtype
     layers = weights.layers
     num_layers = weights.num_layers
@@ -252,7 +378,7 @@ def _trunk(weights: FusedNeRFWeights, positions: torch.Tensor,
             weight, bias = layer
             total = (inputs.float() @ weight.float()).to(dtype).float() + bias
         else:
-            total = _dense(inputs, layer)
+            total = _dense(inputs, layer, products)
         return torch.relu(total.to(dtype))
 
     enc = _features(positions.float(), weights.pos_enc, weights.pos_width,
@@ -262,34 +388,38 @@ def _trunk(weights: FusedNeRFWeights, positions: torch.Tensor,
         h = body(torch.cat([h, enc], -1) if i in weights.skips else h,
                  layers[i])
     opacity = _dense(h, layers[num_layers])[:, :1]
-    bottleneck = _dense(h, layers[num_layers + 1])
+    bottleneck = _dense(h, layers[num_layers + 1], products)
     if moved != "uncast-bottleneck":
         bottleneck = bottleneck.to(dtype)
     return opacity, bottleneck
 
 
 def fused_nerf_reference(weights: FusedNeRFWeights, positions: torch.Tensor,
-                         views: torch.Tensor,
-                         moved: Optional[str] = None) -> torch.Tensor:
+                         views: torch.Tensor, moved: Optional[str] = None,
+                         products: Optional[str] = None) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: (N, 3) positions and views ->
     (N, 4) f32 logits, rounding where the kernel rounds. On a CUDA
     device the f32 products rely on ``allow_tf32`` being False.
 
     ``moved``, one of :data:`MOVED_ROUNDINGS`, moves one rounding point
     of a bf16 pack: a control that a bf16 kernel's tolerance against
-    the twin must reject."""
+    the twin must reject. ``products``, one of :data:`TF32_PRODUCTS`,
+    emulates the layers' products of an f32 pack on tf32 parts."""
     if moved is not None and moved not in MOVED_ROUNDINGS:
         raise ValueError(f"moved must be one of {MOVED_ROUNDINGS}, got "
                          f"{moved!r}")
+    if products is not None and products not in TF32_PRODUCTS:
+        raise ValueError(f"products must be one of {TF32_PRODUCTS}, got "
+                         f"{products!r}")
     dtype = weights.weights.dtype
     layers = weights.layers
     num_layers = weights.num_layers
-    opacity, bottleneck = _trunk(weights, positions, moved)
+    opacity, bottleneck = _trunk(weights, positions, moved, products)
     venc = _features(views.float(), weights.view_enc, weights.view_width,
                      weights.include_inputs, dtype)
     hidden = torch.relu(_dense(torch.cat([bottleneck,
                                           venc.to(bottleneck.dtype)], -1),
-                               layers[num_layers + 2]))
+                               layers[num_layers + 2], products))
     if moved != "uncast-hidden":
         hidden = hidden.to(dtype)
     out = torch.cat([_dense(hidden, layers[num_layers + 3])[:, :3], opacity],
@@ -340,9 +470,9 @@ def _check_cuda_inputs(weights: FusedNeRFWeights, positions, views):
     if views.device != device:
         raise ValueError(f"views is on {views.device}, positions on {device}")
     _check_pack(weights, device)
-    if weights.weights.dtype == torch.bfloat16 and (
-            weights.slabs is None or weights.slabs.device != device):
-        raise ValueError(f"a bf16 pack needs its slab image on {device}")
+    if weights.slabs is None or weights.slabs.device != device:
+        raise ValueError(f"a fused NeRF pack needs its slab image on "
+                         f"{device}")
 
 
 def fused_nerf_apply(weights: FusedNeRFWeights, positions: torch.Tensor,
@@ -352,10 +482,11 @@ def fused_nerf_apply(weights: FusedNeRFWeights, positions: torch.Tensor,
     CPU tensors run :func:`fused_nerf_reference`. CUDA tensors launch
     the kernel on the current stream (building it on first use) or
     raise; each launch adds one to ``fused_nerf_apply.launches``. A
-    bf16 pack launches the wgmma kernel on its slab image, an f32 pack
-    the FFMA tile on its flat weights. A bf16 model whose activation
-    rows and two ring stages do not fit in a block's shared memory makes
-    the launch raise (``csrc/fused_nerf.cu::bf16_shared_bytes``).
+    pack launches its type's wgmma kernel on its slab image: bf16
+    products, or f32 as 3xTF32 products. A model whose activation rows
+    and two ring stages do not fit in a block's shared memory makes the
+    launch raise (``csrc/fused_nerf.cu::bf16_shared_bytes``,
+    ``tf32_shared_bytes``).
     """
     if not on_cuda(positions, "fused NeRF"):
         return fused_nerf_reference(weights, positions, views)
@@ -365,11 +496,10 @@ def fused_nerf_apply(weights: FusedNeRFWeights, positions: torch.Tensor,
     out = torch.empty((num, 4), dtype=torch.float32, device=device)
     if num == 0:
         return out
-    flat = weights.slabs if weights.slabs is not None else weights.weights
     _LIB.launch(fused_nerf_apply, "fused_nerf_forward", device,
                 positions.data_ptr(), views.data_ptr(),
                 weights.pos_enc.data_ptr(), weights.view_enc.data_ptr(),
-                flat.data_ptr(), weights.biases.data_ptr(),
+                weights.slabs.data_ptr(), weights.biases.data_ptr(),
                 weights.meta.ctypes.data, out.data_ptr(), num,
                 _DTYPE_CODES[weights.weights.dtype])
     return out

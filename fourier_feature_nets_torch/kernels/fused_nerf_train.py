@@ -5,11 +5,12 @@ kernels ``fourier_feature_nets_tpu/ops/fused_nerf_train.py::_bwd_kernel``
 and ``ops/fused_nerf_train_fm.py::_bwd_kernel_fm`` (the same function in
 two layouts). Given positions, views, the packed weights and the (N, 4)
 f32 cotangent of the logits, it recomputes the forward on chip and
-returns the f32 gradient of every packed weight and bias. In bf16 it
-is a persistent wgmma kernel on K1's 128-point tile that streams the
-pack's slab image and parks each tile's activations in a scratch
-buffer this wrapper allocates; in f32, an FFMA tile on the flat pack.
-The source comment says what bounds it on an H100.
+returns the f32 gradient of every packed weight and bias. It is a
+persistent wgmma kernel that streams the pack's slab image and parks
+each tile's activations in a scratch buffer this wrapper allocates: in
+bf16 on K1's 128-point tile, in f32 (3xTF32 products) on K1's f32
+routines over 64-point tiles. The source comment says what bounds it
+on an H100.
 
 * :func:`fused_nerf_train_apply` is the differentiable forward: the
   packed weights from :func:`~.fused_nerf.pack_fused_nerf` (built from
@@ -223,7 +224,7 @@ def fused_nerf_backward_reference(weights: FusedNeRFWeights,
 
 _LIB = KernelLibrary("fused_nerf_train.cu", "fused_nerf_train_error_string",
                      fused_nerf_backward=(PTR,) * 11 + (LONG, LONG, INT),
-                     fused_nerf_backward_scratch_bytes=(PTR, LONG, PTR))
+                     fused_nerf_backward_scratch_bytes=(PTR, LONG, INT, PTR))
 
 
 def load_kernel():
@@ -234,14 +235,16 @@ def load_kernel():
 
 def scratch_bytes(weights: FusedNeRFWeights, num: int,
                   device: torch.device) -> int:
-    """Bytes of the bf16 kernel's scratch for ``num`` points on the CUDA
+    """Bytes of the kernel's scratch for ``num`` points on the CUDA
     ``device``, as the kernel's library counts them (``csrc/
     fused_nerf_train.cu::fused_nerf_backward_scratch_bytes``): each of
-    its min(tiles, SMs) blocks parks, per warpgroup of 64 points, every
-    body layer's h as ceil(C / 64) blocks of 8 KB."""
+    its min(tiles, SMs) blocks parks every body layer's h of a tile, in
+    bf16 as ceil(C / 64) blocks of 8 KB a warpgroup of 64 points, in f32
+    as 64 points x C floats."""
     out = ctypes.c_longlong(0)
     _LIB.call("fused_nerf_backward_scratch_bytes", device,
-              weights.meta.ctypes.data, num, ctypes.addressof(out))
+              weights.meta.ctypes.data, num,
+              _DTYPE_CODES[weights.weights.dtype], ctypes.addressof(out))
     return out.value
 
 
@@ -253,12 +256,12 @@ def fused_nerf_backward(weights: FusedNeRFWeights, positions: torch.Tensor,
     CPU tensors run :func:`fused_nerf_backward_reference`. CUDA tensors
     launch the kernel on the current stream (building it on first use)
     or raise; each launch adds one to ``fused_nerf_backward.launches``.
-    A bf16 pack launches the wgmma kernel on its slab image, with a
+    A pack launches its type's wgmma kernel on its slab image, with a
     scratch buffer allocated here (:func:`scratch_bytes`) in which its
-    tiles park their activations; a bf16 model whose activation blocks
-    and two ring stages do not fit in a block's shared memory makes the
-    launch raise (``csrc/fused_nerf_train.cu::bf16_shared_bytes``). An
-    f32 pack launches the FFMA tile on its flat weights.
+    tiles park their activations; a model whose activation blocks and
+    two ring stages do not fit in a block's shared memory makes the
+    launch raise (``csrc/fused_nerf_train.cu::bf16_shared_bytes``,
+    ``tf32_shared_bytes``).
     """
     if not on_cuda(positions, "fused NeRF backward"):
         return fused_nerf_backward_reference(weights, positions, views, g)
@@ -276,19 +279,14 @@ def fused_nerf_backward(weights: FusedNeRFWeights, positions: torch.Tensor,
                            device=device)
     if num == 0:
         return d_weights, d_biases
-    flat, scratch = weights.weights, None
-    if weights.slabs is not None:
-        flat = weights.slabs
-        scratch = torch.empty(scratch_bytes(weights, num, device),
-                              dtype=torch.uint8, device=device)
+    scratch = torch.empty(scratch_bytes(weights, num, device),
+                          dtype=torch.uint8, device=device)
     _LIB.launch(fused_nerf_backward, "fused_nerf_backward", device,
                 positions.data_ptr(), views.data_ptr(),
                 weights.pos_enc.data_ptr(), weights.view_enc.data_ptr(),
-                flat.data_ptr(), weights.biases.data_ptr(),
+                weights.slabs.data_ptr(), weights.biases.data_ptr(),
                 weights.meta.ctypes.data, g.data_ptr(), d_weights.data_ptr(),
-                d_biases.data_ptr(),
-                0 if scratch is None else scratch.data_ptr(),
-                0 if scratch is None else scratch.numel(), num,
+                d_biases.data_ptr(), scratch.data_ptr(), scratch.numel(), num,
                 _DTYPE_CODES[weights.weights.dtype])
     return d_weights, d_biases
 

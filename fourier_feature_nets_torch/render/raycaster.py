@@ -77,10 +77,12 @@ def resolve_fused(requested: Optional[bool], on_cuda: bool,
     """Whether a NeRF's queries take the fused kernels.
 
     An explicit True or False (``--fused`` / ``--no-fused``) wins. None
-    turns them on only on a CUDA device with ``compute_dtype`` bf16: in
-    f32 the kernels are slower than the plain path on an H100 (PERF.md,
-    section 5), as the JAX package turns its kernels on only where they
-    measured a win."""
+    turns them on only on a CUDA device with ``compute_dtype`` bf16. In
+    f32 the kernels (3xTF32 products) beat their plain twins on an H100,
+    but a whole fused f32 train step beat the plain one in most turns,
+    not all (PERF.md, section 5), so f32 stays plain until it does:
+    the JAX package turns its kernels on only where they measured a
+    win."""
     if requested is not None:
         return bool(requested)
     return on_cuda and compute_dtype == torch.bfloat16
@@ -102,7 +104,9 @@ class Raycaster:
             fused: route NeRF queries through the fused kernel's
                 wrapper. None (default) resolves by
                 :func:`resolve_fused`: on for a NeRF on a CUDA device
-                in bf16, off elsewhere. With True on the CPU the
+                in bf16, off elsewhere (in f32 too, where a fused step
+                did not beat the plain one in every turn). With True on
+                the CPU the
                 wrapper runs the kernel's plain twin.
             fused_train: route training forwards through the fused
                 recompute-backward (K1 forward, K2 backward). None

@@ -3,8 +3,9 @@ port's rule (``render/raycaster.py::resolve_fused``) and ``Raycaster``,
 on the CPU.
 
 The fused kernels are on by default only for a NeRF on a CUDA device
-in bf16; in f32 they are slower than the plain path on an H100 (PERF.md,
-section 5). An explicit ``--fused`` / ``--no-fused`` always wins. A
+in bf16; in f32 a whole fused train step did not beat the plain one in
+every turn on an H100 (PERF.md, section 5). An explicit ``--fused`` /
+``--no-fused`` always wins. A
 stand-in model whose parameters say they are on a card lets the CPU
 check the CUDA side of the rule."""
 

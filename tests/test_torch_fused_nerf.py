@@ -238,7 +238,11 @@ def test_pack_layout(nerf):
     for (w, _), back in zip(weights.layers, _decode_slabs(weights.slabs,
                                                           shapes)):
         assert torch.equal(back, w)
-    assert port.prepare_fused_nerf(torch_model, torch.float32).slabs is None
+    # an f32 pack carries the f32 kernels' image (tests/test_torch_tf32.py)
+    f32 = port.prepare_fused_nerf(torch_model, torch.float32)
+    index, _ = port.f32_slab_index(shapes, f32.meta[8:8 + len(shapes)])
+    assert f32.slabs.dtype == torch.float32
+    assert f32.slabs.shape == index.shape
 
 
 def _decode_slabs(slabs, shapes):
@@ -321,6 +325,15 @@ def test_cuda_input_checks(nerf, bad):
 def test_bf16_pack_needs_its_slab_image(nerf):
     _, _, torch_model = nerf
     weights = port.prepare_fused_nerf(torch_model, torch.bfloat16)
+    with pytest.raises(ValueError, match="slab image"):
+        port._check_cuda_inputs(weights._replace(slabs=None),
+                                torch.zeros(2, 3), torch.zeros(2, 3))
+    port._check_cuda_inputs(weights, torch.zeros(2, 3), torch.zeros(2, 3))
+
+
+def test_f32_pack_needs_its_slab_image(nerf):
+    _, _, torch_model = nerf
+    weights = port.prepare_fused_nerf(torch_model, torch.float32)
     with pytest.raises(ValueError, match="slab image"):
         port._check_cuda_inputs(weights._replace(slabs=None),
                                 torch.zeros(2, 3), torch.zeros(2, 3))

@@ -11,6 +11,8 @@ has only the port's dependencies:
         tests/test_torch_kernel_cuda.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -41,6 +43,10 @@ ACCUM_ATOL, ACCUM_MEAN_ATOL = 4e-3, 5e-6
 # chip_smoke.py, K1_BF16_ATOL); the mean is held from MEAN_POINTS points
 # on, below which one point's difference can carry it
 K1_BF16_ATOL, K1_BF16_MEAN_ATOL = 4e-3, 5e-6
+# K1 f32 (3xTF32), mean |kernel - twin| besides the JAX suite's rtol / atol
+# (readings and reasons at chip_smoke.py, K1_F32_MEAN_ATOL), a limit the twin
+# on single tf32 products must fail
+K1_F32_MEAN_ATOL = 1e-6
 MEAN_POINTS = 1000
 
 
@@ -73,6 +79,8 @@ def _assert_matches_twin(weights, pos, views):
     assert out.shape == (pos.shape[0], 4)
     if weights.weights.dtype == torch.float32:
         torch.testing.assert_close(out, twin, rtol=1e-3, atol=2e-4)
+        if pos.shape[0] >= MEAN_POINTS:
+            assert (out - twin).abs().mean().item() <= K1_F32_MEAN_ATOL
     else:
         torch.testing.assert_close(out, twin, rtol=0, atol=K1_BF16_ATOL)
         if pos.shape[0] >= MEAN_POINTS:
@@ -264,7 +272,7 @@ GRAD_SHARE = {"random": {torch.float32: 2e-2, torch.bfloat16: 2e-2},
               "same-sign": {torch.float32: 3e-4, torch.bfloat16: 5e-4},
               "tail": {torch.float32: 2e-5, torch.bfloat16: 1e-2}}
 MARGIN = {torch.float32: 1e-6, torch.bfloat16: train.K2_BF16_MARGIN}
-GROUP = 128   # K2's bf16 tile, eight of its f32 tiles
+GROUP = 128   # K2's bf16 tile, two of its f32 tiles
 
 
 def _tail_rows(num, device):
@@ -556,6 +564,233 @@ def test_backward_wgmma_scratch_is_a_block_per_tile_up_to_the_sms(
         == blocks * 2 * 8 * 4 * 8192
 
 
+# K1 and K2 in f32: 3xTF32 wgmma kernels on persistent grids (K1 of
+# 128-point tiles, K2 of 64-point tiles, both streaming the f32 slab image),
+# so ragged tiles, many tiles a block, every width, the shared-memory budget,
+# K2's scratch, the control (single tf32 products) and the recompute's
+# identity with K1 are where their faults would show.
+
+
+@pytest.fixture(scope="module")
+def flagship_f32():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernel has no CPU mode")
+    model = flagship_nerf(torch.Generator().manual_seed(0)).cuda()
+    return port.prepare_fused_nerf(model, torch.float32)
+
+
+@contextlib.contextmanager
+def _single_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num", [1, 63, 127, 128, 129, 100_003])
+def test_tf32_tile_edges_match_twin(cuda, flagship_f32, num):
+    _assert_matches_twin(flagship_f32, *_inputs(num, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num", [262_143, 786_431])
+def test_tf32_persistent_grid_matches_twin(cuda, flagship_f32, num):
+    # 2048 and 6144 tiles, the last ragged: ~16 and ~47 a block
+    _assert_matches_twin(flagship_f32, *_inputs(num, cuda))
+
+
+@pytest.mark.cuda
+def test_k1_f32_limits_reject_single_tf32_products(cuda, flagship_f32):
+    """The control: the twin on single tf32 products (allow_tf32=True)
+    fails the limits the kernel holds against the twin."""
+    pos, views = _inputs(50_001, cuda)
+    _assert_matches_twin(flagship_f32, pos, views)
+    with torch.no_grad():
+        twin = port.fused_nerf_reference(flagship_f32, pos, views)
+        with _single_tf32():
+            wrong = port.fused_nerf_reference(flagship_f32, pos, views)
+    err = (wrong - twin).abs()
+    assert (err > 2e-4 + 1e-3 * twin.abs()).any() \
+        or err.mean().item() > K1_F32_MEAN_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num", [1, 63, 64, 65, 4099])
+def test_backward_tf32_tile_edges_match_twin(cuda, flagship_f32, num):
+    # margin: at 4,099 flagship points one ReLU flip between the 3xTF32 sums
+    # and the twin's f32 GEMMs carried a leaf to 2.1e-2 of its max under a
+    # random cotangent, past 3e-4 under the same-sign one
+    _assert_backward_matches_twin(flagship_f32, *_inputs(num, cuda),
+                                  kind="margin")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num", [100_003, 262_143])
+@pytest.mark.parametrize("kind", ["margin", "tail", "same-sign"])
+def test_backward_tf32_persistent_grid_matches_twin(cuda, flagship_f32, num,
+                                                    kind):
+    # a ragged last tile, and 4096 tiles (the last ragged): ~31 a block
+    _assert_backward_matches_twin(flagship_f32, *_inputs(num, cuda),
+                                  kind=kind)
+
+
+@pytest.mark.cuda
+def test_k2_f32_limits_reject_single_tf32_products(cuda, flagship_f32):
+    """The control: the twin on single tf32 products fails the tail limit
+    the kernel holds against the twin."""
+    out, pos, views = _assert_backward_matches_twin(
+        flagship_f32, *_inputs(20_011, cuda), kind="tail")
+    g = _cotangent("tail", flagship_f32, pos, views)
+    twin = train.fused_nerf_backward_reference(flagship_f32, pos, views, g)
+    with _single_tf32():
+        wrong = train.fused_nerf_backward_reference(flagship_f32, pos, views,
+                                                    g)
+    share = GRAD_SHARE["tail"][torch.float32]
+    assert any((a - b).abs().max().item() > share * b.abs().max().item()
+               for (_, a), (_, b) in zip(flagship_f32.split_flat(*wrong),
+                                         flagship_f32.split_flat(*twin)))
+
+
+@pytest.mark.cuda
+def test_backward_tf32_recompute_is_k1_bit_for_bit(cuda):
+    """K2's f32 recompute is K1's f32 forward: with one-hot heads, K1's
+    opacity logit is h_{L-1}[c] and its red logit the hidden layer's
+    [c'], each exact; K2's weight gradient of those head entries, under a
+    cotangent of 1 on that logit of one point, is the same value."""
+    model = flagship_nerf(torch.Generator().manual_seed(0)).to(cuda)
+    with torch.no_grad():
+        for head in (model.opacity_out, model.color_out):
+            head.weight.zero_()
+            head.bias.zero_()
+        model.opacity_out.weight[0, 37] = 1.0
+        model.color_out.weight[0, 11] = 1.0
+    weights = port.prepare_fused_nerf(model, torch.float32)
+    num = 1000
+    pos, views = _inputs(num, cuda)
+    with torch.no_grad():
+        out = port.fused_nerf_apply(weights, pos, views)
+    layers = weights.num_layers
+    for point in (0, 63, 64, 999):
+        g = torch.zeros(num, 4, device=cuda)
+        g[point, 0] = g[point, 3] = 1.0
+        leaves = dict(weights.split_flat(
+            *train.fused_nerf_backward(weights, pos, views, g)))
+        assert leaves[f"w{layers}"].view(-1, 16)[37, 0].item() \
+            == out[point, 3].item()
+        assert leaves[f"w{layers + 3}"].view(-1, 16)[11, 0].item() \
+            == out[point, 0].item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [32, 64, 96, 128, 160, 192, 224, 256])
+def test_tf32_every_width_matches_twin(cuda, channels):
+    """Every channel width the f32 kernels take (one or two ring pieces a
+    slab), with a skip layer, raw inputs at every other width."""
+    model = NeRF(num_layers=3, num_channels=channels, skips=[2],
+                 include_inputs=channels % 64 == 0, max_log_scale_pos=6.0,
+                 num_freq_pos=7, max_log_scale_view=2.0, num_freq_view=3,
+                 generator=torch.Generator().manual_seed(channels)).to(cuda)
+    weights = port.prepare_fused_nerf(model, torch.float32)
+    pos, views = _inputs(3001, cuda)
+    _assert_matches_twin(weights, pos, views)
+    _assert_backward_matches_twin(weights, pos, views, kind="margin")
+    _assert_backward_matches_twin(weights, pos, views, kind="tail")
+
+
+@pytest.mark.cuda
+def test_tf32_budget_admits_every_configuration_in_the_repo(cuda):
+    """The flagship (train_nerf's default), the validate CLI's small model,
+    the IO-floor sweep's, K2 bf16's control model and this file's small one
+    all fit both f32 kernels' shared memory."""
+    configs = [flagship_nerf(torch.Generator().manual_seed(0)),
+               NeRF(**SMALL), NeRF(**train.K2_BF16_CONTROL_MODEL),
+               NeRF(num_layers=2, num_channels=32, max_log_scale_pos=3.0,
+                    num_freq_pos=4, max_log_scale_view=1.0, num_freq_view=2,
+                    skips=[], include_inputs=False)]
+    configs += [kernel_io_floor_bench.sweep_model(*row)
+                for row in kernel_io_floor_bench.SWEEP]
+    pos, views = _inputs(300, cuda)
+    for model in configs:
+        weights = port.prepare_fused_nerf(model.to(cuda), torch.float32)
+        with torch.no_grad():
+            assert torch.isfinite(port.fused_nerf_apply(weights, pos,
+                                                        views)).all()
+        grads = train.fused_nerf_backward(weights, pos, views,
+                                          torch.ones(300, 4, device=cuda))
+        assert all(torch.isfinite(x).all() for x in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_tf32_refuses_a_model_too_wide_for_shared_memory(cuda, kernel):
+    # 256 channels with a 400-wide (K1) or 128-wide (K2) positional encode:
+    # K1's two warpgroups' rows, or K2's dz^T and x, and two ring stages
+    # exceed 227 KB
+    wide = NeRF(num_layers=2, num_channels=256, max_log_scale_pos=9.0,
+                num_freq_pos=64 if kernel == "K1" else 20,
+                max_log_scale_view=3.0, num_freq_view=4, skips=[],
+                include_inputs=True).to(cuda)
+    weights = port.prepare_fused_nerf(wide, torch.float32)
+    pos, views = _inputs(64, cuda)
+    with torch.no_grad(), pytest.raises(RuntimeError,
+                                        match="invalid argument"):
+        if kernel == "K1":
+            port.fused_nerf_apply(weights, pos, views)
+        else:
+            train.fused_nerf_backward(weights, pos, views,
+                                      torch.ones(64, 4, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num", [1, 65, 262_143])
+def test_backward_tf32_scratch_is_a_block_per_tile_up_to_the_sms(
+        cuda, flagship_f32, num):
+    # each block parks the 8 body layers' h of a 64-point tile, 64 x 256
+    # floats each; there are min(tiles, SMs) blocks, and a buffer one
+    # granule smaller makes the launch raise
+    device = flagship_f32.weights.device
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = min(-(-num // 64), sms)
+    need = train.scratch_bytes(flagship_f32, num, device)
+    assert need == blocks * 8 * 64 * 256 * 4
+    pos, views = _inputs(num, cuda)
+    g = torch.ones(num, 4, device=cuda)
+    grads = [torch.zeros(t.numel(), device=cuda)
+             for t in (flagship_f32.weights, flagship_f32.biases)]
+    scratch = torch.empty(need - 16, dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        train._LIB.launch(
+            train.fused_nerf_backward, "fused_nerf_backward", device,
+            pos.data_ptr(), views.data_ptr(), flagship_f32.pos_enc.data_ptr(),
+            flagship_f32.view_enc.data_ptr(), flagship_f32.slabs.data_ptr(),
+            flagship_f32.biases.data_ptr(), flagship_f32.meta.ctypes.data,
+            g.data_ptr(), grads[0].data_ptr(), grads[1].data_ptr(),
+            scratch.data_ptr(), scratch.numel(), num, 0)
+
+
+@pytest.mark.cuda
+def test_backward_tf32_launch_in_cuda_graph(cuda, flagship_f32):
+    pos, views = _inputs(50_001, cuda)
+    g = _cotangent("random", flagship_f32, pos, views)
+    eager = train.fused_nerf_backward(flagship_f32, pos, views, g)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        train.fused_nerf_backward(flagship_f32, pos, views, g)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = train.fused_nerf_backward(flagship_f32, pos, views, g)
+    graph.replay()
+    torch.cuda.synchronize()
+    for (name, a), (_, b) in zip(flagship_f32.split_flat(*captured),
+                                 flagship_f32.split_flat(*eager)):
+        bound = GRAD_SHARE["tail"][torch.float32] * b.abs().max().item()
+        assert (a - b).abs().max().item() <= bound + 1e-7, name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, None])
 def test_fused_train_step_matches_plain_step(cuda, dtype):
@@ -612,6 +847,8 @@ def _assert_render_matches_twin(weights, pos, d, t):
     assert out.shape == (t.shape[0], 4) and torch.isfinite(out).all()
     if weights.weights.dtype == torch.float32:
         torch.testing.assert_close(out, twin, rtol=1e-3, atol=2e-4)
+        if pos.shape[0] >= MEAN_POINTS:
+            assert (out - twin).abs().mean().item() <= K1_F32_MEAN_ATOL
     else:
         torch.testing.assert_close(out, twin, rtol=0, atol=0.05)
     return twin
