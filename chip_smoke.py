@@ -42,11 +42,14 @@ and drives the port's paths at the flagship width:
   which must launch K1, K2, K3 and the scan and end in ``ALL OK``;
 * the probes: P1a (also with W and h one row and one element into
   larger buffers), P1b, P1c in int8 and P3a-c bit for bit against their
-  twins, P1c in bf16 within a stated share, P2 in each of its seven
-  modes (the ablation CLI's five, bf16-accum and no-sincos) within K1's
-  bf16 tolerance (bf16-accum within ACCUM_ATOL and ACCUM_MEAN_ATOL, and
-  farther than that from base's twin), at their CLIs' shapes and ragged
-  ones, each timed beside its bound (and, where one PyTorch call
+  twins, P1c in bf16 within a stated share (with the blocks and clusters
+  its launch takes), P2 (K1's own kernels in an ablation mode) in each
+  of its seven modes in bf16 (the ablation CLI's five, bf16-accum and
+  no-sincos) and six in f32, within K1's tolerances (bf16-accum within
+  ACCUM_ATOL and ACCUM_MEAN_ATOL, and farther than that from base's
+  twin) and base equal to K1 bit for bit, each mode timed between two
+  timings of K1 at the same N (K1's split), at their CLIs' shapes and
+  ragged ones, each timed beside its bound (and, where one PyTorch call
   computes the same function, that call's time); then ``cli/int8_probe``,
   ``cli/kernel_ablation_bench`` and ``cli/kernel_io_floor_bench``, each
   of which must exit 0 and launch its kernels;
@@ -69,8 +72,10 @@ seeds, sizes and models (``tail``: the flagship's tail lines alone), for
 the port found in ``DIR``.
 
 ``--times-only [--tree DIR]`` prints only those three times for the
-kernels of the last item, the host cost of each launch-path step, K1-K3
-at their PERF.md sizes, P2 in each of its modes, the fused core of a
+kernels of the last item, the host cost of each launch-path step, K2 and
+K3 at their PERF.md sizes, P2 in each of its modes in both types between
+two timings of K1 at the same N, then K1 at its PERF.md sizes (the K1-like
+loads last, since they set the clocks), the fused core of a
 train step and whole ``train_nerf`` steps, fused and plain, each in bf16
 and f32, as one JSON line, for the port found in ``DIR`` (an unpacked
 parent commit, say), so that two trees can be timed in turns on one
@@ -207,7 +212,9 @@ P1_GEMM_SHAPES = ((128, 128, 256), (100, 72, 250))     # (M, K, N)
 P1A_CASES = tuple((shape, offset) for shape in P1_GEMM_SHAPES
                   for offset in ("none", "one row", "one element"))
 P1B_RTOL = 1e-6                # max|kernel - twin| / max|twin|; reads 0
-P1C_SHAPES = ((192, 2048, 8), (192, 1000, 8))          # (C, N, layers)
+# (C, N, layers): the CLI's, a ragged N, the ring that streams (bf16 at C =
+# 256) and the smallest
+P1C_SHAPES = ((192, 2048, 8), (192, 1000, 8), (256, 2048, 8), (16, 65, 1))
 # P1c bf16: max|kernel - twin| / max|twin|. Reads 0 at both shapes (H100
 # 80GB HBM3, 700 W). The sums pass 2**24 from the fifth layer on and may
 # round in another order on the tensor cores than in the twin's f32 GEMM;
@@ -1451,9 +1458,17 @@ def phase_int8_probe():
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError("P1c disagrees with its plain twin")
+            plan = probe.layer_stack_plan(channels, n, layers, dtype,
+                                          out.device)
+            log(f"    launch: {plan['ctas']} blocks in clusters of "
+                f"{plan['cluster']}, {plan['stages']} layers' weight slices "
+                f"kept, {plan['smem_bytes']:,d} bytes of shared memory a "
+                f"block")
             if (channels, n, layers) == P1C_SHAPES[0]:
                 size = 1 if name == "int8" else 2
                 stack[name] = {
+                    "ctas": plan["ctas"], "cluster": plan["cluster"],
+                    "stages": plan["stages"],
                     "max_abs_err": err, "max_rel_err": rel,
                     "ms": cuda_ms(lambda: probe.layer_stack(h0, ws), 200),
                     "plain_ms": cuda_ms(lambda: probe.layer_stack_reference(
@@ -1472,72 +1487,109 @@ def phase_int8_probe():
 
 
 def phase_ablation():
-    """P2 in each of its seven modes (the five the ablation CLI runs,
-    then bf16-accum and no-sincos) against its twin at the ablation
-    CLI's points and a ragged N; timed at the CLI's. The CLI's run never
-    selects the last two, so this phase is their path: each mode's
-    launches here are counted and must be > 0."""
+    """P2, K1's own kernels in each ablation mode: in bf16 all seven (the
+    five the ablation CLI runs, then bf16-accum and no-sincos), in f32 the
+    six an f32 pack takes, against the twin at the ablation CLI's points
+    and a ragged N, and base against K1 bit for bit at both; each mode
+    timed at the CLI's points between two timings of K1 at the same N
+    (K1_ms, their mean), so that each mode's ms minus base's, over K1's,
+    is the share of K1's time its part costs. The CLI's run never selects
+    the f32 pack or the last two modes, so this phase is their path: each
+    mode's launches here are counted and must be > 0."""
     from fourier_feature_nets_torch.cli.kernel_ablation_bench import (
         ablation_inputs)
     from fourier_feature_nets_torch.kernels.fused_nerf import (
-        prepare_fused_nerf)
+        fused_nerf_apply, prepare_fused_nerf)
     from fourier_feature_nets_torch.kernels.fused_nerf_ablation import (
         ALL_MODES, fused_nerf_ablation, fused_nerf_ablation_reference)
     from fourier_feature_nets_torch.models import flagship_nerf
     model = flagship_nerf(torch.Generator().manual_seed(SEED)).cuda()
-    weights = prepare_fused_nerf(model, torch.bfloat16)
     cli_points = ablation_inputs(16384, ABLATION_POINTS // 16384, "cuda")
     ragged = random_points(RAGGED_POINTS, np.random.default_rng(SEED + 6),
                            "cuda")
-    modes = {}
+    results = {}
     with torch.no_grad():
-        for mode in ALL_MODES:
-            fused_nerf_ablation.launches = 0
-            for pos, views in (cli_points, ragged):
-                out = fused_nerf_ablation(weights, pos, views, mode)
-                twin = fused_nerf_ablation_reference(weights, pos, views,
-                                                     mode)
-                torch.cuda.synchronize()
-                err = (out - twin).abs().max().item()
-                ok = torch.isfinite(out).all().item()
-                if mode == "bf16-accum":
-                    base = fused_nerf_ablation_reference(weights, pos, views,
-                                                         "base")
-                    mean = (out - twin).abs().mean().item()
-                    base_mean = (out - base).abs().mean().item()
-                    ok = ok and err <= ACCUM_ATOL \
-                        and mean <= ACCUM_MEAN_ATOL < base_mean
-                    stated = (f"|d| <= {ACCUM_ATOL}; mean {mean:.3e} <= "
-                              f"{ACCUM_MEAN_ATOL}, from base's twin "
-                              f"{base_mean:.3e} > {ACCUM_MEAN_ATOL}; the "
-                              f"twins max {(twin - base).abs().max():.3e}, "
-                              f"mean {(twin - base).abs().mean():.3e} apart")
-                else:
-                    ok = ok and err <= BF16_ATOL
-                    stated = f"|d| <= {BF16_ATOL}"
-                log(f"  P2 {mode:12s} N={pos.shape[0]:>7,d}: max abs err "
-                    f"{err:.3e} ({stated}) {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"P2 {mode} disagrees with its twin")
-                if pos is cli_points[0]:
-                    ms = cuda_ms(lambda: fused_nerf_ablation(
-                        weights, pos, views, mode), 10)
-                    plain_ms = cuda_ms(lambda: fused_nerf_ablation_reference(
-                        weights, pos, views, mode), 5)
-                    macs = nerf_macs(weights, no_view=mode == "no-view")
-                    modes[mode] = {"max_abs_err": err, "ms": ms,
-                                   "plain_ms": plain_ms,
-                                   **bound(2 * macs * ABLATION_POINTS, "bf16",
-                                           ABLATION_POINTS * 40
-                                           + pack_bytes(weights))}
-                    log(f"  P2 {mode:12s} N={ABLATION_POINTS:,d}: kernel "
-                        f"{ms:.3f} ms, plain twin {plain_ms:.3f} ms, bound "
-                        f"{modes[mode]['bound_ms']:.3f} ms (CUDA events, "
-                        f"mean of 10 / 5)")
-            modes[mode]["launches"] = fused_nerf_ablation.launches
-            if modes[mode]["launches"] <= 0:
-                raise AssertionError(f"P2 {mode} was never launched")
-    return modes
+        for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            weights = prepare_fused_nerf(model, dtype)
+            modes = {}
+            for mode in ALL_MODES:
+                if mode == "bf16-accum" and kind == "f32":
+                    continue
+                fused_nerf_ablation.launches = 0
+                for pos, views in (cli_points, ragged):
+                    out = fused_nerf_ablation(weights, pos, views, mode)
+                    twin = fused_nerf_ablation_reference(weights, pos, views,
+                                                         mode)
+                    torch.cuda.synchronize()
+                    err = (out - twin).abs().max().item()
+                    ok = torch.isfinite(out).all().item()
+                    if mode == "bf16-accum":
+                        base = fused_nerf_ablation_reference(weights, pos,
+                                                             views, "base")
+                        mean = (out - twin).abs().mean().item()
+                        base_mean = (out - base).abs().mean().item()
+                        ok = ok and err <= ACCUM_ATOL \
+                            and mean <= ACCUM_MEAN_ATOL < base_mean
+                        stated = (f"|d| <= {ACCUM_ATOL}; mean {mean:.3e} <= "
+                                  f"{ACCUM_MEAN_ATOL}, from base's twin "
+                                  f"{base_mean:.3e} > {ACCUM_MEAN_ATOL}; "
+                                  f"the twins max "
+                                  f"{(twin - base).abs().max():.3e}, mean "
+                                  f"{(twin - base).abs().mean():.3e} apart")
+                    elif kind == "f32":
+                        ok = ok and torch.allclose(out, twin, rtol=1e-3,
+                                                   atol=2e-4)
+                        stated = "rtol 1e-3, atol 2e-4"
+                    else:
+                        ok = ok and err <= BF16_ATOL
+                        stated = f"|d| <= {BF16_ATOL}"
+                    if mode == "base":
+                        k1 = fused_nerf_apply(weights, pos, views)
+                        same = torch.equal(out, k1)
+                        ok = ok and same
+                        stated += f"; K1 bit for bit: {same}"
+                    log(f"  P2 {kind} {mode:12s} N={pos.shape[0]:>7,d}: max "
+                        f"abs err {err:.3e} ({stated}) "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"P2 {kind} {mode} disagrees "
+                                             f"with its twin or K1")
+                    if pos is cli_points[0]:
+                        macs = nerf_macs(weights, no_view=mode == "no-view")
+                        modes[mode] = {
+                            "max_abs_err": err,
+                            "plain_ms": cuda_ms(
+                                lambda: fused_nerf_ablation_reference(
+                                    weights, pos, views, mode), 5),
+                            **bound(2 * macs * ABLATION_POINTS,
+                                    "bf16" if kind == "bf16" else "tf32x3",
+                                    ABLATION_POINTS * 40
+                                    + pack_bytes(weights))}
+                modes[mode]["launches"] = fused_nerf_ablation.launches
+                if modes[mode]["launches"] <= 0:
+                    raise AssertionError(f"P2 {kind} {mode} was never "
+                                         f"launched")
+            # the times: K1, every mode, K1 again, at the CLI's points
+            pos, views = cli_points
+            k1_before = cuda_ms(lambda: fused_nerf_apply(weights, pos, views),
+                                10)
+            for mode in modes:
+                modes[mode]["ms"] = cuda_ms(lambda: fused_nerf_ablation(
+                    weights, pos, views, mode), 10)
+            k1_after = cuda_ms(lambda: fused_nerf_apply(weights, pos, views),
+                               10)
+            k1_ms = (k1_before + k1_after) / 2
+            for mode, row in modes.items():
+                row["share_of_k1"] = (row["ms"] - modes["base"]["ms"]) / k1_ms
+                log(f"  P2 {kind} {mode:12s} N={ABLATION_POINTS:,d}: kernel "
+                    f"{row['ms']:.4f} ms, minus base {row['share_of_k1']:+.2%}"
+                    f" of K1's {k1_ms:.4f} ms (K1 {k1_before:.4f} before, "
+                    f"{k1_after:.4f} after the modes), plain twin "
+                    f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} "
+                    f"ms (CUDA events, mean of 10 / 5)")
+            results[kind] = {"k1_ms": k1_ms, "k1_before_ms": k1_before,
+                             "k1_after_ms": k1_after, "modes": modes}
+    return results
 
 
 def phase_io_floor():
@@ -1688,8 +1740,10 @@ def phase_times(flagship: bool) -> dict:
     P3b and ``x * 2.0``; P1b, P1c and P3c have none), at the shapes of
     their paths; with ``flagship``, also K1 (at the frame chunk, the
     train batch and the bench batch), K2 and K3 at the sizes PERF.md
-    times them and P2 in each of its modes at the ablation CLI's points
-    (CUDA events, FLAGSHIP_REPS calls)."""
+    times them and P2 in each of its modes in both types at the ablation
+    CLI's points, between two timings of K1 at that N (CUDA events,
+    FLAGSHIP_REPS calls); K1 and P2, which runs K1's kernels, come
+    last."""
     from fourier_feature_nets_torch.kernels import int8_probe as probe
     from fourier_feature_nets_torch.kernels import io_floor as io
     from fourier_feature_nets_torch.kernels.fused_ray_render import (
@@ -1756,7 +1810,8 @@ def phase_times(flagship: bool) -> dict:
         log(f"  {name}: {rows[name]:.4f} ms (CUDA events, mean of "
             f"{FLAGSHIP_REPS})")
 
-    # K1 last: its load must not set the clocks the others are timed at
+    # K1 and P2 (K1's kernels) last: their load must not set the clocks the
+    # others are timed at
     with torch.no_grad():
         pos, views = random_points(TRAIN_POINTS, rng, "cuda")
         g = torch.from_numpy(rng.normal(size=(TRAIN_POINTS, 4)).astype(
@@ -1772,10 +1827,20 @@ def phase_times(flagship: bool) -> dict:
             ablation_inputs)
         from fourier_feature_nets_torch.kernels import fused_nerf_ablation
         pos, views = ablation_inputs(16384, ABLATION_POINTS // 16384, "cuda")
-        for mode in fused_nerf_ablation.ALL_MODES:
-            timed(f"fused_nerf_ablation_{mode}",
-                  lambda: fused_nerf_ablation.fused_nerf_ablation(
-                      packs["bf16"], pos, views, mode))
+        # P2 runs K1's kernels: its modes between two timings of K1 at the
+        # same N, before the other K1 timings
+        for kind, weights in packs.items():
+            suffix = "" if kind == "bf16" else "_f32"
+            timed(f"fused_nerf_{kind}_n{ABLATION_POINTS}",
+                  lambda: fused_nerf_apply(weights, pos, views))
+            for mode in fused_nerf_ablation.ALL_MODES:
+                if mode == "bf16-accum" and kind == "f32":
+                    continue
+                timed(f"fused_nerf_ablation_{mode}{suffix}",
+                      lambda: fused_nerf_ablation.fused_nerf_ablation(
+                          weights, pos, views, mode))
+            timed(f"fused_nerf_{kind}_n{ABLATION_POINTS}_after",
+                  lambda: fused_nerf_apply(weights, pos, views))
         for kind, weights in packs.items():
             for num in (CHUNK_POINTS, TRAIN_POINTS, BENCH_POINTS):
                 pos, views = random_points(num, rng, "cuda")
@@ -2009,7 +2074,8 @@ def main(argv=None) -> int:
     validate_launches = phase_validate()
     log("P1, the int8 probe's kernels, vs plain twins:")
     probe = phase_int8_probe()
-    log("P2, the ablation kernel, vs plain twin, flagship bf16:")
+    log("P2, K1's kernels in each ablation mode, vs plain twin and K1, "
+        "flagship:")
     ablation = phase_ablation()
     log("P3, the IO-floor copy kernels, vs plain twins:")
     io_rows = phase_io_floor()
@@ -2030,7 +2096,16 @@ def main(argv=None) -> int:
     probe["layer_stack"].update(
         bf16_ms=stack["bf16_ms"],
         bf16_device_ms=times["layer_stack_bf16"]["device_ms"],
-        bf16_host_us=times["layer_stack_bf16"]["host_us"])
+        bf16_host_us=times["layer_stack_bf16"]["host_us"],
+        bf16_kernel_ms=times["layer_stack_bf16"]["kernel_ms"])
+    log(f"  P1c layer_stack at {P1C_SHAPES[0]}: int8 device "
+        f"{times['layer_stack']['device_ms'] * 1e3:.2f} us, host "
+        f"{times['layer_stack']['host_us']:.2f} us, twin "
+        f"{stack['plain_ms'] * 1e3:.1f} us; bf16 device "
+        f"{times['layer_stack_bf16']['device_ms'] * 1e3:.2f} us, host "
+        f"{times['layer_stack_bf16']['host_us']:.2f} us, twin "
+        f"{stack['bf16_plain_ms'] * 1e3:.1f} us; {stack['ctas']} blocks "
+        f"(clusters of {stack['cluster']})")
     log("the probes' path: their three CLIs")
     probe_launches = phase_probe_clis()
 
@@ -2155,10 +2230,12 @@ def main(argv=None) -> int:
          probe["layer_stack"]),
         ("fused_nerf_ablation", "fused_nerf_ablation.cu",
          "tools/kernel_ablation_bench.py:50",
-         {**ablation["base"], "library_ms": None,
-          "max_abs_err": max(m["max_abs_err"] for m in ablation.values()),
-          "shape": f"N={ABLATION_POINTS}, bf16; ms is base, modes below",
-          "modes": ablation}),
+         {**ablation["bf16"]["modes"]["base"], "library_ms": None,
+          "max_abs_err": max(m["max_abs_err"] for r in ablation.values()
+                             for m in r["modes"].values()),
+          "shape": f"N={ABLATION_POINTS}, bf16; ms is base, every mode and "
+                   f"f32 below, each beside K1 (k1_ms)",
+          "k1_ms": ablation["bf16"]["k1_ms"], "modes": ablation}),
         ("io_narrow", "io_floor.cu", "tools/kernel_io_floor_bench.py:142",
          io_rows["io_narrow"]),
         ("io_wide", "io_floor.cu", "tools/kernel_io_floor_bench.py:165",

@@ -14,10 +14,13 @@ back-to-back launches between CUDA events after a warm-up, and prints
 plain twins; ``--rays`` and ``--samples`` cut the size for the CPU
 tests and default to the tool's.
 
-The tool's ``tile=2048`` has no counterpart (the kernel's tile is 64
-points). Its ``bf16-accum`` and ``no-sincos`` modes, which it defines
-but its run never selects, are ported (``ALL_MODES``) and run by
-``chip_smoke.py``; this CLI prints the five the tool runs.
+The tool's ``tile=2048`` has no counterpart: each mode runs K1's own
+kernel (bf16: the persistent wgmma kernel, 128-point tiles) with the
+mode a compile-time policy, and ``base`` is K1's launch, so the five
+lines split K1's time: each mode's ms minus base's is what its part of
+K1 costs. Its ``bf16-accum`` and ``no-sincos`` modes, which the tool
+defines but its run never selects, are ported (``ALL_MODES``) and run
+by ``chip_smoke.py``; this CLI prints the five the tool runs.
 
     python -m fourier_feature_nets_torch.cli.kernel_ablation_bench
 """
@@ -70,7 +73,7 @@ def main(argv=None) -> int:
     pos, views = ablation_inputs(args.rays, args.samples, device)
     n = pos.shape[0]
     print("tile: the JAX tool's tile=2048 has no counterpart here; the "
-          "kernel's tile is 64 points")
+          "kernel is K1's own, on 128-point tiles")
     failed = False
     for mode in MODES:
         try:

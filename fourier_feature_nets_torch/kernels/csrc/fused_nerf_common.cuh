@@ -5,8 +5,8 @@
 // encode with the TPU kernels' sin/cos
 // (fourier_feature_nets_tpu/ops/fused_nerf.py::_fast_sincos), so that K2's
 // recomputed forward rounds where K1 rounds, and the 64-point forward tile
-// (finish and the two dense overloads): K3 and P2 run it in both types (K1's
-// and K2's paths are the wgmma kernels of fused_nerf.cu and
+// (finish and the two dense overloads): K3 runs it in both types (K1's, K2's
+// and P2's paths are the wgmma kernels of fused_nerf_forward.cuh and
 // fused_nerf_train.cu).
 
 #pragma once
@@ -122,7 +122,7 @@ __device__ void encode(const float* xs, const float* __restrict__ enc, int E,
 }
 
 // ---------------------------------------------------------------------------
-// The 64-point forward tile (K3, P2): one block of kThreads
+// The 64-point forward tile (K3): one block of kThreads
 // threads holds kTile points' activation rows in shared memory and walks
 // the layers, reading each layer's weights from global memory (L2).
 // ---------------------------------------------------------------------------

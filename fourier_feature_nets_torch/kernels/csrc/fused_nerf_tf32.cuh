@@ -202,16 +202,19 @@ __device__ __forceinline__ void layer_tf32(float* acc, Ring& ring, int K,
   if (releases) hopper::mbar_arrive(ring.empty + 8 * held);
 }
 
-// h[:, 0:N] = acc + bias, ReLU'd if kRelu, point-major into this thread's
-// rows r0 and r0 + 8 of `act` (each warp writes only its own 16 rows).
-template <int N, bool kRelu>
+// h[:, 0:N] = acc + bias (acc alone without kBias), ReLU'd if kRelu,
+// point-major into this thread's rows r0 and r0 + 8 of `act` (each warp
+// writes only its own 16 rows).
+template <int N, bool kRelu, bool kBias = true>
 __device__ __forceinline__ void store_f32(const float* acc,
                                           const float* __restrict__ bias,
                                           uint32_t act, int r0, int pair) {
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
-    const float2 b =
-        __ldg(reinterpret_cast<const float2*>(bias + 8 * j + pair));
+    float2 b = make_float2(0.0f, 0.0f);
+    if constexpr (kBias) {
+      b = __ldg(reinterpret_cast<const float2*>(bias + 8 * j + pair));
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float v0 = acc[4 * j + 2 * h] + b.x;
@@ -226,15 +229,16 @@ __device__ __forceinline__ void store_f32(const float* acc,
 }
 
 // The encode of fused_nerf_wgmma.cuh into f32 rows of a warpgroup at `act`.
+template <bool kSincos = true>
 __device__ __forceinline__ void encode_rows_f32(
     const float* __restrict__ x, long long row0, long long num_points,
     const float* __restrict__ enc, int E, int include_inputs, int width,
     uint32_t act, int col0, int warp, int warps, int lane) {
-  wgmma::encode_rows_to(x, row0, num_points, enc, E, include_inputs, width,
-                        col0, warp, warps, lane,
-                        [act](int row, int col, float v) {
-                          st_f32(f32_addr(act, row, col), v);
-                        });
+  wgmma::encode_rows_to<kSincos>(x, row0, num_points, enc, E, include_inputs,
+                                 width, col0, warp, warps, lane,
+                                 [act](int row, int col, float v) {
+                                   st_f32(f32_addr(act, row, col), v);
+                                 });
 }
 
 // One producer thread streams the image's slabs of a (K, N) matrix from

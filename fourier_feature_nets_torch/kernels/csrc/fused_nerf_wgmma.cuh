@@ -169,18 +169,21 @@ __device__ __forceinline__ void store_groups(uint32_t block, const Fragment& f,
       :: "r"(addr), "r"(r0_j), "r"(r8_j), "r"(r0_j1), "r"(r8_j1));
 }
 
-// h[:, 0:N] = bf16(acc + bias), then ReLU'd if kRelu, into the swizzled rows.
-template <int N, bool kRelu>
+// h[:, 0:N] = bf16(acc + bias), then ReLU'd if kRelu, into the swizzled rows;
+// without kBias, bf16(acc) (the ablation's no-bias and matmul-only).
+template <int N, bool kRelu, bool kBias = true>
 __device__ __forceinline__ void store_layer(const float* acc,
                                             const float* __restrict__ bias,
                                             uint32_t act, const Fragment& f,
                                             int pair) {
 #pragma unroll
   for (int j = 0; j < N / 8; j += 2) {
-    const float2 b =
-        __ldg(reinterpret_cast<const float2*>(bias + 8 * j + pair));
-    const float2 c =
-        __ldg(reinterpret_cast<const float2*>(bias + 8 * j + 8 + pair));
+    float2 b = make_float2(0.0f, 0.0f);
+    float2 c = b;
+    if constexpr (kBias) {
+      b = __ldg(reinterpret_cast<const float2*>(bias + 8 * j + pair));
+      c = __ldg(reinterpret_cast<const float2*>(bias + 8 * j + 8 + pair));
+    }
     store_groups(
         act + (j / 8) * kBlockBytes, f, j % 8,
         pack_bf16x2(acc[4 * j] + b.x, acc[4 * j + 1] + b.y, kRelu),
@@ -200,14 +203,18 @@ __device__ __forceinline__ void rows_ready(uint32_t barrier_id) {
 // for 64 rows from row0 (rows past num_points encode 0), by `warps` warps,
 // each value handed to put(row, column, value): warp w takes rows w, w +
 // warps, ...; lane e takes phase e (then e + 32, ...), with its column of B
-// in registers.
-template <typename Put>
+// in registers. The cos block starts at col0, the sin block at col0 +
+// sin_col and the `tail` columns of [x | zeros] at col0 + tail_col. Without
+// kSincos the phase and half the phase take the places of cos and sin (the
+// ablation's no-sincos).
+template <bool kSincos = true, typename Put>
 __device__ __forceinline__ void encode_rows_to(const float* __restrict__ x,
                                                long long row0,
                                                long long num_points,
                                                const float* __restrict__ enc,
                                                int E, int include_inputs,
-                                               int width, int col0, int warp,
+                                               int sin_col, int tail_col,
+                                               int tail, int col0, int warp,
                                                int warps, int lane, Put put) {
   for (int e = lane; e < E; e += 32) {
     const float b0 = __ldg(enc + e);
@@ -222,24 +229,43 @@ __device__ __forceinline__ void encode_rows_to(const float* __restrict__ x,
         x1 = __ldg(x + 3 * g + 1);
         x2 = __ldg(x + 3 * g + 2);
       }
+      const float phase = fmaf(x2, b2, fmaf(x1, b1, x0 * b0));
       float s, c;
-      fast_sincos(fmaf(x2, b2, fmaf(x1, b1, x0 * b0)), &s, &c);
+      if constexpr (kSincos) {
+        fast_sincos(phase, &s, &c);
+      } else {
+        c = phase;
+        s = phase * 0.5f;
+      }
       put(row, col0 + e, c);
-      put(row, col0 + E + e, s);
+      put(row, col0 + sin_col + e, s);
     }
   }
-  const int tail = width - 2 * E;   // raw inputs and zero padding, < 32
-  if (lane < tail) {
+  if (lane < tail) {   // raw inputs and zero padding, < 32
     for (int row = warp; row < kWgRows; row += warps) {
       const long long g = row0 + row;
       const float v = (include_inputs && lane < 3 && g < num_points)
                           ? __ldg(x + 3 * g + lane) : 0.0f;
-      put(row, col0 + 2 * E + lane, v);
+      put(row, col0 + tail_col + lane, v);
     }
   }
 }
 
+// The packed layout: [cos | sin | x | zeros], `width` columns from col0.
+template <bool kSincos = true, typename Put>
+__device__ __forceinline__ void encode_rows_to(const float* __restrict__ x,
+                                               long long row0,
+                                               long long num_points,
+                                               const float* __restrict__ enc,
+                                               int E, int include_inputs,
+                                               int width, int col0, int warp,
+                                               int warps, int lane, Put put) {
+  encode_rows_to<kSincos>(x, row0, num_points, enc, E, include_inputs, E,
+                          2 * E, width - 2 * E, col0, warp, warps, lane, put);
+}
+
 // encode_rows_to into the bf16 rows of a warpgroup at `act`.
+template <bool kSincos = true>
 __device__ __forceinline__ void encode_rows(const float* __restrict__ x,
                                             long long row0,
                                             long long num_points,
@@ -247,10 +273,11 @@ __device__ __forceinline__ void encode_rows(const float* __restrict__ x,
                                             int E, int include_inputs,
                                             int width, uint32_t act, int col0,
                                             int warp, int warps, int lane) {
-  encode_rows_to(x, row0, num_points, enc, E, include_inputs, width, col0,
-                 warp, warps, lane, [act](int row, int col, float v) {
-                   st_bf16(act_addr(act, row, col), v);
-                 });
+  encode_rows_to<kSincos>(x, row0, num_points, enc, E, include_inputs, width,
+                          col0, warp, warps, lane,
+                          [act](int row, int col, float v) {
+                            st_bf16(act_addr(act, row, col), v);
+                          });
 }
 
 }  // namespace wgmma

@@ -4,7 +4,8 @@
 // warpgroup matrix products (wgmma) on shared-memory operands in the
 // 128-byte swizzled layout, and the fences and barriers between them; for
 // the f32 kernels, tf32 rounding, the tf32 wgmma with A in registers, the
-// tf32 mma.sync and ldmatrix.
+// tf32 mma.sync and ldmatrix; for P1c (int8_probe.cu), the s8 wgmma and the
+// cluster's distributed shared memory and barrier.
 //
 // The layout. An operand is stored as blocks of 128-byte rows (64 bf16);
 // the 16-byte chunk q of row r sits at chunk q ^ (r % 8) of its row, and
@@ -335,6 +336,158 @@ __device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b,
     mma<N - kHead, kTransA, kTransB, kDone + kHead>(d + kHead / 2, a, b,
                                                     accumulate);
   }
+}
+
+// ---- s8: the int8 products (P1c, int8_probe.cu) -------------------------
+//
+// D (64 x N, s32) = A (64 x 32) * B (32 x N) [+ D when `accumulate`], both
+// operands s8 in shared memory, K-major only (the s8 wgmma has no transpose
+// immediates), in the layout above: a 128-byte row holds 128 K-values and a
+// k32 step is 32 bytes, as a bf16 k16 step is, so desc_sw128 serves both.
+// The sums wrap mod 2^32. Thread t holds d[4j + 2h + c] where Mma's thread
+// holds its f32 value.
+template <int N>
+struct MmaS8;
+
+template <>
+struct MmaS8<16> {
+  static __device__ __forceinline__ void run(int* d, uint64_t a, uint64_t b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct MmaS8<32> {
+  static __device__ __forceinline__ void run(int* d, uint64_t a, uint64_t b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15"
+        "}, %16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct MmaS8<64> {
+  static __device__ __forceinline__ void run(int* d, uint64_t a, uint64_t b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31"
+        "}, %32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct MmaS8<128> {
+  static __device__ __forceinline__ void run(int* d, uint64_t a, uint64_t b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+          "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+          "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+          "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+          "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+// The s8 product of any N (16..256 by 16) as power-of-two pieces, as mma.
+template <int N, int kDone = 0>
+__device__ __forceinline__ void mma_s8(int* d, uint64_t a, uint64_t b,
+                                       int accumulate) {
+  static_assert(N % 16 == 0 && N >= 16 && N <= 256, "N: 16..256 by 16");
+  constexpr int kHead = (N >= 128) ? 128 : (N >= 64) ? 64 : (N >= 32) ? 32
+                        : 16;
+  MmaS8<kHead>::run(d, a, b + ((kDone * 128) >> 4), accumulate);
+  if constexpr (N > kHead) {
+    mma_s8<N - kHead, kDone + kHead>(d + kHead / 2, a, b, accumulate);
+  }
+}
+
+template <int kCount>
+__device__ __forceinline__ void fence_registers(int* r) {
+#pragma unroll
+  for (int i = 0; i < kCount; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// ---- thread block clusters -------------------------------------------------
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+
+// The address in block `rank`'s shared memory (distributed shared memory)
+// of this block's shared-memory address `addr`: every block of a cluster
+// runs the same kernel, so the layouts agree.
+__device__ __forceinline__ uint32_t map_shared(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// 16 bytes into a peer's shared memory (addr, from map_shared), counted as
+// transaction bytes on the peer's mbarrier `bar` (also from map_shared).
+__device__ __forceinline__ void st_async_v4(uint32_t addr, uint4 v,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+      "[%0], {%1, %2, %3, %4}, [%5];\n"
+      :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+// A barrier over every thread of every block of the cluster: writes before
+// it (to any block's shared memory) are visible to every thread after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // ---- tf32: the products of the f32 kernels (3xTF32) ----------------------

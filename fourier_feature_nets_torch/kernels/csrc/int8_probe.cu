@@ -19,7 +19,8 @@
 // eight 192x192 @ 192x2048 products is 1.21 GOP (0.61 us at the int8 peak,
 // 1.22 us at the bf16 peak) over ~2.3-3 MB. Latency bounds them: the launch,
 // the round trips to memory, and in P1c the serial dependence from one layer
-// to the next; P1c's 64-column slabs give 32 blocks for 132 SMs.
+// to the next, each layer a short product that every block of a cluster
+// must finish before any block starts the next.
 //
 // P1a is built for that latency. A block owns a 32x32 output tile, so the
 // tool's (128, 128) @ (128, 256) spreads over 32 blocks, and stages K 128
@@ -37,24 +38,40 @@
 // aligned (the tool's ragged (100, 72, 250) takes both); the edge stores
 // are masked.
 //
-// P1b and P1c keep a simpler scheme:
-// * every operand goes through shared memory as 16x16 row-major panels,
-//   each 256 elements from the last, so every WMMA pointer is 32-byte
-//   aligned for int8 and bf16 alike and any M, K, N can be zero-padded;
-// * P1b: one block (it needs max|x| over all of x first), which reduces
-//   the max, quantizes x as it stages it (IEEE division and
-//   round-half-even, as jnp.round; this file must not be built with
-//   --use_fast_math), walks the 64x64 output tiles with K in chunks of 64,
-//   each warp owning two 16x16 int32 accumulators, and dequantizes in the
-//   epilogue;
-// * P1c: a block owns a 64-column slab of h, keeps it in shared memory
-//   through every layer and stages each layer's W from L2 in 16-byte
-//   vectors; one template serves bf16 and int8. (On an H100 80GB HBM3 at
-//   700 W, cli/int8_probe: one 1- or 2-byte load per weight ran 148.6 us
-//   bf16 and 127.3 us int8 a call, 16-byte loads 105.5 and 83.5 us, and
-//   cp.async copies of the next layer's W during this layer's epilogue
-//   100.8 and 84.3 us, so the copies are not what bounds it now; the
-//   simpler vector loads stay.)
+// P1c spreads the chain over the card (its first design, a block a
+// 64-column slab of h that copied each layer's whole W into shared memory
+// and ran WMMA, gave 32 blocks for 132 SMs at the tool's N = 2048 and took
+// 81.0 us int8 and 102.2 us bf16 a call, H100 80GB HBM3 at 700 W). Now:
+// * points are wgmma's rows: a layer is D^T (64 points x C) = h^T W^T, A =
+//   h^T and B = W's rows as they lie in memory, both K-major, so neither is
+//   transposed (the s8 wgmma reads only K-major operands); h0 is transposed
+//   once as a block loads it, the output once on its f32 store;
+// * a cluster of 4 blocks (2 when C is an odd multiple of 32, else 1) owns
+//   a 64-point tile, each block a slice of C / 4 output channels: 128
+//   blocks at the tool's (192, 2048, 8); each keeps its slices of the
+//   next layers' W in a ring of shared memory, copied with cp.async ahead
+//   of the layer that reads them, as many as fit in half an SM's shared
+//   memory (3 layers bf16, 6 int8 at the tool's shape) so that two blocks
+//   fit an SM and the clusters pack onto the GPCs;
+// * each layer's epilogue (ReLU, the cast: bf16 rounds, int8 wraps) writes
+//   the block's slice of the next layer's A rows into its own shared
+//   memory, then sends the slice 16 bytes at a time into every other
+//   block of the cluster through distributed shared memory (st.async,
+//   two A buffers, ping-pong), each store counted on the receiver's
+//   mbarrier for that buffer, so a block starts a layer once its peers'
+//   bytes have landed, with no cluster barrier between layers; a peer
+//   writes a buffer only after it has received this block's next slice,
+//   which this block sends only once its products have read that buffer.
+//   What bounds the chain is that exchange and the product's latency, L
+//   times.
+// P1b keeps a simpler scheme: every operand goes through shared memory as
+// 16x16 row-major panels, each 256 elements from the last, so every WMMA
+// pointer is 32-byte aligned and any M, K, N can be zero-padded; one block
+// (it needs max|x| over all of x first) reduces the max, quantizes x as it
+// stages it (IEEE division and round-half-even, as jnp.round; this file must
+// not be built with --use_fast_math), walks the 64x64 output tiles with K in
+// chunks of 64, each warp owning two 16x16 int32 accumulators, and
+// dequantizes in the epilogue.
 // The kernels launch on the caller's stream and allocate nothing; each
 // entry point returns cudaGetLastError().
 
@@ -63,7 +80,9 @@
 #include <mma.h>
 
 #include <cstdint>
+#include <type_traits>
 
+#include "hopper.cuh"
 #include "shared_limit.cuh"
 
 namespace {
@@ -75,10 +94,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPanel = 256;     // elements of one 16x16 panel
 constexpr int kTile = 64;       // P1b: output tile side and K chunk
 constexpr int kTilePanels = kTile / 16;
-constexpr int kSlab = 64;       // P1c: columns of h per block
-constexpr int kSlabPanels = kSlab / 16;
-constexpr int kMaxChannels = 256;
-constexpr int kMaxFragsPerWarp = (kMaxChannels / 16) * kSlabPanels / kWarps;
+constexpr int kMaxChannels = 256;   // P1c
 
 // Element (r, c) of a matrix staged as 16x16 row-major panels,
 // `panels_per_row` panels to a panel row.
@@ -415,115 +431,391 @@ __device__ __forceinline__ signed char relu_cast(int v) {
                                   & 0xffu);
 }
 
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_float(signed char v) {
-  return static_cast<float>(v);
+constexpr int kStackRows = 64;        // points of a tile: wgmma's M
+constexpr int kStackThreads = 128;    // one warpgroup
+constexpr int kStackMaxStages = 8;
+constexpr uint32_t kStackBlock = kStackRows * 128;   // 128 K-bytes of a tile
+constexpr int kStackSlack = 1024;     // swizzled blocks start 1024-aligned
+constexpr size_t kStackSharedLimit = 232448;   // 227 KB a block
+constexpr int kStackBarrierBytes = 16;     // ready[2], after the ring
+
+// How a (C, N, L) stack is cut: blocks of a cluster share a 64-point tile,
+// each computing `slice` of the C output channels; K (C inputs) is padded
+// to whole 32-byte wgmma steps; the ring holds `stages` layers' slices.
+struct StackPlan {
+  int cluster;        // blocks a tile: 4, 2 or 1
+  int slice;          // output channels a block, a multiple of 16
+  int k_bytes;        // C * sizeof(T) rounded up to 32
+  int k_blocks;       // 128-byte column blocks of A and of a slice
+  int stages;         // layers' weight slices resident at once
+  size_t smem;        // dynamic shared memory of a block
+};
+
+__host__ __device__ inline int stack_cluster(int C) {
+  return C % 64 == 0 ? 4 : C % 32 == 0 ? 2 : 1;
 }
 
-template <typename T>
-size_t stack_shared_bytes(int C) {
-  return (static_cast<size_t>(C) * kSlab + static_cast<size_t>(C) * C)
-             * sizeof(T)
-         + kWarps * kPanel * 4;
-}
-
-// T: bf16 with float sums, or signed char with int sums. Block b owns
-// columns [64b, 64b + 64) of h, kept in shared memory as (C/16) x 4 panels;
-// warp w owns output panels w, w + 8, ... of each layer.
-template <typename T, typename Acc>
-__global__ void __launch_bounds__(kThreads)
-layer_stack_kernel(const T* __restrict__ h0, const T* __restrict__ ws,
-                   float* __restrict__ out, int C, int N, int L) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* h_s = reinterpret_cast<T*>(smem);
-  T* w_s = h_s + C * kSlab;
-  Acc* scratch = reinterpret_cast<Acc*>(w_s + C * C);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int n0 = blockIdx.x * kSlab;
-  const int cp = C / 16;
-  const int frags = cp * kSlabPanels;
-  for (int idx = threadIdx.x; idx < C * kSlab; idx += kThreads) {
-    const int r = idx / kSlab;
-    const int c = idx % kSlab;
-    h_s[panel_index(r, c, kSlabPanels)] =
-        n0 + c < N ? h0[static_cast<long long>(r) * N + n0 + c]
-                   : zero_of<T>();   // zero columns stay zero
+// The plan of a stack in elements of `size` bytes: two A buffers (the
+// layer's input h^T and the next layer's, 64 rows of k_blocks blocks), then
+// the ring. Up to 8 layers' slices are kept; a plan takes as many as fit in
+// half the SM's shared memory (two blocks an SM, so clusters pack onto the
+// GPCs), or in all of it if fewer than two layers' slices fit there.
+inline StackPlan stack_plan(int C, int L, int size) {
+  StackPlan p;
+  p.cluster = stack_cluster(C);
+  p.slice = C / p.cluster;
+  p.k_bytes = (C * size + 31) / 32 * 32;
+  p.k_blocks = (p.k_bytes + 127) / 128;
+  const size_t fixed = kStackSlack + 2ull * p.k_blocks * kStackBlock
+                       + kStackBarrierBytes;
+  const size_t slice_bytes = static_cast<size_t>(p.k_blocks) * p.slice * 128;
+  const int want = L < 1 ? 1 : L < kStackMaxStages ? L : kStackMaxStages;
+  const size_t half = kStackSharedLimit / 2;
+  int fit = static_cast<int>((half - fixed) / slice_bytes);
+  if (fit < (want < 2 ? want : 2)) {
+    fit = static_cast<int>((kStackSharedLimit - fixed) / slice_bytes);
   }
-  // W_l moves as 16-byte vectors: C is a multiple of 16, so the kVec
-  // elements of one vector lie in one row of one panel
-  constexpr int kVec = 16 / sizeof(T);
-  for (int l = 0; l < L; ++l) {
-    const int4* w = reinterpret_cast<const int4*>(
-        ws + static_cast<long long>(l) * C * C);
-    for (int v = threadIdx.x; v < C * C / kVec; v += kThreads) {
-      const int idx = v * kVec;
-      *reinterpret_cast<int4*>(w_s + panel_index(idx / C, idx % C, cp)) =
-          w[v];
+  p.stages = fit < want ? fit : want;
+  p.smem = fixed + p.stages * slice_bytes;
+  return p;
+}
+
+// The byte address of (row, byte column) of a swizzled operand whose
+// 128-byte column blocks hold `rows` rows each.
+__device__ __forceinline__ uint32_t swizzled(uint32_t base, int row, int col,
+                                             int rows) {
+  return base + (col >> 7) * rows * 128 + row * 128
+         + ((((col >> 4) & 7) ^ (row & 7)) << 4) + (col & 15);
+}
+
+// (No memory clobber: the loads of h0 may move ahead of these stores; the
+// barrier after them orders them before any read.)
+__device__ __forceinline__ void st_shared_elem(uint32_t addr,
+                                               __nv_bfloat16 v) {
+  asm volatile("st.shared.b16 [%0], %1;\n"
+               :: "r"(addr), "h"(*reinterpret_cast<const uint16_t*>(&v)));
+}
+__device__ __forceinline__ void st_shared_elem(uint32_t addr, signed char v) {
+  asm volatile("st.shared.b8 [%0], %1;\n"
+               :: "r"(addr), "h"(static_cast<uint16_t>(
+                   static_cast<unsigned char>(v))));
+}
+
+__device__ __forceinline__ float ld_shared_float(uint32_t addr,
+                                                 const __nv_bfloat16*) {
+  uint16_t bits;
+  asm volatile("ld.shared.b16 %0, [%1];\n" : "=h"(bits) : "r"(addr)
+               : "memory");
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(&bits));
+}
+__device__ __forceinline__ float ld_shared_float(uint32_t addr,
+                                                 const signed char*) {
+  uint16_t bits;
+  asm volatile("ld.shared.s8 %0, [%1];\n" : "=h"(bits) : "r"(addr)
+               : "memory");
+  return static_cast<float>(static_cast<short>(bits));
+}
+
+// Two adjacent outputs cast and packed as the bytes they take in h.
+__device__ __forceinline__ uint32_t pack_pair(float a, float b) {
+  const __nv_bfloat16 x = relu_cast(a);
+  const __nv_bfloat16 y = relu_cast(b);
+  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&x))
+         | (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&y))
+            << 16);
+}
+__device__ __forceinline__ uint32_t pack_pair(int a, int b) {
+  return static_cast<uint32_t>(static_cast<unsigned char>(relu_cast(a)))
+         | (static_cast<uint32_t>(static_cast<unsigned char>(relu_cast(b)))
+            << 8);
+}
+
+// Waits until at most `pending` of this thread's cp.async groups are
+// outstanding (0..kStackMaxStages - 1).
+__device__ __forceinline__ void cp_async_wait_pending(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// T: bf16 with f32 sums, or signed char with s32 sums; NC: the block's
+// slice of output channels. Cluster c of the grid owns points [64c, 64c +
+// 64); its block of rank r computes output channels [r NC, r NC + NC) of
+// every layer, as D^T (64 points x NC) = h^T (64 x C) W_slice^T: A is h^T,
+// K-major (a point's C inputs contiguous), B is the slice's rows of W as
+// they lie in memory (an output's C inputs contiguous), so neither operand
+// is transposed and the s8 wgmma, which reads both K-major, takes them.
+template <typename T, int NC>
+__global__ void __launch_bounds__(kStackThreads, 1)
+layer_stack_kernel(const T* __restrict__ h0, const T* __restrict__ ws,
+                   float* __restrict__ out, int C, int N, int L, int cluster,
+                   int k_bytes, int k_blocks, int stages) {
+  using Acc = typename std::conditional<std::is_same<T, signed char>::value,
+                                        int, float>::type;
+  constexpr int kSize = sizeof(T);
+  extern __shared__ __align__(1024) unsigned char stack_smem[];
+  const uint32_t base = (hopper::smem_addr(stack_smem) + kStackSlack - 1)
+                        & ~static_cast<uint32_t>(kStackSlack - 1);
+  const uint32_t a_bytes = k_blocks * kStackBlock;
+  const uint32_t ring = base + 2 * a_bytes;
+  const uint32_t slice_bytes = k_blocks * NC * 128;
+  // ready[b]: the peers' slices of the A rows in buffer b have landed
+  const uint32_t ready = ring + stages * slice_bytes;
+  const uint32_t rank = cluster > 1 ? hopper::cluster_rank() : 0;
+  const long long p0 = static_cast<long long>(blockIdx.x / cluster)
+                       * kStackRows;
+  const int n0 = rank * NC;
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+
+  // Layer l's slice of W (rows n0 .. n0 + NC - 1, C inputs each) into ring
+  // stage l % stages, one cp.async group, 16 bytes a copy: chunk q of a row
+  // at chunk q ^ (row % 8) of its 128-byte block row; chunks past C * size
+  // (an int8 C that is an odd multiple of 16) are zero-filled.
+  const int row_chunks = k_bytes / 16;
+  auto load_slice = [&](int l) {
+    if (l < L) {
+      const char* src = reinterpret_cast<const char*>(
+          ws + (static_cast<long long>(l) * C + n0) * C);
+      const uint32_t dst = ring + (l % stages) * slice_bytes;
+      for (int i = t; i < NC * row_chunks; i += kStackThreads) {
+        const int row = i / row_chunks;
+        const int q = i - row * row_chunks;
+        const bool live = q * 16 < C * kSize;
+        const char* from = live ? src + static_cast<long long>(row) * C * kSize
+                                      + q * 16
+                                : src;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(swizzled(dst, row, q * 16, NC)), "l"(from),
+                        "r"(live ? 16 : 0)
+                     : "memory");
+      }
     }
-    __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> acc[kMaxFragsPerWarp];
+    cp_async_commit();   // one group a layer, empty past L
+  };
+  // layer 0's slice first; the others after h0's loads, which would
+  // otherwise queue behind them (their issue alone takes microseconds)
+  load_slice(0);
+
+  // h0's 64 columns of this tile, transposed into A buffer 0 (zeros past N
+  // and in the pad columns, which buffer 1 gets too). Where h0's rows are
+  // 16-byte aligned and the tile is whole, a thread reads 16 bytes of one
+  // channel (kVec points) at a time, the loads of a batch issued before
+  // any of their stores; else one element at a time.
+  constexpr int kVec = 16 / kSize;
+  const int k_cols = k_bytes / kSize;
+  const bool vector = reinterpret_cast<std::uintptr_t>(h0) % 16 == 0
+                      && (static_cast<long long>(N) * kSize) % 16 == 0
+                      && p0 + kStackRows <= N;
+  if (vector) {
+    constexpr int kGroups = kStackRows / kVec;   // vectors a channel
+    constexpr int kBatch = 4;
+    for (int i0 = t; i0 < C * kGroups; i0 += kBatch * kStackThreads) {
+      int4 v[kBatch];
 #pragma unroll
-    for (int f = 0; f < kMaxFragsPerWarp; ++f) {
-      wmma::fill_fragment(acc[f], static_cast<Acc>(0));
-    }
+      for (int b = 0; b < kBatch; ++b) {
+        const int i = i0 + b * kStackThreads;
+        if (i < C * kGroups) {
+          v[b] = __ldg(reinterpret_cast<const int4*>(
+              h0 + static_cast<long long>(i / kGroups) * N + p0
+              + (i % kGroups) * kVec));
+        }
+      }
 #pragma unroll
-    for (int f = 0; f < kMaxFragsPerWarp; ++f) {
-      const int frag = warp + f * kWarps;
-      if (frag < frags) {
-        const int i = frag / kSlabPanels;
-        const int j = frag % kSlabPanels;
-        for (int k = 0; k < cp; ++k) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b;
-          wmma::load_matrix_sync(a, w_s + (i * cp + k) * kPanel, 16);
-          wmma::load_matrix_sync(b, h_s + (k * kSlabPanels + j) * kPanel, 16);
-          wmma::mma_sync(acc[f], a, b, acc[f]);
+      for (int b = 0; b < kBatch; ++b) {
+        const int i = i0 + b * kStackThreads;
+        if (i < C * kGroups) {
+          const T* e = reinterpret_cast<const T*>(&v[b]);
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) {
+            st_shared_elem(swizzled(base, (i % kGroups) * kVec + j,
+                                    (i / kGroups) * kSize, kStackRows),
+                           e[j]);
+          }
         }
       }
     }
-    __syncthreads();   // every read of h_s and w_s is done
-    Acc* mine = scratch + warp * kPanel;
-#pragma unroll
-    for (int f = 0; f < kMaxFragsPerWarp; ++f) {
-      const int frag = warp + f * kWarps;
-      if (frag < frags) {
-        wmma::store_matrix_sync(mine, acc[f], 16, wmma::mem_row_major);
-        __syncwarp();
-        // output panel (i, j) is panel i * 4 + j of the next layer's h
-        T* dst = h_s + frag * kPanel;
-        for (int e = lane; e < kPanel; e += 32) dst[e] = relu_cast(mine[e]);
-        __syncwarp();
+  }
+  for (int i = t; i < k_cols * kStackRows; i += kStackThreads) {
+    const int c = i / kStackRows;
+    const int p = i - c * kStackRows;
+    if (vector && c < C) continue;
+    T v = zero_of<T>();
+    if (c < C && p0 + p < N) v = h0[static_cast<long long>(c) * N + p0 + p];
+    st_shared_elem(swizzled(base, p, c * kSize, kStackRows), v);
+    if (c >= C) {
+      st_shared_elem(swizzled(base + a_bytes, p, c * kSize, kStackRows), v);
+    }
+  }
+  for (int l = 1; l < stages; ++l) load_slice(l);
+  if (t == 0) {
+    hopper::mbar_init(ready, 1);
+    hopper::mbar_init(ready + 8, 1);
+    hopper::mbar_fence_init();
+  }
+  hopper::fence_async_shared();
+  // the peers run, their barriers are initialised, every A_0 row is written
+  hopper::cluster_sync();
+
+  const int r0 = 16 * warp + (lane >> 2);
+  const int pair = 2 * (lane & 3);
+  // the bytes of A_{l+1} the peers send this block each layer
+  const uint32_t incoming = (cluster - 1) * kStackRows * NC * kSize;
+  uint32_t parity = 0;   // bit b: the phase of ready[b] to wait for
+  int cur = 0;
+  Acc acc[NC / 2];
+  for (int l = 0; l < L; ++l) {
+    const uint32_t a = base + cur * a_bytes;
+    const uint32_t b = ring + (l % stages) * slice_bytes;
+    if (l > 0) {   // the peers' slices of A_l
+      hopper::mbar_wait(ready + 8 * cur, (parity >> cur) & 1u);
+      parity ^= 1u << cur;
+    }
+    cp_async_wait_pending(stages - 1);   // this thread's copies of layer l
+    hopper::fence_async_shared();
+    __syncthreads();   // every thread's copies of layer l
+    hopper::fence_registers<NC / 2>(acc);
+    hopper::wgmma_fence();
+    for (int k = 0; k < k_bytes; k += 32) {
+      const uint64_t da = hopper::desc_sw128(a + (k >> 7) * kStackBlock
+                                             + (k & 127));
+      const uint64_t db = hopper::desc_sw128(b + (k >> 7) * NC * 128
+                                             + (k & 127));
+      if constexpr (std::is_same<T, signed char>::value) {
+        hopper::mma_s8<NC>(acc, da, db, k > 0);
+      } else {
+        hopper::mma<NC>(acc, da, db, k > 0);
       }
     }
-    __syncthreads();
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_registers<NC / 2>(acc);
+    // cast(max(acc, 0)) into this block's slice of the next A buffer, then
+    // the slice, 16 bytes at a time, into every other block of the cluster
+    // (a 2- or 4-byte remote store each would be six times the
+    // transactions)
+    const uint32_t next = base + (cur ^ 1) * a_bytes;
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t v = pack_pair(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        const uint32_t addr = swizzled(next, r0 + 8 * h,
+                                       (n0 + 8 * j + pair) * kSize,
+                                       kStackRows);
+        if constexpr (kSize == 2) {
+          asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(v)
+                       : "memory");
+        } else {
+          asm volatile("st.shared.b16 [%0], %1;\n"
+                       :: "r"(addr), "h"(static_cast<uint16_t>(v))
+                       : "memory");
+        }
+      }
+    }
+    hopper::fence_async_shared();
+    __syncthreads();   // the slice is whole; every product of layer l done
+    const uint32_t arrived = ready + 8 * (cur ^ 1);
+    if (t == 0) hopper::mbar_arrive_expect_tx(arrived, incoming);
+    constexpr int kSliceChunks = NC * kSize / 16;   // a row's 16-byte chunks
+    for (int i = t; i < kStackRows * kSliceChunks; i += kStackThreads) {
+      const int row = i / kSliceChunks;
+      const uint32_t addr = swizzled(next, row,
+                                     n0 * kSize + (i % kSliceChunks) * 16,
+                                     kStackRows);
+      uint4 v;
+      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                   : "r"(addr) : "memory");
+      for (int peer = 1; peer < cluster; ++peer) {
+        const uint32_t to = (rank + peer) % cluster;
+        hopper::st_async_v4(hopper::map_shared(addr, to), v,
+                            hopper::map_shared(arrived, to));
+      }
+    }
+    load_slice(l + stages);   // the stage of layer l is free
+    cur ^= 1;
   }
-  __syncthreads();   // L = 0: the slab was just staged
-  for (int idx = threadIdx.x; idx < C * kSlab; idx += kThreads) {
-    const int r = idx / kSlab;
-    const int c = idx % kSlab;
-    if (n0 + c < N) {
-      out[static_cast<long long>(r) * N + n0 + c] =
-          to_float(h_s[panel_index(r, c, kSlabPanels)]);
+  if (L > 0) hopper::mbar_wait(ready + 8 * cur, (parity >> cur) & 1u);
+  // h as f32 (C, N): this block's channels, points contiguous
+  const uint32_t a = base + cur * a_bytes;
+  for (int i = t; i < NC * kStackRows; i += kStackThreads) {
+    const int c = i / kStackRows;
+    const int p = i - c * kStackRows;
+    if (p0 + p < N) {
+      out[static_cast<long long>(n0 + c) * N + p0 + p] = ld_shared_float(
+          swizzled(a, p, (n0 + c) * kSize, kStackRows),
+          static_cast<const T*>(nullptr));
     }
   }
+  cp_async_wait_pending(0);
+  hopper::cluster_sync();   // no block leaves while a peer may write to it
 }
 
-template <typename T, typename Acc>
+template <typename T, int NC>
 cudaError_t launch_stack(const void* h0, const void* ws, void* out, int C,
                          int N, int L, cudaStream_t stream) {
   static ffn::SharedLimit limit;
-  const size_t smem = stack_shared_bytes<T>(C);
+  const StackPlan p = stack_plan(C, L, sizeof(T));
+  if (p.stages < 1) return cudaErrorInvalidValue;
   const cudaError_t err =
-      ffn::reserve_shared(layer_stack_kernel<T, Acc>, smem, limit);
+      ffn::reserve_shared(layer_stack_kernel<T, NC>, p.smem, limit);
   if (err != cudaSuccess) return err;
-  const int blocks = (N + kSlab - 1) / kSlab;
-  layer_stack_kernel<T, Acc><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(h0), static_cast<const T*>(ws),
-      static_cast<float*>(out), C, N, L);
+  const long long tiles = (static_cast<long long>(N) + kStackRows - 1)
+                          / kStackRows;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(tiles * p.cluster));
+  config.blockDim = dim3(kStackThreads);
+  config.dynamicSmemBytes = p.smem;
+  config.stream = stream;
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeClusterDimension;
+  attribute[0].val.clusterDim.x = p.cluster;
+  attribute[0].val.clusterDim.y = 1;
+  attribute[0].val.clusterDim.z = 1;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  cudaError_t launched = cudaLaunchKernelEx(
+      &config, layer_stack_kernel<T, NC>, static_cast<const T*>(h0),
+      static_cast<const T*>(ws), static_cast<float*>(out), C, N, L,
+      p.cluster, p.k_bytes, p.k_blocks, p.stages);
+  if (launched != cudaSuccess) return launched;
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_stack_slice(const void* h0, const void* ws, void* out,
+                               int C, int N, int L, cudaStream_t stream) {
+  switch (C / stack_cluster(C)) {
+#define FFN_STACK_CASE(NC)                                                   \
+  case NC:                                                                   \
+    return launch_stack<T, NC>(h0, ws, out, C, N, L, stream);
+    FFN_STACK_CASE(16)
+    FFN_STACK_CASE(32)
+    FFN_STACK_CASE(48)
+    FFN_STACK_CASE(64)
+    FFN_STACK_CASE(80)
+    FFN_STACK_CASE(112)
+    FFN_STACK_CASE(144)
+    FFN_STACK_CASE(176)
+    FFN_STACK_CASE(208)
+    FFN_STACK_CASE(240)
+#undef FFN_STACK_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -566,13 +858,32 @@ extern "C" int layer_stack(const void* h0, const void* ws, void* out, int C,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 1) {
-    err = launch_stack<__nv_bfloat16, float>(h0, ws, out, C, N, L, s);
+    err = launch_stack_slice<__nv_bfloat16>(h0, ws, out, C, N, L, s);
   } else if (dtype == 0) {
-    err = launch_stack<signed char, int>(h0, ws, out, C, N, L, s);
+    err = launch_stack_slice<signed char>(h0, ws, out, C, N, L, s);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// P1c's launch for (C, N, L, dtype) as layer_stack makes it: plan[0] the
+// blocks of the grid, [1] the blocks of a cluster, [2] the layers' weight
+// slices a block keeps at once, [3] its dynamic shared memory in bytes.
+// Launches nothing.
+extern "C" int layer_stack_plan(int C, int N, int L, int dtype,
+                                long long* plan, void*) {
+  if (C <= 0 || C % 16 != 0 || C > kMaxChannels || N <= 0 || L < 0
+      || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const StackPlan p = stack_plan(C, L, dtype == 1 ? 2 : 1);
+  plan[0] = (static_cast<long long>(N) + kStackRows - 1) / kStackRows
+            * p.cluster;
+  plan[1] = p.cluster;
+  plan[2] = p.stages;
+  plan[3] = static_cast<long long>(p.smem);
+  return static_cast<int>(cudaSuccess);
 }
 
 extern "C" const char* int8_probe_error_string(int code) {

@@ -21,13 +21,15 @@ launch adds one to ``<wrapper>.launches``. The source comment says what
 bounds the kernels on an H100.
 """
 
+import ctypes
+
 import torch
 
 from .launch import INT, PTR, KernelLibrary, on_cuda
 
 __all__ = ["int8_matmul", "int8_matmul_reference", "layer_stack",
-           "layer_stack_reference", "load_kernel", "quantized_matmul",
-           "quantized_matmul_reference"]
+           "layer_stack_plan", "layer_stack_reference", "load_kernel",
+           "quantized_matmul", "quantized_matmul_reference"]
 
 MAX_CHANNELS = 256   # kMaxChannels in csrc/int8_probe.cu
 _STACK_DTYPES = {torch.int8: 0, torch.bfloat16: 1}
@@ -75,7 +77,8 @@ _LIB = KernelLibrary(
     "int8_probe.cu", "int8_probe_error_string",
     int8_matmul=(PTR, PTR, PTR, INT, INT, INT),
     quantized_matmul=(PTR, PTR, PTR, INT, INT, INT),
-    layer_stack=(PTR, PTR, PTR, INT, INT, INT, INT))
+    layer_stack=(PTR, PTR, PTR, INT, INT, INT, INT),
+    layer_stack_plan=(INT, INT, INT, INT, PTR))
 
 
 def load_kernel():
@@ -135,10 +138,25 @@ def quantized_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 quantized_matmul.launches = 0
 
 
+def layer_stack_plan(channels: int, n: int, layers: int, dtype: torch.dtype,
+                     device: torch.device) -> dict:
+    """How :func:`layer_stack` launches for (C, N, L) in ``dtype`` on the
+    CUDA ``device``, as the kernel's library plans it
+    (``csrc/int8_probe.cu::layer_stack_plan``): the blocks of the grid,
+    the blocks of a cluster (which share a 64-point tile, each a slice of
+    the C output channels), the layers' weight slices a block keeps at
+    once and its dynamic shared memory in bytes. Launches nothing."""
+    plan = (ctypes.c_longlong * 4)()
+    _LIB.call("layer_stack_plan", device, channels, n, layers,
+              _STACK_DTYPES[dtype], ctypes.addressof(plan))
+    return dict(zip(("ctas", "cluster", "stages", "smem_bytes"), plan))
+
+
 def layer_stack(h0: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
     """P1c: h0 (C, N) and the layers' weights ws (L, C, C), both bf16 or
     both int8 -> f32 (C, N). The kernel takes C a multiple of 16 up to
-    256 and ws 16-byte aligned."""
+    256 and ws 16-byte aligned; it spreads a 64-point tile over a
+    cluster of blocks (:func:`layer_stack_plan`)."""
     if not on_cuda(h0, "layer stack"):
         return layer_stack_reference(h0, ws)
     if h0.dtype not in _STACK_DTYPES:
@@ -152,8 +170,8 @@ def layer_stack(h0: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
                          f"multiple of 16 up to {MAX_CHANNELS}, got "
                          f"{tuple(ws.shape)}")
     if ws.data_ptr() % 16:
-        raise ValueError("ws must be 16-byte aligned: the kernel loads the "
-                         "weights as 16-byte vectors")
+        raise ValueError("ws must be 16-byte aligned: the kernel copies the "
+                         "weights 16 bytes at a time")
     out = torch.empty((channels, n), dtype=torch.float32, device=device)
     _LIB.launch(layer_stack, "layer_stack", device, h0.data_ptr(),
                 ws.data_ptr(), out.data_ptr(), channels, n, ws.shape[0],

@@ -111,6 +111,8 @@ class KernelLibrary:
         if self._built is None:
             self.load()
         index = device.index
+        if index is None:   # "cuda": the current device
+            index = torch.cuda.current_device()
         if index != torch.cuda.current_device():
             with torch.cuda.device(index):
                 return self._call(name, device, args, what)

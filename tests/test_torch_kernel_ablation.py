@@ -286,6 +286,132 @@ def test_bf16_accum_stays_near_base(nerf, points):
     assert h.dtype == torch.bfloat16 and (h >= 0).all()
 
 
+# bf16-accum's slab image (accum_slab_image): where the kernel reads each
+# weight, decoded here independently of the index that built it
+
+NO_RAW = dict(num_layers=4, num_channels=64, max_log_scale_pos=9.0,
+              num_freq_pos=6, max_log_scale_view=3.0, num_freq_view=4,
+              skips=[2], include_inputs=False)
+
+
+def _decode_slabs(image, k_dim, n_dim):
+    """The (k_dim, n_dim) matrix stored as 64-row slabs of n_dim rows of
+    64 values, 16-byte chunk q of row n at chunk q ^ (n % 8); and the
+    values past k_dim in the last slab, which must be zeros."""
+    slabs = -(-k_dim // 64)
+    rows = image[:slabs * n_dim * 64].reshape(slabs, n_dim, 8, 8)
+    chunk = (np.arange(8)[None, :] ^ (np.arange(n_dim)[:, None] % 8))
+    logical = np.take_along_axis(rows, chunk[None, :, :, None], axis=2)
+    full = logical.reshape(slabs, n_dim, 64).transpose(0, 2, 1).reshape(
+        slabs * 64, n_dim)
+    return full[:k_dim], full[k_dim:], image[slabs * n_dim * 64:]
+
+
+def _accum_expected(weights, layer):
+    """The (rows, C) matrices bf16-accum's layer reads, part by part: cos,
+    sin (and raw), each zero past its values to a multiple of 16 rows,
+    in layer 0 and the skip layers; then h's C rows."""
+    w = weights.layers[layer][0].float().numpy()
+    channels = weights.channels
+    e_pos = weights.pos_enc.shape[1]
+    parts, _ = ablation.accum_parts(e_pos, weights.include_inputs)
+    blocks = []
+    if layer == 0 or layer in weights.skips:
+        first_row = 0 if layer == 0 else channels
+        for (_, length), first in zip(parts, (0, e_pos, 2 * e_pos)):
+            run = np.zeros((-(-length // 16) * 16, channels), np.float32)
+            run[:length] = w[first_row + first:first_row + first + length]
+            blocks.append(run)
+    if layer > 0:
+        blocks.append(w[:channels])
+    return blocks
+
+
+@pytest.mark.parametrize("e_pos, raw", [(30, True), (18, False), (16, True),
+                                        (3, False)])
+def test_accum_parts_start_on_k16_steps(e_pos, raw):
+    parts, width = ablation.accum_parts(e_pos, raw)
+    assert [length for _, length in parts] == [e_pos, e_pos] + [3] * raw
+    ends = [offset for offset, _ in parts[1:]] + [width]
+    for (offset, length), end in zip(parts, ends):
+        assert offset % 16 == 0 and end - offset == -(-length // 16) * 16
+
+
+@pytest.mark.parametrize("config", [FLAGSHIP_SHAPED, NO_RAW,
+                                    dict(NO_RAW, num_channels=96)])
+def test_accum_image_places_every_weight(config):
+    """Each body layer is stored in pieces of accum_piece(C) output
+    columns, each piece part by part, every part in slabs of its own;
+    every packed weight lands where the kernel's products read it, the
+    runs' padding and each part's last slab's tail are zeros, and the
+    heads, bottleneck and hidden layer follow as in the pack's own slab
+    image."""
+    torch_model = TorchNeRF(**config,
+                            generator=torch.Generator().manual_seed(4))
+    weights = port_prepare(torch_model, torch.bfloat16)
+    image = ablation.accum_slab_image(weights).float().numpy()
+    channels = weights.channels
+    width = ablation.accum_piece(channels)
+    assert width == (64 if channels % 64 == 0 else 32)
+    rest = image
+    for layer in range(weights.num_layers):
+        for first in range(0, channels, width):
+            for expected in _accum_expected(weights, layer):
+                part, tail, rest = _decode_slabs(rest, expected.shape[0],
+                                                 width)
+                np.testing.assert_array_equal(
+                    part, expected[:, first:first + width])
+                assert not tail.any()
+    # what is left is the pack's slab image past its body layers
+    body = sum(-(-w.shape[0] // 64) * channels * 64
+               for w, _ in weights.layers[:weights.num_layers])
+    np.testing.assert_array_equal(rest, weights.slabs.float().numpy()[body:])
+
+
+def test_accum_image_reproduces_the_twin(nerf, points):
+    """The kernel's bf16-accum arithmetic over the accum image: each
+    16-aligned run of the position encode, and h, a part with its own
+    slabs and its own f32 product rounded to bf16, the parts chained in
+    bf16 in the image's order, then the bf16 bias and the ReLU. It is the
+    twin's body (f32 products summed in another order)."""
+    weights = nerf[2]
+    pos, views = map(torch.from_numpy, points)
+    channels = weights.channels
+    e_pos = weights.pos_enc.shape[1]
+    parts, width = ablation.accum_parts(e_pos, weights.include_inputs)
+    cos_sin_raw = ablation._pos_parts(weights, pos, "bf16-accum",
+                                      torch.bfloat16)
+    runs = torch.zeros((pos.shape[0], width), dtype=torch.bfloat16)
+    for (offset, length), part in zip(parts, cos_sin_raw):
+        runs[:, offset:offset + length] = part
+    image = ablation.accum_slab_image(weights).float().numpy()
+    width = ablation.accum_piece(channels)
+    rest, h = image, None
+    for layer in range(weights.num_layers):
+        pos_part = layer == 0 or layer in weights.skips
+        inputs = [runs[:, offset:offset + -(-length // 16) * 16]
+                  for offset, length in parts] if pos_part else []
+        inputs += [h] if h is not None else []
+        pieces = []
+        for _ in range(0, channels, width):
+            acc = None
+            for x in inputs:   # one part: its own slabs, its own product
+                w, _, rest = _decode_slabs(rest, x.shape[1], width)
+                product = (x.float() @ torch.from_numpy(w)).to(
+                    torch.bfloat16)
+                acc = product if acc is None else acc + product
+            pieces.append(acc)
+        bias = weights.layers[layer][1].to(torch.bfloat16)
+        h = torch.relu(torch.cat(pieces, -1) + bias)
+    twin_h = ablation._bf16_body(None, cos_sin_raw, weights.layers[0])
+    for layer in range(1, weights.num_layers):
+        twin_h = ablation._bf16_body(
+            twin_h, cos_sin_raw if layer in weights.skips else [],
+            weights.layers[layer])
+    np.testing.assert_allclose(h.float().numpy(), twin_h.float().numpy(),
+                               rtol=0.02, atol=0.02)
+
+
 def test_cpu_wrapper_runs_twin_without_counting(nerf, points):
     weights = nerf[2]
     pos, views = map(torch.from_numpy, points)
@@ -335,7 +461,7 @@ def test_cli_runs_every_mode_on_cpu_twins(capsys):
                      "--reps", "1"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0] == ("tile: the JAX tool's tile=2048 has no counterpart "
-                        "here; the kernel's tile is 64 points")
+                        "here; the kernel is K1's own, on 128-point tiles")
     assert len(lines) == 1 + len(ablation.MODES)
     for line, mode in zip(lines[1:], ablation.MODES):
         assert re.fullmatch(rf"{mode:12s}: +[0-9.]+ ms \( *[0-9.]+ Mpts/s\)",

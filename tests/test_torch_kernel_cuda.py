@@ -1078,8 +1078,9 @@ def test_quantized_matmul_matches_twin_exactly(cuda, m, k, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
-@pytest.mark.parametrize("channels, n, layers", [(192, 2048, 8),
-                                                 (32, 1000, 3), (256, 65, 2)])
+@pytest.mark.parametrize("channels, n, layers", [
+    (192, 2048, 8), (32, 1000, 3), (256, 65, 2), (192, 1000, 8),
+    (256, 2048, 8), (16, 65, 1), (48, 130, 3), (96, 64, 1)])
 def test_layer_stack_matches_twin(cuda, dtype, channels, n, layers):
     ws = _ints((layers, channels, channels), -5, 6, dtype, cuda, 5)
     h0 = _ints((channels, n), 0, 6, dtype, cuda, 6)
@@ -1095,6 +1096,23 @@ def test_layer_stack_matches_twin(cuda, dtype, channels, n, layers):
         # P1C_BF16_SHARE)
         err = (out - twin).abs().max().item()
         assert err <= 2e-2 * twin.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, stages", [(torch.int8, 6),
+                                           (torch.bfloat16, 3)])
+def test_layer_stack_spreads_the_tool_shape_over_the_card(cuda, dtype,
+                                                          stages):
+    """At the probe's (192, 2048, 8) a cluster of 4 blocks shares each
+    64-point tile: 128 blocks, each keeping the next layers' weight
+    slices in half an SM's shared memory; at (256, 2048, 8) bf16 the ring
+    streams (fewer stages than layers)."""
+    plan = probe.layer_stack_plan(192, 2048, 8, dtype, cuda)
+    assert plan["ctas"] == 128 and plan["cluster"] == 4
+    assert plan["stages"] == stages
+    assert plan["smem_bytes"] <= 232448 // 2
+    wide = probe.layer_stack_plan(256, 2048, 8, torch.bfloat16, cuda)
+    assert wide["ctas"] == 128 and wide["stages"] < 8
 
 
 # ---------------------------------------------------------------------------
@@ -1172,16 +1190,70 @@ def test_bf16_accum_refuses_an_f32_pack(cuda):
 
 
 @pytest.mark.cuda
-def test_ablation_base_is_k1(cuda):
-    # base runs the 64-point WMMA tile, K1 in bf16 the wgmma kernel: the
-    # same function with the products summed in other orders
-    model = NeRF(**SMALL, generator=torch.Generator().manual_seed(1)).to(cuda)
-    weights = port.prepare_fused_nerf(model, torch.bfloat16)
-    pos, views = _inputs(4099, cuda)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("model", ["small", "flagship"])
+@pytest.mark.parametrize("num", [4099, 100_003])
+def test_ablation_base_is_k1(cuda, dtype, model, num):
+    """base is K1's own instantiation: the same kernel, bit for bit."""
+    if model == "small":
+        net = NeRF(**SMALL, generator=torch.Generator().manual_seed(1))
+    else:
+        net = flagship_nerf(torch.Generator().manual_seed(0))
+    weights = port.prepare_fused_nerf(net.to(cuda), dtype)
+    pos, views = _inputs(num, cuda)
     with torch.no_grad():
-        torch.testing.assert_close(
+        assert torch.equal(
             ablation.fused_nerf_ablation(weights, pos, views, "base"),
-            port.fused_nerf_apply(weights, pos, views), rtol=0, atol=0.05)
+            port.fused_nerf_apply(weights, pos, views))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("num", [1, 4099, 100_003])
+def test_ablation_no_view_masks_the_ragged_tile(cuda, dtype, num):
+    """no-view streams a shorter slab sequence (the body and the opacity
+    head): its last, ragged tile is masked and each point's opacity is
+    base's, bit for bit."""
+    model = flagship_nerf(torch.Generator().manual_seed(0)).to(cuda)
+    weights = port.prepare_fused_nerf(model, dtype)
+    pos, views = _inputs(num, cuda)
+    out = torch.full((num + 7, 4), 7.0, device=cuda)
+    with torch.no_grad():
+        out[:num] = ablation.fused_nerf_ablation(weights, pos, views,
+                                                 "no-view")
+        base = ablation.fused_nerf_ablation(weights, pos, views, "base")
+        twin = ablation.fused_nerf_ablation_reference(weights, pos, views,
+                                                      "no-view")
+    assert torch.equal(out[:num, 3], base[:, 3])
+    if dtype == torch.float32:
+        torch.testing.assert_close(out[:num], twin, rtol=1e-3, atol=2e-4)
+    else:
+        torch.testing.assert_close(out[:num], twin, rtol=0, atol=0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["small", "flagship"])
+def test_bf16_accum_shared_memory_fits_its_runs(cuda, model):
+    """bf16-accum's activation rows hold the encode's 16-aligned runs
+    (accum_parts) in place of the packed encode; the launch's shared
+    memory counts them and fits a block."""
+    if model == "small":
+        net = NeRF(**SMALL)
+    else:
+        net = flagship_nerf(torch.Generator().manual_seed(0))
+    weights = port.prepare_fused_nerf(net.to(cuda), torch.bfloat16)
+    _, width = ablation.accum_parts(weights.pos_enc.shape[1],
+                                    weights.include_inputs)
+    for mode, encode in (("base", weights.pos_width), ("bf16-accum", width)):
+        # two warpgroups' 64 rows of [h | encode | view] in 8 KB blocks,
+        # the barriers, then as many C x 128-byte stages as fit, up to 8
+        blocks = -(-(weights.channels + encode + weights.view_width) // 64)
+        fixed = 1024 + 2 * blocks * 8192 + (2 * 8 + 8) * 8
+        stage = weights.channels * 128
+        stages = min(8, (232448 - fixed) // stage)
+        assert stages >= 2
+        assert ablation.shared_bytes(weights, mode, cuda) \
+            == fixed + stages * stage
 
 
 # ---------------------------------------------------------------------------
