@@ -32,16 +32,24 @@ and drives the port's paths at the flagship width:
   ``render/raycaster.py::resolve_fused`` gives (fused: K1 and K2 must
   launch; plain: neither); the trained checkpoint then renders an
   800x800 frame through ``orbit_video``;
-* kernel validation: K3 against its plain twin in bf16 and f32 at
-  S = 42, 48 and 128, a ragged R and a case where only the last ray
-  block carries signal, and against the plain render; T1's scan against
+* kernel validation: K3 (K1's kernels with a per-ray view product and a
+  compositing epilogue) against its plain twin in bf16 and f32 within
+  its limits (kernels/fused_ray_render.py: bf16 max K3_BF16_ATOL and
+  mean K3_BF16_MEAN_ATOL, which the twin with its view product
+  unrounded must fail; f32 the JAX suite's rtol / atol and mean
+  K3_F32_MEAN_ATOL, which the twin on single tf32 products must fail)
+  at S = 2, 42, 48, 128 and 4096, a ragged R, a case where only the last
+  ray group carries signal and a 32-wide model, one CUDA graph replay,
+  and against the plain render; T1's scan against
   ``exclusive_cumprod`` (up to 128 lanes within SCAN_RTOL, at 130 and
   4096 within ``scan_rtol``, and at bases one row and one element into
   a buffer); K3, its twin and K1 followed by ``_composite`` timed at
-  16384 rays x 48 and x 128 samples; then ``cli/validate_kernels``,
-  which must launch K1, K2, K3 and the scan and end in ``ALL OK``;
-* the probes: P1a (also with W and h one row and one element into
-  larger buffers), P1b, P1c in int8 and P3a-c bit for bit against their
+  16384 rays x 48 and x 128 samples, and K3 at the validate CLI's own
+  launches; then ``cli/validate_kernels``, which must launch K1, K2, K3
+  and the scan and end in ``ALL OK``;
+* the probes: P1a and P1b (both also with their operands one row and
+  one element into larger buffers, P1b once more from a CUDA graph
+  replay), P1c in int8 and P3a-c bit for bit against their
   twins, P1c in bf16 within a stated share (with the blocks and clusters
   its launch takes), P2 (K1's own kernels in an ablation mode) in each
   of its seven modes in bf16 (the ablation CLI's five, bf16-accum and
@@ -80,6 +88,12 @@ train step and whole ``train_nerf`` steps, fused and plain, each in bf16
 and f32, as one JSON line, for the port found in ``DIR`` (an unpacked
 parent commit, say), so that two trees can be timed in turns on one
 card.
+
+``--sass DIR`` prints only the SASS instruction count of each kernel of
+``fused_nerf.cu``, ``fused_nerf_ablation.cu`` and ``fused_nerf_train.cu``
+(K1, P2, K2) in ``DIR`` and in this checkout, and whether the two are
+identical (``nvcc -cubin``, ``cuobjdump -sass``): the check that a
+change to the shared kernels leaves their code as it was.
 
 Needs one CUDA device; on a machine without one it exits with code 2.
 Outputs go to ``smoke_out/`` inside the checkout.
@@ -201,7 +215,7 @@ CONTROL_POINTS = 20_011
 MANY_POINTS = 262_143   # --k2-limits: 2048 tiles, ~16 a block, the last ragged
 GROUP = 128   # K2's bf16 tile, eight of its f32 tiles
 RENDER_RAYS = 16384            # one frame chunk / bench.py's render batch
-RAGGED_RAYS = 1001             # not a multiple of any ray block
+RAGGED_RAYS = 1001             # not a multiple of any ray group
 PLAIN_RENDER_ATOL = 5e-3       # tools/validate_kernels_tpu.py:167-170
 SCAN_RTOL = 1e-5               # tests/test_fused_ray_render.py:31
 TRAIN_STEPS = 30
@@ -211,7 +225,6 @@ SEED = 0
 P1_GEMM_SHAPES = ((128, 128, 256), (100, 72, 250))     # (M, K, N)
 P1A_CASES = tuple((shape, offset) for shape in P1_GEMM_SHAPES
                   for offset in ("none", "one row", "one element"))
-P1B_RTOL = 1e-6                # max|kernel - twin| / max|twin|; reads 0
 # (C, N, layers): the CLI's, a ragged N, the ring that streams (bf16 at C =
 # 256) and the smallest
 P1C_SHAPES = ((192, 2048, 8), (192, 1000, 8), (256, 2048, 8), (16, 65, 1))
@@ -421,8 +434,8 @@ def flagship_bounds(packs):
     the products for dX and dW), 40 B a point (positions, views,
     cotangents) and f32 gradients the size of the pack; K3 at
     RENDER_RAYS x 128 and x 48, its view rows once per ray, 16 B a
-    sample (position, depth) and 28 B a ray. An f32 pack's K1 and K2
-    have two: f32 FFMA ("f32") and 3xTF32 on the tensor cores
+    sample (position, depth) and 28 B a ray. An f32 pack's K1, K2 and
+    K3 have two: f32 FFMA ("f32") and 3xTF32 on the tensor cores
     ("tf32x3"), the rate their products run at."""
     bounds = {"fused_nerf": {}, "fused_nerf_train": {},
               "fused_ray_render": {}}
@@ -444,11 +457,14 @@ def flagship_bounds(packs):
             bounds["fused_nerf_train"][key] = bound(
                 3 * 2 * macs * TRAIN_POINTS, peak,
                 40 * TRAIN_POINTS + weights + grads)
-        for samples, key in ((128, kind), (48, f"{kind}_s48")):
-            points = RENDER_RAYS * samples
-            bounds["fused_ray_render"][key] = bound(
-                2 * nerf_macs(pack, view_once_per=samples) * points, kind,
-                16 * points + 28 * RENDER_RAYS + weights)
+        # K3 in f32 also at 3xTF32, the rate its products run at
+        for peak in ((kind, "tf32x3") if kind == "f32" else (kind,)):
+            prefix = kind if peak == kind else peak
+            for samples, key in ((128, prefix), (48, f"{prefix}_s48")):
+                points = RENDER_RAYS * samples
+                bounds["fused_ray_render"][key] = bound(
+                    2 * nerf_macs(pack, view_once_per=samples) * points, peak,
+                    16 * points + 28 * RENDER_RAYS + weights)
     return bounds
 
 
@@ -1135,59 +1151,134 @@ def render_rays(num_rays: int, num_samples: int, rng: np.random.Generator):
 
 
 def render_error(out, twin, dtype):
-    """(max abs err, within tolerance, stated tolerance) of K3 against
-    its twin: K1's tolerances."""
+    """(max abs err, mean abs err, within K3's limits, stated limits) of
+    K3 against its twin (kernels/fused_ray_render.py: the mean limit from
+    MEAN_RAYS rays on)."""
+    from fourier_feature_nets_torch.kernels.fused_ray_render import (
+        K3_BF16_ATOL, K3_BF16_MEAN_ATOL, K3_F32_MEAN_ATOL, MEAN_RAYS)
     err = (out - twin).abs()
+    max_abs, mean_abs = err.max().item(), err.mean().item()
+    held = out.shape[0] >= MEAN_RAYS
     if dtype == torch.float32:
         ok = bool((err <= F32_ATOL + F32_RTOL * twin.abs()).all())
-        return err.max().item(), ok, f"|d| <= {F32_ATOL} + {F32_RTOL}|ref|"
-    return err.max().item(), err.max().item() <= BF16_ATOL, \
-        f"|d| <= {BF16_ATOL}"
+        mean_limit = K3_F32_MEAN_ATOL
+        stated = f"|d| <= {F32_ATOL} + {F32_RTOL}|ref|"
+    else:
+        ok = max_abs <= K3_BF16_ATOL
+        mean_limit = K3_BF16_MEAN_ATOL
+        stated = f"|d| <= {K3_BF16_ATOL}"
+    if held:
+        ok = ok and mean_abs <= mean_limit
+        stated += f", mean <= {mean_limit}"
+    return max_abs, mean_abs, ok, stated
 
 
 def phase_ray_render_vs_twin(model):
-    """K3 against its plain twin at S = 42, 48 and 128 with a ragged R,
-    with signal only in the last ray block, and against the plain render
-    (f32)."""
+    """K3 against its plain twin, within K3's limits, in both types: the
+    flagship at S = 42, 48 and 128 with a ragged R, with signal only in
+    the last ray group, at S = 2 and 4096, and a 32-wide model; one CUDA
+    graph replay; the controls (bf16: the twin with its view product
+    unrounded must fail the mean limit; f32: the twin on single tf32
+    products must fail the limits); against the plain render (f32)."""
     from fourier_feature_nets_torch.kernels.fused_nerf import (
         prepare_fused_nerf)
     from fourier_feature_nets_torch.kernels.fused_ray_render import (
-        fused_ray_render, fused_ray_render_reference, rays_per_block)
+        fused_ray_render, fused_ray_render_reference, launch_ray_group)
+    from fourier_feature_nets_torch.models import NeRF
     from fourier_feature_nets_torch.render import Raycaster, RaySamples
     rng = np.random.default_rng(SEED + 2)
+    narrow = NeRF(num_layers=2, num_channels=32, max_log_scale_pos=3.0,
+                  num_freq_pos=4, max_log_scale_view=1.0, num_freq_view=2,
+                  skips=[], include_inputs=False,
+                  generator=torch.Generator().manual_seed(SEED)).cuda()
+    results = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype)[6:]
         weights = prepare_fused_nerf(model, dtype)
-        cases = [(f"R={RAGGED_RAYS:,d} S={s}", RAGGED_RAYS, s, False)
+        cases = [(f"R={RAGGED_RAYS:,d} S={s}", weights, RAGGED_RAYS, s, False)
                  for s in (42, 48, 128)]
         cases += [(f"R={RAGGED_RAYS:,d} S={s}, signal only in the last ray "
-                   f"block", RAGGED_RAYS, s, True) for s in (42, 48)]
-        for label, num_rays, num_samples, last_only in cases:
+                   f"group", weights, RAGGED_RAYS, s, True) for s in (42, 48)]
+        cases += [(f"R={RAGGED_RAYS:,d} S=2", weights, RAGGED_RAYS, 2, False),
+                  ("R=9 S=4096", weights, 9, 4096, False),
+                  (f"2x32 model R={RAGGED_RAYS:,d} S=48",
+                   prepare_fused_nerf(narrow, dtype), RAGGED_RAYS, 48,
+                   False)]
+        worst = {"max_abs_err": 0.0, "mean_abs_err": 0.0}
+        for label, pack, num_rays, num_samples, last_only in cases:
             pos, d, t = render_rays(num_rays, num_samples, rng)
             if last_only:
                 # every other ray has all its samples at one depth: alpha 0
-                last = num_rays % rays_per_block(num_samples) \
-                    or rays_per_block(num_samples)
+                rays, _ = launch_ray_group(num_rays, num_samples,
+                                           pos.device)
+                last = num_rays % rays or rays
                 t[:-last] = 2.0
                 pos[:-last] = d[:-last, None] * 2.0
             with torch.no_grad():
-                out = fused_ray_render(weights, pos, d, t)
-                twin = fused_ray_render_reference(weights, pos, d, t)
+                out = fused_ray_render(pack, pos, d, t)
+                twin = fused_ray_render_reference(pack, pos, d, t)
             torch.cuda.synchronize()
             if out.shape != (num_rays, 4) or not torch.isfinite(out).all():
                 raise AssertionError(f"K3 output not finite ({label})")
-            max_abs, ok, stated = render_error(out, twin, dtype)
+            max_abs, mean_abs, ok, stated = render_error(out, twin, dtype)
             if last_only:
                 quiet = torch.count_nonzero(twin[:-last, 3]).item()
                 loud = twin[-last:, 3].min().item()
                 label += (f" ({last} rays; twin alpha nonzero on {quiet} "
-                          f"others, min {loud:.3f} in the block)")
+                          f"others, min {loud:.3f} in the group)")
                 ok = ok and quiet == 0 and loud > 0.1
-            log(f"  K3 {name:8s} {label}: max abs err {max_abs:.3e} "
-                f"(tolerance {stated}) {'ok' if ok else 'FAIL'}")
+            worst["max_abs_err"] = max(worst["max_abs_err"], max_abs)
+            worst["mean_abs_err"] = max(worst["mean_abs_err"], mean_abs)
+            log(f"  K3 {name:8s} {label}: max abs err {max_abs:.3e}, mean "
+                f"{mean_abs:.3e} ({stated}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"K3 disagrees with its plain twin "
                                      f"({name}, {label})")
+        # the control at the flagship, R = 1001, S = 48
+        pos, d, t = render_rays(RAGGED_RAYS, 48, rng)
+        with torch.no_grad():
+            out = fused_ray_render(weights, pos, d, t)
+            twin = fused_ray_render_reference(weights, pos, d, t)
+            if dtype == torch.bfloat16:
+                control = "the twin with its view product unrounded"
+                wrong = fused_ray_render_reference(weights, pos, d, t,
+                                                   "unrounded-view")
+            else:
+                control = "the twin on single tf32 products"
+                with single_tf32():
+                    wrong = fused_ray_render_reference(weights, pos, d, t)
+        torch.cuda.synchronize()
+        max_abs, mean_abs, ok, stated = render_error(out, twin, dtype)
+        c_max, c_mean, c_ok, _ = render_error(out, wrong, dtype)
+        log(f"  K3 {name:8s} control R={RAGGED_RAYS:,d} S=48: K3 vs twin max "
+            f"{max_abs:.3e} mean {mean_abs:.3e} ({stated}); K3 vs {control} "
+            f"max {c_max:.3e} mean {c_mean:.3e}, which must fail: "
+            f"{'fails, ok' if not c_ok else 'PASSES: FAIL'}")
+        if not ok or c_ok:
+            raise AssertionError(f"K3 {name}'s limits do not tell the twin "
+                                 f"from {control}")
+        worst.update(control=control, control_max_abs_err=c_max,
+                     control_mean_abs_err=c_mean)
+        # one CUDA graph replay of the same launch
+        with torch.no_grad():
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fused_ray_render(weights, pos, d, t)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = fused_ray_render(weights, pos, d, t)
+            captured.zero_()
+            graph.replay()
+        torch.cuda.synchronize()
+        replayed = torch.equal(captured, out)
+        log(f"  K3 {name:8s} CUDA graph replay equals the eager launch: "
+            f"{replayed}")
+        if not replayed:
+            raise AssertionError("K3's graph replay differs")
+        del graph
+        results[name] = worst
     weights = prepare_fused_nerf(model, torch.float32)
     pos, d, t = render_rays(RAGGED_RAYS, 128, rng)
     with torch.no_grad():
@@ -1202,19 +1293,36 @@ def phase_ray_render_vs_twin(model):
         f"(atol {PLAIN_RENDER_ATOL:g}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("K3 disagrees with the plain render")
+    return results
+
+
+def k1_composite(weights, pos, d, t):
+    """K1 followed by the plain composite (the port's render path): the
+    same rays as K3 takes them, a (color, alpha) result."""
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        fused_nerf_apply)
+    from fourier_feature_nets_torch.render.raycaster import _composite
+    num_rays, num_samples = t.shape
+    views = d[:, None].expand(pos.shape).reshape(-1, 3).contiguous()
+    logits = fused_nerf_apply(weights, pos.reshape(-1, 3), views)
+    return _composite(logits.reshape(num_rays, num_samples, 4), t, False)
 
 
 def phase_ray_render_timing(model):
     """K3, its twin, and K1 followed by _composite (the port's render
     path today) at R = 16384 rays, S = 48 (a --preset fast chunk) and 128
-    (bench.py's render batch)."""
+    (bench.py's render batch); then K3 at the validate CLI's own launches
+    (R = 64 on its 4x64 model at S = 42, 48, 128)."""
+    from fourier_feature_nets_torch.cli.validate_kernels import RAY_MODEL
     from fourier_feature_nets_torch.kernels.fused_nerf import (
         fused_nerf_apply, prepare_fused_nerf)
     from fourier_feature_nets_torch.kernels.fused_ray_render import (
         fused_ray_render, fused_ray_render_reference)
-    from fourier_feature_nets_torch.render.raycaster import _composite
+    from fourier_feature_nets_torch.models import NeRF
     rng = np.random.default_rng(SEED + 3)
     results = {}
+    small = NeRF(**RAY_MODEL, generator=torch.Generator().manual_seed(1))
+    small = small.cuda()
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype)[6:]
         weights = prepare_fused_nerf(model, dtype)
@@ -1222,41 +1330,44 @@ def phase_ray_render_timing(model):
             pos, d, t = render_rays(RENDER_RAYS, num_samples, rng)
             flat = pos.reshape(-1, 3)
             views = d[:, None].expand(pos.shape).reshape(-1, 3).contiguous()
-
-            def k1_composite():
-                logits = fused_nerf_apply(weights, flat, views)
-                return _composite(logits.reshape(RENDER_RAYS, num_samples, 4),
-                                  t, False)
-
             with torch.no_grad():
                 out = fused_ray_render(weights, pos, d, t)
                 twin = fused_ray_render_reference(weights, pos, d, t)
-                k1 = k1_composite()
-                max_abs, ok, stated = render_error(out, twin, dtype)
+                k1 = k1_composite(weights, pos, d, t)
+                max_abs, mean_abs, ok, stated = render_error(out, twin, dtype)
                 k1_diff = max((out[:, :3] - k1.color).abs().max().item(),
                               (out[:, 3] - k1.alpha).abs().max().item())
                 ms = cuda_ms(lambda: fused_ray_render(weights, pos, d, t), 5)
                 plain_ms = cuda_ms(lambda: fused_ray_render_reference(
                     weights, pos, d, t), 5)
-                k1_ms = cuda_ms(k1_composite, 5)
+                k1_ms = cuda_ms(lambda: k1_composite(weights, pos, d, t), 5)
                 k1_alone_ms = cuda_ms(
                     lambda: fused_nerf_apply(weights, flat, views), 5)
             log(f"  K3 {name:8s} R={RENDER_RAYS} S={num_samples:3d}: K3 "
                 f"{ms:.3f} ms, plain twin {plain_ms:.3f} ms, K1 + _composite "
                 f"{k1_ms:.3f} ms (K1 alone {k1_alone_ms:.3f} ms) (CUDA "
-                f"events, mean of 5); K3 vs twin max abs err {max_abs:.3e} "
-                f"({stated}) {'ok' if ok else 'FAIL'}; K3 vs K1 + _composite "
-                f"max abs diff {k1_diff:.3e}")
+                f"events, mean of 5); K3 vs twin max abs err {max_abs:.3e}, "
+                f"mean {mean_abs:.3e} ({stated}) {'ok' if ok else 'FAIL'}; K3 "
+                f"vs K1 + _composite max abs diff {k1_diff:.3e}")
             if not ok:
                 raise AssertionError(f"K3 disagrees with its plain twin "
                                      f"({name}, S={num_samples})")
             results[(name, num_samples)] = {
-                "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-                "k1_composite_ms": k1_ms, "k1_ms": k1_alone_ms,
-                "k1_composite_max_abs_diff": k1_diff}
+                "max_abs_err": max_abs, "mean_abs_err": mean_abs, "ms": ms,
+                "plain_ms": plain_ms, "k1_composite_ms": k1_ms,
+                "k1_ms": k1_alone_ms, "k1_composite_max_abs_diff": k1_diff}
             del pos, d, t, flat, views, out, twin, k1
         del weights
         torch.cuda.empty_cache()
+        pack = prepare_fused_nerf(small, dtype)
+        for num_samples in (42, 48, 128):
+            rays = render_rays(64, num_samples, rng)
+            with torch.no_grad():
+                ms = cuda_ms(lambda: fused_ray_render(pack, *rays), 200)
+            results[(name, "validate", num_samples)] = ms
+            log(f"  K3 {name:8s} at the validate CLI's R=64 S={num_samples} "
+                f"(4x64 model): {ms * 1e3:.2f} us a call (CUDA events, mean "
+                f"of 200 back to back)")
     return results
 
 
@@ -1385,8 +1496,9 @@ def _ints(rng, shape, low, high, dtype):
 
 def phase_int8_probe():
     """P1a-c against their twins at the probe CLI's shapes and ragged
-    ones, P1a also with W and h one row and one element into larger
-    buffers; P1c timed at the CLI's shape (P1a and P1b by phase_times)."""
+    ones, P1a and P1b also with their operands one row and one element
+    into larger buffers, P1b once more from a CUDA graph replay; P1c
+    timed at the CLI's shape (P1a and P1b by phase_times)."""
     from fourier_feature_nets_torch.kernels import int8_probe as probe
     rng = np.random.default_rng(SEED + 5)
     results = {}
@@ -1412,22 +1524,39 @@ def phase_int8_probe():
                     w, h), TIME_REPS),
                 "library_call": "torch._int_mm(w, h)",
                 **bound(2 * m * k * n, "int8", m * k + k * n + 4 * m * n)}
-    for m, k, n in P1_GEMM_SHAPES:
-        w = _ints(rng, (m, k), -127, 128, torch.int8)
-        x = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).cuda()
+    for (m, k, n), offset in P1A_CASES:
+        w = _placed(_ints(rng, (m, k), -127, 128, torch.int8), offset)
+        x = _placed(torch.from_numpy(rng.normal(size=(k, n)).astype(
+            np.float32)).cuda(), offset)
+        before = probe.quantized_matmul.launches
         outq = probe.quantized_matmul(x, w)
         twinq = probe.quantized_matmul_reference(x, w)
         torch.cuda.synchronize()
         err_b = (outq - twinq).abs().max().item()
         rel_b = err_b / twinq.abs().max().item()
-        ok_b = rel_b <= P1B_RTOL
-        log(f"  P1b quantized_matmul ({m}, {k}) @ ({k}, {n}): max abs err "
-            f"{err_b:.3e}, rel {rel_b:.3e}, bitwise equal "
-            f"{_bits_equal(outq, twinq)} (rel <= {P1B_RTOL:g}) "
-            f"{'ok' if ok_b else 'FAIL'}")
+        ok_b = _bits_equal(outq, twinq) \
+            and probe.quantized_matmul.launches == before + 1
+        log(f"  P1b quantized_matmul ({m}, {k}) @ ({k}, {n}), offset {offset} "
+            f"(x base % 16 = {x.data_ptr() % 16}): max abs err {err_b:.3e}, "
+            f"rel {rel_b:.3e}, bitwise equal {_bits_equal(outq, twinq)} "
+            f"(bit for bit) {'ok' if ok_b else 'FAIL'}")
         if not ok_b:
             raise AssertionError("P1b disagrees with its plain twin")
-        if (m, k, n) == P1_GEMM_SHAPES[0]:
+        if ((m, k, n), offset) == (P1_GEMM_SHAPES[0], "none"):
+            # one CUDA graph replay, x changed after the capture
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = probe.quantized_matmul(x, w)
+            x.mul_(3.0)
+            graph.replay()
+            torch.cuda.synchronize()
+            replayed = _bits_equal(captured,
+                                   probe.quantized_matmul_reference(x, w))
+            log(f"  P1b CUDA graph replay after x *= 3 equals the twin bit "
+                f"for bit: {replayed}")
+            if not replayed:
+                raise AssertionError("P1b's graph replay differs")
+            del graph
             results["quantized_matmul"] = {
                 "max_abs_err": err_b,
                 "plain_ms": cuda_ms(lambda: probe.quantized_matmul_reference(
@@ -1740,7 +1869,8 @@ def phase_times(flagship: bool) -> dict:
     P3b and ``x * 2.0``; P1b, P1c and P3c have none), at the shapes of
     their paths; with ``flagship``, also K1 (at the frame chunk, the
     train batch and the bench batch), K2 and K3 at the sizes PERF.md
-    times them and P2 in each of its modes in both types at the ablation
+    times them (K3 beside K1 + _composite, and at the validate CLI's
+    launches) and P2 in each of its modes in both types at the ablation
     CLI's points, between two timings of K1 at that N (CUDA events,
     FLAGSHIP_REPS calls); K1 and P2, which runs K1's kernels, come
     last."""
@@ -1797,9 +1927,10 @@ def phase_times(flagship: bool) -> dict:
         fused_nerf_apply, pack_fused_nerf, prepare_fused_nerf)
     from fourier_feature_nets_torch.kernels.fused_nerf_train import (
         fused_nerf_backward, fused_nerf_train_apply)
+    from fourier_feature_nets_torch.cli.validate_kernels import RAY_MODEL
     from fourier_feature_nets_torch.kernels.fused_ray_render import (
         fused_ray_render)
-    from fourier_feature_nets_torch.models import flagship_nerf
+    from fourier_feature_nets_torch.models import NeRF, flagship_nerf
     model = flagship_nerf(torch.Generator().manual_seed(SEED)).cuda()
     packs = {kind: prepare_fused_nerf(model, dtype)
              for dtype, kind in ((torch.bfloat16, "bf16"),
@@ -1816,12 +1947,30 @@ def phase_times(flagship: bool) -> dict:
         pos, views = random_points(TRAIN_POINTS, rng, "cuda")
         g = torch.from_numpy(rng.normal(size=(TRAIN_POINTS, 4)).astype(
             np.float32)).cuda()
-        rays = render_rays(RENDER_RAYS, 128, rng)
         for kind, weights in packs.items():
             timed(f"fused_nerf_train_{kind}",
                   lambda: fused_nerf_backward(weights, pos, views, g))
-            timed(f"fused_ray_render_{kind}",
-                  lambda: fused_ray_render(weights, *rays))
+        # K3 beside K1 + _composite at R = 16384, S = 128 and 48, then at
+        # the validate CLI's launches (R = 64 on its 4x64 model)
+        rays = {samples: render_rays(RENDER_RAYS, samples, rng)
+                for samples in (128, 48)}
+        small = NeRF(**RAY_MODEL, generator=torch.Generator().manual_seed(1))
+        small = small.cuda()
+        for kind, weights in packs.items():
+            for samples, suffix in ((128, ""), (48, "_s48")):
+                timed(f"fused_ray_render_{kind}{suffix}",
+                      lambda: fused_ray_render(weights, *rays[samples]))
+                timed(f"k1_composite_{kind}{suffix}",
+                      lambda: k1_composite(weights, *rays[samples]))
+            pack = prepare_fused_nerf(small, torch.bfloat16 if kind == "bf16"
+                                      else torch.float32)
+            for samples in (42, 48, 128):
+                few = render_rays(64, samples, rng)
+                name = f"fused_ray_render_validate_{kind}_s{samples}"
+                rows[name] = call_times(lambda: fused_ray_render(pack, *few))
+                log(f"  {name}: " + ", ".join(
+                    f"{key} {value:.5f}" if isinstance(value, float)
+                    else f"{key} {value}" for key, value in rows[name].items()))
         del g, rays
         from fourier_feature_nets_torch.cli.kernel_ablation_bench import (
             ablation_inputs)
@@ -1998,6 +2147,63 @@ def run_k2_limits(which: str) -> int:
     return 0
 
 
+def sass_instructions(tree: str, source: str) -> dict:
+    """{(source, kernel, C, mode): [instructions]} of the kernels of
+    ``csrc/<source>`` in the checkout ``tree``, compiled with the build's
+    target and optimisation to a cubin under OUT_DIR."""
+    from fourier_feature_nets_torch.kernels.build import _nvcc
+    path = os.path.join(tree, "fourier_feature_nets_torch", "kernels",
+                        "csrc", source)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    cubin = os.path.join(OUT_DIR, f"{zlib.crc32(path.encode())}_{source}"
+                                  f".cubin")
+    subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-cubin", "-o", cubin, path],
+                   check=True, capture_output=True)
+    dump = subprocess.run(
+        [os.path.join(os.path.dirname(_nvcc()), "cuobjdump"), "-sass",
+         cubin], check=True, capture_output=True, text=True).stdout
+    names = subprocess.run(["c++filt"], input=dump, check=True,
+                           capture_output=True, text=True).stdout
+    kernels, current = {}, None
+    for line in names.splitlines():
+        function = re.search(r"Function : (.*)$", line)
+        if function:
+            kernel = re.search(r"(\w+_kernel)<(\d+)(?:, (\d+))?",
+                               function.group(1))
+            current = ((source, kernel.group(1), int(kernel.group(2)),
+                        kernel.group(3)) if kernel else None)
+            if current:
+                kernels[current] = []
+            continue
+        body = re.sub(r"/\*[^*]*\*/", "", line).strip()
+        if current and body and body[0] not in ".{}":
+            kernels[current].append(body)
+    return kernels
+
+
+def run_sass(tree: str) -> int:
+    """--sass: each kernel's SASS instruction count in ``tree`` and here."""
+    sources = ("fused_nerf.cu", "fused_nerf_ablation.cu",
+               "fused_nerf_train.cu")
+    jobs = [(where, source) for where in (tree, ROOT) for source in sources]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        found = list(pool.map(lambda job: sass_instructions(*job), jobs))
+    before = {k: v for part in found[:len(sources)] for k, v in part.items()}
+    after = {k: v for part in found[len(sources):] for k, v in part.items()}
+    counted = same = 0
+    for key in sorted(before):
+        old, new = before[key], after.get(key, [])
+        counted += len(old) == len(new)
+        same += old == new
+        log(f"SASS {key}: {len(old)} in {tree}, {len(new)} here: "
+            + ("identical" if old == new else
+               "same count" if len(old) == len(new) else "OTHER COUNT"))
+    log(f"SASS: {counted} of {len(before)} kernels with the same instruction "
+        f"count ({same} identical); {len(after)} kernels here")
+    return 0 if counted == len(before) else 1
+
+
 def run_times(tree: str) -> int:
     """--times-only: the step-1 timings of the port found in ``tree``,
     as one JSON line, so that two checkouts can be timed in turns."""
@@ -2023,6 +2229,9 @@ def main(argv=None) -> int:
                         choices=("all", "tail"),
                         help="only print the readings behind K2's bf16 "
                              "limits (tail: the flagship's tail alone)")
+    parser.add_argument("--sass", metavar="DIR",
+                        help="only compare the SASS instruction counts of "
+                             "K1's, P2's and K2's kernels in DIR and here")
     parser.add_argument("--tree", default=ROOT,
                         help="with --times-only or --k2-limits: import the "
                              "port from this checkout (e.g. an unpacked "
@@ -2034,6 +2243,8 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.sass:
+        return run_sass(os.path.abspath(args.sass))
     if args.k2_limits or args.times_only:
         sys.path.insert(0, os.path.abspath(args.tree))
     if args.k2_limits:
@@ -2066,7 +2277,7 @@ def main(argv=None) -> int:
     phase_render_trained(checkpoint)
     model = flagship_nerf(torch.Generator().manual_seed(SEED)).cuda()
     log("K3 vs plain twin, flagship:")
-    phase_ray_render_vs_twin(model)
+    render_checks = phase_ray_render_vs_twin(model)
     render = phase_ray_render_timing(model)
     del model
     torch.cuda.empty_cache()
@@ -2189,11 +2400,19 @@ def main(argv=None) -> int:
         "plain_ms": render[("bfloat16", 128)]["plain_ms"],
         **bounds["fused_ray_render"]["bf16"],
         "library_ms": None,
-        "shape": f"R={RENDER_RAYS} S=128 (ms) and S=48 (s48_*)",
+        "shape": f"R={RENDER_RAYS} S=128 (ms) and S=48 (s48_*); f32 (f32_*); "
+                 f"the validate CLI's R=64 (validate_ms_s<S>)",
+        "mean_abs_err": render[("bfloat16", 128)]["mean_abs_err"],
+        "checks": render_checks,
         "f32_bound_ms": bounds["fused_ray_render"]["f32"]["bound_ms"],
+        "f32_tf32x3_bound_ms":
+            bounds["fused_ray_render"]["tf32x3"]["bound_ms"],
         "s48_bound_ms": bounds["fused_ray_render"]["bf16_s48"]["bound_ms"],
+        "s48_f32_tf32x3_bound_ms":
+            bounds["fused_ray_render"]["tf32x3_s48"]["bound_ms"],
         "k1_composite_ms": render[("bfloat16", 128)]["k1_composite_ms"],
         "f32_max_abs_err": render[("float32", 128)]["max_abs_err"],
+        "f32_mean_abs_err": render[("float32", 128)]["mean_abs_err"],
         "f32_ms": render[("float32", 128)]["ms"],
         "f32_plain_ms": render[("float32", 128)]["plain_ms"],
         "f32_k1_composite_ms": render[("float32", 128)]["k1_composite_ms"],
@@ -2204,6 +2423,10 @@ def main(argv=None) -> int:
         "s48_f32_plain_ms": render[("float32", 48)]["plain_ms"],
         "s48_f32_k1_composite_ms":
             render[("float32", 48)]["k1_composite_ms"],
+        **{f"{prefix}validate_ms_s{samples}":
+           render[(name, "validate", samples)]
+           for name, prefix in (("bfloat16", ""), ("float32", "f32_"))
+           for samples in (42, 48, 128)},
         "validate_launches": validate_launches,
     }, {
         "name": "exclusive_cumprod_scan",

@@ -22,22 +22,29 @@
 // to the next, each layer a short product that every block of a cluster
 // must finish before any block starts the next.
 //
-// P1a is built for that latency. A block owns a 32x32 output tile, so the
-// tool's (128, 128) @ (128, 256) spreads over 32 blocks, and stages K 128
-// bytes at a time: at K <= 128 one stage holds the whole product, with one
-// barrier between the copies and the products. W's rows go to shared memory
-// as 16-byte cp.async copies (zero-filled past M and K) into rows padded to
-// 144 bytes, so the eight rows an ldmatrix reads start on distinct banks.
-// The int8 tensor-core instruction, mma.sync m16n8k32, takes B K-contiguous
-// and h is N-contiguous: each thread reads 8 bytes of four consecutive rows
-// of h, transposes each 4x4 byte block with __byte_perm and stores h^T as
-// (N, K) rows. ldmatrix.x4 feeds A and B; each of the four warps owns a
-// 16x16 quarter of the tile as two n8 accumulators, stored from registers
-// as int2 pairs. A byte-wise path inside the kernel stages W when its base
-// or K is not 16-byte aligned and h when its base or N is not 8-byte
-// aligned (the tool's ragged (100, 72, 250) takes both); the edge stores
-// are masked.
-//
+// P1a and P1b share one kernel, built for that latency. A block owns a
+// 32x32 output tile, so the tool's (128, 128) @ (128, 256) spreads over 32
+// blocks, and stages K 128 bytes at a time: at K <= 128 one stage holds the
+// whole product, with one barrier between the copies and the products. W's
+// rows go to shared memory as 16-byte cp.async copies (zero-filled past M
+// and K) into rows padded to 144 bytes, so the eight rows an ldmatrix reads
+// start on distinct banks. The int8 tensor-core instruction, mma.sync
+// m16n8k32, takes B K-contiguous and B's source is N-contiguous: each thread
+// reads four consecutive rows of 8 columns, transposes each 4x4 byte block
+// with __byte_perm and stores B^T as (N, K) rows. ldmatrix.x4 feeds A and B;
+// each of the four warps owns a 16x16 quarter of the tile as two n8
+// accumulators, stored from registers in pairs. A byte-wise path inside the
+// kernel stages W when its base or K is not 16-byte aligned and B when its
+// base or N is not aligned (the tool's ragged (100, 72, 250) takes both);
+// the edge stores are masked. The B source is a compile-time policy:
+// * P1a (Int8Source): int8 h, 8 bytes a row piece;
+// * P1b (QuantSource): f32 x, quantized as the block stages it. Every block
+//   needs max|x| first, so each reduces all of x itself (128 KB at the
+//   tool's shape, from L2 after the first block's reads: no second launch
+//   and no exchange between blocks), then quantizes each value as it loads
+//   it (32 bytes a row piece, IEEE division and round-half-even, as
+//   jnp.round: this file must not be built with --use_fast_math) and
+//   dequantizes in the epilogue, int32 sum times scale in f32.
 // P1c spreads the chain over the card (its first design, a block a
 // 64-column slab of h that copied each layer's whole W into shared memory
 // and ran WMMA, gave 32 blocks for 132 SMs at the tool's N = 2048 and took
@@ -64,20 +71,11 @@
 //   which this block sends only once its products have read that buffer.
 //   What bounds the chain is that exchange and the product's latency, L
 //   times.
-// P1b keeps a simpler scheme: every operand goes through shared memory as
-// 16x16 row-major panels, each 256 elements from the last, so every WMMA
-// pointer is 32-byte aligned and any M, K, N can be zero-padded; one block
-// (it needs max|x| over all of x first) reduces the max, quantizes x as it
-// stages it (IEEE division and round-half-even, as jnp.round; this file must
-// not be built with --use_fast_math), walks the 64x64 output tiles with K in
-// chunks of 64, each warp owning two 16x16 int32 accumulators, and
-// dequantizes in the epilogue.
 // The kernels launch on the caller's stream and allocate nothing; each
 // entry point returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 #include <type_traits>
@@ -87,23 +85,9 @@
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kPanel = 256;     // elements of one 16x16 panel
-constexpr int kTile = 64;       // P1b: output tile side and K chunk
-constexpr int kTilePanels = kTile / 16;
 constexpr int kMaxChannels = 256;   // P1c
 
-// Element (r, c) of a matrix staged as 16x16 row-major panels,
-// `panels_per_row` panels to a panel row.
-__device__ __forceinline__ int panel_index(int r, int c, int panels_per_row) {
-  return ((r >> 4) * panels_per_row + (c >> 4)) * kPanel + (r & 15) * 16
-         + (c & 15);
-}
-
-// --- P1a ----------------------------------------------------------------------
+// --- P1a and P1b --------------------------------------------------------------
 
 constexpr int kMmaTile = 32;             // output tile side
 constexpr int kMmaThreads = 128;         // 4 warps, a 16x16 quarter each
@@ -111,11 +95,11 @@ constexpr int kMmaK = 128;               // K bytes staged at a time
 constexpr int kMmaPitch = kMmaK + 16;    // padded shared row, 16-byte aligned
 
 static_assert((kMmaK / 4) * (kMmaTile / 8) == kMmaThreads,
-              "stage_h gives each thread 4 rows x 8 columns of h");
+              "stage_b gives each thread 4 rows x 8 columns of B");
 
 struct MmaShared {
   __align__(16) signed char a[kMmaTile * kMmaPitch];    // W (m, k)
-  __align__(16) signed char bt[kMmaTile * kMmaPitch];   // h^T (n, k)
+  __align__(16) signed char bt[kMmaTile * kMmaPitch];   // B^T (n, k)
 };
 
 __device__ __forceinline__ unsigned shared_address(const void* p) {
@@ -197,11 +181,87 @@ __device__ __forceinline__ void stage_w(const signed char* __restrict__ w,
   }
 }
 
-// h rows k0.. and columns n0.. of one stage, transposed into s.bt.
-__device__ __forceinline__ void stage_h(const signed char* __restrict__ h,
-                                        int K, int N, int n0, int k0,
-                                        bool vector, MmaShared& s) {
-  if (vector) {   // h and N 8-byte aligned: a piece is all in or all out
+// B's source. P1a: int8 h (K, N) as it lies in memory.
+struct Int8Source {
+  const signed char* __restrict__ h;
+
+  // Nothing to do before the product.
+  __device__ __forceinline__ void prepare(int, int, MmaShared&) {}
+  // Row k's bytes of columns n .. n + 7 at offset k N + n (vector path:
+  // 8-byte aligned, all in).
+  __device__ __forceinline__ uint2 load8(long long offset) const {
+    return __ldg(reinterpret_cast<const uint2*>(h + offset));
+  }
+  __device__ __forceinline__ signed char at(long long offset) const {
+    return h[offset];
+  }
+  // An int32 sum as it is stored.
+  __device__ __forceinline__ int finish(int v) const { return v; }
+};
+
+// P1b: f32 x (K, N), each value round(x / scale) as int8, with scale =
+// max|x| / 127 + 1e-30 found by prepare; sums are stored times scale.
+struct QuantSource {
+  const float* __restrict__ x;
+  float scale;
+
+  // scale, from every value of x: each thread's max of |x| over every
+  // 128th float4 (or value, at a base that is not 16-byte aligned), then
+  // the warps' maxima through shared memory.
+  __device__ __forceinline__ void prepare(int K, int N, MmaShared& s) {
+    const long long count = static_cast<long long>(K) * N;
+    float m = 0.0f;
+    long long i = threadIdx.x;
+    if (reinterpret_cast<std::uintptr_t>(x) % 16 == 0) {
+      const float4* x4 = reinterpret_cast<const float4*>(x);
+#pragma unroll 8
+      for (; i < count / 4; i += kMmaThreads) {
+        const float4 v = __ldg(x4 + i);
+        m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
+                           fmaxf(fabsf(v.z), fabsf(v.w))));
+      }
+      i = count / 4 * 4 + threadIdx.x;   // the last count % 4 values
+    }
+    for (; i < count; i += kMmaThreads) m = fmaxf(m, fabsf(__ldg(x + i)));
+#pragma unroll
+    for (int offset = 16; offset > 0; offset >>= 1) {
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, offset));
+    }
+    float* warp_max = reinterpret_cast<float*>(s.bt);
+    if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = m;
+    __syncthreads();
+    m = fmaxf(fmaxf(warp_max[0], warp_max[1]),
+              fmaxf(warp_max[2], warp_max[3]));
+    scale = m / 127.0f + 1e-30f;   // IEEE division, as jnp
+    __syncthreads();   // warp_max is read before s.bt is staged
+  }
+  __device__ __forceinline__ uint32_t quantize(float v) const {
+    return static_cast<uint32_t>(static_cast<unsigned char>(
+        static_cast<signed char>(__float2int_rn(v / scale))));
+  }
+  __device__ __forceinline__ uint32_t quantize4(float4 v) const {
+    return quantize(v.x) | (quantize(v.y) << 8) | (quantize(v.z) << 16)
+           | (quantize(v.w) << 24);
+  }
+  // (vector path: x 16-byte aligned and N a multiple of 8)
+  __device__ __forceinline__ uint2 load8(long long offset) const {
+    const float4* p = reinterpret_cast<const float4*>(x + offset);
+    return make_uint2(quantize4(__ldg(p)), quantize4(__ldg(p + 1)));
+  }
+  __device__ __forceinline__ signed char at(long long offset) const {
+    return static_cast<signed char>(__float2int_rn(x[offset] / scale));
+  }
+  __device__ __forceinline__ float finish(int v) const {
+    return static_cast<float>(v) * scale;
+  }
+};
+
+// B rows k0.. and columns n0.. of one stage, transposed into s.bt.
+template <typename Source>
+__device__ __forceinline__ void stage_b(const Source& src, int K, int N,
+                                        int n0, int k0, bool vector,
+                                        MmaShared& s) {
+  if (vector) {   // a row piece of 8 columns is all in or all out
     // thread: rows k0 + 4 * kg .. + 3, columns n0 + 8 * ng .. + 7
     const int kg = threadIdx.x / 4;
     const int ng = threadIdx.x % 4;
@@ -211,10 +271,7 @@ __device__ __forceinline__ void stage_h(const signed char* __restrict__ h,
     for (int i = 0; i < 4; ++i) {
       const int k = k0 + kg * 4 + i;
       uint2 v = make_uint2(0u, 0u);
-      if (k < K && n < N) {
-        v = __ldg(reinterpret_cast<const uint2*>(
-            h + static_cast<long long>(k) * N + n));
-      }
+      if (k < K && n < N) v = src.load8(static_cast<long long>(k) * N + n);
       lo[i] = v.x;
       hi[i] = v.y;
     }
@@ -238,29 +295,40 @@ __device__ __forceinline__ void stage_h(const signed char* __restrict__ h,
     const int c = idx % kMmaTile;
     s.bt[c * kMmaPitch + kk] =
         k0 + kk < K && n0 + c < N
-            ? h[static_cast<long long>(k0 + kk) * N + n0 + c] : 0;
+            ? src.at(static_cast<long long>(k0 + kk) * N + n0 + c) : 0;
   }
 }
 
-// out[r, c..c+1] = (v0, v1), masked to (M, N); one int2 where it can.
-__device__ __forceinline__ void store_pair(int* __restrict__ out, int M,
-                                           int N, int r, int c, int v0,
-                                           int v1, bool vector) {
+__device__ __forceinline__ void store2(int* p, int v0, int v1) {
+  *reinterpret_cast<int2*>(p) = make_int2(v0, v1);
+}
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+// out[r, c..c+1] = (v0, v1), masked to (M, N); one 8-byte store where it
+// can.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* __restrict__ out, int M, int N,
+                                           int r, int c, T v0, T v1,
+                                           bool vector) {
   if (r >= M || c >= N) return;
-  int* p = out + static_cast<long long>(r) * N + c;
+  T* p = out + static_cast<long long>(r) * N + c;
   if (vector) {   // N even and out 8-byte aligned: c + 1 < N too
-    *reinterpret_cast<int2*>(p) = make_int2(v0, v1);
+    store2(p, v0, v1);
     return;
   }
   p[0] = v0;
   if (c + 1 < N) p[1] = v1;
 }
 
+// out (M, N) = W (M, K) @ B (K, N), B from `src`, each sum finished by
+// src.finish: one 32x32 tile a block.
+template <typename Source, typename T>
 __global__ void __launch_bounds__(kMmaThreads)
-int8_matmul_kernel(const signed char* __restrict__ w,
-                   const signed char* __restrict__ h, int* __restrict__ out,
-                   int M, int K, int N, bool w_vector, bool h_vector,
-                   bool out_vector) {
+int8_matmul_kernel(const signed char* __restrict__ w, Source src,
+                   T* __restrict__ out, int M, int K, int N, bool w_vector,
+                   bool b_vector, bool out_vector) {
   __shared__ MmaShared s;
   const int m0 = blockIdx.y * kMmaTile;
   const int n0 = blockIdx.x * kMmaTile;
@@ -269,9 +337,10 @@ int8_matmul_kernel(const signed char* __restrict__ w,
   const int wm = (warp / 2) * 16;   // the warp's quarter of the tile
   const int wn = (warp % 2) * 16;
   int acc[2][4] = {};
+  src.prepare(K, N, s);
   for (int k0 = 0; k0 < K; k0 += kMmaK) {
     stage_w(w, M, K, m0, k0, w_vector, s);
-    stage_h(h, K, N, n0, k0, h_vector, s);
+    stage_b(src, K, N, n0, k0, b_vector, s);
     cp_async_wait_all();
     __syncthreads();
     const int depth = K - k0 < kMmaK ? K - k0 : kMmaK;   // zeros beyond
@@ -293,122 +362,26 @@ int8_matmul_kernel(const signed char* __restrict__ w,
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int c = n0 + wn + j * 8 + 2 * t;
-    store_pair(out, M, N, m0 + wm + g, c, acc[j][0], acc[j][1], out_vector);
-    store_pair(out, M, N, m0 + wm + g + 8, c, acc[j][2], acc[j][3],
-               out_vector);
+    store_pair(out, M, N, m0 + wm + g, c, src.finish(acc[j][0]),
+               src.finish(acc[j][1]), out_vector);
+    store_pair(out, M, N, m0 + wm + g + 8, c, src.finish(acc[j][2]),
+               src.finish(acc[j][3]), out_vector);
   }
 }
 
-// --- P1b ----------------------------------------------------------------------
-
-struct QuantSource {         // B is round(x / scale) as int8
-  const float* x;
-  float scale;
-  __device__ signed char operator()(long long idx) const {
-    return static_cast<signed char>(__float2int_rn(x[idx] / scale));
-  }
-};
-
-struct StoreScaled {
-  float* out;
-  float scale;
-  __device__ void operator()(long long idx, int v) const {
-    out[idx] = static_cast<float>(v) * scale;
-  }
-};
-
-struct GemmShared {
-  __align__(32) signed char a[kTile * kTile];
-  __align__(32) signed char b[kTile * kTile];
-  __align__(32) int c[kTile * kTile];
-};
-
-// C = A (M, K) @ B (K, N) in int8 with int32 sums, for the 64x64 output
-// tiles first_tile, first_tile + tile_step, ...; store(index, value)
-// finishes each element of C.
-template <typename Source, typename Store>
-__device__ void gemm_tiles(const signed char* __restrict__ a, Source src,
-                           Store store, int M, int K, int N, int first_tile,
-                           int tile_step, GemmShared& s) {
-  const int tiles_n = (N + kTile - 1) / kTile;
-  const int tiles = ((M + kTile - 1) / kTile) * tiles_n;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 2;          // the warp's row panel
-  const int wn = (warp % 2) * 2;    // the first of its two column panels
-  for (int tile = first_tile; tile < tiles; tile += tile_step) {
-    const int m0 = (tile / tiles_n) * kTile;
-    const int n0 = (tile % tiles_n) * kTile;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2];
-    wmma::fill_fragment(acc[0], 0);
-    wmma::fill_fragment(acc[1], 0);
-    for (int k0 = 0; k0 < K; k0 += kTile) {
-      for (int idx = threadIdx.x; idx < kTile * kTile; idx += kThreads) {
-        const int r = idx / kTile;
-        const int c = idx % kTile;
-        const int slot = panel_index(r, c, kTilePanels);
-        s.a[slot] = (m0 + r < M && k0 + c < K)
-                        ? a[static_cast<long long>(m0 + r) * K + k0 + c] : 0;
-        s.b[slot] = (k0 + r < K && n0 + c < N)
-                        ? src(static_cast<long long>(k0 + r) * N + n0 + c) : 0;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kTilePanels; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                       wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, s.a + (wm * kTilePanels + kk) * kPanel, 16);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                         wmma::row_major> fb;
-          wmma::load_matrix_sync(
-              fb, s.b + (kk * kTilePanels + wn + j) * kPanel, 16);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-      __syncthreads();   // the panels are restaged next chunk
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(s.c + wm * 16 * kTile + (wn + j) * 16, acc[j],
-                              kTile, wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kTile * kTile; idx += kThreads) {
-      const int r = idx / kTile;
-      const int c = idx % kTile;
-      if (m0 + r < M && n0 + c < N) {
-        store(static_cast<long long>(m0 + r) * N + n0 + c, s.c[idx]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// One block: max|x|, then every tile of W @ round(x / scale), dequantized.
-__global__ void __launch_bounds__(kThreads)
-quantized_matmul_kernel(const float* __restrict__ x,
-                        const signed char* __restrict__ w,
-                        float* __restrict__ out, int M, int K, int N) {
-  __shared__ GemmShared s;
-  __shared__ float warp_max[kWarps];
-  float m = 0.0f;
-  const long long count = static_cast<long long>(K) * N;
-  for (long long i = threadIdx.x; i < count; i += kThreads) {
-    m = fmaxf(m, fabsf(x[i]));
-  }
-#pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, offset));
-  }
-  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = m;
-  __syncthreads();
-  m = warp_max[0];
-#pragma unroll
-  for (int i = 1; i < kWarps; ++i) m = fmaxf(m, warp_max[i]);
-  const float scale = m / 127.0f + 1e-30f;   // IEEE division, as jnp
-  gemm_tiles(w, QuantSource{x, scale}, StoreScaled{out, scale}, M, K, N, 0,
-             1, s);
+template <typename Source, typename T>
+cudaError_t launch_matmul(const void* w, Source src, void* out, int M, int K,
+                          int N, bool b_vector, cudaStream_t stream) {
+  const auto address = [](const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p);
+  };
+  const bool w_vector = address(w) % 16 == 0 && K % 16 == 0;
+  const bool out_vector = address(out) % 8 == 0 && N % 2 == 0;
+  const dim3 grid((N + kMmaTile - 1) / kMmaTile, (M + kMmaTile - 1) / kMmaTile);
+  int8_matmul_kernel<Source, T><<<grid, kMmaThreads, 0, stream>>>(
+      static_cast<const signed char*>(w), src, static_cast<T*>(out), M, K, N,
+      w_vector, b_vector, out_vector);
+  return cudaGetLastError();
 }
 
 // --- P1c ----------------------------------------------------------------------
@@ -824,29 +797,22 @@ cudaError_t launch_stack_slice(const void* h0, const void* ws, void* out,
 extern "C" int int8_matmul(const void* w, const void* h, void* out, int M,
                            int K, int N, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const auto address = [](const void* p) {
-    return reinterpret_cast<std::uintptr_t>(p);
-  };
-  const bool w_vector = address(w) % 16 == 0 && K % 16 == 0;
-  const bool h_vector = address(h) % 8 == 0 && N % 8 == 0;
-  const bool out_vector = address(out) % 8 == 0 && N % 2 == 0;
-  const dim3 grid((N + kMmaTile - 1) / kMmaTile, (M + kMmaTile - 1) / kMmaTile);
-  int8_matmul_kernel<<<grid, kMmaThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const signed char*>(w), static_cast<const signed char*>(h),
-      static_cast<int*>(out), M, K, N, w_vector, h_vector, out_vector);
-  return static_cast<int>(cudaGetLastError());
+  const bool h_vector = reinterpret_cast<std::uintptr_t>(h) % 8 == 0
+                        && N % 8 == 0;
+  return static_cast<int>(launch_matmul<Int8Source, int>(
+      w, Int8Source{static_cast<const signed char*>(h)}, out, M, K, N,
+      h_vector, static_cast<cudaStream_t>(stream)));
 }
 
-// P1b: x (K, N) f32, w (M, K) int8 -> out (M, N) f32, in one block.
+// P1b: x (K, N) f32, w (M, K) int8 -> out (M, N) f32, over P1a's grid.
 extern "C" int quantized_matmul(const void* x, const void* w, void* out, int M,
                                 int K, int N, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  quantized_matmul_kernel<<<1, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const signed char*>(w),
-      static_cast<float*>(out), M, K, N);
-  return static_cast<int>(cudaGetLastError());
+  const bool x_vector = reinterpret_cast<std::uintptr_t>(x) % 16 == 0
+                        && N % 8 == 0;
+  return static_cast<int>(launch_matmul<QuantSource, float>(
+      w, QuantSource{static_cast<const float*>(x), 0.0f}, out, M, K, N,
+      x_vector, static_cast<cudaStream_t>(stream)));
 }
 
 // P1c: h0 (C, N), ws (L, C, C) -> out (C, N) f32. dtype: 0 = int8, 1 = bf16.

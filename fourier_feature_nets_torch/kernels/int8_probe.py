@@ -120,8 +120,8 @@ int8_matmul.launches = 0
 
 
 def quantized_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """P1b: f32 x (K, N) and int8 w (M, K) -> f32 (M, N), in one block
-    of the card."""
+    """P1b: f32 x (K, N) and int8 w (M, K) -> f32 (M, N), on P1a's
+    grid of 32x32 output tiles, each block finding max|x| itself."""
     if not on_cuda(x, "quantized matmul"):
         return quantized_matmul_reference(x, w)
     device = x.device

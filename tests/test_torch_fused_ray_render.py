@@ -17,18 +17,21 @@ from fourier_feature_nets_torch.kernels.fused_nerf import (
     prepare_fused_nerf as port_prepare,
 )
 from fourier_feature_nets_torch.kernels.fused_ray_render import (
+    K3_BF16_ATOL,
+    K3_BF16_MEAN_ATOL,
     exclusive_cumprod_scan,
     fused_ray_render as port_render,
     fused_ray_render_reference,
-    rays_per_block,
+    ray_group,
 )
 from fourier_feature_nets_torch.models import NeRF as TorchNeRF
+from fourier_feature_nets_torch.models import flagship_nerf as torch_flagship
 from fourier_feature_nets_torch.models import params_from_jax
 from fourier_feature_nets_torch.ops import exclusive_cumprod
 from fourier_feature_nets_torch.render import Raycaster as TorchRaycaster
 from fourier_feature_nets_torch.render import RaySamples as TorchRaySamples
 from fourier_feature_nets_torch.render.raycaster import _composite
-from fourier_feature_nets_tpu.models import NeRF
+from fourier_feature_nets_tpu.models import NeRF, flagship_nerf
 from fourier_feature_nets_tpu.models.serialization import (
     _flatten,
     _unflatten,
@@ -241,14 +244,104 @@ def test_cuda_input_checks(nerf, bad):
         _check_cuda_inputs(weights, pos, views, t)
 
 
-def test_rays_per_block_fills_whole_tiles():
-    assert rays_per_block(42) == 24      # 1,008 points, 15.75 tiles
-    assert rays_per_block(48) == 4       # 192 points, 3 tiles
-    assert rays_per_block(128) == 1      # 2 tiles
-    assert rays_per_block(4096) == 1
+def test_ray_group_fills_whole_pieces():
+    """The rays a warpgroup of the kernel takes at a time: the fewest
+    whose samples fill whole 64-row pieces, within 32 rays and 2048
+    samples, and for a small launch no more than leave each SM two
+    groups."""
+    assert ray_group(42) == (32, 21)     # 1,344 samples, 21 pieces
+    assert ray_group(48) == (4, 3)       # 192 samples, 3 pieces
+    assert ray_group(128) == (1, 2)
+    assert ray_group(4096) == (1, 64)
     for num_samples in range(2, 300):
-        rays = rays_per_block(num_samples)
+        rays, pieces = ray_group(num_samples)
         assert 1 <= rays <= 32 and rays * num_samples <= 4096
+        assert (pieces - 1) * 64 < rays * num_samples <= pieces * 64
+    # an H100's 132 SMs: the render chunk keeps whole groups, the
+    # validate CLI's 64 rays go one a group
+    assert ray_group(42, 16384, 132) == (32, 21)
+    assert ray_group(42, 64, 132) == (1, 1)
+    assert ray_group(48, 1001, 132) == (3, 3)
+
+
+def _kernel_rows(num_rays, num_samples, rays):
+    """The points each live row of the kernel takes, as
+    csrc/fused_nerf_forward.cuh::piece_rows maps them: tile t's
+    warpgroup w takes group 2t + w of `rays` rays, its rows piece by
+    piece, those below the group's end and R S live; (point, group)
+    for each."""
+    pieces = -(-rays * num_samples // 64)
+    group_points = rays * num_samples
+    groups = -(-num_rays // rays)
+    taken = []
+    for tile in range((groups + 1) // 2):
+        for piece in range(pieces):
+            for w in range(2):
+                first = (2 * tile + w) * group_points
+                end = min(first + group_points, num_rays * num_samples)
+                row0 = first + 64 * piece
+                taken += [(p, 2 * tile + w)
+                          for p in range(row0, min(row0 + 64, end))]
+    return taken, rays
+
+
+@pytest.mark.parametrize("num_rays, num_samples", [
+    (1001, 42), (1001, 48), (517, 128), (3, 4096), (65, 2), (999, 65)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_ray_groups_cover_every_ray_once(num_rays, num_samples, sms):
+    """For a ragged R, the groups' live rows take every sample of every
+    ray exactly once, each ray's samples within one group (no ray
+    straddles two warpgroups), whole groups (one SM) or those of a
+    launch on 132 SMs."""
+    rays, _ = ray_group(num_samples, num_rays, sms)
+    taken, _ = _kernel_rows(num_rays, num_samples, rays)
+    points = [p for p, _ in taken]
+    assert sorted(points) == list(range(num_rays * num_samples))
+    for p, group in taken:
+        assert (p // num_samples) // rays == group
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    model = flagship_nerf()
+    params = model.init(jax.random.PRNGKey(0))
+    flat = {k: np.asarray(v) for k, v in _flatten(params).items()}
+    return model, params, params_from_jax(torch_flagship(), flat)
+
+
+def test_unrounded_view_twin_fails_the_bf16_mean_limit(flagship):
+    """The control behind K3's bf16 limits, on the flagship: the twin
+    with each ray's view product left unrounded (K1's rounding point)
+    differs from the twin by more than K3_BF16_MEAN_ATOL, while the twin
+    stays within K3's limits of the Pallas kernel in interpret mode.
+    (Read on the CPU: twin vs Pallas max 1.2e-6, mean 9.9e-8; the
+    unrounded twin mean 1.3e-5 from both.)"""
+    model, params, torch_model = flagship
+    pos, d, t = _rays(NUM_RAYS, 42)
+    ref = _jax_render(model, params, jnp.bfloat16, pos, d, t)
+    weights = port_prepare(torch_model, torch.bfloat16)
+    with torch.no_grad():
+        twin, unrounded = (fused_ray_render_reference(
+            weights, torch.from_numpy(pos), torch.from_numpy(d),
+            torch.from_numpy(t), moved).numpy()
+            for moved in (None, "unrounded-view"))
+    assert np.abs(twin - ref).max() <= K3_BF16_ATOL
+    assert np.abs(twin - ref).mean() <= K3_BF16_MEAN_ATOL
+    assert np.abs(unrounded - twin).mean() > K3_BF16_MEAN_ATOL
+    assert np.abs(unrounded - ref).mean() > K3_BF16_MEAN_ATOL
+
+
+def test_unrounded_view_twin_is_the_twin_in_f32(nerf):
+    """In f32 the view product has no rounding to leave out."""
+    _, _, torch_model = nerf
+    weights = port_prepare(torch_model, torch.float32)
+    pos, d, t = map(torch.from_numpy, _rays(9, 48))
+    with torch.no_grad():
+        assert torch.equal(
+            fused_ray_render_reference(weights, pos, d, t),
+            fused_ray_render_reference(weights, pos, d, t, "unrounded-view"))
+    with pytest.raises(ValueError, match="moved must be one of"):
+        fused_ray_render_reference(weights, pos, d, t, "uncast-hidden")
 
 
 # ---------------------------------------------------------------------------

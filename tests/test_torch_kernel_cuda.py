@@ -24,10 +24,14 @@ from fourier_feature_nets_torch.kernels import fused_nerf_train as train
 from fourier_feature_nets_torch.kernels import int8_probe as probe
 from fourier_feature_nets_torch.kernels import io_floor as io
 from fourier_feature_nets_torch.kernels.fused_ray_render import (
+    K3_BF16_ATOL,
+    K3_BF16_MEAN_ATOL,
+    K3_F32_MEAN_ATOL,
+    MEAN_RAYS,
     exclusive_cumprod_scan,
     fused_ray_render,
     fused_ray_render_reference,
-    rays_per_block,
+    launch_ray_group,
 )
 from fourier_feature_nets_torch.models import NeRF, flagship_nerf
 from fourier_feature_nets_torch.ops import exclusive_cumprod
@@ -837,6 +841,19 @@ def _rays(num_rays, num_samples, device, seed=7):
     return tuple(torch.from_numpy(a).to(device) for a in (pos, d, t))
 
 
+def _assert_render_within(out, twin, dtype):
+    """K3's limits against its twin (kernels/fused_ray_render.py): the
+    mean ones from MEAN_RAYS rays on."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, twin, rtol=1e-3, atol=2e-4)
+        mean = K3_F32_MEAN_ATOL
+    else:
+        torch.testing.assert_close(out, twin, rtol=0, atol=K3_BF16_ATOL)
+        mean = K3_BF16_MEAN_ATOL
+    if out.shape[0] >= MEAN_RAYS:
+        assert (out - twin).abs().mean().item() <= mean
+
+
 def _assert_render_matches_twin(weights, pos, d, t):
     before = fused_ray_render.launches
     with torch.no_grad():
@@ -845,12 +862,7 @@ def _assert_render_matches_twin(weights, pos, d, t):
     torch.cuda.synchronize()
     assert fused_ray_render.launches == before + 1
     assert out.shape == (t.shape[0], 4) and torch.isfinite(out).all()
-    if weights.weights.dtype == torch.float32:
-        torch.testing.assert_close(out, twin, rtol=1e-3, atol=2e-4)
-        if pos.shape[0] >= MEAN_POINTS:
-            assert (out - twin).abs().mean().item() <= K1_F32_MEAN_ATOL
-    else:
-        torch.testing.assert_close(out, twin, rtol=0, atol=0.05)
+    _assert_render_within(out, twin, weights.weights.dtype)
     return twin
 
 
@@ -868,13 +880,14 @@ def test_ray_render_matches_twin(cuda, dtype, num_samples, num_rays):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("num_samples", [42, 48])
 def test_ray_render_signal_only_in_last_ray_block(cuda, dtype, num_samples):
-    """Every ray outside the ragged last ray block has all its samples at
-    one depth, so its alpha is exactly 0: only the last block's alphas
-    carry signal, and a block the kernel dropped or mis-masked there
-    cannot hide behind the rest."""
+    """Every ray outside the ragged last ray group (the last warpgroup's
+    rays, :func:`launch_ray_group`) has all its samples at one depth, so
+    its alpha is exactly 0: only the last group's alphas carry signal,
+    and a group the kernel dropped or mis-masked there cannot hide
+    behind the rest."""
     num_rays = 1001
-    last = num_rays % rays_per_block(num_samples) or rays_per_block(
-        num_samples)
+    rays, _ = launch_ray_group(num_rays, num_samples, cuda)
+    last = num_rays % rays or rays
     model = NeRF(**SMALL, generator=torch.Generator().manual_seed(1)).to(cuda)
     pos, d, t = _rays(num_rays, num_samples, cuda)
     t[:-last] = 2.0
@@ -887,10 +900,96 @@ def test_ray_render_signal_only_in_last_ray_block(cuda, dtype, num_samples):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_ray_render_flagship_matches_twin(cuda, dtype):
+@pytest.mark.parametrize("num_samples", [42, 48, 128])
+def test_ray_render_flagship_matches_twin(cuda, dtype, num_samples):
     model = flagship_nerf(torch.Generator().manual_seed(0)).to(cuda)
     _assert_render_matches_twin(port.prepare_fused_nerf(model, dtype),
-                                *_rays(517, 128, cuda))
+                                *_rays(1001, num_samples, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("channels", [32, 64, 96, 128, 160, 192, 224, 256])
+def test_ray_render_every_width_matches_twin(cuda, dtype, channels):
+    """Every channel width the kernels take (a hidden layer of C / 2
+    outputs, view rows that start inside a slab at C = 96, 160, 224),
+    with a skip layer, raw inputs at every other width."""
+    model = NeRF(num_layers=3, num_channels=channels, skips=[2],
+                 include_inputs=channels % 64 == 0, max_log_scale_pos=6.0,
+                 num_freq_pos=7, max_log_scale_view=2.0, num_freq_view=3,
+                 generator=torch.Generator().manual_seed(channels)).to(cuda)
+    _assert_render_matches_twin(port.prepare_fused_nerf(model, dtype),
+                                *_rays(1001, 48, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("num_samples, num_rays", [(2, 1001), (4096, 9)])
+def test_ray_render_shortest_and_longest_rays_match_twin(cuda, dtype,
+                                                         num_samples,
+                                                         num_rays):
+    """S = 2: 32 rays a 64-row piece, each with its view product; S =
+    4096: one ray a group, 64 pieces, its transmittance and sums carried
+    through all of them."""
+    model = NeRF(**SMALL, generator=torch.Generator().manual_seed(1)).to(cuda)
+    pos, d, t = _rays(num_rays, num_samples, cuda)
+    _assert_render_matches_twin(port.prepare_fused_nerf(model, dtype),
+                                pos, d, t)
+
+
+@pytest.mark.cuda
+def test_k3_bf16_limits_reject_the_unrounded_view_product(cuda):
+    """The control: against the twin with its view product left in f32
+    (K1's rounding point), K3 bf16 fails the mean limit it holds against
+    its twin."""
+    model = flagship_nerf(torch.Generator().manual_seed(0)).to(cuda)
+    weights = port.prepare_fused_nerf(model, torch.bfloat16)
+    pos, d, t = _rays(1001, 48, cuda)
+    _assert_render_matches_twin(weights, pos, d, t)
+    with torch.no_grad():
+        out = fused_ray_render(weights, pos, d, t)
+        wrong = fused_ray_render_reference(weights, pos, d, t,
+                                           "unrounded-view")
+    assert (out - wrong).abs().mean().item() > K3_BF16_MEAN_ATOL
+
+
+@pytest.mark.cuda
+def test_k3_f32_limits_reject_single_tf32_products(cuda):
+    """The control: the twin on single tf32 products (allow_tf32=True)
+    fails the limits K3 f32 holds against the twin."""
+    model = flagship_nerf(torch.Generator().manual_seed(0)).to(cuda)
+    weights = port.prepare_fused_nerf(model, torch.float32)
+    pos, d, t = _rays(1001, 48, cuda)
+    twin = _assert_render_matches_twin(weights, pos, d, t)
+    with torch.no_grad(), _single_tf32():
+        wrong = fused_ray_render_reference(weights, pos, d, t)
+    err = (wrong - twin).abs()
+    assert (err > 2e-4 + 1e-3 * twin.abs()).any() \
+        or err.mean().item() > K3_F32_MEAN_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ray_render_launch_in_cuda_graph(cuda, dtype):
+    model = flagship_nerf(torch.Generator().manual_seed(0)).to(cuda)
+    weights = port.prepare_fused_nerf(model, dtype)
+    pos, d, t = _rays(1001, 48, cuda)
+    with torch.no_grad():
+        eager = fused_ray_render(weights, pos, d, t)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fused_ray_render(weights, pos, d, t)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = fused_ray_render.launches
+        with torch.cuda.graph(graph):
+            captured = fused_ray_render(weights, pos, d, t)
+        assert fused_ray_render.launches == before + 1
+        captured.zero_()
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 @pytest.mark.cuda
@@ -1063,16 +1162,68 @@ def test_wrappers_launch_inside_cuda_graph_capture(cuda):
                                atol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m, k, n", [(128, 128, 256), (100, 72, 250)])
-def test_quantized_matmul_matches_twin_exactly(cuda, m, k, n):
-    x = torch.from_numpy(np.random.default_rng(3).normal(size=(k, n)).astype(
-        np.float32)).to(cuda)
-    w = _ints((m, k), -127, 128, torch.int8, cuda, 4)
+def _assert_quantized_matmul_exact(x, w):
     before = probe.quantized_matmul.launches
     out = probe.quantized_matmul(x, w)
     torch.cuda.synchronize()
     assert probe.quantized_matmul.launches == before + 1
+    assert torch.equal(out, probe.quantized_matmul_reference(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, k, n", [(128, 128, 256), (100, 72, 250),
+                                     (1, 1, 1), (65, 129, 63)])
+def test_quantized_matmul_matches_twin_exactly(cuda, m, k, n):
+    """The tool's shape, its ragged one, and shapes past one K stage and
+    one tile, over P1a's grid: every block's max|x| is the same."""
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(k, n)).astype(
+        np.float32)).to(cuda)
+    w = _ints((m, k), -127, 128, torch.int8, cuda, 4)
+    _assert_quantized_matmul_exact(x, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", ["one row", "one element"])
+@pytest.mark.parametrize("m, k, n", [(128, 128, 256), (100, 72, 250)])
+def test_quantized_matmul_offset_bases_match_twin_exactly(cuda, m, k, n,
+                                                          offset):
+    """x and W one row into larger buffers and one element in: a base
+    that is not 16-byte aligned takes the scalar max and the byte-wise
+    quantize."""
+    x = _placed(torch.from_numpy(np.random.default_rng(5).normal(
+        size=(k, n)).astype(np.float32)).to(cuda), offset)
+    w = _placed(_ints((m, k), -127, 128, torch.int8, cuda, 6), offset)
+    _assert_quantized_matmul_exact(x, w)
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_max_in_the_last_block_is_seen_by_all(cuda):
+    """The largest |x| in one value of the last K rows and columns: a
+    block that reduced only its own tile's share of x would quantize
+    with another scale."""
+    x = torch.from_numpy(np.random.default_rng(7).uniform(
+        -1, 1, (128, 256)).astype(np.float32)).to(cuda)
+    x[127, 255] = -40.0
+    w = _ints((128, 128), -127, 128, torch.int8, cuda, 8)
+    _assert_quantized_matmul_exact(x, w)
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_launch_in_cuda_graph(cuda):
+    """A replay of the captured launch recomputes the scale from x."""
+    x = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(128, 256)).astype(np.float32)).to(cuda)
+    w = _ints((128, 128), -127, 128, torch.int8, cuda, 10)
+    probe.quantized_matmul(x, w)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = probe.quantized_matmul.launches
+    with torch.cuda.graph(graph):
+        out = probe.quantized_matmul(x, w)
+    assert probe.quantized_matmul.launches == before + 1
+    x.mul_(3.0)
+    graph.replay()
+    torch.cuda.synchronize()
     assert torch.equal(out, probe.quantized_matmul_reference(x, w))
 
 
