@@ -19,6 +19,16 @@ and drives the port's paths at the flagship width:
   ``orbit_video``, which must go through K1; a ``torch.profiler`` split
   of one such frame by kernel; a low-resolution fused render against
   the plain render;
+* the empty-space paths: two 800x800 frames at ``orbit_video``'s
+  defaults (focus sampling, the model its own opacity model, 128
+  samples, bf16), the opacity sweep timed apart; bench.py's seeded tree
+  built by the port's C++ library and saved, then ``orbit_video
+  --octree`` at 32 samples, 3 frames in occupancy mode and 1 in
+  traversal mode, the torch traversal on the card held to the C++
+  tracer on the host for one frame chunk's rays (leaves equal, t within
+  1e-5 + 1e-6 |t|), that chunk profiled for the traversal's share of its
+  device time, and a 200px occupancy frame through K1 within +-1 of the
+  plain bf16 frame; each path must launch K1;
 * training: K2 against its plain twin in bf16 and f32 at the CLI batch
   (1024 rays x 128 samples) and a ragged N, and in bf16 within
   ``fused_nerf_train.K2_BF16_MEAN_SHARE`` under the tail cotangent there
@@ -31,7 +41,10 @@ and drives the port's paths at the flagship width:
   at the CLI's defaults (f32, no fused flag), which must train the path
   ``render/raycaster.py::resolve_fused`` gives (fused: K1 and K2 must
   launch; plain: neither); the trained checkpoint then renders an
-  800x800 frame through ``orbit_video``;
+  800x800 frame through ``orbit_video``, and ``voxelize_model --fused``
+  (K1 must launch) makes a tree of it (at a lower ``--alpha-threshold``,
+  logged, if the checkpoint has no surface above 0.3), which renders an
+  ``--octree`` frame;
 * kernel validation: K3 (K1's kernels with a per-ray view product and a
   compositing epilogue) against its plain twin in bf16 and f32 within
   its limits (kernels/fused_ray_render.py: bf16 max K3_BF16_ATOL and
@@ -69,8 +82,9 @@ and drives the port's paths at the flagship width:
 Each phase prints its own lines; any failure raises and the script
 exits non-zero without printing a result. The last two lines are the
 per-kernel JSON record (every kernel with its launches on its path,
-error, time, its plain twin's time, bound and library time; the short
-kernels also with ``device_ms``, ``library_device_ms`` and ``host_us``)
+error, time, its plain twin's time, bound and library time; K1 also with
+its launches on each path, ``launches_by_path``; the short kernels also
+with ``device_ms``, ``library_device_ms`` and ``host_us``)
 and ``{"ok": true, "device": ...}``.
 
 ``--k2-limits [all|tail] [--tree DIR]`` prints only the readings behind
@@ -219,6 +233,7 @@ RAGGED_RAYS = 1001             # not a multiple of any ray group
 PLAIN_RENDER_ATOL = 5e-3       # tools/validate_kernels_tpu.py:167-170
 SCAN_RTOL = 1e-5               # tests/test_fused_ray_render.py:31
 TRAIN_STEPS = 30
+FRAME_RES = 800                # the focus, octree and voxelize phases' frames
 TIMED_TRAIN_STEPS = 100   # --times-only: whole train steps a path
 SEED = 0
 # The probes, at the shapes of their CLIs (the JAX tools') and ragged ones.
@@ -678,6 +693,297 @@ def phase_orbit(model):
     if launches <= 0:
         raise AssertionError("the main path did not launch the kernel")
     return launches
+
+
+def run_orbit(checkpoint: str, frames_dir: str, resolution: int, flags):
+    """cli/orbit_video into an emptied ``frames_dir``; returns (its
+    standard output, K1's launches, the wall seconds of the call). Raises
+    unless it exits 0."""
+    from fourier_feature_nets_torch.cli import orbit_video
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        fused_nerf_apply)
+    if os.path.isdir(frames_dir):
+        for name in os.listdir(frames_dir):
+            os.remove(os.path.join(frames_dir, name))
+    captured = io.StringIO()
+    fused_nerf_apply.launches = 0
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(captured):
+        rc = orbit_video.main([checkpoint, str(resolution), frames_dir,
+                               *flags])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = fused_nerf_apply.launches
+    output = captured.getvalue()
+    if rc != 0:
+        raise AssertionError(f"orbit_video {flags} returned {rc}:\n"
+                             f"{output[-2000:]}")
+    return output, launches, wall
+
+
+def check_frames(frames_dir: str, count: int, resolution: int):
+    """``count`` PNGs of resolution x resolution x 3 with a non-zero
+    peak each."""
+    names = sorted(os.listdir(frames_dir))
+    if names != [f"frame_{i:05d}.png" for i in range(count)]:
+        raise AssertionError(f"unexpected frames: {names}")
+    for name in names:
+        shape, peak = png_shape(os.path.join(frames_dir, name))
+        if shape != (resolution, resolution, 3) or peak == 0:
+            raise AssertionError(f"{name}: shape {shape}, max pixel {peak}")
+
+
+def orbit_summary(output: str) -> dict:
+    """The sampler set-up seconds and frame milliseconds of
+    cli/orbit_video's summary line."""
+    found = re.search(r"sampler set-up ([0-9.]+) s, first frame ([0-9.]+) "
+                      r"ms, (?:([0-9.]+) ms/frame|no later frames)", output)
+    if found is None:
+        raise AssertionError(f"no orbit_video summary in:\n{output[-2000:]}")
+    steady = found.group(3)
+    return {"setup_s": float(found.group(1)),
+            "first_frame_ms": float(found.group(2)),
+            "steady_frame_ms": None if steady is None else float(steady)}
+
+
+def phase_focus_orbit():
+    """The CLI's default sampler: focus sampling with the model as its
+    own opacity model, 128 samples, bf16 (K1), two 800x800 frames."""
+    checkpoint = os.path.join(OUT_DIR, "flagship_seed0.npz")
+    frames_dir = os.path.join(OUT_DIR, "focus_frames")
+    torch.cuda.reset_peak_memory_stats()
+    output, launches, wall = run_orbit(
+        checkpoint, frames_dir, FRAME_RES,
+        ["--compute-dtype", "bfloat16", "--num-frames", "2"])
+    check_frames(frames_dir, 2, FRAME_RES)
+    times = orbit_summary(output)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"orbit_video (focus sampling, 128 samples, bf16): 2 PNG frames of "
+        f"{FRAME_RES}x{FRAME_RES}, {wall:.3f} s for the CLI call; the "
+        f"opacity sweep (CDFs of {2 * FRAME_RES ** 2} rays x 64 points, f32 "
+        f"plain) {times['setup_s']:.3f} "
+        f"s; frames {times['first_frame_ms']:.3f} ms then "
+        f"{times['steady_frame_ms']:.3f} ms; peak device memory "
+        f"{peak_gb:.2f} GB; K1 launches {launches}")
+    if launches <= 0:
+        raise AssertionError("the focus orbit did not launch K1")
+    return {"launches": launches, "wall_s": wall, "peak_gb": peak_gb,
+            **times}
+
+
+def _profile_device_ms(fn):
+    """(wall ms, device ms summed over kernels) of one call of ``fn``
+    under torch.profiler, after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    device_us = sum(getattr(event, "self_device_time_total",
+                            getattr(event, "self_cuda_time_total", 0.0))
+                    for event in prof.key_averages()
+                    if event.device_type == DeviceType.CUDA)
+    return wall_ms, device_us / 1e3
+
+
+def phase_octree_orbit(model):
+    """bench.py's headline tree (its seeded cloud, depth 6, leaves of 2
+    points or more), built by the port's C++ library and saved as NPZ,
+    then orbit_video --octree at 800x800, 32 samples, bf16: 3 frames in
+    occupancy mode and 1 in traversal mode. The torch traversal on the
+    card is held to the C++ tracer on the host for one frame chunk's
+    rays; an occupancy frame at 200 px through K1 is held to the same
+    frame through the plain model in bf16; one traversal-mode chunk is
+    profiled for the traversal's share of its device time."""
+    from fourier_feature_nets_torch.cameras import Resolution
+    from fourier_feature_nets_torch.cli import orbit_video
+    from fourier_feature_nets_torch.octree import OcTree
+    from fourier_feature_nets_torch.octree.traversal import (
+        device_batch_intersect)
+    from fourier_feature_nets_torch.render import Raycaster
+    from fourier_feature_nets_torch.utils import orbit
+
+    rng = np.random.default_rng(1)
+    cloud = np.concatenate([rng.normal([0.2, 0.0, 0.0], 0.2, (20000, 3)),
+                            [[-1, -1, -1], [1, 1, 1]]]).astype(np.float32)
+    start = time.perf_counter()
+    tree = OcTree.build_from_samples(cloud, depth=6, min_leaf_size=2)
+    build_s = time.perf_counter() - start
+    tree_path = os.path.join(OUT_DIR, "bench_tree.npz")
+    tree.save(tree_path)
+    log(f"octree of bench.py's cloud (g++ build and C++ BFS): "
+        f"{tree.num_leaves} leaves, depth {tree.depth}, {build_s:.3f} s")
+    checkpoint = os.path.join(OUT_DIR, "flagship_seed0.npz")
+    result = {"leaves": tree.num_leaves, "build_s": build_s}
+    for mode, frames in (("occupancy", 3), ("traversal", 1)):
+        frames_dir = os.path.join(OUT_DIR, f"octree_{mode}_frames")
+        output, launches, wall = run_orbit(
+            checkpoint, frames_dir, FRAME_RES,
+            ["--octree", tree_path, "--octree-mode", mode, "--num-samples",
+             "32", "--compute-dtype", "bfloat16", "--num-frames",
+             str(frames)])
+        check_frames(frames_dir, frames, FRAME_RES)
+        times = orbit_summary(output)
+        steady = times["steady_frame_ms"]
+        log(f"orbit_video --octree ({mode}, 32 samples, bf16): {frames} PNG "
+            f"frames of {FRAME_RES}x{FRAME_RES}, {wall:.3f} s for the CLI "
+            f"call; sampler "
+            f"set-up {times['setup_s']:.3f} s; first frame "
+            f"{times['first_frame_ms']:.3f} ms"
+            + (f", {steady:.3f} ms a steady frame" if steady else "")
+            + f"; K1 launches {launches}")
+        if launches <= 0:
+            raise AssertionError(f"the {mode} octree orbit did not "
+                                 f"launch K1")
+        result[mode] = {"launches": launches, "wall_s": wall, **times}
+
+    device = next(model.parameters()).device
+    args = orbit_video._parse_args(["m.npz", str(FRAME_RES), OUT_DIR,
+                                    "--octree",
+                                    tree_path, "--octree-mode", "traversal",
+                                    "--num-samples", "32", "--num-frames",
+                                    "1"])
+    bounds = np.diag([2.0, 2.0, 2.0, 1.0]).astype(np.float32)
+    cameras = orbit(orbit_video.VECTORS[args.up_dir],
+                    orbit_video.VECTORS[args.forward_dir], 1,
+                    args.fov_y_degrees, Resolution(FRAME_RES, FRAME_RES),
+                    args.distance)
+    sampler = orbit_video.build_render_sampler(args, model, cameras, bounds)
+    chunk = min(args.batch_size * 4, FRAME_RES ** 2)
+    # the chunk through the middle of the frame, where the tree is
+    middle = FRAME_RES ** 2 // 2
+    offsets = torch.arange(middle - chunk // 2, middle + chunk // 2,
+                           device=device)
+    starts, dirs, _, _, _ = sampler.camera_ray_geometry(0, offsets)
+    path = device_batch_intersect(
+        sampler._node_index, sampler._leaf_index, starts, dirs,
+        scale=tree.scale, max_depth=tree.depth,
+        max_length=sampler.max_length)
+    host = tree.intersect(starts.cpu().numpy(), dirs.cpu().numpy(),
+                          sampler.max_length)
+    leaves = path.leaves.cpu().numpy()
+    t_err = np.abs(path.t_stops.cpu().numpy() - host.t_stops)
+    t_bound = 1e-5 + 1e-6 * np.abs(host.t_stops)
+    log(f"torch traversal on the card vs the C++ tracer on the host, "
+        f"{chunk} rays x {sampler.max_length} slots: leaves equal "
+        f"{bool(np.array_equal(leaves, host.leaves))} ({int((leaves >= 0).sum())}"
+        f" leaf slots), max |dt| {float(t_err.max()):.3e} (bound 1e-5 + "
+        f"1e-6 |t|)")
+    if not np.array_equal(leaves, host.leaves) or (t_err > t_bound).any():
+        raise AssertionError("the torch traversal disagrees with the C++ "
+                             "tracer")
+    if not (leaves >= 0).any():
+        raise AssertionError("the checked chunk crossed no leaf")
+
+    caster = Raycaster(model, compute_dtype=torch.bfloat16)
+
+    def render_chunk():
+        rays, _ = sampler.sample_camera_rays(0, offsets)
+        return caster.render(rays).color
+
+    def traverse_chunk():
+        return device_batch_intersect(
+            sampler._node_index, sampler._leaf_index, starts, dirs,
+            scale=tree.scale, max_depth=tree.depth,
+            max_length=sampler.max_length)
+
+    chunk_wall, chunk_device = _profile_device_ms(render_chunk)
+    trav_wall, trav_device = _profile_device_ms(traverse_chunk)
+    log(f"one traversal-mode chunk ({chunk} rays, 32 samples) under "
+        f"torch.profiler: {chunk_wall:.3f} ms wall, {chunk_device:.3f} ms "
+        f"device; its traversal alone {trav_wall:.3f} ms wall, "
+        f"{trav_device:.3f} ms device: {trav_device / chunk_device:.1%} of "
+        f"the chunk's device time, {trav_wall / chunk_wall:.1%} of its wall")
+    result["traversal_chunk"] = {
+        "rays": chunk, "wall_ms": chunk_wall, "device_ms": chunk_device,
+        "traversal_wall_ms": trav_wall, "traversal_device_ms": trav_device,
+        "traversal_device_share": trav_device / chunk_device}
+
+    from fourier_feature_nets_torch.render import OccupancyGridSampler
+    small = orbit(orbit_video.VECTORS[args.up_dir],
+                  orbit_video.VECTORS[args.forward_dir], 3,
+                  args.fov_y_degrees, Resolution(200, 200), args.distance)
+    occupancy = OccupancyGridSampler.from_tree(tree, small, 32,
+                                               bounds=bounds, device=device)
+    fused = Raycaster(model, compute_dtype=torch.bfloat16, fused=True)
+    plain = Raycaster(model, compute_dtype=torch.bfloat16, fused=False)
+    a = fused.render_frame(occupancy, 1).astype(np.int32)
+    b = plain.render_frame(occupancy, 1).astype(np.int32)
+    diff = np.abs(a - b)
+    share = float((diff <= 1).mean())
+    log(f"occupancy-octree frame, 200x200, 32 samples, bf16, K1 vs plain: "
+        f"{share:.6f} of uint8 values within +-1, max diff {int(diff.max())}")
+    if a.shape != (200, 200, 3) or not a.any() or diff.max() > 1:
+        raise AssertionError("the fused octree frame disagrees with the "
+                             "plain one")
+    result["fused_vs_plain_200px"] = {"share_within_1": share,
+                                      "max_diff": int(diff.max())}
+    return result
+
+
+def phase_voxelize(checkpoint):
+    """voxelize_model --fused on the trained checkpoint and the
+    synthetic scene it trained on (K1 f32 in its surface sweep), then
+    one --octree frame from the tree it wrote."""
+    from fourier_feature_nets_torch.cli import voxelize_model
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        fused_nerf_apply)
+    from fourier_feature_nets_torch.octree import OcTree
+
+    tree_path = os.path.join(OUT_DIR, "voxelized.npz")
+    result = {}
+    for threshold in ("0.3", "0.1", "0.02"):
+        if os.path.exists(tree_path):
+            os.remove(tree_path)
+        captured = io.StringIO()
+        fused_nerf_apply.launches = 0
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(captured):
+            rc = voxelize_model.main([checkpoint, "synthetic", tree_path,
+                                      "--fused", "--alpha-threshold",
+                                      threshold])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        output = captured.getvalue()
+        launches = fused_nerf_apply.launches
+        log("\n".join(f"    {line}" for line in output.splitlines()))
+        log(f"voxelize_model --fused --alpha-threshold {threshold}: exit "
+            f"{rc}, {wall:.3f} s for the CLI call, K1 launches {launches}")
+        if launches <= 0:
+            raise AssertionError("voxelize_model did not launch K1")
+        if rc == 0:
+            break
+        if "no surface points" not in output:
+            raise AssertionError(f"voxelize_model returned {rc}")
+        log(f"  no surface point of the {TRAIN_STEPS}-step checkpoint has "
+            f"alpha above {threshold}: the sweep runs again with a lower "
+            f"threshold")
+    if rc != 0:
+        raise AssertionError(f"voxelize_model returned {rc} at every "
+                             f"threshold")
+    tree = OcTree.load(tree_path)
+    if tree.num_leaves <= 0:
+        raise AssertionError("voxelize_model wrote a tree without leaves")
+    result.update(launches=launches, wall_s=wall, threshold=float(threshold),
+                  leaves=tree.num_leaves, depth=tree.depth)
+    frames_dir = os.path.join(OUT_DIR, "voxelized_frame")
+    output, frame_launches, _ = run_orbit(
+        checkpoint, frames_dir, FRAME_RES,
+        ["--octree", tree_path, "--num-samples", "32", "--compute-dtype",
+         "bfloat16", "--num-frames", "1"])
+    shape, peak = png_shape(os.path.join(frames_dir, "frame_00000.png"))
+    log(f"tree of {tree.num_leaves} leaves (depth {tree.depth}); its "
+        f"orbit_video --octree frame: {shape}, max pixel {peak}, K1 "
+        f"launches {frame_launches}")
+    if shape != (FRAME_RES, FRAME_RES, 3) or frame_launches <= 0:
+        raise AssertionError("the voxelized tree did not render")
+    result["octree_frame_launches"] = frame_launches
+    return result
 
 
 def phase_frame_profile(model):
@@ -2264,6 +2570,8 @@ def main(argv=None) -> int:
     results = phase_kernel_vs_twin(model)
     launches = phase_orbit(model)
     frame = phase_frame_profile(model)
+    focus = phase_focus_orbit()
+    octree = phase_octree_orbit(model)
     phase_fused_vs_plain(model)
     log("K2 vs plain twin, flagship:")
     backward = phase_backward_vs_twin(model)
@@ -2275,6 +2583,7 @@ def main(argv=None) -> int:
     log("train ms/step over steps 2.." + str(TRAIN_STEPS + 1) + ": "
         + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items()))
     phase_render_trained(checkpoint)
+    voxelize = phase_voxelize(checkpoint)
     model = flagship_nerf(torch.Generator().manual_seed(SEED)).cuda()
     log("K3 vs plain twin, flagship:")
     render_checks = phase_ray_render_vs_twin(model)
@@ -2360,6 +2669,17 @@ def main(argv=None) -> int:
            for i, key in enumerate(("ms", "plain_ms"))},
         "frame_profile": frame,
         "train_launches": train_launches["fused_nerf"],
+        "launches_by_path": {
+            "orbit_preset_fast": launches,
+            "orbit_focus": focus["launches"],
+            "orbit_octree_occupancy": octree["occupancy"]["launches"],
+            "orbit_octree_traversal": octree["traversal"]["launches"],
+            "voxelize_model": voxelize["launches"],
+            "orbit_voxelized_octree": voxelize["octree_frame_launches"],
+            "train_nerf": train_launches["fused_nerf"]},
+        "focus_orbit": focus,
+        "octree_orbit": octree,
+        "voxelize": voxelize,
     }, {
         "name": "fused_nerf_train",
         "route": "cuda",

@@ -16,7 +16,8 @@ from ..utils.errors import not_ported
 
 __all__ = ["RENDER_PRESETS", "add_common_train_args", "add_preset_arg",
            "apply_render_preset", "bench_ms", "fit_kwargs",
-           "get_compute_dtype", "kernel_device", "load_train_val",
+           "get_compute_dtype", "kernel_device", "load_opacity",
+           "load_train_val",
            "make_visualizers", "resolve_data_path", "save_best_model",
            "write_run_log"]
 
@@ -107,18 +108,30 @@ def resolve_data_path(path: str, device="cpu") -> str:
     return path
 
 
-def load_train_val(args, num_samples=None):
-    """Train (stratified, annealed) and val datasets on ``args.device``."""
+def load_opacity(path, device):
+    """The optional opacity model of focus sampling (``--opacity-model``)
+    on ``device``, or None without a path."""
+    if not path:
+        return None
+    from ..models import load_model
+    return load_model(path).to(device)
+
+
+def load_train_val(args, opacity_model=None, num_samples=None):
+    """Train (stratified, annealed) and val datasets on ``args.device``,
+    both focus-sampled with ``opacity_model`` when one is given."""
     from ..datasets import ImageDataset, Mode
     include_alpha = args.mode == "rgba"
     num_samples = num_samples or args.num_samples
     train = ImageDataset.load(args.data_path, "train", num_samples,
-                              include_alpha, True, args.color_space,
+                              include_alpha, True, opacity_model,
+                              args.batch_size, args.color_space,
                               anneal_start=args.anneal_start,
                               num_anneal_steps=args.num_anneal_steps,
                               device=args.device)
     val = ImageDataset.load(args.data_path, "val", num_samples,
-                            include_alpha, False, args.color_space,
+                            include_alpha, False, opacity_model,
+                            args.batch_size, args.color_space,
                             device=args.device)
     if args.mode == "dilate":
         train.mode = Mode.Dilate

@@ -1,10 +1,14 @@
 """CLI: renders an orbit of frames of a trained NeRF.
 
-Port of ``fourier_feature_nets_tpu/cli/orbit_video.py`` for the
-density-grid (``--density-grid``, ``--preset fast``) and plain uniform
-(``--no-focus``) samplers. Frames are written as PNGs by a standard
-library encoder. Every other path of the JAX CLI raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+Port of ``fourier_feature_nets_tpu/cli/orbit_video.py`` with all of
+its samplers: focus sampling with the model as its own opacity model
+(the default), with another checkpoint (``--opacity-model``), the
+density grid (``--density-grid``, ``--preset fast``), an octree
+(``--octree`` with ``--octree-mode occupancy|traversal``) and plain
+uniform samples (``--no-focus``). Frames are written as PNGs by a
+standard library encoder. ``--early-term``, ``--chunked``,
+``--data-parallel`` and ``--mp4`` raise ``NotImplementedError`` naming
+the ROADMAP.md item that ports them.
 
     python -m fourier_feature_nets_torch.cli.orbit_video model.npz 800 out/ \\
         --preset fast --num-frames 10
@@ -19,10 +23,16 @@ import torch
 
 from ..cameras import Resolution
 from ..models import load_model
-from ..render import OccupancyGridSampler, Raycaster, RaySampler
+from ..octree import OcTree
+from ..render import (
+    OccupancyGridSampler,
+    OctreeRaySampler,
+    Raycaster,
+    RaySampler,
+)
 from ..utils import ETABar, orbit, write_png
 from ..utils.errors import not_ported
-from .common import add_preset_arg, apply_render_preset
+from .common import add_preset_arg, apply_render_preset, load_opacity
 
 VECTORS = {
     "x+": np.array([1, 0, 0], np.float32),
@@ -99,22 +109,32 @@ def _reject_unported(args):
 
 def build_render_sampler(args, model, cameras, bounds):
     """The render-time sampler from the CLI flags, on the model's
-    device: the density grid (``--density-grid``) or uniform samples
-    (``--no-focus``)."""
+    device: the density grid (``--density-grid``), an octree
+    (``--octree``, rasterized to an occupancy grid or traversed),
+    focus sampling with ``--opacity-model`` or, by default, with the
+    model itself, or uniform samples (``--no-focus``)."""
+    device = next(model.parameters()).device
     if args.density_grid:
         return OccupancyGridSampler.from_model(
             model, cameras, args.num_samples,
             alpha_threshold=args.density_threshold, bounds=bounds)
     if args.octree:
-        raise not_ported("--octree", "Octree")
+        tree = OcTree.load(args.octree)
+        if args.octree_mode == "occupancy":
+            return OccupancyGridSampler.from_tree(
+                tree, cameras, args.num_samples, bounds=bounds,
+                device=device)
+        return OctreeRaySampler(tree, cameras, args.num_samples,
+                                bounds=bounds, device=device)
     if args.opacity_model:
-        raise not_ported("--opacity-model (focus sampling)",
-                          "Focus sampling")
-    if not args.no_focus:
-        raise not_ported("Focus sampling (the default without "
-                          "--no-focus or --density-grid)", "Focus sampling")
-    device = next(model.parameters()).device
-    return RaySampler(bounds, cameras, args.num_samples, device)
+        opacity_model = load_opacity(args.opacity_model, device)
+    elif not args.no_focus:
+        opacity_model = model
+    else:
+        opacity_model = None
+    return RaySampler(bounds, cameras, args.num_samples, device,
+                      opacity_model=opacity_model,
+                      batch_size=args.batch_size)
 
 
 def main(argv=None):
@@ -134,7 +154,13 @@ def main(argv=None):
     # on a CUDA device in bf16 (--preset fast), the plain PyTorch path in
     # f32 and on the CPU
     raycaster = Raycaster(model, compute_dtype=compute_dtype)
+    start = time.perf_counter()
     sampler = build_render_sampler(args, model, orbit_cameras, bounds)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    # the sampler's set-up: a focus sampler's opacity sweep over every
+    # ray of the orbit, or a grid's rasterization
+    setup_s = time.perf_counter() - start
 
     os.makedirs(args.output_dir, exist_ok=True)
     progress = ETABar("Rendering", max=args.num_frames)
@@ -158,8 +184,8 @@ def main(argv=None):
               f"{len(frame_ms)}" if len(frame_ms) > 1 else "no later frames")
     print(f"orbit_video: {args.num_frames} frames of {args.resolution}x"
           f"{args.resolution} on {where}, {args.num_samples} samples, "
-          f"{args.compute_dtype}: first frame {frame_ms[0]:.3f} ms, "
-          f"{steady}")
+          f"{args.compute_dtype}: sampler set-up {setup_s:.3f} s, first "
+          f"frame {frame_ms[0]:.3f} ms, {steady}")
     return 0
 
 

@@ -6,9 +6,9 @@ defaults plus ``--device`` (default ``cuda``). On a CUDA device with
 runs the fused NeRF forward (K1) and recompute backward (K2) Hopper
 kernels; at the f32 default, or with ``--no-fused``, it trains through
 autograd of the plain model, which a fused f32 step (3xTF32 kernels)
-did not beat in every run on an H100. Flags whose path is not ported
-yet (``--opacity-model``,
-``--make-video``, ``--data-parallel``, ``--resume``,
+did not beat in every run on an H100. ``--opacity-model`` focus-samples
+the train and val rays with that checkpoint's density. Flags whose path
+is not ported yet (``--make-video``, ``--data-parallel``, ``--resume``,
 ``--checkpoint-interval``, ``--occupancy-*``, ``--steps-per-call``)
 raise ``NotImplementedError`` naming their ROADMAP.md item.
 
@@ -24,7 +24,6 @@ import torch
 
 from ..models import NeRF, save_model
 from ..render import Raycaster
-from ..utils.errors import not_ported
 from . import common
 
 
@@ -55,9 +54,6 @@ def _parse_args(argv=None):
 
 def main(argv=None):
     args = _parse_args(argv)
-    if args.opacity_model:
-        raise not_ported("--opacity-model (focus sampling)",
-                         "Focus sampling")
     kwargs = common.fit_kwargs(args)
     device = torch.device(args.device)
     args.data_path = common.resolve_data_path(args.data_path, device)
@@ -68,7 +64,8 @@ def main(argv=None):
                  args.view_max_log_scale, args.view_freq,
                  [4], not args.omit_inputs,
                  generator=torch.Generator().manual_seed(args.seed)).to(device)
-    train_dataset, val_dataset = common.load_train_val(args)
+    opacity_model = common.load_opacity(args.opacity_model, device)
+    train_dataset, val_dataset = common.load_train_val(args, opacity_model)
     visualizers = common.make_visualizers(args, train_dataset, val_dataset)
     raycaster = Raycaster(model, compute_dtype=common.get_compute_dtype(args),
                           fused=args.fused, fused_train=args.fused)

@@ -51,6 +51,7 @@ class ImageDataset(RayDataset):
     def __init__(self, label: str, images: np.ndarray, bounds: np.ndarray,
                  cameras: List[CameraInfo], num_samples: int,
                  include_alpha: bool = True, stratified: bool = False,
+                 opacity_model=None, batch_size: int = 4096,
                  color_space: str = "RGB", sparse_size: int = 50,
                  anneal_start: float = 0.2, num_anneal_steps: int = 0,
                  alpha_weight: float = 0.1, device="cpu"):
@@ -73,7 +74,9 @@ class ImageDataset(RayDataset):
         self.sampler = RaySampler(bounds, cameras, num_samples, device,
                                   stratified=stratified,
                                   anneal_start=anneal_start,
-                                  num_anneal_steps=num_anneal_steps)
+                                  num_anneal_steps=num_anneal_steps,
+                                  opacity_model=opacity_model,
+                                  batch_size=batch_size)
         points = pixel_grid(cameras[0].resolution)
         rays_per_camera = self.sampler.rays_per_camera
 
@@ -274,6 +277,8 @@ class ImageDataset(RayDataset):
                             self.sampler.bounds,
                             [self.sampler.cameras[i] for i in cameras],
                             num_samples, self.include_alpha, stratified,
+                            self.sampler.opacity_model,
+                            self.sampler.batch_size,
                             self._color_space, self.sparse_size,
                             self.sampler.anneal_start,
                             self.sampler.num_anneal_steps,
@@ -282,6 +287,7 @@ class ImageDataset(RayDataset):
     @staticmethod
     def load(path: str, split: str, num_samples: int,
              include_alpha: bool = True, stratified: bool = False,
+             opacity_model=None, batch_size: int = 4096,
              color_space: str = "RGB", sparse_size: int = 50,
              anneal_start: float = 0.2, num_anneal_steps: int = 0,
              device="cpu") -> "ImageDataset":
@@ -311,6 +317,6 @@ class ImageDataset(RayDataset):
                    for i, (intr, extr) in enumerate(zip(intrinsics,
                                                         extrinsics))]
         return ImageDataset(split, images, bounds, cameras, num_samples,
-                            include_alpha, stratified, color_space,
-                            sparse_size, anneal_start, num_anneal_steps,
-                            device=device)
+                            include_alpha, stratified, opacity_model,
+                            batch_size, color_space, sparse_size,
+                            anneal_start, num_anneal_steps, device=device)

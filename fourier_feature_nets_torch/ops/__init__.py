@@ -7,7 +7,10 @@ from .intersection import NearFar, bounds_min_max, ray_aabb_near_far
 from .sampling import (
     anneal_near_far,
     batch_linspace,
+    determine_cdf,
     inverse_cdf_from_bins,
+    inverse_cdf_t_values,
+    merge_sorted,
     per_ray_uniform,
     uniform_t_values,
     unit_linspace,
@@ -19,9 +22,12 @@ __all__ = [
     "batch_linspace",
     "bounds_min_max",
     "calculate_blend_weights",
+    "determine_cdf",
     "encode_phases",
     "exclusive_cumprod",
     "inverse_cdf_from_bins",
+    "inverse_cdf_t_values",
+    "merge_sorted",
     "per_ray_uniform",
     "positional_encoding_matrix",
     "ray_aabb_near_far",

@@ -1,19 +1,25 @@
 """Ray sample placement.
 
 Port of ``batch_linspace``, ``anneal_near_far``, ``uniform_t_values``
-(with stratified jitter) and ``inverse_cdf_from_bins`` from
+(with stratified jitter), ``determine_cdf``, ``inverse_cdf_from_bins``,
+``inverse_cdf_t_values`` and ``merge_sorted`` from
 ``fourier_feature_nets_tpu/ops/sampling.py``, and the port's own
 counter-based generator :func:`per_ray_uniform`. The TPU module brackets each
 quantile with masked max/min reductions (``_monotone_bracket``) because
 row gathers are slow there; here the bracket is ``torch.searchsorted``
 plus two gathers, with the same semantics: "below" is the last edge
-with ``cdf <= q``, "above" the next edge, clamped to the last one.
+with ``cdf <= q``, "above" the next edge, clamped to the last one. The
+TPU module merges two sorted rows with a one-hot matmul because a
+per-row sort is slow there; here :func:`merge_sorted` is ``torch.sort``.
 """
 
 import torch
 
+from .blend import calculate_blend_weights
+
 __all__ = ["unit_linspace", "batch_linspace", "anneal_near_far",
-           "per_ray_uniform", "uniform_t_values", "inverse_cdf_from_bins"]
+           "per_ray_uniform", "uniform_t_values", "determine_cdf",
+           "inverse_cdf_from_bins", "inverse_cdf_t_values", "merge_sorted"]
 
 _MASK32 = 0xFFFFFFFF
 
@@ -116,6 +122,47 @@ def uniform_t_values(near: torch.Tensor, far: torch.Tensor,
     return t_values
 
 
+def determine_cdf(t_values: torch.Tensor,
+                  opacity: torch.Tensor) -> torch.Tensor:
+    """Per-ray CDF over depth from coarse opacity estimates: the blend
+    weights with their first and last samples dropped, floored by
+    +1e-5, a normalized cumulative sum with a zero prepended.
+
+    Returns:
+        (R, S - 1) for (R, S) inputs.
+    """
+    weights = calculate_blend_weights(t_values, opacity)
+    weights = weights[..., 1:-1] + 1e-5
+    cdf = torch.cumsum(weights, dim=-1)
+    cdf = cdf / cdf[..., -1:]
+    return torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+
+
+def _inverse_cdf_interp(grid: torch.Tensor, cdf: torch.Tensor,
+                        quantiles: torch.Tensor, eps: float) -> torch.Tensor:
+    """Maps quantiles through a discrete CDF over ``grid``: bracket each
+    quantile by ``searchsorted(right=True)``, then interpolate linearly
+    with an ``eps``-guarded denominator."""
+    quantiles = quantiles.contiguous()
+    last = cdf.shape[-1] - 1
+    count = torch.searchsorted(cdf.contiguous(), quantiles, right=True)
+    below = torch.clamp(count - 1, min=0)
+    above = torch.clamp(count, max=last)
+    cdf_i = torch.gather(cdf, -1, below)
+    cdf_j = torch.gather(cdf, -1, above)
+    t_i = torch.gather(grid, -1, below)
+    t_j = torch.gather(grid, -1, above)
+    denominator = cdf_j - cdf_i
+    denominator = torch.where(denominator < eps,
+                              torch.ones_like(denominator), denominator)
+    frac = (quantiles - cdf_i) / denominator
+    return t_i + frac * (t_j - t_i)
+
+
+def _even_quantiles(num_rays: int, num_samples: int, device):
+    return unit_linspace(num_samples, device).expand(num_rays, num_samples)
+
+
 def inverse_cdf_from_bins(t_edges: torch.Tensor, cdf: torch.Tensor,
                           num_samples: int,
                           quantiles: torch.Tensor = None) -> torch.Tensor:
@@ -133,21 +180,45 @@ def inverse_cdf_from_bins(t_edges: torch.Tensor, cdf: torch.Tensor,
         (R, num_samples) t values, linearly interpolated within bins.
         The interpolation denominator is guarded by ``eps = 1e-9``.
     """
-    num_rays = t_edges.shape[0]
     if quantiles is None:
-        quantiles = unit_linspace(num_samples, cdf.device).expand(
-            num_rays, num_samples)
-    quantiles = quantiles.contiguous()
-    last = cdf.shape[-1] - 1
-    count = torch.searchsorted(cdf.contiguous(), quantiles, right=True)
-    below = torch.clamp(count - 1, min=0)
-    above = torch.clamp(count, max=last)
-    cdf_i = torch.gather(cdf, -1, below)
-    cdf_j = torch.gather(cdf, -1, above)
-    t_i = torch.gather(t_edges, -1, below)
-    t_j = torch.gather(t_edges, -1, above)
-    denominator = cdf_j - cdf_i
-    denominator = torch.where(denominator < 1e-9,
-                              torch.ones_like(denominator), denominator)
-    frac = (quantiles - cdf_i) / denominator
-    return t_i + frac * (t_j - t_i)
+        quantiles = _even_quantiles(t_edges.shape[0], num_samples,
+                                    cdf.device)
+    return _inverse_cdf_interp(t_edges, cdf, quantiles, eps=1e-9)
+
+
+def inverse_cdf_t_values(near: torch.Tensor, far: torch.Tensor,
+                         cdf: torch.Tensor, num_samples: int,
+                         num_cdf_samples: int,
+                         quantiles: torch.Tensor = None) -> torch.Tensor:
+    """Inverse-transform sampling of depths from a per-ray CDF.
+
+    The coarse grid is rebuilt as the CDF was built over it, the
+    midpoints of a ``num_cdf_samples``-point linspace over [near, far];
+    the quantiles map through the CDF by bracketing and linear
+    interpolation, with the reference's ``eps = 1e-5`` guard
+    (ray_sampler.py:348), not the bins' 1e-9.
+
+    Args:
+        near/far: (R,) the *unannealed* ray bounds the CDF was built on.
+        cdf: (R, num_cdf_samples - 1) cumulative distribution.
+        num_samples: focus samples to draw per ray.
+        num_cdf_samples: resolution of the coarse grid of the CDF.
+        quantiles: optional (R, num_samples) quantiles in [0, 1];
+            default is ``num_samples`` evenly spaced ones. Sorted
+            quantiles give sorted t values.
+
+    Returns:
+        (R, num_samples) t values.
+    """
+    t_values = batch_linspace(near, far, num_cdf_samples)
+    t_values = 0.5 * (t_values[..., :-1] + t_values[..., 1:])
+    if quantiles is None:
+        quantiles = _even_quantiles(near.shape[0], num_samples, cdf.device)
+    return _inverse_cdf_interp(t_values, cdf, quantiles, eps=1e-5)
+
+
+def merge_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row-wise sorted union of two (R, A) and (R, B) rows. Its values
+    equal the JAX package's sort-free one-hot merge: ties are equal
+    values, so their order does not show."""
+    return torch.sort(torch.cat([a, b], dim=-1), dim=-1).values

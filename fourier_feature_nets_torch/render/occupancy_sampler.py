@@ -1,9 +1,10 @@
 """Occupancy-grid accelerated ray sampling.
 
-Port of ``density_grid_from_model`` and ``OccupancyGridSampler`` from
+Port of ``occupancy_grid_from_tree``, ``density_grid_from_model`` and
+``OccupancyGridSampler`` from
 ``fourier_feature_nets_tpu/render/occupancy_sampler.py``. A dense 0/1
-occupancy volume (here from the model's own density field) places
-samples by
+occupancy volume (rasterized from an octree, :meth:`from_tree`, or from
+the model's own density field, :meth:`from_model`) places samples by
 
   1. probing P uniform depths along each ray,
   2. building a per-ray CDF weighted by probe occupancy,
@@ -13,6 +14,8 @@ The JAX package's default probe reads a max-pooled ``probe_resolution``
 cubed table through a one-hot matmul, because dynamic gathers are slow
 on a TPU. Here the probe is a gather from the SAME max-pooled table, so
 the hit sets match the JAX default (``probe_mode="matmul"``) exactly.
+The JAX constructor's ``trilinear`` and ``probe_mode="gather"`` options
+and its stratified quantiles are not ported (ROADMAP.md, queue 3).
 """
 
 from typing import List, Optional
@@ -21,14 +24,44 @@ import numpy as np
 import torch
 
 from ..cameras import CameraInfo
+from ..octree import OcTree
 from ..ops.sampling import batch_linspace, inverse_cdf_from_bins
 from .ray_sampler import RaySampler, RaySamples
 
-__all__ = ["density_grid_from_model", "OccupancyGridSampler"]
+__all__ = ["occupancy_grid_from_tree", "density_grid_from_model",
+           "OccupancyGridSampler"]
 
 
 def _model_device(model) -> torch.device:
     return next(model.parameters()).device
+
+
+def occupancy_grid_from_tree(tree: OcTree, resolution: int = 64,
+                             dilate: int = 1) -> np.ndarray:
+    """Rasterizes octree occupancy into a dense (R, R, R) 0/1 volume,
+    indexed [z, y, x]: cell centers are point-queried against the tree
+    (C++ library), then occupancy grows by ``dilate`` cells in every
+    direction so surfaces near cell borders are never missed."""
+    coords = (np.arange(resolution) + 0.5) / resolution * 2 - 1
+    coords = coords * tree.scale
+    zz, yy, xx = np.meshgrid(coords, coords, coords, indexing="ij")
+    points = np.stack([xx, yy, zz], -1).reshape(-1, 3).astype(np.float32)
+    occupied = (tree.query(points) >= 0).astype(np.float32)
+    grid = occupied.reshape(resolution, resolution, resolution)
+
+    for _ in range(dilate):
+        padded = np.pad(grid, 1)
+        grown = grid.copy()
+        for dz in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                for dx in (-1, 0, 1):
+                    grown = np.maximum(
+                        grown,
+                        padded[1 + dz:1 + dz + resolution,
+                               1 + dy:1 + dy + resolution,
+                               1 + dx:1 + dx + resolution])
+        grid = grown
+    return grid
 
 
 def density_grid_from_model(model, resolution: int = 64,
@@ -58,7 +91,8 @@ def density_grid_from_model(model, resolution: int = 64,
 
 class OccupancyGridSampler(RaySampler):
     """RaySampler that concentrates samples in occupied space using a
-    dense occupancy volume (see :meth:`from_model`)."""
+    dense occupancy volume (see :meth:`from_tree` and
+    :meth:`from_model`)."""
 
     def __init__(self, occupancy_grid: np.ndarray, grid_scale: float,
                  cameras: List[CameraInfo], num_samples: int,
@@ -108,6 +142,22 @@ class OccupancyGridSampler(RaySampler):
         # flat cell id = (z * side + y) * side + x
         self.probe_table = torch.from_numpy(
             np.ascontiguousarray(coarse.reshape(-1))).to(self.device)
+
+    @classmethod
+    def from_tree(cls, tree: OcTree, cameras: List[CameraInfo],
+                  num_samples: int, grid_resolution: int = 64,
+                  num_probes: int = 32, empty_weight: float = 1e-2,
+                  bounds: Optional[np.ndarray] = None,
+                  probe_resolution: int = 32,
+                  device="cpu") -> "OccupancyGridSampler":
+        """Sampler guided by an octree (e.g. ``voxelize_model``'s),
+        rasterized at ``grid_resolution`` over the tree's cube, with the
+        JAX constructor's defaults."""
+        grid = occupancy_grid_from_tree(tree, grid_resolution)
+        return cls(grid, tree.scale, cameras, num_samples,
+                   num_probes=num_probes, empty_weight=empty_weight,
+                   bounds=bounds, probe_resolution=probe_resolution,
+                   device=device)
 
     @classmethod
     def from_model(cls, model, cameras: List[CameraInfo], num_samples: int,

@@ -5,9 +5,11 @@ Port of ``fourier_feature_nets_tpu/render/ray_sampler.py``:
 geometry (``camera_ray_geometry``, ``pose_ray_geometry``,
 ``sample_camera_rays``), the lazy per-ray tables of the training path,
 index sampling (``sample``) with stratified jitter and near/far
-annealing, ``to_valid``, ``rays_for_camera`` and ``to_image``. Focus
-sampling (an opacity model) is not ported yet (ROADMAP.md, queue 1,
-item 1).
+annealing, focus sampling (half the samples drawn from per-ray CDFs of
+an opacity model's density), ``to_valid``, ``rays_for_camera`` and
+``to_image``. The JAX package's iid-quantile ablation switch
+(``FFN_TPU_IID_FOCUS_QUANTILES``) is not ported: focus quantiles are
+always stratified.
 """
 
 import functools
@@ -15,11 +17,16 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..cameras import CameraInfo, raycast_grid
 from ..ops import (
     anneal_near_far,
+    batch_linspace,
     bounds_min_max,
+    determine_cdf,
+    inverse_cdf_t_values,
+    merge_sorted,
     per_ray_uniform,
     ray_aabb_near_far,
     uniform_t_values,
@@ -58,7 +65,7 @@ class RaySampler:
     def __init__(self, bounds: np.ndarray, cameras: List[CameraInfo],
                  num_samples: int, device="cpu", stratified: bool = False,
                  anneal_start: float = 0.5, num_anneal_steps: int = 0,
-                 opacity_model=None):
+                 opacity_model=None, batch_size: int = 4096):
         """Constructor.
 
         Args:
@@ -71,11 +78,14 @@ class RaySampler:
                 :meth:`sample` is given a key.
             anneal_start/num_anneal_steps: near/far annealing schedule
                 of :meth:`sample` (``num_anneal_steps`` 0 disables it).
-            opacity_model: focus sampling; not ported, must be None.
+            opacity_model: an ``nn.Module`` whose last output channel's
+                softplus is the density of focus sampling: it is swept
+                once over every ray at construction, and half the
+                samples of each ray are then drawn from the ray's CDF.
+                None samples uniformly.
+            batch_size: rays per batch of the opacity sweep (raised to
+                65,536, as the JAX package sweeps).
         """
-        if opacity_model is not None:
-            raise not_ported("focus sampling (an opacity model)",
-                             "Focus sampling")
         self.device = torch.device(device)
         self.bounds = np.asarray(bounds, np.float32)
         self.stratified = stratified
@@ -103,6 +113,16 @@ class RaySampler:
             [camera.position[0] for camera in cameras]).astype(np.float32)
         ).to(self.device)
 
+        self.opacity_model = opacity_model
+        self.batch_size = batch_size
+        self.focus_sampling = opacity_model is not None
+        if self.focus_sampling:
+            self.num_focus_samples = num_samples - num_samples // 2
+            self.cdfs = self._precompute_cdfs()
+        else:
+            self.num_focus_samples = 0
+            self.cdfs = None
+
     @functools.cached_property
     def ray_tables(self) -> RayTables:
         """The per-ray tables, built on first use: whole-frame rendering
@@ -119,6 +139,47 @@ class RaySampler:
                          torch.where(nf.valid, nf.near, 1.0),
                          torch.where(nf.valid, nf.far, 2.0),
                          nf.valid.cpu().numpy())
+
+    def _cdfs_for_geometry(self, starts, directions, near,
+                           far) -> torch.Tensor:
+        """Focus CDFs of explicit ray geometry: the opacity model's
+        softplus density (its last output channel, in f32, without
+        grad) on a ``num_focus_samples`` linspace over [near, far], on
+        the model's device.
+
+        Returns:
+            (R, num_focus_samples - 1) CDFs on the sampler's device.
+        """
+        model = self.opacity_model
+        device = next(model.parameters()).device
+        starts, directions, near, far = (
+            x.to(device) for x in (starts, directions, near, far))
+        t_values = batch_linspace(near, far, self.num_focus_samples)
+        positions = (starts[:, None, :]
+                     + t_values[..., None] * directions[:, None, :])
+        views = directions[:, None, :].expand(positions.shape)
+        with torch.no_grad():
+            logits = model(positions.reshape(-1, 3),
+                           views.reshape(-1, 3))[:, -1]
+        opacity = F.softplus(logits).reshape(-1, self.num_focus_samples)
+        return determine_cdf(t_values, opacity).to(self.device)
+
+    def _precompute_cdfs(self) -> torch.Tensor:
+        """Sweeps the opacity model over every ray of the rig, in
+        batches of ``max(batch_size, 65536)`` rays.
+
+        Returns:
+            (num_rays, num_focus_samples - 1) CDFs on the sampler's
+            device.
+        """
+        tables = self.ray_tables
+        sweep = max(self.batch_size, 65536)
+        return torch.cat([
+            self._cdfs_for_geometry(tables.starts[start:start + sweep],
+                                    tables.directions[start:start + sweep],
+                                    tables.near[start:start + sweep],
+                                    tables.far[start:start + sweep])
+            for start in range(0, self.num_rays, sweep)])
 
     def sample(self, idx: torch.Tensor, step: Optional[int] = None,
                rng: Optional[int] = None) -> RaySamples:
@@ -186,14 +247,28 @@ class RaySampler:
 
     def _sample_geometry(self, starts, directions, near, far, idx,
                          step=None, rng=None):
+        near0, far0 = near, far   # pre-anneal bounds: the CDF's domain
         if step is not None and self.num_anneal_steps > 0:
             near, far = anneal_near_far(near, far, step, self.anneal_start,
                                         self.num_anneal_steps)
-        jitter = None
+        num_uniform = (self.num_samples // 2 if self.focus_sampling
+                       else self.num_samples)
+        jitter = focus_quantiles = None
         if self.stratified and rng is not None:
-            jitter = per_ray_uniform(rng, step or 0, idx, self.num_samples,
+            jitter = per_ray_uniform(rng, step or 0, idx, num_uniform,
                                      salt=0)
-        t_values = uniform_t_values(near, far, self.num_samples, jitter)
+            if self.focus_sampling:
+                u = per_ray_uniform(rng, step or 0, idx,
+                                    self.num_focus_samples, salt=1)
+                strata = torch.arange(self.num_focus_samples,
+                                      dtype=u.dtype, device=u.device)
+                focus_quantiles = (strata + u) / self.num_focus_samples
+        t_values = uniform_t_values(near, far, num_uniform, jitter)
+        if self.focus_sampling:
+            focus_t = inverse_cdf_t_values(
+                near0, far0, self.cdfs[idx], self.num_focus_samples,
+                self.num_focus_samples, focus_quantiles)
+            t_values = merge_sorted(t_values, focus_t)
         positions = (starts[:, None, :]
                      + t_values[..., None] * directions[:, None, :])
         view_directions = directions[:, None, :].expand(positions.shape)

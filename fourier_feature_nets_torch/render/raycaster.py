@@ -1,7 +1,8 @@
 """Volumetric raycaster and trainer.
 
 Port of ``fourier_feature_nets_tpu/render/raycaster.py``: ``_composite``,
-``Raycaster.render``/``batched_render``, the whole-frame renderer
+``Raycaster.render``/``batched_render``, the surface sweep of
+``voxelize_model`` (``extract_surface``), the whole-frame renderer
 ``render_frame``/``render_frame_async`` with empty-space culling, and
 the trainer: ``_train_forward``, ``_make_train_step``, ``_validate``
 and ``fit``. The JAX package compiles a frame into one ``lax.scan`` and
@@ -179,6 +180,42 @@ class Raycaster:
         alpha = torch.cat(alphas).cpu().numpy()
         depth = torch.cat(depths).cpu().numpy() if include_depth else None
         return RenderResult(color, alpha, depth)
+
+    @torch.no_grad()
+    def extract_surface(self, dataset, batch_size: int = 16384,
+                        alpha_threshold: float = 0.3):
+        """Surface point cloud of a trained model (the voxelize sweep).
+
+        Every ``index_pool()`` ray of ``dataset`` is sampled and
+        rendered with depth (through K1 when fused); the rays with
+        ``alpha > alpha_threshold`` are compacted on the device and
+        copied to the host once.
+
+        Returns:
+            (positions, colors): (K, 3) f32 NumPy arrays; positions are
+            ray origin + depth * direction, colors clipped to [0, 1].
+        """
+        sampler = dataset.sampler
+        pool = torch.from_numpy(
+            np.asarray(dataset.index_pool(), np.int64)).to(sampler.device)
+        points, colors, keeps = [], [], []
+        for start in range(0, pool.shape[0], batch_size):
+            rays = sampler.sample(pool[start:start + batch_size])
+            result = self.render(rays, include_depth=True)
+            # origin and direction from the sample geometry, as the JAX
+            # sweep recovers them
+            dirs = rays.view_directions[:, 0]
+            origin = rays.positions[:, 0] - rays.t_values[:, :1] * dirs
+            points.append(origin + result.depth[:, None] * dirs)
+            colors.append(torch.clamp(result.color, 0.0, 1.0))
+            keeps.append(result.alpha > alpha_threshold)
+        if not keeps:
+            empty = np.zeros((0, 3), np.float32)
+            return empty, empty.copy()
+        keep = torch.cat(keeps)
+        packed = torch.cat([torch.cat(points), torch.cat(colors)], -1)
+        out = packed[keep].float().cpu().numpy()
+        return out[:, :3], out[:, 3:]
 
     @staticmethod
     def _safe_probe_subsample(sampler, stride: int) -> int:

@@ -19,7 +19,9 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 for name in names:
     importlib.import_module(name)
 import torch
+from fourier_feature_nets_torch.octree import build as octree_build
 print(json.dumps({
+    "octree_library_loaded": octree_build._LIBRARY is not None,
     "modules": names,
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                   or m.startswith("fourier_feature_nets_tpu")),
@@ -43,7 +45,7 @@ def imported():
 def _port_sources():
     for base, _, files in os.walk(PORT):
         for name in files:
-            if name.endswith((".py", ".cu", ".cuh")):
+            if name.endswith((".py", ".cu", ".cuh", ".cpp")):
                 yield os.path.join(base, name)
 
 
@@ -64,7 +66,9 @@ def test_walk_found_the_slice_modules(imported):
         "cli.train_nerf", "kernels.fused_ray_render", "cli.validate_kernels",
         "kernels.int8_probe", "kernels.fused_nerf_ablation",
         "kernels.io_floor", "cli.int8_probe", "cli.kernel_ablation_bench",
-        "cli.kernel_io_floor_bench"}
+        "cli.kernel_io_floor_bench", "octree", "octree.build", "octree.host",
+        "octree.octree", "octree.traversal", "octree.mesh",
+        "render.octree_sampler", "cli.voxelize_model", "cli.mesh_to_octree"}
     found = {name.split(".", 1)[1] for name in imported["modules"]}
     assert expected <= found
 
@@ -72,6 +76,10 @@ def test_walk_found_the_slice_modules(imported):
 def test_import_touches_no_gpu(imported):
     assert not imported["triton"]
     assert not imported["cuda_initialized"]
+
+
+def test_import_builds_no_octree_library(imported):
+    assert not imported["octree_library_loaded"]
 
 
 def test_sources_name_no_jax_and_no_compile():

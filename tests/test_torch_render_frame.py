@@ -336,13 +336,37 @@ def checkpoint(nerf, tmp_path_factory):
     return path
 
 
+@pytest.fixture(scope="module")
+def cli_files(tmp_path_factory):
+    """The files the CLI flags name: another model's checkpoint (for
+    ``--opacity-model``) and bench.py's octree (for ``--octree``)."""
+    from fourier_feature_nets_tpu.octree import OcTree
+    root = tmp_path_factory.mktemp("cli_files")
+    model = NeRF(**CONFIG)
+    other = str(root / "other.npz")
+    save_model(model, model.init(jax.random.PRNGKey(9)), other)
+    rng = np.random.default_rng(1)
+    cloud = np.concatenate([rng.normal([0.2, 0.0, 0.0], 0.2, (20000, 3)),
+                            [[-1, -1, -1], [1, 1, 1]]]).astype(np.float32)
+    tree = str(root / "tree.npz")
+    OcTree.build_from_samples(cloud, depth=6, min_leaf_size=2).save(tree)
+    return {"OTHER": other, "TREE": tree}
+
+
 @pytest.mark.parametrize("flags", [
     ["--preset", "fast"],
     ["--no-focus", "--num-samples", "8"],
+    ["--num-samples", "16"],              # the default: focus sampling
+    ["--opacity-model", "OTHER", "--num-samples", "16"],
+    ["--octree", "TREE", "--num-samples", "16"],
+    ["--octree", "TREE", "--octree-mode", "traversal", "--num-samples",
+     "16"],
 ])
-def test_orbit_video_cli_matches_jax(checkpoint, tmp_path, flags, capsys):
+def test_orbit_video_cli_matches_jax(checkpoint, cli_files, tmp_path, flags,
+                                     capsys):
     cv2 = pytest.importorskip("cv2")
     from fourier_feature_nets_tpu.cli import orbit_video as jax_orbit
+    flags = [cli_files.get(flag, flag) for flag in flags]
     common = [checkpoint, "16"]
     tail = ["--num-frames", "2"] + flags
     assert torch_orbit.main(common + [str(tmp_path / "port")] + tail
@@ -359,9 +383,6 @@ def test_orbit_video_cli_matches_jax(checkpoint, tmp_path, flags, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    [],                                   # default focus sampling
-    ["--opacity-model", "other.npz"],
-    ["--octree", "tree.npz"],
     ["--density-grid", "--early-term", "0.01"],
     ["--preset", "quality"],
     ["--no-focus", "--chunked"],

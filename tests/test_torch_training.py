@@ -185,9 +185,18 @@ def test_sampler_tables_and_jittered_sample_match_jax(monkeypatch):
 
 
 def test_sampler_rejects_focus_sampling():
+    """The sampler no longer rejects an opacity model: it focus-samples
+    with it (tests/test_torch_focus.py holds the samples to JAX's)."""
     _, port_cams = _camera_pairs(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
-        TorchSampler(BOUNDS, port_cams, 16, opacity_model=object())
+    _, _, port = _pair()
+    sampler = TorchSampler(BOUNDS, port_cams, 16, stratified=True,
+                           opacity_model=port)
+    assert sampler.focus_sampling and sampler.num_focus_samples == 8
+    assert sampler.cdfs.shape == (len(sampler), 7)
+    idx = torch.from_numpy(sampler.to_valid(np.arange(len(sampler))))
+    rays = sampler.sample(idx, 3, 11)
+    assert rays.t_values.shape == (len(idx), 16)
+    assert (torch.diff(rays.t_values, dim=-1) >= 0).all()
 
 
 # ---------------------------------------------------------------------------
@@ -400,7 +409,30 @@ def test_train_nerf_cli_on_cpu(scene, tmp_path):
     assert load_model(os.path.join(out, "nerf.npz")).num_channels == 32
 
 
-@pytest.mark.parametrize("flag", [["--resume"], ["--opacity-model", "x.npz"],
+def test_train_nerf_cli_opacity_model(tmp_path, monkeypatch):
+    """Three focus-sampled steps on the generated synthetic scene, with
+    a trained checkpoint as the opacity model."""
+    monkeypatch.setenv("FFN_TORCH_DATA_DIR", str(tmp_path / "data"))
+    small = ["--device", "cpu", "--num-layers", "2", "--num-channels",
+             "32", "--num-samples", "8", "--report-interval", "3",
+             "--crop-steps", "0", "--batch-size", "64", "--image-interval",
+             "0"]
+    first = str(tmp_path / "first")
+    assert port_train_nerf.main(["synthetic:16", first, "--num-steps", "1",
+                                 *small]) == 0
+    out = str(tmp_path / "focus")
+    assert port_train_nerf.main(["synthetic:16", out, "--num-steps", "3",
+                                 "--opacity-model",
+                                 os.path.join(first, "nerf.npz"),
+                                 *small]) == 0
+    with open(os.path.join(out, "log.txt")) as handle:
+        rows = handle.read().split("\n\n", 1)[1].strip().splitlines()
+    assert [int(r.split("\t")[0]) for r in rows[1:]] == [0, 3]
+    assert all(np.isfinite(float(v)) for r in rows[1:]
+               for v in r.split("\t")[2:])
+
+
+@pytest.mark.parametrize("flag", [["--resume"],
                                   ["--make-video"], ["--data-parallel"],
                                   ["--occupancy-interval", "10"],
                                   ["--checkpoint-interval", "5"],
