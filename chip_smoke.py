@@ -45,6 +45,24 @@ and drives the port's paths at the flagship width:
   (K1 must launch) makes a tree of it (at a lower ``--alpha-threshold``,
   logged, if the checkpoint has no surface above 0.3), which renders an
   ``--octree`` frame;
+* training's left-overs and early termination: ``train_nerf
+  --steps-per-call 8 --fused`` in bf16 and f32 for 32 steps, each chunk
+  one CUDA-graph replay: the capture must record one K1 and one K2
+  launch a step and ``torch.profiler`` must name both kernels 8 times in
+  one more replay (the wrappers' counts do not see a replay; their
+  launches there are the captured launches times the replays); one
+  chunk of the plain f32 step against the same steps run eagerly
+  (rtol 1e-5 / atol 1e-6 on every weight) and of the fused bf16 step
+  (K2's atomics: each leaf's mean |d| within 5e-2 of its mean update);
+  ``--checkpoint-interval 10`` to step 20, then
+  ``--resume --steps-per-call 5`` to step 30, with the optimizer state
+  copied onto the card equal to the file; occupancy-guided training
+  refreshing its grid twice in place under one captured chunk; and
+  ``orbit_video --preset quality`` of the random and of the trained
+  checkpoint at 800x800 for 3 frames beside ``--preset fast``: K1 must
+  launch in both passes, and frame 0 with early termination must lie
+  within ceil(255 * 1e-2) + 1 of the frame without it; each of these
+  phases prints its time;
 * kernel validation: K3 (K1's kernels with a per-ray view product and a
   compositing epilogue) against its plain twin in bf16 and f32 within
   its limits (kernels/fused_ray_render.py: bf16 max K3_BF16_ATOL and
@@ -103,6 +121,11 @@ and f32, as one JSON line, for the port found in ``DIR`` (an unpacked
 parent commit, say), so that two trees can be timed in turns on one
 card.
 
+``--train-turns`` prints only the ms per step of ``train_nerf`` at
+``--steps-per-call`` 8 against 1 (turns 1 8 8 1 in one process), fused
+and plain, in bf16 and f32, with the host's ms to issue a call, as one
+JSON line.
+
 ``--sass DIR`` prints only the SASS instruction count of each kernel of
 ``fused_nerf.cu``, ``fused_nerf_ablation.cu`` and ``fused_nerf_train.cu``
 (K1, P2, K2) in ``DIR`` and in this checkout, and whether the two are
@@ -120,6 +143,7 @@ import io
 import json
 import os
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -233,6 +257,11 @@ RAGGED_RAYS = 1001             # not a multiple of any ray group
 PLAIN_RENDER_ATOL = 5e-3       # tools/validate_kernels_tpu.py:167-170
 SCAN_RTOL = 1e-5               # tests/test_fused_ray_render.py:31
 TRAIN_STEPS = 30
+CHUNK_STEPS = 8                # --steps-per-call of the chunk phases
+CHUNK_TRAIN_STEPS = 32         # four chunks
+TURN_STEPS = 64                # --train-turns: steps a timed train_nerf run
+CHUNK_MEAN_SHARE = 5e-2        # a fused graph chunk vs the eager steps, per
+                               # leaf: mean |d| over its mean update
 FRAME_RES = 800                # the focus, octree and voxelize phases' frames
 TIMED_TRAIN_STEPS = 100   # --times-only: whole train steps a path
 SEED = 0
@@ -1426,6 +1455,423 @@ def phase_train():
     return step_ms, launches, checkpoint
 
 
+# ---------------------------------------------------------------------------
+# training's left-overs and early termination
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _instances(cls):
+    """Collects every instance of ``cls`` built inside the block (the
+    CLIs build their raycasters and graph chunks themselves)."""
+    made, init = [], cls.__init__
+
+    def collecting(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    cls.__init__ = collecting
+    try:
+        yield made
+    finally:
+        cls.__init__ = init
+
+
+def run_train_cli(results: str, flags):
+    """cli/train_nerf on the generated synthetic scene; returns (its
+    standard output, the raycaster it built, the graph chunks it
+    captured). Raises unless it exits 0."""
+    from fourier_feature_nets_torch.cli import train_nerf
+    from fourier_feature_nets_torch.render import raycaster
+    os.environ["FFN_TORCH_DATA_DIR"] = os.path.join(OUT_DIR, "data")
+    captured = io.StringIO()
+    with _instances(raycaster.Raycaster) as casters, \
+            _instances(raycaster._GraphChunk) as chunks, \
+            contextlib.redirect_stdout(captured):
+        rc = train_nerf.main(["synthetic", results, *flags])
+    torch.cuda.synchronize()
+    output = captured.getvalue()
+    if rc != 0:
+        raise AssertionError(f"train_nerf {flags} returned {rc}:\n"
+                             f"{output[-2000:]}")
+    return output, casters[-1], chunks
+
+
+def _launch_counts():
+    from fourier_feature_nets_torch.render.raycaster import _kernel_launches
+    return _kernel_launches()
+
+
+def _reset_launches():
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        fused_nerf_apply)
+    from fourier_feature_nets_torch.kernels.fused_nerf_train import (
+        fused_nerf_backward)
+    fused_nerf_apply.launches = 0
+    fused_nerf_backward.launches = 0
+
+
+def replay_kernel_names(chunk) -> dict:
+    """The device kernels ``torch.profiler`` records in one more replay
+    of a graph chunk: {name: count}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        chunk.graph.replay()
+        torch.cuda.synchronize()
+    return {event.key: event.count for event in prof.key_averages()
+            if event.device_type == DeviceType.CUDA}
+
+
+def _steady_ms_per_step(caster, first: int = 1, last=None) -> float:
+    """Mean ms a step over calls ``first``..``last`` of a fit."""
+    pairs = list(zip(caster.step_ms, caster.call_steps))[first:last]
+    return (sum(ms * n for ms, n in pairs) / sum(n for _, n in pairs))
+
+
+def phase_train_chunks() -> dict:
+    """``train_nerf synthetic --steps-per-call 8 --fused`` in bf16 and
+    f32 for 32 steps: each chunk is one CUDA-graph replay, so the
+    wrappers' counts do not see it. K1 and K2 run in it if the capture
+    recorded one launch of each a step (the counts during capture) and
+    the profiler names both kernels in one more replay; their launches
+    in the replays are the captured launches times the replays. Then
+    one chunk of the plain f32 step against the same 8 steps run
+    eagerly (rtol 1e-5 / atol 1e-6 on every weight), and one chunk of
+    the fused bf16 step against the same steps run eagerly (each leaf's
+    mean |d| within CHUNK_MEAN_SHARE of its mean update)."""
+    rows = {}
+    kernel = {"bfloat16": ("fused_nerf_bf16_kernel",
+                           "fused_nerf_backward_bf16_kernel"),
+              "float32": ("fused_nerf_tf32_kernel",
+                          "fused_nerf_backward_tf32_kernel")}
+    for dtype in ("bfloat16", "float32"):
+        _reset_launches()
+        start = time.perf_counter()
+        output, caster, chunks = run_train_cli(
+            os.path.join(OUT_DIR, "train_chunks", dtype),
+            ["--compute-dtype", dtype, "--fused", "--steps-per-call",
+             str(CHUNK_STEPS), "--num-steps", str(CHUNK_TRAIN_STEPS - 1),
+             "--report-interval", "16", "--image-interval", "0"])
+        wall = time.perf_counter() - start
+        eager = _launch_counts()
+        if len(chunks) != 1:
+            raise AssertionError(f"{dtype}: {len(chunks)} graph chunks")
+        chunk = chunks[0]
+        names = replay_kernel_names(chunk)
+        found = [sum(n for name, n in names.items() if symbol in name)
+                 for symbol in kernel[dtype]]
+        row = {
+            "wall_s": wall,
+            "calls": len(caster.call_steps),
+            "steps": sum(caster.call_steps),
+            "captures": chunk.captures,
+            "replays": chunk.replays,
+            "captured_launches": chunk.captured,
+            "launches_in_replays": {name: count * chunk.replays
+                                    for name, count in chunk.captured.items()},
+            "eager_launches": eager,
+            "profiled_replay_kernels": dict(zip(("fused_nerf",
+                                                 "fused_nerf_train"), found)),
+            "first_call_ms": caster.step_ms[0] * caster.call_steps[0],
+            "ms_per_step": _steady_ms_per_step(caster),
+            "host_ms_per_call": float(np.mean(caster.host_ms[1:])),
+        }
+        rows[dtype] = row
+        log(f"train_nerf --steps-per-call {CHUNK_STEPS} --fused, {dtype}: "
+            f"{row['steps']} steps in {row['calls']} calls, {wall:.3f} s "
+            f"for the CLI call; first call (warm-up and capture) "
+            f"{row['first_call_ms']:.3f} ms, then {row['ms_per_step']:.3f} "
+            f"ms/step, host {row['host_ms_per_call']:.3f} ms a call; "
+            f"{row['captures']} capture, {row['replays']} replays; launches "
+            f"captured a chunk {chunk.captured}, in the replays "
+            f"{row['launches_in_replays']}, eager (warm-up, validation) "
+            f"{eager}; the profiler names K1 x{found[0]} and K2 x{found[1]} "
+            f"in one replay")
+        if chunk.captures != 1 or chunk.replays != CHUNK_TRAIN_STEPS \
+                // CHUNK_STEPS:
+            raise AssertionError(f"{dtype}: {chunk.captures} captures, "
+                                 f"{chunk.replays} replays")
+        if any(chunk.captured[name] != CHUNK_STEPS
+               for name in ("fused_nerf", "fused_nerf_train")):
+            raise AssertionError(f"{dtype}: the graph captured "
+                                 f"{chunk.captured} launches, not one of "
+                                 f"K1 and K2 a step")
+        if found != [CHUNK_STEPS, CHUNK_STEPS]:
+            raise AssertionError(f"{dtype}: one replay ran K1 x{found[0]} "
+                                 f"and K2 x{found[1]}; the profiler saw "
+                                 f"{sorted(names)[:12]}")
+    rows["eager_vs_graph"] = {
+        "float32_plain": chunk_vs_eager(torch.float32, False),
+        "bfloat16_fused": chunk_vs_eager(torch.bfloat16, True)}
+    return rows
+
+
+def chunk_vs_eager(dtype, fused: bool) -> dict:
+    """One graph chunk of CHUNK_STEPS steps against the same steps run
+    eagerly, from the same weights, on the synthetic scene at the CLI's
+    batch: the largest |d| of each weight leaf and its share of the
+    leaf's largest update, and the mean |d| over the mean update. The
+    plain f32 step must agree within rtol 1e-5 / atol 1e-6; the fused
+    step differs by K2's atomics and is held in the mean, within
+    CHUNK_MEAN_SHARE."""
+    from fourier_feature_nets_torch.cli import common
+    from fourier_feature_nets_torch.datasets import ImageDataset
+    from fourier_feature_nets_torch.models import flagship_nerf
+    from fourier_feature_nets_torch.render import Raycaster
+    from fourier_feature_nets_torch.utils.optim import ClippedAdam
+    os.environ["FFN_TORCH_DATA_DIR"] = os.path.join(OUT_DIR, "data")
+    path = common.resolve_data_path("synthetic", "cuda")
+    dataset = ImageDataset.load(path, "train", 128, True, True,
+                                device="cuda", num_anneal_steps=2000)
+    perm = torch.from_numpy(dataset.index_pool()).cuda()
+    perm = perm[torch.randperm(len(perm), generator=torch.Generator()
+                               .manual_seed(SEED)).cuda()]
+    models, losses = [], []
+    for graph in (True, False):
+        model = flagship_nerf(torch.Generator().manual_seed(SEED)).cuda()
+        caster = Raycaster(model, compute_dtype=(
+            dtype if dtype == torch.bfloat16 else None), fused=fused,
+            fused_train=fused)
+        optimizer = ClippedAdam(model.parameters(), 5e-4, capturable=True)
+        if graph:
+            step = caster._make_train_step(dataset, 1024, 5e-4, 0.1, 250000,
+                                           optimizer, CHUNK_STEPS)
+            loss = step(perm, 7 * 1024, 40, 1234)
+        else:
+            step = caster._make_train_step(dataset, 1024, 5e-4, 0.1, 250000,
+                                           optimizer)
+            modulo = max(perm.shape[0] - 1024 + 1, 1)
+            for k in range(CHUNK_STEPS):
+                loss = step(perm, (7 * 1024 + k * 1024) % modulo, 40 + k,
+                            1234)
+        torch.cuda.synchronize()
+        models.append(model)
+        losses.append(float(loss))
+    start = flagship_nerf(torch.Generator().manual_seed(SEED))
+    worst_abs, worst_share, worst_mean, within = 0.0, 0.0, 0.0, True
+    for (name, a), (_, b), (_, s) in zip(models[0].named_parameters(),
+                                         models[1].named_parameters(),
+                                         start.named_parameters()):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        diff = (a - b).abs()
+        update = (b - s.detach()).abs()
+        worst_abs = max(worst_abs, float(diff.max()))
+        worst_share = max(worst_share,
+                          float(diff.max()) / max(float(update.max()), 1e-30))
+        worst_mean = max(worst_mean, float(diff.mean())
+                         / max(float(update.mean()), 1e-30))
+        within &= bool((diff <= 1e-6 + 1e-5 * b.abs()).all())
+    label = f"{'fused' if fused else 'plain'} {str(dtype)[6:]}"
+    log(f"one graph chunk of {CHUNK_STEPS} steps vs the same steps eager "
+        f"({label}): max |d weight| {worst_abs:.3e}, at most "
+        f"{worst_share:.3e} of a leaf's largest update, mean |d| at most "
+        f"{worst_mean:.3e} of a leaf's mean update; last loss "
+        f"{losses[0]:.6f} vs {losses[1]:.6f}; within rtol 1e-5 / atol "
+        f"1e-6: {within}")
+    if not fused and not within:
+        raise AssertionError(f"the plain graph chunk left the eager steps "
+                             f"by {worst_abs:.3e}")
+    # K2's atomics move the gradients' last bits, which can flip the sign
+    # of a near-zero element's Adam update: the fused chunk is held in the
+    # mean of each leaf
+    if fused and worst_mean > CHUNK_MEAN_SHARE:
+        raise AssertionError(f"the fused graph chunk left the eager steps "
+                             f"by {worst_mean:.3e} of a leaf's mean update")
+    return {"max_abs_diff": worst_abs, "max_update_share": worst_share,
+            "mean_update_share": worst_mean, "losses": losses,
+            "within_rtol_1e-5_atol_1e-6": within}
+
+
+def phase_train_resume() -> dict:
+    """``train_nerf --checkpoint-interval 10`` to step 20 (fused bf16,
+    one step a call), then ``--resume --steps-per-call 5`` to step 30:
+    the resumed run starts at 21, its first call captures after the
+    checkpoint is copied in, and the optimizer state copied onto the
+    card from the file equals the file."""
+    from fourier_feature_nets_torch.models.serialization import (
+        named_parameters, params_from_jax, params_to_jax)
+    from fourier_feature_nets_torch.utils.checkpoint import (
+        latest_checkpoint, load_train_state)
+    from fourier_feature_nets_torch.utils.optim import ClippedAdam
+    results = os.path.join(OUT_DIR, "train_resume")
+    shutil.rmtree(results, ignore_errors=True)
+    common = ["--compute-dtype", "bfloat16", "--report-interval", "10",
+              "--image-interval", "0", "--checkpoint-interval", "10",
+              "--crop-steps", "10"]
+    _reset_launches()
+    start = time.perf_counter()
+    run_train_cli(results, [*common, "--num-steps", "20"])
+    first = time.perf_counter() - start
+    saved = sorted(os.listdir(os.path.join(results, "checkpoints")))
+    path = latest_checkpoint(os.path.join(results, "checkpoints"))
+    state = load_train_state(path)
+    model = state.model.cuda()
+    optimizer = ClippedAdam(model.parameters(), 5e-4, capturable=True)
+    named = named_parameters(model)
+    optimizer.load_jax_state(named, *state.opt_state)
+    step, mu, nu = optimizer.jax_state(named)
+    equal = (step == state.opt_state.step
+             and all(np.array_equal(mu[k], state.opt_state.mu[k])
+                     and np.array_equal(nu[k], state.opt_state.nu[k])
+                     for k in mu)
+             and all(np.array_equal(v, state.params[k])
+                     for k, v in params_to_jax(model).items()))
+    start = time.perf_counter()
+    output, caster, chunks = run_train_cli(
+        results, [*common, "--num-steps", "30", "--resume",
+                  "--steps-per-call", "5"])
+    second = time.perf_counter() - start
+    resumed = re.search(r"Resumed from .*ckpt_(\d+)\.npz at step (\d+)",
+                        output)
+    rows = _read_log(os.path.join(results, "log.txt"))
+    launches = _launch_counts()
+    log(f"train_nerf --checkpoint-interval 10 to step 20: {first:.3f} s, "
+        f"checkpoints {saved}; the newest on the card equals the file "
+        f"(weights, moments, Adam step {step}): {equal}; --resume "
+        f"--steps-per-call 5 to step 30: {second:.3f} s, "
+        f"{resumed.group(0) if resumed else 'no resume line'}, log steps "
+        f"{[r[0] for r in rows]}, {len(chunks)} graph chunk(s) with "
+        f"{chunks[0].replays if chunks else 0} replays; launches {launches}")
+    if saved != ["ckpt_00000010.npz", "ckpt_00000020.npz"] or not equal \
+            or resumed is None or resumed.group(2) != "21" \
+            or [r[0] for r in rows] != [30] or len(chunks) != 1 \
+            or chunks[0].captured["fused_nerf_train"] != 5:
+        raise AssertionError("checkpoint/resume did not resume at step 21 "
+                             "through a captured chunk")
+    return {"first_s": first, "resumed_s": second, "checkpoints": saved,
+            "state_equals_file": equal, "launches": launches,
+            "replays": chunks[0].replays,
+            "captured_launches": chunks[0].captured,
+            "ms_per_step": _steady_ms_per_step(caster)}
+
+
+def phase_train_occupancy() -> dict:
+    """Occupancy-guided ``train_nerf`` (fused bf16, --steps-per-call 5,
+    no crop): 128 samples a ray to step 14, then 48 through the density
+    grid of the live model, refreshed in place at steps 24 and 34 with
+    no new capture; K1 and K2 launch, and run in the guided graph."""
+    results = os.path.join(OUT_DIR, "train_occupancy")
+    _reset_launches()
+    start = time.perf_counter()
+    output, caster, chunks = run_train_cli(
+        results, ["--compute-dtype", "bfloat16", "--crop-steps", "0",
+                  "--report-interval", "20", "--image-interval", "0",
+                  "--steps-per-call", "5", "--num-steps", "39",
+                  "--occupancy-interval", "10", "--occupancy-start", "10"])
+    wall = time.perf_counter() - start
+    launches = _launch_counts()
+    # calls 0-2: steps 0-14 at 128 samples; call 3 captures the guided
+    # chunk; calls 4-7 guided
+    full_ms = _steady_ms_per_step(caster, 1, 3)
+    guided_ms = _steady_ms_per_step(caster, 4)
+    refresh = caster.occupancy_refresh_ms
+    guided = chunks[-1] if chunks else None
+    log(f"train_nerf --occupancy-interval 10 --occupancy-start 10 "
+        f"--steps-per-call 5 (bf16, fused): {wall:.3f} s for the CLI call; "
+        f"{full_ms:.3f} ms/step at 128 samples, {guided_ms:.3f} ms/step at "
+        f"48 guided; refreshes {len(refresh)} of "
+        f"{', '.join(f'{ms:.3f}' for ms in refresh)} ms; graph chunks "
+        f"{len(chunks)}, the guided one {guided.captures if guided else 0} "
+        f"capture(s), {guided.replays if guided else 0} replays, "
+        f"{guided.captured if guided else {}} a chunk; launches {launches}")
+    if "Enabling occupancy-guided sampling" not in output \
+            or len(refresh) != 2 or len(chunks) != 2 \
+            or guided.captures != 1 or guided.replays != 5 \
+            or any(guided.captured[k] != 5 for k in guided.captured) \
+            or min(launches.values()) <= 0:
+        raise AssertionError(f"occupancy-guided training: {output[-2000:]}")
+    return {"wall_s": wall, "ms_per_step_128": full_ms,
+            "ms_per_step_48_guided": guided_ms, "refresh_ms": refresh,
+            "launches": launches, "replays": guided.replays,
+            "captured_launches": guided.captured}
+
+
+def phase_quality_orbit(checkpoint: str, label: str) -> dict:
+    """``orbit_video --preset quality`` (96 density-grid samples, early
+    termination at 1e-2 after 48, bf16) of ``checkpoint`` at 800x800 for
+    3 frames beside ``--preset fast``: K1 must launch in both passes;
+    then frame 0 with and without early termination, every value within
+    ceil(255 * 1e-2) + 1 of the other."""
+    from fourier_feature_nets_torch.cameras import Resolution
+    from fourier_feature_nets_torch.cli import orbit_video
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        fused_nerf_apply)
+    from fourier_feature_nets_torch.models import load_model
+    from fourier_feature_nets_torch.render import Raycaster
+    from fourier_feature_nets_torch.utils import orbit
+
+    passes = {"prefix": 0, "suffix": 0}
+    wrapped = {}
+    for name in passes:
+        method = getattr(Raycaster, f"_render_{name}")
+        wrapped[name] = method
+
+        def counting(self, *args, _name=name, _method=method, **kwargs):
+            before = fused_nerf_apply.launches
+            out = _method(self, *args, **kwargs)
+            passes[_name] += fused_nerf_apply.launches - before
+            return out
+
+        setattr(Raycaster, f"_render_{name}", counting)
+    try:
+        output, launches, wall = run_orbit(
+            checkpoint, os.path.join(OUT_DIR, "quality_frames"), FRAME_RES,
+            ["--preset", "quality", "--num-frames", "3"])
+    finally:
+        for name, method in wrapped.items():
+            setattr(Raycaster, f"_render_{name}", method)
+    check_frames(os.path.join(OUT_DIR, "quality_frames"), 3, FRAME_RES)
+    quality = orbit_summary(output)
+    survived = re.search(r"(\d+) of (\d+) hit rays survived", output)
+    fast_output, fast_launches, _ = run_orbit(
+        checkpoint, os.path.join(OUT_DIR, "fast_frames"), FRAME_RES,
+        ["--preset", "fast", "--num-frames", "3"])
+    fast = orbit_summary(fast_output)
+
+    args = orbit_video._parse_args([checkpoint, str(FRAME_RES), OUT_DIR,
+                                    "--preset", "quality"])
+    cameras = orbit(orbit_video.VECTORS[args.up_dir],
+                    orbit_video.VECTORS[args.forward_dir], args.num_frames,
+                    args.fov_y_degrees, Resolution(FRAME_RES, FRAME_RES),
+                    args.distance)
+    model = load_model(checkpoint).cuda()
+    sampler = orbit_video.build_render_sampler(
+        args, model, cameras, np.diag([2.0, 2.0, 2.0, 1.0]).astype(
+            np.float32))
+    caster = Raycaster(model, compute_dtype=torch.bfloat16)
+    chunk = args.batch_size * 4
+    early = caster.render_frame(sampler, 0, chunk_size=chunk,
+                                early_term=args.early_term,
+                                early_split=args.early_split)
+    full = caster.render_frame(sampler, 0, chunk_size=chunk)
+    diff = int(np.abs(early.astype(int) - full.astype(int)).max())
+    limit = int(np.ceil(255 * args.early_term)) + 1
+    share = (int(survived.group(1)) / int(survived.group(2))
+             if survived else None)
+    log(f"orbit_video --preset quality, {label}: 3 PNG frames of {FRAME_RES}x"
+        f"{FRAME_RES}, {wall:.3f} s for the CLI call; frames "
+        f"{quality['first_frame_ms']:.3f} ms then "
+        f"{quality['steady_frame_ms']:.3f} ms (--preset fast "
+        f"{fast['steady_frame_ms']:.3f} ms); "
+        f"{survived.group(0) if survived else 'no survivor count'} "
+        f"({share:.2%} of them); K1 launches {launches} (pass 1 "
+        f"{passes['prefix']}, pass 2 {passes['suffix']}; fast "
+        f"{fast_launches}); frame 0 with and without early termination: max "
+        f"|d| {diff} (limit {limit})")
+    if passes["prefix"] <= 0 or passes["suffix"] <= 0 or diff > limit \
+            or survived is None:
+        raise AssertionError("--preset quality did not run K1 in both "
+                             "passes within the bound")
+    return {"launches": launches, "pass_launches": passes,
+            "steady_frame_ms": quality["steady_frame_ms"],
+            "first_frame_ms": quality["first_frame_ms"],
+            "fast_steady_frame_ms": fast["steady_frame_ms"],
+            "survivor_share": share, "max_abs_diff_vs_full": diff,
+            "limit": limit}
+
+
 def phase_render_trained(checkpoint):
     """The trained checkpoint renders one 800x800 frame."""
     from fourier_feature_nets_torch.cli import orbit_video
@@ -2525,6 +2971,63 @@ def run_times(tree: str) -> int:
     return 0
 
 
+def run_train_turns() -> int:
+    """``--train-turns``: ms per step of ``train_nerf synthetic`` at
+    ``--steps-per-call`` 8 against 1, fused and plain, in bf16 and f32,
+    in turns 1 8 8 1 within this one process (the CUDA events of each
+    call over calls 2.., validation left out), and the host's ms to
+    issue a call; one JSON line."""
+    from fourier_feature_nets_torch.kernels import (fused_nerf,
+                                                    fused_nerf_train)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda module: module.load_kernel(),
+                      (fused_nerf, fused_nerf_train)))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    log(smi.stdout.strip().splitlines()[0])
+    rows = {}
+    for dtype in ("bfloat16", "float32"):
+        for fused in (True, False):
+            label = f"{dtype}, {'fused' if fused else 'plain'}"
+            rows[label] = []
+            for calls in (1, CHUNK_STEPS, CHUNK_STEPS, 1):
+                _, caster, _ = run_train_cli(
+                    os.path.join(OUT_DIR, "train_turns"),
+                    ["--compute-dtype", dtype,
+                     "--fused" if fused else "--no-fused",
+                     "--steps-per-call", str(calls), "--num-steps",
+                     str(TURN_STEPS - 1), "--report-interval",
+                     str(TURN_STEPS), "--image-interval", "0"])
+                row = {"steps_per_call": calls,
+                       "ms_per_step": _steady_ms_per_step(caster),
+                       "host_ms_per_call": float(np.mean(
+                           caster.host_ms[1:]))}
+                rows[label].append(row)
+                log(f"  {label}, --steps-per-call {calls}: "
+                    f"{row['ms_per_step']:.4f} ms/step, host "
+                    f"{row['host_ms_per_call']:.4f} ms a call")
+    print(json.dumps({"train_turns": rows, "steps": TURN_STEPS}))
+    return 0
+
+
+def _chunk_launches(chunks, resume, occupancy, kernel: str) -> dict:
+    """A kernel's launches on the chunked, resumed and occupancy-guided
+    train paths: eager (the wrapper's count: warm-up, validation) and in
+    the CUDA-graph replays (captured launches x replays; the replays
+    themselves call no wrapper)."""
+    rows = {f"train_nerf_chunks_{dtype}": {
+        "eager": chunks[dtype]["eager_launches"][kernel],
+        "in_graph_replays": chunks[dtype]["launches_in_replays"][kernel]}
+        for dtype in ("bfloat16", "float32")}
+    for name, row in (("train_nerf_resume", resume),
+                      ("train_nerf_occupancy", occupancy)):
+        rows[name] = {"eager": row["launches"][kernel],
+                      "in_graph_replays":
+                          row["captured_launches"][kernel] * row["replays"]}
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch port on one NVIDIA GPU")
@@ -2538,6 +3041,10 @@ def main(argv=None) -> int:
     parser.add_argument("--sass", metavar="DIR",
                         help="only compare the SASS instruction counts of "
                              "K1's, P2's and K2's kernels in DIR and here")
+    parser.add_argument("--train-turns", action="store_true",
+                        help="only time train_nerf at --steps-per-call 8 "
+                             "against 1, fused and plain, bf16 and f32, in "
+                             "turns (one JSON line)")
     parser.add_argument("--tree", default=ROOT,
                         help="with --times-only or --k2-limits: import the "
                              "port from this checkout (e.g. an unpacked "
@@ -2555,6 +3062,8 @@ def main(argv=None) -> int:
         sys.path.insert(0, os.path.abspath(args.tree))
     if args.k2_limits:
         return run_k2_limits(args.k2_limits)
+    if args.train_turns:
+        return run_train_turns()
     if args.times_only:
         return run_times(args.tree)
     from fourier_feature_nets_torch.kernels.fused_nerf import (
@@ -2584,6 +3093,24 @@ def main(argv=None) -> int:
         + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items()))
     phase_render_trained(checkpoint)
     voxelize = phase_voxelize(checkpoint)
+    new_phases = {}
+
+    def timed(name, fn, *args):
+        start = time.perf_counter()
+        result = fn(*args)
+        new_phases[name] = time.perf_counter() - start
+        log(f"phase {name}: {new_phases[name]:.3f} s")
+        return result
+
+    chunks = timed("train_chunks", phase_train_chunks)
+    resume = timed("train_resume", phase_train_resume)
+    occupancy = timed("train_occupancy", phase_train_occupancy)
+    quality = {
+        "random": timed("quality_orbit_random", phase_quality_orbit,
+                        os.path.join(OUT_DIR, "flagship_seed0.npz"),
+                        "random flagship"),
+        "trained": timed("quality_orbit_trained", phase_quality_orbit,
+                         checkpoint, "30-step trained checkpoint")}
     model = flagship_nerf(torch.Generator().manual_seed(SEED)).cuda()
     log("K3 vs plain twin, flagship:")
     render_checks = phase_ray_render_vs_twin(model)
@@ -2676,7 +3203,12 @@ def main(argv=None) -> int:
             "orbit_octree_traversal": octree["traversal"]["launches"],
             "voxelize_model": voxelize["launches"],
             "orbit_voxelized_octree": voxelize["octree_frame_launches"],
-            "train_nerf": train_launches["fused_nerf"]},
+            "train_nerf": train_launches["fused_nerf"],
+            **_chunk_launches(chunks, resume, occupancy, "fused_nerf"),
+            "orbit_preset_quality": {
+                name: {"total": row["launches"], **row["pass_launches"]}
+                for name, row in quality.items()}},
+        "quality_orbit": quality,
         "focus_orbit": focus,
         "octree_orbit": octree,
         "voxelize": voxelize,
@@ -2708,6 +3240,14 @@ def main(argv=None) -> int:
             "margin_3x256": backward["bfloat16"]["control"],
             "flagship": backward["bfloat16"]["flagship_control"]},
         "train_ms_per_step": step_ms,
+        "launches_by_path": {
+            "train_nerf": train_launches["fused_nerf_train"],
+            **_chunk_launches(chunks, resume, occupancy,
+                              "fused_nerf_train")},
+        "train_chunks": chunks,
+        "train_resume": resume,
+        "train_occupancy": occupancy,
+        "new_phase_s": new_phases,
     }, {
         "name": "fused_ray_render",
         "route": "cuda",

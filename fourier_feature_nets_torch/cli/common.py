@@ -55,27 +55,51 @@ def add_common_train_args(parser):
                              "where a whole step did not in every run)")
     parser.add_argument("--no-fused", dest="fused", action="store_false",
                         help="Force the plain PyTorch autograd/render path")
-    parser.add_argument("--steps-per-call", type=int, default=1)
-    parser.add_argument("--checkpoint-interval", type=int, default=0)
-    parser.add_argument("--resume", action="store_true")
-    parser.add_argument("--occupancy-interval", type=int, default=0)
-    parser.add_argument("--occupancy-samples", type=int, default=48)
-    parser.add_argument("--occupancy-start", type=int, default=0)
-    parser.add_argument("--occupancy-end", type=int, default=0)
-    parser.add_argument("--occupancy-empty-weight", type=float, default=0.1)
-    parser.add_argument("--occupancy-mix", type=int, default=0)
+    parser.add_argument("--steps-per-call", type=int, default=1,
+                        help="Training steps per call; above 1, on CUDA "
+                             "one CUDA-graph replay")
+    parser.add_argument("--checkpoint-interval", type=int, default=0,
+                        help="Steps between resumable train-state "
+                             "checkpoints (written in the background to "
+                             "<results_dir>/checkpoints); 0 disables")
+    parser.add_argument("--resume", action="store_true",
+                        help="Resume from the newest checkpoint in "
+                             "<results_dir>/checkpoints")
+    parser.add_argument("--occupancy-interval", type=int, default=0,
+                        help="Occupancy-guided training: refresh the "
+                             "density grid of the live model every this "
+                             "many steps; 0 disables")
+    parser.add_argument("--occupancy-samples", type=int, default=48,
+                        help="Samples/ray of occupancy-guided steps")
+    parser.add_argument("--occupancy-start", type=int, default=0,
+                        help="First occupancy-guided step (0: after the "
+                             "crop, at least 1000)")
+    parser.add_argument("--occupancy-end", type=int, default=0,
+                        help="Step from which full sampling returns (0: "
+                             "occupancy until the end)")
+    parser.add_argument("--occupancy-empty-weight", type=float, default=0.1,
+                        help="CDF mass of the grid's empty probes")
+    parser.add_argument("--occupancy-mix", type=int, default=0,
+                        help="Full-sampling steps after each guided call")
 
 
 def fit_kwargs(args) -> dict:
-    """``fit`` kwargs from the common flags. ``fit`` raises for the ones
-    whose path is not ported (checkpoints, occupancy, steps per call);
-    ``--make-video`` and ``--data-parallel`` raise here."""
+    """``fit`` kwargs from the common flags: the seed, steps per call,
+    occupancy-guided training and checkpoint/resume, as the JAX CLI
+    passes them. ``--make-video`` and ``--data-parallel`` raise here."""
     if args.make_video:
         raise not_ported("--make-video", _REMAINING)
     if args.data_parallel:
         raise not_ported("--data-parallel", _REMAINING)
-    kwargs = {"seed": args.seed, "steps_per_call": args.steps_per_call,
-              "occupancy_interval": args.occupancy_interval or None}
+    kwargs = {"seed": args.seed, "steps_per_call": args.steps_per_call}
+    if args.occupancy_interval:
+        kwargs.update(
+            occupancy_interval=args.occupancy_interval,
+            occupancy_samples=args.occupancy_samples,
+            occupancy_start=args.occupancy_start or None,
+            occupancy_end=args.occupancy_end or None,
+            occupancy_empty_weight=args.occupancy_empty_weight,
+            occupancy_mix=args.occupancy_mix)
     if args.checkpoint_interval or args.resume:
         kwargs.update(checkpoint_dir=os.path.join(args.results_dir,
                                                   "checkpoints"),

@@ -5,10 +5,11 @@ its samplers: focus sampling with the model as its own opacity model
 (the default), with another checkpoint (``--opacity-model``), the
 density grid (``--density-grid``, ``--preset fast``), an octree
 (``--octree`` with ``--octree-mode occupancy|traversal``) and plain
-uniform samples (``--no-focus``). Frames are written as PNGs by a
-standard library encoder. ``--early-term``, ``--chunked``,
-``--data-parallel`` and ``--mp4`` raise ``NotImplementedError`` naming
-the ROADMAP.md item that ports them.
+uniform samples (``--no-focus``). ``--early-term`` (with
+``--early-split``) terminates the rays of a culled frame early, as
+``--preset quality`` does. Frames are written as PNGs by a standard
+library encoder. ``--chunked``, ``--data-parallel`` and ``--mp4`` raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
 
     python -m fourier_feature_nets_torch.cli.orbit_video model.npz 800 out/ \\
         --preset fast --num-frames 10
@@ -94,8 +95,6 @@ def _parse_args(argv=None):
 def _reject_unported(args):
     """Raises for every flag whose path the port does not have yet
     (the sampler flags are checked by :func:`build_render_sampler`)."""
-    if args.early_term > 0.0:
-        raise not_ported("--early-term", "Early termination")
     if args.chunked:
         raise not_ported("--chunked (render_image)",
                           "Pose rendering and serving")
@@ -164,7 +163,7 @@ def main(argv=None):
 
     os.makedirs(args.output_dir, exist_ok=True)
     progress = ETABar("Rendering", max=args.num_frames)
-    frame_ms = []
+    frame_ms, hit, survived = [], 0, 0
     for frame in range(args.num_frames):
         progress.next()
         # render_frame returns a host array, so the time includes the
@@ -172,8 +171,12 @@ def main(argv=None):
         # frame on the hit count, so frames are not pipelined)
         start = time.perf_counter()
         image = raycaster.render_frame(sampler, frame,
-                                       chunk_size=args.batch_size * 4)
+                                       chunk_size=args.batch_size * 4,
+                                       early_term=args.early_term,
+                                       early_split=args.early_split)
         frame_ms.append((time.perf_counter() - start) * 1e3)
+        hit += raycaster.frame_rays["hit"]
+        survived += raycaster.frame_rays.get("survived", 0)
         write_png(os.path.join(args.output_dir,
                                "frame_{:05d}.png".format(frame)), image)
     progress.finish()
@@ -182,10 +185,14 @@ def main(argv=None):
              else str(device))
     steady = (f"{np.mean(frame_ms[1:]):.3f} ms/frame over frames 2.."
               f"{len(frame_ms)}" if len(frame_ms) > 1 else "no later frames")
+    early = ""
+    if "survived" in raycaster.frame_rays:
+        early = (f", early termination at {args.early_term:g}: "
+                 f"{survived} of {hit} hit rays survived pass 1")
     print(f"orbit_video: {args.num_frames} frames of {args.resolution}x"
           f"{args.resolution} on {where}, {args.num_samples} samples, "
           f"{args.compute_dtype}: sampler set-up {setup_s:.3f} s, first "
-          f"frame {frame_ms[0]:.3f} ms, {steady}")
+          f"frame {frame_ms[0]:.3f} ms, {steady}{early}")
     return 0
 
 

@@ -7,13 +7,16 @@ runs the fused NeRF forward (K1) and recompute backward (K2) Hopper
 kernels; at the f32 default, or with ``--no-fused``, it trains through
 autograd of the plain model, which a fused f32 step (3xTF32 kernels)
 did not beat in every run on an H100. ``--opacity-model`` focus-samples
-the train and val rays with that checkpoint's density. Flags whose path
-is not ported yet (``--make-video``, ``--data-parallel``, ``--resume``,
-``--checkpoint-interval``, ``--occupancy-*``, ``--steps-per-call``)
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+the train and val rays with that checkpoint's density.
+``--steps-per-call N`` runs N steps a call, on CUDA as one CUDA-graph
+replay; ``--checkpoint-interval`` writes resumable train-state
+checkpoints to ``<results_dir>/checkpoints`` and ``--resume`` continues
+from the newest; ``--occupancy-*`` trains occupancy-guided.
+``--make-video`` and ``--data-parallel`` raise ``NotImplementedError``
+naming their ROADMAP.md item.
 
     python -m fourier_feature_nets_torch.cli.train_nerf synthetic out/ \\
-        --num-steps 30 --report-interval 10
+        --num-steps 30 --report-interval 10 --steps-per-call 8
 """
 
 import os
@@ -81,14 +84,32 @@ def main(argv=None):
                          log)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else str(device))
-    step_ms = raycaster.step_ms
-    steady = (f"{np.mean(step_ms[1:]):.3f} ms/step over steps 2.."
-              f"{len(step_ms)}" if len(step_ms) > 1 else "no later steps")
-    print(f"train_nerf: {len(step_ms)} steps of {args.batch_size} rays x "
-          f"{args.num_samples} samples on {where}, {args.compute_dtype}, "
-          f"{'fused' if raycaster.fused_train else 'plain'}: first step "
-          f"{step_ms[0]:.3f} ms, {steady}")
+    print(f"train_nerf: {sum(raycaster.call_steps)} steps of "
+          f"{args.batch_size} rays x {args.num_samples} samples on {where}, "
+          f"{args.compute_dtype}, "
+          f"{'fused' if raycaster.fused_train else 'plain'}: "
+          f"{_timing_detail(raycaster, device)}")
     return 0
+
+
+def _timing_detail(raycaster, device) -> str:
+    """The first call's time and the later steps' mean: for one step a
+    call "first step ... ms/step over steps 2..N"; for chunks "first
+    call ... (k steps, with its capture on CUDA), ... ms/step over steps
+    k+1..N, host ... ms a call"."""
+    step_ms, steps = raycaster.step_ms, raycaster.call_steps
+    total = sum(steps)
+    later = sum(ms * n for ms, n in zip(step_ms[1:], steps[1:]))
+    steady = (f"{later / (total - steps[0]):.3f} ms/step over steps "
+              f"{steps[0] + 1}..{total}" if len(steps) > 1
+              else "no later steps")
+    if max(steps) == 1:
+        return f"first step {step_ms[0]:.3f} ms, {steady}"
+    host = (f", host {np.mean(raycaster.host_ms[1:]):.3f} ms a call"
+            if len(steps) > 1 else "")
+    capture = ", with its capture" if device.type == "cuda" else ""
+    return (f"first call {step_ms[0] * steps[0]:.3f} ms ({steps[0]} "
+            f"steps{capture}), {steady}{host}")
 
 
 if __name__ == "__main__":

@@ -6,11 +6,12 @@ and are gathered per batch of ray ids; the sampling modes (Full,
 Sparse, Center, Dilate, Patch) are host-side index pools, filtered to
 valid rays on first use.
 
-Two departures from the JAX package, both because the card's machine
+Three departures from the JAX package, all because the card's machine
 has neither OpenCV nor network access: the alpha-mask dilation is
 ``scipy.ndimage.binary_dilation`` with OpenCV's elliptic stencil
-(:func:`ellipse_stencil`), and a missing NPZ is an error naming the
-path (the JAX package downloads it).
+(:func:`ellipse_stencil`), ``YCrCb`` colors come from OpenCV's uint8
+conversion rebuilt in NumPy (:mod:`..utils.color`), and a missing NPZ
+is an error naming the path (the JAX package downloads it).
 """
 
 import os
@@ -23,7 +24,7 @@ import torch
 from ..cameras import CameraInfo, Resolution, pixel_grid
 from ..render.ray_sampler import RaySampler, RaySamples
 from ..render.raycaster import RenderResult
-from ..utils.errors import not_ported
+from ..utils.color import rgb_to_ycrcb
 from .ray_dataset import Mode, RayDataset
 
 __all__ = ["ImageDataset", "ellipse_stencil"]
@@ -59,9 +60,8 @@ class ImageDataset(RayDataset):
                 or images.dtype != np.uint8:
             raise ValueError("images must be (C, H, W, 3|4) uint8, one per "
                              "camera")
-        if color_space != "RGB":
-            raise not_ported(f"color space {color_space!r}",
-                             "Remaining models, data, CLIs and parallel")
+        if color_space not in ("RGB", "YCrCb"):
+            raise ValueError(f"unknown color space {color_space!r}")
         self._color_space = color_space
         self._mode = Mode.Full
         self._label = label
@@ -105,7 +105,10 @@ class ImageDataset(RayDataset):
         num_dilate = 0
         has_alpha = images.shape[-1] == 4
         for cam, image in enumerate(images):
-            color = image[..., :3].astype(np.float32) / 255
+            color = image[..., :3]
+            if color_space == "YCrCb":
+                color = rgb_to_ycrcb(color)
+            color = color.astype(np.float32) / 255
             colors.append(color[points[:, 1], points[:, 0]])
             offset = cam * rays_per_camera
             if has_alpha:

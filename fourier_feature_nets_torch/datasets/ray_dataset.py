@@ -16,7 +16,7 @@ import torch
 from ..cameras import CameraInfo
 from ..render.ray_sampler import RaySamples
 from ..render.raycaster import RenderResult
-from ..utils.errors import not_ported
+from ..utils.color import ycrcb_to_rgb
 
 __all__ = ["Mode", "RayDataset"]
 
@@ -107,10 +107,7 @@ class RayDataset(ABC):
 
     def to_image(self, camera: int, colors: np.ndarray) -> np.ndarray:
         """Scatters mode-aware ray colors into an (H, W, 3) uint8
-        image."""
-        if self.color_space != "RGB":
-            raise not_ported(f"color space {self.color_space!r}",
-                             "Remaining models, data, CLIs and parallel")
+        image, converted to RGB from a ``YCrCb`` dataset's colors."""
         colors = np.asarray(colors)
         if colors.ndim == 1:
             colors = colors[..., np.newaxis]
@@ -119,7 +116,10 @@ class RayDataset(ABC):
                           np.float32)
         pixels[self.index_for_camera(camera)] = colors
         pixels = pixels.reshape(resolution.height, resolution.width, 3)
-        return (pixels * 255).astype(np.uint8)
+        pixels = (pixels * 255).astype(np.uint8)
+        if self.color_space == "YCrCb":
+            pixels = ycrcb_to_rgb(pixels)
+        return pixels
 
     def sample_cameras(self, num_cameras: int, num_samples: int,
                        stratified: bool) -> "RayDataset":

@@ -18,7 +18,8 @@ import torch
 
 from .nerf import NeRF
 
-__all__ = ["save_model", "load_model", "params_from_jax", "params_to_jax"]
+__all__ = ["save_model", "load_model", "named_parameters", "params_from_jax",
+           "params_to_jax"]
 
 _HEADS = ("opacity_out", "bottleneck", "hidden_view", "color_out")
 _TRAIN_STATE_FORMAT = "ffn_tpu_train_state_v1"
@@ -29,6 +30,14 @@ def _named_linears(model: NeRF):
         yield f"layers/{i}", layer
     for head in _HEADS:
         yield head, getattr(model, head)
+
+
+def named_parameters(model: NeRF) -> Dict[str, torch.nn.Parameter]:
+    """The model's parameters under the JAX package's flat paths
+    (``layers/0/weight``, ...), in the module's own (out, in) layout."""
+    return {f"{name}/{field}": getattr(layer, field)
+            for name, layer in _named_linears(model)
+            for field in ("weight", "bias")}
 
 
 def params_to_jax(model: NeRF) -> Dict[str, np.ndarray]:

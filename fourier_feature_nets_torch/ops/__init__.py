@@ -1,7 +1,12 @@
 """Plain PyTorch ops of the render path (the kernels live in
 :mod:`fourier_feature_nets_torch.kernels`)."""
 
-from .blend import calculate_blend_weights, exclusive_cumprod
+from .blend import (
+    blend_weights_prefix,
+    blend_weights_suffix,
+    calculate_blend_weights,
+    exclusive_cumprod,
+)
 from .encoding import encode_phases, positional_encoding_matrix
 from .intersection import NearFar, bounds_min_max, ray_aabb_near_far
 from .sampling import (
@@ -20,6 +25,8 @@ __all__ = [
     "NearFar",
     "anneal_near_far",
     "batch_linspace",
+    "blend_weights_prefix",
+    "blend_weights_suffix",
     "bounds_min_max",
     "calculate_blend_weights",
     "determine_cdf",

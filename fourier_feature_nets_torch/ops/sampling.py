@@ -32,10 +32,11 @@ def unit_linspace(num: int, device=None) -> torch.Tensor:
     occupancy cell border."""
     if num == 1:
         return torch.zeros(1, device=device)
-    steps = torch.arange(num, dtype=torch.float32, device=device)
-    steps = steps * (1.0 / (num - 1))
-    steps[-1] = 1.0
-    return steps
+    steps = torch.arange(num - 1, dtype=torch.float32, device=device)
+    # the endpoint from a device fill, not a host scalar: this runs
+    # inside captured CUDA graphs
+    return torch.cat([steps * (1.0 / (num - 1)),
+                      torch.ones(1, device=device)])
 
 
 def batch_linspace(start: torch.Tensor, stop: torch.Tensor,
@@ -75,7 +76,9 @@ def per_ray_uniform(seed: int, step: int, idx: torch.Tensor,
 
     Args:
         seed: the epoch's integer key.
-        step: training step.
+        step: training step. ``seed`` and ``step`` may be 0-d int64
+            tensors on ``idx``'s device (a CUDA graph's counters): the
+            hash is the same integer arithmetic, with no host read.
         idx: (R,) integer global ray indices.
         num_samples: draws per ray.
         salt: distinguishes independent streams per call site.
@@ -90,18 +93,33 @@ def per_ray_uniform(seed: int, step: int, idx: torch.Tensor,
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def anneal_near_far(near: torch.Tensor, far: torch.Tensor, step: int,
+def anneal_near_far(near: torch.Tensor, far: torch.Tensor, step,
                     anneal_start: float, num_anneal_steps: int):
     """Shrinks [near, far] toward its midpoint early in training; from
     ``step >= num_anneal_steps`` (or with no annealing) the bounds pass
-    through unchanged. The blend factor is f32, as in the JAX package."""
-    if num_anneal_steps <= 0 or step >= num_anneal_steps:
+    through unchanged. The blend factor is f32, as in the JAX package.
+
+    ``step`` is an int, or a 0-d integer tensor on ``near``'s device (a
+    CUDA graph's step counter): then the pass-through is a
+    ``torch.where`` with the same values, and nothing reads the step on
+    the host."""
+    if num_anneal_steps <= 0:
         return near, far
-    progress = torch.tensor(step, dtype=torch.float32) / num_anneal_steps
+    traced = isinstance(step, torch.Tensor)
+    if not traced:
+        if step >= num_anneal_steps:
+            return near, far
+        step = torch.tensor(step)
+    progress = step.to(torch.float32) / num_anneal_steps
     anneal = torch.clamp(progress, anneal_start, 1.0).to(near.device)
     midpoint = (near + far) * 0.5
-    return (midpoint + (near - midpoint) * anneal,
-            midpoint + (far - midpoint) * anneal)
+    new_near = midpoint + (near - midpoint) * anneal
+    new_far = midpoint + (far - midpoint) * anneal
+    if traced:
+        done = step >= num_anneal_steps
+        return torch.where(done, near, new_near), torch.where(done, far,
+                                                              new_far)
+    return new_near, new_far
 
 
 def uniform_t_values(near: torch.Tensor, far: torch.Tensor,
@@ -165,7 +183,8 @@ def _even_quantiles(num_rays: int, num_samples: int, device):
 
 def inverse_cdf_from_bins(t_edges: torch.Tensor, cdf: torch.Tensor,
                           num_samples: int,
-                          quantiles: torch.Tensor = None) -> torch.Tensor:
+                          quantiles: torch.Tensor = None,
+                          jitter: torch.Tensor = None) -> torch.Tensor:
     """Inverse-transform sampling over explicit bin edges.
 
     Args:
@@ -175,12 +194,20 @@ def inverse_cdf_from_bins(t_edges: torch.Tensor, cdf: torch.Tensor,
         num_samples: samples to draw per ray.
         quantiles: optional (R, num_samples) quantiles in [0, 1];
             default is ``num_samples`` evenly spaced ones.
+        jitter: optional (R, num_samples) uniforms ``u`` in [0, 1) for
+            stratified quantiles ``(k + u) / num_samples``, one in each
+            stratum ``k``, so the samples come out sorted (the JAX
+            package's ``stratified_quantiles``); ``quantiles`` wins.
 
     Returns:
         (R, num_samples) t values, linearly interpolated within bins.
         The interpolation denominator is guarded by ``eps = 1e-9``.
     """
-    if quantiles is None:
+    if quantiles is None and jitter is not None:
+        strata = torch.arange(num_samples, dtype=jitter.dtype,
+                              device=jitter.device)
+        quantiles = (strata + jitter) / num_samples
+    elif quantiles is None:
         quantiles = _even_quantiles(t_edges.shape[0], num_samples,
                                     cdf.device)
     return _inverse_cdf_interp(t_edges, cdf, quantiles, eps=1e-9)

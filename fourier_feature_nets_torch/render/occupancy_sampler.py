@@ -15,7 +15,12 @@ cubed table through a one-hot matmul, because dynamic gathers are slow
 on a TPU. Here the probe is a gather from the SAME max-pooled table, so
 the hit sets match the JAX default (``probe_mode="matmul"``) exactly.
 The JAX constructor's ``trilinear`` and ``probe_mode="gather"`` options
-and its stratified quantiles are not ported (ROADMAP.md, queue 3).
+are not ported (ROADMAP.md, queue 1, item 7). A stratified sampler
+draws one jittered CDF quantile per stratum when :meth:`sample` is
+given a key, as occupancy-guided training does. Refreshing the grid at
+its resolution rewrites the tables in place
+(:meth:`OccupancyGridSampler.set_occupancy_grid`), so a CUDA graph
+that captured a step through this sampler reads the new grid.
 """
 
 from typing import List, Optional
@@ -25,7 +30,11 @@ import torch
 
 from ..cameras import CameraInfo
 from ..octree import OcTree
-from ..ops.sampling import batch_linspace, inverse_cdf_from_bins
+from ..ops.sampling import (
+    batch_linspace,
+    inverse_cdf_from_bins,
+    per_ray_uniform,
+)
 from .ray_sampler import RaySampler, RaySamples
 
 __all__ = ["occupancy_grid_from_tree", "density_grid_from_model",
@@ -98,7 +107,8 @@ class OccupancyGridSampler(RaySampler):
                  cameras: List[CameraInfo], num_samples: int,
                  num_probes: int = 32, empty_weight: float = 1e-2,
                  bounds: Optional[np.ndarray] = None,
-                 probe_resolution: int = 32, device="cpu"):
+                 probe_resolution: int = 32, device="cpu",
+                 stratified: bool = False):
         """Constructor.
 
         Args:
@@ -113,11 +123,14 @@ class OccupancyGridSampler(RaySampler):
             probe_resolution: side of the max-pooled table the probes
                 read (clamped to the grid resolution).
             device: where the tables and samples live.
+            stratified: jitter the CDF quantiles when :meth:`sample` is
+                given a key (occupancy-guided training).
         """
         if bounds is None:
             side = 2 * grid_scale
             bounds = np.diag([side, side, side, 1.0]).astype(np.float32)
-        super().__init__(bounds, cameras, num_samples, device)
+        super().__init__(bounds, cameras, num_samples, device,
+                         stratified=stratified)
         self.num_probes = num_probes
         self.empty_weight = empty_weight
         self._grid_scale = float(grid_scale)
@@ -127,21 +140,32 @@ class OccupancyGridSampler(RaySampler):
 
     def set_occupancy_grid(self, grid: np.ndarray) -> None:
         """(Re)installs the occupancy volume and its max-pooled probe
-        table (max-pooling only ever grows occupancy)."""
+        table (max-pooling only ever grows occupancy).
+
+        A grid of the installed resolution is copied into the existing
+        tensors, which keep their storage: a CUDA graph captured
+        through this sampler reads the new occupancy at its next replay
+        (the counterpart of the JAX package's refresh without a
+        recompile). Another resolution allocates new tensors, which a
+        captured graph does not see."""
         grid = np.asarray(grid, np.float32)
         grid_resolution = int(grid.shape[0])
-        self._grid_resolution = grid_resolution
-        self.occupancy = torch.from_numpy(grid).to(self.device)
-
         side = min(self._probe_target, grid_resolution)
         factor = grid_resolution // side
         side = grid_resolution // factor
         coarse = grid.reshape(side, factor, side, factor,
                               side, factor).max((1, 3, 5))
-        self._probe_resolution = side
         # flat cell id = (z * side + y) * side + x
-        self.probe_table = torch.from_numpy(
-            np.ascontiguousarray(coarse.reshape(-1))).to(self.device)
+        table = np.ascontiguousarray(coarse.reshape(-1))
+        occupancy = getattr(self, "occupancy", None)
+        if occupancy is not None and occupancy.shape == grid.shape:
+            occupancy.copy_(torch.from_numpy(grid))
+            self.probe_table.copy_(torch.from_numpy(table))
+            return
+        self._grid_resolution = grid_resolution
+        self._probe_resolution = side
+        self.occupancy = torch.from_numpy(grid).to(self.device)
+        self.probe_table = torch.from_numpy(table).to(self.device)
 
     @classmethod
     def from_tree(cls, tree: OcTree, cameras: List[CameraInfo],
@@ -211,17 +235,29 @@ class OccupancyGridSampler(RaySampler):
         cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
         return edges, cdf, hit
 
-    def t_from_cdf(self, edges: torch.Tensor,
-                   cdf: torch.Tensor) -> torch.Tensor:
-        """The per-ray sample budget at evenly spaced CDF quantiles."""
-        return inverse_cdf_from_bins(edges, cdf, self.num_samples)
+    def t_from_cdf(self, edges: torch.Tensor, cdf: torch.Tensor,
+                   idx: Optional[torch.Tensor] = None, step=None,
+                   rng=None) -> torch.Tensor:
+        """The per-ray sample budget from a probe CDF: at evenly spaced
+        quantiles, or, for a stratified sampler given a key, at one
+        jittered quantile per stratum, ``(k + u) / n`` with ``u`` drawn
+        by :func:`~..ops.per_ray_uniform` from the global ray ids
+        ``idx`` (salt 2, as the JAX sampler keys it)."""
+        jitter = None
+        if self.stratified and rng is not None and idx is not None:
+            jitter = per_ray_uniform(rng, 0 if step is None else step, idx,
+                                     self.num_samples, salt=2)
+        return inverse_cdf_from_bins(edges, cdf, self.num_samples,
+                                     jitter=jitter)
 
     def _sample_geometry(self, starts, directions, near, far, idx,
                          step=None, rng=None):
-        # deterministic render-time placement: no jitter or annealing
+        # placement follows the probe CDF alone (no annealing); the
+        # quantiles are jittered only for a stratified sampler given a
+        # key, as in training (:meth:`RaySampler.sample`)
         edges, cdf, _ = self._probe_cdf_geometry(starts, directions,
                                                  near, far)
-        t_values = self.t_from_cdf(edges, cdf)
+        t_values = self.t_from_cdf(edges, cdf, idx, step, rng)
         positions = (starts[:, None, :]
                      + t_values[..., None] * directions[:, None, :])
         view_directions = directions[:, None, :].expand(positions.shape)

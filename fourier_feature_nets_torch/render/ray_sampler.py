@@ -31,7 +31,7 @@ from ..ops import (
     ray_aabb_near_far,
     uniform_t_values,
 )
-from ..utils.errors import not_ported
+from ..utils.color import ycrcb_to_rgb
 
 __all__ = ["RaySamples", "RaySampler", "RayTables"]
 
@@ -187,9 +187,12 @@ class RaySampler:
 
         Args:
             idx: (R,) int64 global ray indices (should be valid rays).
-            step: training step; None disables annealing (eval).
-            rng: integer key of :func:`~..ops.per_ray_uniform`; with a
-                stratified sampler it draws the jitter, else ignored.
+            step: training step (an int, or a 0-d int64 tensor on the
+                sampler's device inside a CUDA graph); None disables
+                annealing (eval).
+            rng: integer key of :func:`~..ops.per_ray_uniform` (or a 0-d
+                int64 tensor, as ``step``); with a stratified sampler it
+                draws the jitter, else ignored.
 
         Returns:
             RaySamples with (R, num_samples) geometry.
@@ -255,10 +258,11 @@ class RaySampler:
                        else self.num_samples)
         jitter = focus_quantiles = None
         if self.stratified and rng is not None:
-            jitter = per_ray_uniform(rng, step or 0, idx, num_uniform,
+            key_step = 0 if step is None else step
+            jitter = per_ray_uniform(rng, key_step, idx, num_uniform,
                                      salt=0)
             if self.focus_sampling:
-                u = per_ray_uniform(rng, step or 0, idx,
+                u = per_ray_uniform(rng, key_step, idx,
                                     self.num_focus_samples, salt=1)
                 strata = torch.arange(self.num_focus_samples,
                                       dtype=u.dtype, device=u.device)
@@ -295,12 +299,13 @@ class RaySampler:
     def to_image(self, camera: int, colors: np.ndarray,
                  color_space: str = "RGB") -> np.ndarray:
         """Scatters one camera's valid-ray colors into an (H, W, 3)
-        uint8 image; invalid rays render black."""
-        if color_space != "RGB":
-            raise not_ported(f"color space {color_space!r}",
-                             "Remaining models, data, CLIs and parallel")
+        uint8 image; invalid rays render black, and ``YCrCb`` colors are
+        converted to RGB."""
         idx = self._valid_for_camera(camera) - camera * self.rays_per_camera
         pixels = np.zeros((self.rays_per_camera, 3), np.float32)
         pixels[idx] = np.asarray(colors)
         pixels = pixels.reshape(self.image_height, self.image_width, 3)
-        return (pixels * 255).astype(np.uint8)
+        pixels = (pixels * 255).astype(np.uint8)
+        if color_space == "YCrCb":
+            pixels = ycrcb_to_rgb(pixels)
+        return pixels

@@ -3,17 +3,19 @@
 Port of ``fourier_feature_nets_tpu/render/raycaster.py``: ``_composite``,
 ``Raycaster.render``/``batched_render``, the surface sweep of
 ``voxelize_model`` (``extract_surface``), the whole-frame renderer
-``render_frame``/``render_frame_async`` with empty-space culling, and
-the trainer: ``_train_forward``, ``_make_train_step``, ``_validate``
-and ``fit``. The JAX package compiles a frame into one ``lax.scan`` and
-a train step into one jitted function; here both are eager PyTorch.
-On a CUDA device in bf16 NeRF queries go through the fused Hopper
-kernels by default (:func:`resolve_fused`): K1
-(:mod:`..kernels.fused_nerf`) for rendering, K1 forward and K2
-backward (:mod:`..kernels.fused_nerf_train`) for training.
+``render_frame``/``render_frame_async`` with empty-space culling and
+early ray termination, and the trainer: ``_train_forward``,
+``_make_train_step``, ``_validate`` and ``fit`` with train-state
+checkpoints and resume, several steps a call and occupancy-guided
+training. The JAX package compiles a frame into one ``lax.scan`` and a
+train step into one jitted function (N steps into one ``lax.scan``);
+here a frame is eager PyTorch, and a train step is eager, or N steps
+are one CUDA-graph replay. On a CUDA device in bf16 NeRF queries go
+through the fused Hopper kernels by default (:func:`resolve_fused`): K1
+(:mod:`..kernels.fused_nerf`) for rendering, K1 forward and K2 backward
+(:mod:`..kernels.fused_nerf_train`) for training.
 
-Pose rendering, early termination, occupancy-guided training,
-checkpoint/resume and the data-parallel mesh are not ported yet
+Pose rendering and the data-parallel mesh are not ported yet
 (ROADMAP.md, queue 1).
 """
 
@@ -30,8 +32,17 @@ from ..kernels.fused_nerf import (
     prepare_fused_nerf,
 )
 from ..kernels.fused_nerf_train import fused_nerf_train_apply
-from ..models.serialization import params_to_jax
-from ..ops import calculate_blend_weights
+from ..models.serialization import (
+    named_parameters,
+    params_from_jax,
+    params_to_jax,
+)
+from ..ops import (
+    blend_weights_prefix,
+    blend_weights_suffix,
+    calculate_blend_weights,
+)
+from ..utils.color import ycrcb_to_rgb
 from ..utils.errors import not_ported
 from ..utils.optim import ClippedAdam, exponential_lr
 from ..utils.progress import LogEntry
@@ -276,11 +287,50 @@ class Raycaster:
             _, _, hit = sampler._probe_cdf_geometry(starts, dirs, near, far)
         return hit & valid
 
+    def _render_prefix(self, sampler: RaySampler, camera: int,
+                       offsets: torch.Tensor, k1: int):
+        """Pass 1 of early termination: each ray's first ``k1`` samples.
+
+        Returns:
+            ((R, 3) partial color, (R,) transmittance after them)."""
+        rays, _ = sampler.sample_camera_rays(camera, offsets)
+        logits = self._query(rays.positions[:, :k1].reshape(-1, 3),
+                             rays.view_directions[:, :k1].reshape(-1, 3))
+        logits = logits.reshape(offsets.shape[0], k1, 4)
+        weights, trans_out = blend_weights_prefix(
+            rays.t_values, F.softplus(logits[..., 3]))
+        color = torch.sum(weights[..., None] * torch.sigmoid(logits[..., :3]),
+                          dim=-2)
+        return color, trans_out
+
+    def _render_suffix(self, sampler: RaySampler, camera: int,
+                       offsets: torch.Tensor, k1: int) -> torch.Tensor:
+        """Pass 2 of early termination: the samples after the first
+        ``k1`` of each surviving ray, composited unscaled (the frame
+        multiplies by pass 1's transmittance). The samples are drawn
+        again from the ray geometry, as the JAX frame does."""
+        rays, _ = sampler.sample_camera_rays(camera, offsets)
+        logits = self._query(rays.positions[:, k1:].reshape(-1, 3),
+                             rays.view_directions[:, k1:].reshape(-1, 3))
+        logits = logits.reshape(offsets.shape[0], -1, 4)
+        weights = blend_weights_suffix(rays.t_values,
+                                       F.softplus(logits[..., 3]))
+        return torch.sum(weights[..., None] * torch.sigmoid(logits[..., :3]),
+                         dim=-2)
+
+    def _chunks(self, ray_offsets: torch.Tensor, chunk_size: int, fn):
+        """Runs ``fn`` on each ``chunk_size`` slice of ``ray_offsets``."""
+        for start in range(0, ray_offsets.shape[0], chunk_size):
+            chunk = ray_offsets[start:start + chunk_size]
+            yield chunk, fn(chunk)
+
     @torch.no_grad()
     def render_frame_async(self, sampler: RaySampler, camera: int,
                            chunk_size: int = 16384,
                            cull_empty: bool = True,
-                           probe_subsample: int = 2) -> torch.Tensor:
+                           probe_subsample: int = 2,
+                           early_term: float = 0.0,
+                           early_split: int = 0) -> torch.Tensor:
         """Renders one camera frame and returns it as an (H, W, 3) uint8
         tensor on the render device, without a host copy.
 
@@ -288,17 +338,36 @@ class Raycaster:
         (:class:`OccupancyGridSampler`), rays whose probes all miss are
         never sent to the model and render black. Invalid rays (missing
         the volume) render black.
+
+        ``early_term`` > 0 (with culling) terminates rays early, as the
+        JAX package's ``frame_fn_culled_early``: pass 1 runs each hit
+        ray's first ``early_split`` samples (default half), pass 2 only
+        the rest of the rays whose transmittance after them is still
+        above ``early_term``, and the frame is ``C1 + T1 * C2``. Each
+        skipped sample adds at most ``early_term`` of a color. The hit
+        and surviving ray counts of the frame are left in
+        ``self.frame_rays``.
         """
+        cull = cull_empty and hasattr(sampler, "_probe_cdf_geometry")
+        if early_term > 0.0 and not cull:
+            raise ValueError(
+                "early_term requires empty-space culling (an "
+                "OccupancyGridSampler and cull_empty=True): the "
+                "termination passes reuse the culled frame's hit rays")
+        num_samples = sampler.num_samples
+        k1 = early_split if early_split > 0 else num_samples // 2
+        if early_term > 0.0 and not 1 <= k1 < num_samples:
+            raise ValueError(f"early_split {k1} must be in [1, "
+                             f"{num_samples})")
         camera = camera % sampler.num_cameras
         rays_per_cam = sampler.rays_per_camera
         device = sampler.device
-        cull = cull_empty and hasattr(sampler, "_probe_cdf_geometry")
         if cull:
             probe_subsample = self._safe_probe_subsample(sampler,
                                                          probe_subsample)
             mask = self._compute_hit(sampler, camera, probe_subsample)
             # the stable partition: hit rays in pixel order. nonzero()
-            # reads the hit count on the host, once per frame; the JAX
+            # reads the hit count on the host, once per pass; the JAX
             # package instead keeps a fixed chunk count and skips empty
             # chunks with lax.cond
             ray_offsets = torch.nonzero(mask).reshape(-1)
@@ -306,9 +375,27 @@ class Raycaster:
             ray_offsets = torch.arange(rays_per_cam, device=device)
             mask = sampler.camera_ray_geometry(camera, ray_offsets)[4]
         colors = torch.zeros(rays_per_cam, 3, device=device)
-        for start in range(0, ray_offsets.shape[0], chunk_size):
-            chunk = ray_offsets[start:start + chunk_size]
-            colors[chunk] = self._render_rays(sampler, camera, chunk)
+        self.frame_rays = {"hit": int(ray_offsets.shape[0])}
+        if cull and early_term > 0.0:
+            trans = torch.zeros(rays_per_cam, device=device)
+            for chunk, (color, trans_out) in self._chunks(
+                    ray_offsets, chunk_size,
+                    lambda c: self._render_prefix(sampler, camera, c, k1)):
+                colors[chunk] = color
+                trans[chunk] = trans_out
+            survivors = torch.nonzero(mask & (trans > early_term)).reshape(-1)
+            self.frame_rays["survived"] = int(survivors.shape[0])
+            suffix = torch.zeros(rays_per_cam, 3, device=device)
+            for chunk, color in self._chunks(
+                    survivors, chunk_size,
+                    lambda c: self._render_suffix(sampler, camera, c, k1)):
+                suffix[chunk] = color
+            colors = colors + trans[:, None] * suffix
+        else:
+            for chunk, color in self._chunks(
+                    ray_offsets, chunk_size,
+                    lambda c: self._render_rays(sampler, camera, c)):
+                colors[chunk] = color
         colors = torch.where(mask[:, None], colors, 0.0)
         image = torch.clamp(colors, 0.0, 1.0).reshape(
             sampler.image_height, sampler.image_width, 3)
@@ -316,12 +403,17 @@ class Raycaster:
 
     def render_frame(self, sampler: RaySampler, camera: int,
                      chunk_size: int = 16384, cull_empty: bool = True,
-                     probe_subsample: int = 2) -> np.ndarray:
+                     probe_subsample: int = 2, early_term: float = 0.0,
+                     early_split: int = 0,
+                     color_space: str = "RGB") -> np.ndarray:
         """:meth:`render_frame_async`, copied to a host (H, W, 3) uint8
-        array."""
-        return self.render_frame_async(sampler, camera, chunk_size,
-                                       cull_empty,
-                                       probe_subsample).cpu().numpy()
+        array; a ``YCrCb`` model's frame is converted to RGB."""
+        image = self.render_frame_async(
+            sampler, camera, chunk_size, cull_empty, probe_subsample,
+            early_term, early_split).cpu().numpy()
+        if color_space == "YCrCb":
+            image = ycrcb_to_rgb(image)
+        return image
 
     # ------------------------------------------------------------------
     # training
@@ -348,18 +440,30 @@ class Raycaster:
 
     def _make_train_step(self, dataset, batch_size: int,
                          learning_rate: float, decay_rate: float,
-                         decay_steps: int, optimizer: ClippedAdam):
-        """One training step: sample the batch's rays, forward, loss,
-        backward, clipped Adam at the step's learning rate. The step
-        keeps the sampler the dataset had when it was built; it reads
-        the dataset's mode on every call, so the crop curriculum's
-        mode switches (Dilate drops the alpha term) take effect at
-        once."""
+                         decay_steps: int, optimizer: ClippedAdam,
+                         steps_per_call: int = 1):
+        """The training step: sample the batch's rays, forward, loss,
+        backward, clipped Adam at the step's learning rate.
+
+        The step keeps the sampler the dataset had when it was built.
+        With ``steps_per_call`` 1 it is eager and reads the dataset's
+        mode on every call, so the crop curriculum's mode switches
+        (Dilate drops the alpha term) take effect at once; it returns
+        the step's loss.
+
+        With ``steps_per_call`` N > 1 one call runs N steps, inner step
+        ``k`` drawing ``perm[(offset + k * batch_size) % modulo:][:
+        batch_size]`` (``modulo = max(len(perm) - batch_size + 1, 1)``)
+        at step ``step + k``, as the JAX package's ``multi_step``; it
+        returns the last step's loss. On CUDA the N steps are one CUDA
+        graph (:class:`_GraphChunk`), which reads the dataset's mode
+        when it is captured: a step built before a switch into Dilate
+        must be built again, as the JAX package rebuilds its step. On
+        the CPU they run as an eager loop.
+        """
         sampler = dataset.sampler
 
-        def train_step(perm: torch.Tensor, offset: int, step: int,
-                       rng: int) -> torch.Tensor:
-            idx = perm[offset:offset + batch_size]
+        def one_step(idx, step, rng):
             rays = sampler.sample(idx, step,
                                   rng if sampler.stratified else None)
             optimizer.zero_grad()
@@ -369,7 +473,25 @@ class Raycaster:
                                           decay_steps))
             return loss.detach()
 
-        return train_step
+        if steps_per_call <= 1:
+            def train_step(perm: torch.Tensor, offset: int, step: int,
+                           rng: int) -> torch.Tensor:
+                return one_step(perm[offset:offset + batch_size], step, rng)
+
+            return train_step
+        if sampler.device.type == "cuda":
+            return _GraphChunk(self, one_step, optimizer, batch_size,
+                               steps_per_call)
+
+        def eager_chunk(perm: torch.Tensor, offset: int, step: int,
+                        rng: int) -> torch.Tensor:
+            modulo = max(perm.shape[0] - batch_size + 1, 1)
+            for k in range(steps_per_call):
+                start = (offset + k * batch_size) % modulo
+                loss = one_step(perm[start:start + batch_size], step + k, rng)
+            return loss
+
+        return eager_chunk
 
     @torch.no_grad()
     def _validate(self, dataset, batch_size: int, step: int) -> float:
@@ -405,7 +527,12 @@ class Raycaster:
             mesh=None, checkpoint_dir: Optional[str] = None,
             checkpoint_interval: Optional[int] = None,
             resume: bool = False, steps_per_call: int = 1,
-            occupancy_interval: Optional[int] = None) -> List[LogEntry]:
+            occupancy_interval: Optional[int] = None,
+            occupancy_samples: int = 48,
+            occupancy_start: Optional[int] = None,
+            occupancy_end: Optional[int] = None,
+            occupancy_empty_weight: float = 0.1,
+            occupancy_mix: int = 0) -> List[LogEntry]:
         """Fits the model (in place) to the dataset.
 
         Args:
@@ -414,52 +541,101 @@ class Raycaster:
             batch_size: rays per training step.
             learning_rate / decay_rate / decay_steps: per-step
                 exponential LR schedule.
-            num_steps: the last step (steps 0..num_steps run).
+            num_steps: the last step (steps 0..num_steps run; a chunk
+                may run past it, as in the JAX package).
             crop_steps: steps of center-crop curriculum at the start.
             report_interval: steps between train/val PSNR reports.
             weight_decay: Adam L2 weight decay.
             visualizers: objects with
                 ``visualize(step, render_fn, act_fn)``.
             seed: seeds the epoch shuffles and the stratified jitter
-                (a CPU ``torch.Generator``).
-            mesh / checkpoint_dir / checkpoint_interval / resume /
-                steps_per_call > 1 / occupancy_interval: not ported;
-                each raises ``NotImplementedError``.
+                (a CPU ``torch.Generator``; after a resume it is keyed
+                by the seed and the first step).
+            mesh: not ported; raises ``NotImplementedError``.
+            checkpoint_dir / checkpoint_interval: write a resumable
+                train-state checkpoint (:mod:`..utils.checkpoint`) in
+                the background whenever a call's steps cover a multiple
+                of ``checkpoint_interval``.
+            resume: restore the newest checkpoint in ``checkpoint_dir``
+                (weights and Adam state, copied in place into the
+                module and the optimizer) and start at its step + 1.
+            steps_per_call: steps per call of the train step,
+                ``min(steps_per_call, report_interval)``: on CUDA one
+                CUDA-graph replay (see :meth:`_make_train_step`);
+                reports, checkpoints and visualizers land on call
+                boundaries.
+            occupancy_interval: occupancy-guided training: from
+                ``occupancy_start`` (default ``max(crop_steps, 1000)``)
+                the train rays are sampled by a stratified
+                :class:`OccupancyGridSampler` at ``occupancy_samples``
+                samples a ray over the live model's density grid
+                (:func:`density_grid_from_model`), refreshed in place
+                every ``occupancy_interval`` steps; from
+                ``occupancy_end`` the dataset's own sampler returns.
+                ``occupancy_empty_weight`` is the CDF mass of empty
+                probes; ``occupancy_mix`` steps through the dataset's
+                own sampler follow each guided call. Validation keeps
+                the dataset's own sampler.
 
         Returns:
-            The LogEntry of every report interval. The wall time of
-            each training step (host clock, or CUDA events on a GPU,
-            validation and visualizers excluded) is left in
-            ``self.step_ms``.
+            The LogEntry of every report interval. The time of each
+            call of the train step per step it ran (host clock, or CUDA
+            events on a GPU, validation and visualizers excluded) is
+            left in ``self.step_ms``, its step count in
+            ``self.call_steps``, the host time to issue it in
+            ``self.host_ms`` and each occupancy refresh's time in
+            ``self.occupancy_refresh_ms``.
         """
+        from ..utils.checkpoint import (
+            AsyncCheckpointer,
+            latest_checkpoint,
+            load_train_state,
+        )
+        from .occupancy_sampler import (
+            OccupancyGridSampler,
+            density_grid_from_model,
+        )
+
         if mesh is not None:
             raise not_ported("data-parallel training (a mesh)",
                              "Remaining models, data, CLIs and parallel")
-        if checkpoint_dir or checkpoint_interval or resume:
-            raise not_ported("checkpoint/resume", "Training")
-        if steps_per_call > 1:
-            raise not_ported("steps_per_call > 1 (a TPU dispatch knob; "
-                             "its counterpart is a CUDA-graph step)",
-                             "Training")
-        if occupancy_interval:
-            raise not_ported("occupancy-guided training", "Training")
-        generator = torch.Generator().manual_seed(seed)
+        device = train_dataset.device
+        chunk = max(1, min(steps_per_call, report_interval))
         trainval_dataset = train_dataset.sample_cameras(
             val_dataset.num_cameras, val_dataset.num_samples, False)
-        optimizer = ClippedAdam(self.model.parameters(), learning_rate,
-                                weight_decay)
+        optimizer = ClippedAdam(
+            self.model.parameters(), learning_rate, weight_decay,
+            capturable=device.type == "cuda" and max(chunk,
+                                                     occupancy_mix) > 1)
+        start_step = 0
+        if resume and checkpoint_dir:
+            path = latest_checkpoint(checkpoint_dir)
+            if path:
+                state = load_train_state(path)
+                params_from_jax(self.model, state.params)
+                optimizer.load_jax_state(named_parameters(self.model),
+                                         *state.opt_state)
+                start_step = state.step + 1
+                print(f"Resumed from {path} at step {start_step}")
+        generator = torch.Generator().manual_seed(
+            seed if start_step == 0 else hash((seed, start_step)) % 2 ** 63)
+
         modes = train_dataset.Mode
         dataset_mode = train_dataset.mode
-        if crop_steps:
+        if crop_steps and start_step < crop_steps:
             train_dataset.mode = modes.Center
             val_dataset.mode = modes.Center
             trainval_dataset.mode = modes.Center
         else:
             val_dataset.mode = dataset_mode
             trainval_dataset.mode = dataset_mode
-        train_step = self._make_train_step(train_dataset, batch_size,
-                                           learning_rate, decay_rate,
-                                           decay_steps, optimizer)
+
+        def make_step(calls):
+            return self._make_train_step(train_dataset, batch_size,
+                                         learning_rate, decay_rate,
+                                         decay_steps, optimizer, calls)
+
+        train_step = make_step(chunk)
 
         def render_image_fn(samples: RaySamples, include_depth: bool):
             return self.batched_render(samples, max(batch_size, 16384),
@@ -469,71 +645,288 @@ class Raycaster:
             raise not_ported("activation renders",
                              "Remaining models, data, CLIs and parallel")
 
-        device = train_dataset.device
+        checkpointer = None
+        if checkpoint_dir and checkpoint_interval:
+            checkpointer = AsyncCheckpointer(checkpoint_dir)
+
+        base_sampler = train_dataset.sampler
+        occupancy_active = occupancy_done = False
+        mix_step = None
+        if occupancy_interval:
+            if base_sampler.focus_sampling:
+                raise ValueError("occupancy-guided training is "
+                                 "incompatible with a focus/opacity sampler")
+            if occupancy_start is None:
+                occupancy_start = max(crop_steps, 1000)
+        self.occupancy_refresh_ms = []
+
+        def update_occupancy():
+            """Installs (first call) or refreshes in place the
+            density-grid sampler of the train rays."""
+            nonlocal train_step, occupancy_active, mix_step
+            start = time.perf_counter()
+            scale = float(base_sampler.bounds_max[0])
+            grid = density_grid_from_model(self.model, scale=scale)
+            if occupancy_active:
+                train_dataset.sampler.set_occupancy_grid(grid)
+                self.occupancy_refresh_ms.append(
+                    (time.perf_counter() - start) * 1e3)
+                return
+            print(f"Enabling occupancy-guided sampling ({occupancy_samples} "
+                  "samples/ray" + (f", {occupancy_mix} full steps/chunk"
+                                   if occupancy_mix else "") + ")...")
+            if occupancy_mix and mix_step is None:
+                # the anchor step, built while the dataset still has its
+                # own sampler
+                mix_step = make_step(occupancy_mix)
+            occupancy = OccupancyGridSampler(
+                grid, scale, base_sampler.cameras, occupancy_samples,
+                empty_weight=occupancy_empty_weight,
+                bounds=base_sampler.bounds, device=base_sampler.device,
+                stratified=base_sampler.stratified)
+            # the same cameras and bounds: share the base sampler's
+            # per-ray tables instead of building them again
+            occupancy.__dict__["ray_tables"] = base_sampler.ray_tables
+            train_dataset.sampler = occupancy
+            train_step = make_step(chunk)
+            occupancy_active = True
+
         timer = _StepTimer(device)
+        self.call_steps = []
         log: List[LogEntry] = []
-        step = 0
+        step = start_step
         start_time = time.time()
-        while step <= num_steps:
-            pool = torch.from_numpy(train_dataset.index_pool())
-            perm = pool[torch.randperm(len(pool), generator=generator)].to(
-                device)
-            strat_key = int(torch.randint(0, 2 ** 31, (1,),
-                                          generator=generator))
-            num_batches = len(pool) // batch_size
-            for batch_num in range(max(num_batches, 1)):
-                if step > num_steps:
-                    break
-                timer.start()
-                train_step(perm, batch_num * batch_size, step, strat_key)
-                timer.stop()
-                last = step
-                step += 1
+
+        def run(fn, perm, offset, first_step, rng, steps):
+            timer.start()
+            fn(perm, offset, first_step, rng)
+            timer.stop()
+            self.call_steps.append(steps)
+
+        try:
+            while step <= num_steps:
+                pool = torch.from_numpy(train_dataset.index_pool())
+                perm = pool[torch.randperm(len(pool),
+                                           generator=generator)].to(device)
+                strat_key = int(torch.randint(0, 2 ** 31, (1,),
+                                              generator=generator))
+                num_batches = len(pool) // batch_size
                 restart_epoch = False
-                if last % report_interval == 0 or last < 10:
-                    train_psnr = self._validate(trainval_dataset, batch_size,
-                                                last)
-                    val_psnr = self._validate(val_dataset, batch_size, last)
-                    current_time = time.time()
-                    time_per_step = ((current_time - start_time) / last
-                                     if last >= report_interval else 0)
-                    print("{:07}".format(last),
-                          "{:2f} s/step".format(time_per_step),
-                          "psnr_train: {:2f}".format(train_psnr),
-                          "val_psnr: {:2f}".format(val_psnr))
-                    if last % report_interval == 0:
-                        log.append(LogEntry(last, current_time - start_time,
-                                            params_to_jax(self.model),
-                                            train_psnr, val_psnr))
-                    if (train_dataset.mode == modes.Center
-                            and last >= crop_steps):
-                        print("Removing center crop...")
-                        train_dataset.mode = dataset_mode
-                        val_dataset.mode = dataset_mode
-                        trainval_dataset.mode = dataset_mode
-                        restart_epoch = True
-                if restart_epoch:
-                    break
-                for visualizer in visualizers:
-                    visualizer.visualize(last, render_image_fn,
-                                         render_act_fn)
-        self.step_ms = timer.milliseconds()
+                for batch_num in range(0, max(num_batches, chunk), chunk):
+                    if step > num_steps or restart_epoch:
+                        break
+                    run(train_step, perm, batch_num * batch_size, step,
+                        strat_key, chunk)
+                    # this call ran steps [first, last]; reports,
+                    # checkpoints and visualizers anchor on `last`
+                    first, last = step, step + chunk - 1
+                    step = last + 1
+                    if occupancy_active and mix_step is not None:
+                        # the anchor: full-sampling steps through the
+                        # dataset's own sampler after each guided call
+                        modulo = max(len(pool) - batch_size + 1, 1)
+                        run(mix_step, perm,
+                            ((batch_num + chunk) * batch_size) % modulo,
+                            step, strat_key, occupancy_mix)
+                        last = step + occupancy_mix - 1
+                        step = last + 1
+
+                    # due when [first, last] covers a multiple of the
+                    # interval; single-step runs also report steps 0-9
+                    interval_due = (last // report_interval
+                                    > (first - 1) // report_interval)
+                    if interval_due or (chunk == 1 and last < 10):
+                        train_psnr = self._validate(trainval_dataset,
+                                                    batch_size, last)
+                        val_psnr = self._validate(val_dataset, batch_size,
+                                                  last)
+                        current_time = time.time()
+                        # over the steps of this run, not since step 0
+                        steps_run = last - start_step
+                        time_per_step = ((current_time - start_time)
+                                         / steps_run
+                                         if steps_run >= report_interval
+                                         else 0)
+                        print("{:07}".format(last),
+                              "{:2f} s/step".format(time_per_step),
+                              "psnr_train: {:2f}".format(train_psnr),
+                              "val_psnr: {:2f}".format(val_psnr))
+                        if interval_due:
+                            log.append(LogEntry(last,
+                                                current_time - start_time,
+                                                params_to_jax(self.model),
+                                                train_psnr, val_psnr))
+                        if (train_dataset.mode == modes.Center
+                                and last >= crop_steps):
+                            print("Removing center crop...")
+                            train_dataset.mode = dataset_mode
+                            val_dataset.mode = dataset_mode
+                            trainval_dataset.mode = dataset_mode
+                            if dataset_mode == modes.Dilate:
+                                # a captured chunk read the Center
+                                # mode's loss; Dilate drops the alpha
+                                # term
+                                train_step = make_step(chunk)
+                            restart_epoch = True
+
+                    if (checkpointer is not None and last > start_step
+                            and last // checkpoint_interval
+                            > (first - 1) // checkpoint_interval):
+                        checkpointer.save(self.model, optimizer, last, seed)
+
+                    if (occupancy_active and occupancy_end is not None
+                            and last >= occupancy_end):
+                        print("Restoring full sampling for the fine-tune "
+                              "tail...")
+                        train_dataset.sampler = base_sampler
+                        train_step = make_step(chunk)
+                        occupancy_active = False
+                        occupancy_done = True
+                    elif (occupancy_interval and not occupancy_done
+                          and last >= occupancy_start
+                          and train_dataset.mode != modes.Center
+                          and (not occupancy_active
+                               or last // occupancy_interval
+                               > (first - 1) // occupancy_interval)):
+                        update_occupancy()
+
+                    if not restart_epoch:
+                        for visualizer in visualizers:
+                            visualizer.visualize(last, render_image_fn,
+                                                 render_act_fn)
+        finally:
+            # on a normal exit and an interruption alike: the dataset
+            # gets its own sampler back and the writer is joined
+            if checkpointer is not None:
+                checkpointer.close()
+            if occupancy_active:
+                train_dataset.sampler = base_sampler
+        self.step_ms = [ms / steps for ms, steps
+                        in zip(timer.milliseconds(), self.call_steps)]
+        self.host_ms = timer.host_ms
         return log
 
 
+class _GraphChunk:
+    """``steps_per_call`` train steps as one CUDA graph.
+
+    The perm, the offset, the first step and the jitter key live in
+    static device tensors, written before each replay; inner step ``k``
+    gathers its rays at ``(offset + k * batch_size) % modulo`` and takes
+    its learning rate from the step tensor, so nothing in the graph
+    reads the host. The graph is captured at the first call, and again
+    when the perm's length changes (a new sampling mode): first one
+    eager warm-up chunk on a side stream (the slab-image index uploads,
+    the optimizer state, the library handles), after which the weights
+    and the optimizer state are restored, then the capture. Capture
+    errors are raised; the chunk never runs eagerly in its stead.
+
+    ``captured`` holds each kernel wrapper's launches recorded into the
+    graph, ``replays`` the number of replays: a replay launches the
+    graph, not the wrappers, so their counts do not grow with it.
+    """
+
+    def __init__(self, raycaster: Raycaster, one_step, optimizer: ClippedAdam,
+                 batch_size: int, steps: int):
+        if not optimizer.capturable:
+            raise ValueError("a CUDA-graph chunk needs a capturable "
+                             "ClippedAdam")
+        self.raycaster = raycaster
+        self.one_step = one_step
+        self.optimizer = optimizer
+        self.batch_size = batch_size
+        self.steps = steps
+        self.graph = None
+        self.perm = None
+        self.loss = None
+        self.captured = {}
+        self.replays = 0
+        self.captures = 0
+
+    def _chunk(self):
+        """The chunk's steps on the static tensors."""
+        loss = None
+        for k in range(self.steps):
+            start = (self.offset + k * self.batch_size) % self.modulo
+            loss = self.one_step(self.perm[start + self.rows],
+                                 self.step + k, self.seed)
+        return loss
+
+    def _capture(self, perm: torch.Tensor) -> None:
+        self.graph = self.loss = None
+        device = perm.device
+        self.perm = perm.clone()
+        self.modulo = max(perm.shape[0] - self.batch_size + 1, 1)
+        self.rows = torch.arange(min(self.batch_size, perm.shape[0]),
+                                 device=device)
+        self.offset, self.step, self.seed = (
+            torch.zeros((), dtype=torch.int64, device=device)
+            for _ in range(3))
+        state = [*self.optimizer.params, *self.optimizer.state_tensors()]
+        with torch.no_grad():
+            saved = [t.detach().clone() for t in state]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            self._chunk()
+        torch.cuda.current_stream(device).wait_stream(side)
+        with torch.no_grad():
+            for tensor, value in zip(state, saved):
+                tensor.copy_(value)
+        self.optimizer.zero_grad()
+        before = _kernel_launches()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.loss = self._chunk()
+        after = _kernel_launches()
+        self.captured = {name: after[name] - before[name] for name in after}
+        self.graph = graph
+        self.captures += 1
+
+    def __call__(self, perm: torch.Tensor, offset: int, step: int,
+                 rng: int) -> torch.Tensor:
+        """Runs the chunk's steps from ``step`` on; returns the last
+        step's loss (a static tensor the next replay overwrites)."""
+        if self.graph is None or perm.shape != self.perm.shape:
+            self._capture(perm)
+        self.perm.copy_(perm)
+        self.offset.fill_(offset)
+        self.step.fill_(step)
+        self.seed.fill_(rng)
+        self.graph.replay()
+        self.replays += 1
+        # the replay moved the weights without bumping their version
+        # counters: drop the render pack
+        self.raycaster._fused_key = None
+        return self.loss
+
+
+def _kernel_launches() -> dict:
+    """The launch counts of the kernels a train step can run."""
+    from ..kernels.fused_nerf import fused_nerf_apply
+    from ..kernels.fused_nerf_train import fused_nerf_backward
+    return {"fused_nerf": fused_nerf_apply.launches,
+            "fused_nerf_train": fused_nerf_backward.launches}
+
+
 class _StepTimer:
-    """Wall time of each training step: CUDA events on a GPU (read once
-    at the end, so timing adds no synchronisation), the host clock
-    elsewhere."""
+    """Wall time of each call of the train step: CUDA events on a GPU
+    (read once at the end, so timing adds no synchronisation), the host
+    clock elsewhere; ``host_ms`` holds the host clock's time to issue
+    each call."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.marks = []
+        self.host_ms = []
+        self._host_start = 0.0
 
     def start(self):
         self.marks.append([self._mark(), None])
+        self._host_start = time.perf_counter()
 
     def stop(self):
+        self.host_ms.append((time.perf_counter() - self._host_start) * 1e3)
         self.marks[-1][1] = self._mark()
 
     def _mark(self):

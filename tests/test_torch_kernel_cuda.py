@@ -823,6 +823,85 @@ def test_fused_train_step_matches_plain_step(cuda, dtype):
         assert (a - b).abs().max().item() <= bound
 
 
+@pytest.fixture
+def train_scene(cuda, tmp_path):
+    from fourier_feature_nets_torch.datasets import ImageDataset
+    from fourier_feature_nets_torch.datasets.synthetic import (
+        generate_synthetic_dataset)
+    path = generate_synthetic_dataset(str(tmp_path / "scene.npz"),
+                                      resolution=24, split_counts=(3, 1, 1),
+                                      volume_side=16, num_samples=64,
+                                      device=cuda)
+    dataset = ImageDataset.load(path, "train", 16, stratified=True,
+                                num_anneal_steps=8, device=cuda)
+    perm = torch.from_numpy(dataset.index_pool()).to(cuda)
+    return dataset, perm[torch.randperm(len(perm), generator=torch.Generator()
+                                        .manual_seed(1)).to(cuda)]
+
+
+def _chunk_and_eager(dataset, perm, dtype, fused, steps=4, batch=128):
+    """The weights after one CUDA-graph chunk of ``steps`` steps from an
+    offset where it wraps, and after the same steps run eagerly, from the
+    same start; and the chunk."""
+    from fourier_feature_nets_torch.utils.optim import ClippedAdam
+    modulo = perm.shape[0] - batch + 1
+    offset = (modulo // batch - 1) * batch
+    out = []
+    for graph in (True, False):
+        model = NeRF(**SMALL, generator=torch.Generator().manual_seed(6)).to(
+            perm.device)
+        caster = Raycaster(model, compute_dtype=dtype, fused=fused,
+                           fused_train=fused)
+        optimizer = ClippedAdam(model.parameters(), 1e-3, capturable=True)
+        if graph:
+            chunk = caster._make_train_step(dataset, batch, 1e-3, 0.1, 100,
+                                            optimizer, steps)
+            chunk(perm, offset, 3, 77)
+        else:
+            step = caster._make_train_step(dataset, batch, 1e-3, 0.1, 100,
+                                           optimizer)
+            for k in range(steps):
+                step(perm, (offset + k * batch) % modulo, 3 + k, 77)
+        out.append([p.detach().clone() for p in model.parameters()])
+    return out[0], out[1], chunk
+
+
+@pytest.mark.cuda
+def test_plain_train_chunk_is_the_eager_steps(train_scene):
+    """A graph chunk of the plain f32 step (stratified, annealed, wrapping
+    the perm) leaves the weights where the same steps run eagerly leave
+    them: rtol 1e-5 / atol 1e-6."""
+    chunked, eager, chunk = _chunk_and_eager(*train_scene, None, False)
+    assert chunk.captures == 1 and chunk.replays == 1
+    for a, b in zip(chunked, eager):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, None], ids=["bf16", "f32"])
+def test_fused_train_chunk_captures_k1_and_k2(train_scene, dtype):
+    """A graph chunk of the fused step records one K1 and one K2 launch
+    a step, replays without calling the wrappers, and lands near the
+    eager steps: K2's atomics change the gradients' last bits, which can
+    flip the sign of a near-zero element's Adam update, so each leaf is
+    held in the mean, within 5e-2 of its mean change."""
+    launches = (port.fused_nerf_apply.launches,
+                train.fused_nerf_backward.launches)
+    chunked, eager, chunk = _chunk_and_eager(*train_scene, dtype, True)
+    assert chunk.captured == {"fused_nerf": 4, "fused_nerf_train": 4}
+    before = (port.fused_nerf_apply.launches,
+              train.fused_nerf_backward.launches)
+    assert before[0] > launches[0] and before[1] > launches[1]
+    chunk.graph.replay()
+    torch.cuda.synchronize()
+    assert (port.fused_nerf_apply.launches,
+            train.fused_nerf_backward.launches) == before
+    start = NeRF(**SMALL, generator=torch.Generator().manual_seed(6))
+    for a, b, s in zip(chunked, eager, start.parameters()):
+        change = (b.cpu() - s.detach()).abs().mean().item()
+        assert (a - b).abs().mean().item() <= 5e-2 * change + 1e-9
+
+
 # ---------------------------------------------------------------------------
 # K3: the fused ray render, and T1's scan, against their plain twins
 # ---------------------------------------------------------------------------

@@ -68,7 +68,8 @@ def test_walk_found_the_slice_modules(imported):
         "kernels.io_floor", "cli.int8_probe", "cli.kernel_ablation_bench",
         "cli.kernel_io_floor_bench", "octree", "octree.build", "octree.host",
         "octree.octree", "octree.traversal", "octree.mesh",
-        "render.octree_sampler", "cli.voxelize_model", "cli.mesh_to_octree"}
+        "render.octree_sampler", "cli.voxelize_model", "cli.mesh_to_octree",
+        "utils.color", "utils.checkpoint"}
     found = {name.split(".", 1)[1] for name in imported["modules"]}
     assert expected <= found
 

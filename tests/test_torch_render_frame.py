@@ -383,8 +383,32 @@ def test_orbit_video_cli_matches_jax(checkpoint, cli_files, tmp_path, flags,
 
 
 @pytest.mark.parametrize("flags", [
-    ["--density-grid", "--early-term", "0.01"],
+    ["--density-grid", "--early-term", "0.01", "--num-samples", "16"],
     ["--preset", "quality"],
+])
+def test_orbit_video_cli_early_term_matches_jax(checkpoint, tmp_path, flags,
+                                                capsys):
+    """``--early-term`` and ``--preset quality`` (96 density-grid samples,
+    early termination at 1e-2 after 48, bf16) run through both CLIs on
+    the same checkpoint: every frame within +-1."""
+    cv2 = pytest.importorskip("cv2")
+    from fourier_feature_nets_tpu.cli import orbit_video as jax_orbit
+    tail = ["--num-frames", "2", *flags]
+    assert torch_orbit.main([checkpoint, "16", str(tmp_path / "port"), *tail,
+                             "--device", "cpu"]) == 0
+    assert "hit rays survived pass 1" in capsys.readouterr().out
+    assert jax_orbit.main([checkpoint, "16", str(tmp_path / "jax"),
+                           *tail]) == 0
+    for frame in range(2):
+        name = f"frame_{frame:05d}.png"
+        ours = cv2.imread(str(tmp_path / "port" / name))
+        ref = cv2.imread(str(tmp_path / "jax" / name))
+        assert ours.shape == (16, 16, 3)
+        _assert_frames_close(ours, ref)
+        assert ours.any()
+
+
+@pytest.mark.parametrize("flags", [
     ["--no-focus", "--chunked"],
     ["--no-focus", "--data-parallel"],
     ["--no-focus", "--mp4", "out.mp4"],

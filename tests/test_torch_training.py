@@ -262,10 +262,16 @@ def test_image_dataset_loss_matches_jax(scene, mode):
 
 
 def test_missing_dataset_and_ycrcb_raise(scene, tmp_path):
+    """A missing NPZ raises; YCrCb, once unported, now loads the JAX
+    package's YCrCb colors (tests/test_torch_color_space.py holds the
+    rest of it), and an unknown color space raises."""
     with pytest.raises(FileNotFoundError, match="does not download"):
         TorchDataset.load(str(tmp_path / "lego_400.npz"), "train", 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchDataset.load(scene, "train", 16, color_space="YCrCb")
+    ours = TorchDataset.load(scene, "train", 16, color_space="YCrCb")
+    ref = ffn.ImageDataset.load(scene, "train", 16, color_space="YCrCb")
+    np.testing.assert_array_equal(ours.colors.numpy(), np.asarray(ref.colors))
+    with pytest.raises(ValueError, match="color space"):
+        TorchDataset.load(scene, "train", 16, color_space="HSV")
 
 
 # ---------------------------------------------------------------------------
@@ -432,12 +438,49 @@ def test_train_nerf_cli_opacity_model(tmp_path, monkeypatch):
                for v in r.split("\t")[2:])
 
 
-@pytest.mark.parametrize("flag", [["--resume"],
-                                  ["--make-video"], ["--data-parallel"],
-                                  ["--occupancy-interval", "10"],
-                                  ["--checkpoint-interval", "5"],
-                                  ["--steps-per-call", "4"]])
+@pytest.mark.parametrize("flag", [["--make-video"], ["--data-parallel"]])
 def test_train_nerf_cli_unported_flags_raise(scene, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_train_nerf.main([scene, str(tmp_path), "--device", "cpu",
                               *flag])
+
+
+_CLI_SMALL = ["--device", "cpu", "--num-layers", "2", "--num-channels", "32",
+              "--num-samples", "8", "--batch-size", "64", "--image-interval",
+              "0", "--crop-steps", "0", "--report-interval", "4"]
+
+
+@pytest.mark.parametrize("flag", [["--resume"],
+                                  ["--occupancy-interval", "2",
+                                   "--occupancy-start", "2",
+                                   "--occupancy-samples", "6"],
+                                  ["--checkpoint-interval", "2"],
+                                  ["--steps-per-call", "4"]],
+                         ids=["resume", "occupancy", "checkpoint", "chunk"])
+def test_train_nerf_cli_runs_ported_flags(scene, tmp_path, flag, capsys):
+    """The flags that raised until their paths were ported now train on
+    the CPU, each leaving its mark: a resume from the newest checkpoint,
+    the occupancy-guided sampler, checkpoint files, chunked calls."""
+    out = str(tmp_path / "run")
+    if flag == ["--resume"]:
+        assert port_train_nerf.main([scene, out, *_CLI_SMALL, "--num-steps",
+                                     "4", "--checkpoint-interval", "2"]) == 0
+        capsys.readouterr()
+    assert port_train_nerf.main([scene, out, *_CLI_SMALL, "--num-steps", "8",
+                                 *flag]) == 0
+    printed = capsys.readouterr().out
+    with open(os.path.join(out, "log.txt")) as handle:
+        rows = handle.read().split("\n\n", 1)[1].strip().splitlines()
+    steps = [int(r.split("\t")[0]) for r in rows[1:]]
+    if flag == ["--resume"]:
+        assert "ckpt_00000004.npz at step 5" in printed
+        assert steps == [8]
+    elif flag[0] == "--occupancy-interval":
+        assert "Enabling occupancy-guided sampling (6 samples/ray)" in printed
+        assert steps == [0, 4, 8]
+    elif flag[0] == "--checkpoint-interval":
+        assert sorted(os.listdir(os.path.join(out, "checkpoints"))) == [
+            "ckpt_00000004.npz", "ckpt_00000006.npz", "ckpt_00000008.npz"]
+    else:
+        assert "first call" in printed and "(4 steps)" in printed
+        assert steps == [3, 7, 11]
