@@ -63,6 +63,28 @@ and drives the port's paths at the flagship width:
   launch in both passes, and frame 0 with early termination must lie
   within ceil(255 * 1e-2) + 1 of the frame without it; each of these
   phases prints its time;
+* pose frames, serving and distillation: the stride-2 culled frames'
+  rays that the occupancy probe's hit flag, conservative at cell faces,
+  adds to the plain gather's on the smoke-render and smoke-octree rigs
+  (none dropped), with the probe's and the frame's ms; pose frames of
+  the random flagship at 800x800 ``--preset fast`` (a rig camera's pose
+  equals its indexed frame bit for bit, a novel pose a sampler built
+  around it; both timed; one focus pose frame with its CDF sweep); 2
+  frames of ``orbit_video --chunked`` within +-1 of ``render_frame``;
+  K1 and K2 at the 6x192 student's width against their twins, timed
+  beside their bounds, then ``distill_model --fused`` of the 30-step
+  checkpoint into 6x192 (1024 x 128, chunks of 100 steps, each one
+  CUDA-graph replay that must record K1 for teacher and student and K2
+  every step) to step 200, whose loss must fall, ``--resume`` to step
+  300, and one fused step against the plain f32 step, from the fresh
+  student held in each leaf's mean, from the step-200 checkpoint logged;
+  that student served at 800x800
+  ``--preset fast`` by ``RenderServer`` on an ephemeral port (raw frame
+  = ``render_frame``, PNG = raw, a well-formed JPEG, ``/pose`` of a rig
+  camera = ``/frame``, a 16-frame stream, 4 concurrent streams,
+  ``/stats``, the JPEG encoder's ms) and by ``cli.serve`` as a process
+  (one request, then SIGTERM); K1 must launch on every served and pose
+  frame;
 * kernel validation: K3 (K1's kernels with a per-ray view product and a
   compositing epilogue) against its plain twin in bf16 and f32 within
   its limits (kernels/fused_ray_render.py: bf16 max K3_BF16_ATOL and
@@ -520,29 +542,34 @@ def random_points(num: int, rng: np.random.Generator, device):
             torch.from_numpy(views).to(device))
 
 
-def png_shape(path: str):
-    """(height, width, channels) and the largest pixel value of an
-    8-bit RGB PNG, with the pixel data decompressed to check it is
-    complete."""
-    with open(path, "rb") as handle:
-        data = handle.read()
+def png_pixels(data: bytes) -> np.ndarray:
+    """The (H, W, 3) pixels of an 8-bit RGB, filter-0 PNG (the port's
+    writer), read with ``zlib``."""
     if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise AssertionError(f"{path} is not a PNG")
+        raise AssertionError("not a PNG")
     width, height, depth, color = struct.unpack(">IIBB", data[16:26])
     if (depth, color) != (8, 2):
-        raise AssertionError(f"{path} is not 8-bit RGB")
-    channels = 3
+        raise AssertionError("not an 8-bit RGB PNG")
     idat, pos = b"", 8
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         if data[pos + 4:pos + 8] == b"IDAT":
             idat += data[pos + 8:pos + 8 + length]
         pos += 12 + length
-    raw = zlib.decompress(idat)
-    if len(raw) != height * (1 + width * channels):
-        raise AssertionError(f"{path}: unexpected PNG payload")
-    rows = np.frombuffer(raw, np.uint8).reshape(height, 1 + width * channels)
-    return (height, width, channels), int(rows[:, 1:].max())
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        height, 1 + 3 * width)
+    if rows[:, 0].any():
+        raise AssertionError("a PNG row with a filter")
+    return rows[:, 1:].reshape(height, width, 3)
+
+
+def png_shape(path: str):
+    """(height, width, channels) and the largest pixel value of an
+    8-bit RGB PNG, with the pixel data decompressed to check it is
+    complete."""
+    with open(path, "rb") as handle:
+        pixels = png_pixels(handle.read())
+    return pixels.shape, int(pixels.max())
 
 
 def phase_device():
@@ -3011,6 +3038,851 @@ def run_train_turns() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# pose frames, the render server and distillation; the probe at cell faces
+# ---------------------------------------------------------------------------
+
+SERVE_CAMERAS = 16             # the served rig (a 16-frame stream)
+SERVE_CLIENTS = 4              # concurrent stream clients
+DISTILL_STEPS = 200            # then --resume DISTILL_RESUMED steps more
+DISTILL_RESUMED = 100
+DISTILL_CALL = 100             # --steps-per-call of the distill phase
+DISTILL_BATCH = (1024, 128)    # rays x samples a distill step (the CLI's)
+# The mean loss of the last 20 of DISTILL_STEPS steps must be at most
+# 1/DISTILL_FALL of the first 20's (three H100 80GB HBM3 runs at 700 W
+# read 206x to 217x).
+DISTILL_FALL = 10.0
+# One distill step, fused against the same step on the kernels' twins
+# (the same bf16 packs): the loss's relative gap. The K1 / twin logits
+# differ by ~4e-7 in the mean (at most 3.3e-4) against a colour residual
+# of ~1e-2 after 200 steps, which moves the loss by ~1e-5 of itself; a
+# gradient or loss scaled wrong moves it by its own factor.
+DISTILL_TWIN_LOSS_GAP = 1e-3
+# Fused against the plain f32 step from the fresh student: the loss's
+# relative gap, the bf16 packs' rounding (2^-8 = 3.9e-3 of a logit) at
+# most (5.8e-4 on an H100 80GB HBM3 at 700 W).
+DISTILL_PLAIN_LOSS_GAP = 1e-2
+
+
+def jpeg_header(data: bytes) -> dict:
+    """The markers of a baseline JFIF file up to its scan, its size and
+    sampling factors; raises unless it is well formed (SOI, APP0 JFIF,
+    two quantization tables, SOF0, four Huffman tables, SOS, EOI)."""
+    if data[:2] != b"\xff\xd8" or data[-2:] != b"\xff\xd9":
+        raise AssertionError("a JPEG without SOI / EOI")
+    markers, pos = [], 2
+    while True:
+        marker, length = struct.unpack(">HH", data[pos:pos + 4])
+        payload = data[pos + 4:pos + 2 + length]
+        markers.append(marker)
+        if marker == 0xFFC0:
+            _, height, width, comps = struct.unpack(">BHHB", payload[:6])
+            sampling = [payload[6 + 3 * i + 1] for i in range(comps)]
+        pos += 2 + length
+        if marker == 0xFFDA:
+            break
+    if (markers[0] != 0xFFE0 or 0xFFC0 not in markers
+            or 0xFFC4 not in markers or 0xFFDB not in markers):
+        raise AssertionError(f"JPEG markers {[hex(m) for m in markers]}")
+    scan = data[pos:-2]
+    stray = re.search(rb"\xff[^\x00]", scan)
+    if stray is not None:
+        raise AssertionError("an unstuffed 0xFF byte in the JPEG scan")
+    return {"height": height, "width": width, "sampling": sampling,
+            "bytes": len(data)}
+
+
+class _GatherHit:
+    """An occupancy sampler whose probe's hit flag is the plain gather
+    (each probe's own truncated cell only): the flag before the repair
+    at cell faces."""
+
+    def __init__(self, sampler):
+        self.sampler = sampler
+
+    def __getattr__(self, name):
+        return getattr(self.sampler, name)
+
+    def _probe_cdf_geometry(self, starts, directions, near, far):
+        s = self.sampler
+        edges, probes = s._probe_positions(starts, directions, near, far)
+        return edges, None, s._occupancy_at(probes).amax(-1) > 0
+
+
+def _frames_ms(caster, sampler, cameras, reps: int = 1) -> float:
+    """Mean host ms of ``render_frame`` (which ends in a host copy) over
+    ``cameras``, after one warm-up frame."""
+    caster.render_frame(sampler, cameras[0])
+    start = time.perf_counter()
+    for _ in range(reps):
+        for camera in cameras:
+            caster.render_frame(sampler, camera)
+    return (time.perf_counter() - start) * 1e3 / (reps * len(cameras))
+
+
+def _probe_ms(sampler, camera, stride, reps: int = 5) -> float:
+    from fourier_feature_nets_torch.render import Raycaster
+    Raycaster._compute_hit(sampler, camera, stride)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        Raycaster._compute_hit(sampler, camera, stride)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3 / reps
+
+
+def phase_face_probe(model) -> dict:
+    """The occupancy probe's hit flag, repaired at cell faces: on the
+    smoke-render frames (the random flagship's density grid, ``--preset
+    fast``) and the smoke-octree frames (bench.py's tree as a 64^3
+    occupancy grid, 32 samples), the rays of each 800x800 frame's stride-2
+    culled raster that the repaired flag adds to the plain gather's (and
+    none that it drops), the probe's ms with each flag, and frame ms."""
+    from fourier_feature_nets_torch.cameras import Resolution
+    from fourier_feature_nets_torch.cli import orbit_video
+    from fourier_feature_nets_torch.octree import OcTree
+    from fourier_feature_nets_torch.render import (OccupancyGridSampler,
+                                                   Raycaster)
+    from fourier_feature_nets_torch.utils import orbit
+
+    args = orbit_video._parse_args(["m.npz", str(FRAME_RES), OUT_DIR,
+                                    "--preset", "fast", "--num-frames", "3"])
+    cameras = orbit(orbit_video.VECTORS[args.up_dir],
+                    orbit_video.VECTORS[args.forward_dir], 3,
+                    args.fov_y_degrees, Resolution(FRAME_RES, FRAME_RES),
+                    args.distance)
+    bounds = np.diag([2.0, 2.0, 2.0, 1.0]).astype(np.float32)
+    tree = OcTree.load(os.path.join(OUT_DIR, "bench_tree.npz"))
+    samplers = {
+        "smoke-render": (orbit_video.build_render_sampler(
+            args, model, cameras, bounds), 48),
+        "smoke-octree": (OccupancyGridSampler.from_tree(
+            tree, cameras, 32, bounds=bounds, device="cuda"), 32)}
+    caster = Raycaster(model, compute_dtype=torch.bfloat16)
+    rows = {}
+    for name, (sampler, samples) in samplers.items():
+        stride = Raycaster._safe_probe_subsample(sampler, 2)
+        added, dropped, hit = [], [], []
+        for camera in range(3):
+            repaired = Raycaster._compute_hit(sampler, camera, stride)
+            gather = Raycaster._compute_hit(_GatherHit(sampler), camera,
+                                            stride)
+            added.append(int((repaired & ~gather).sum()))
+            dropped.append(int((gather & ~repaired).sum()))
+            hit.append(int(repaired.sum()))
+        row = {"stride": stride, "added": added, "dropped": dropped,
+               "hit": hit, "samples": samples,
+               "probe_ms": _probe_ms(sampler, 1, stride),
+               "gather_probe_ms": _probe_ms(_GatherHit(sampler), 1, stride),
+               "frame_ms": _frames_ms(caster, sampler, [0, 1, 2])}
+        rows[name] = row
+        log(f"face probe, {name} ({samples} samples, stride {stride}, "
+            f"{FRAME_RES}x{FRAME_RES}): rays the repaired flag adds to the "
+            f"gather's {added} of {hit} hit, drops {dropped}; probe "
+            f"{row['probe_ms']:.3f} ms (gather only "
+            f"{row['gather_probe_ms']:.3f} ms); frame {row['frame_ms']:.3f} "
+            f"ms (mean of 3 after a warm-up)")
+        if any(dropped) or not all(hit):
+            raise AssertionError(f"{name}: the repaired flag is not a "
+                                 f"superset of the gather's")
+    return rows
+
+
+def phase_pose(model) -> dict:
+    """Pose frames of the random flagship at 800x800 ``--preset fast``
+    (bf16, K1): a rig camera's pose equals its indexed frame bit for bit,
+    a novel pose equals a sampler built around that camera at its index,
+    each timed; then one focus-sampled pose frame (128 samples, its CDFs
+    swept on the fly) timed with its sweep."""
+    from fourier_feature_nets_torch.cameras import Resolution
+    from fourier_feature_nets_torch.cli import orbit_video
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        fused_nerf_apply)
+    from fourier_feature_nets_torch.render import (OccupancyGridSampler,
+                                                   Raycaster, RaySampler,
+                                                   density_grid_from_model)
+    from fourier_feature_nets_torch.utils import orbit
+
+    args = orbit_video._parse_args(["m.npz", str(FRAME_RES), OUT_DIR,
+                                    "--preset", "fast"])
+    cameras = orbit(orbit_video.VECTORS[args.up_dir],
+                    orbit_video.VECTORS[args.forward_dir], 4,
+                    args.fov_y_degrees, Resolution(FRAME_RES, FRAME_RES),
+                    args.distance)
+    bounds = np.diag([2.0, 2.0, 2.0, 1.0]).astype(np.float32)
+    grid = density_grid_from_model(model)
+
+    def occupancy(rig):
+        return OccupancyGridSampler(grid, 1.0, rig, args.num_samples,
+                                    empty_weight=0.1, bounds=bounds,
+                                    device="cuda")
+
+    rig, fresh = occupancy(cameras[:3]), occupancy(cameras[3:])
+    caster = Raycaster(model, compute_dtype=torch.bfloat16, fused=True)
+    chunk = args.batch_size * 4
+    caster.render_frame(rig, 0, chunk_size=chunk)
+    caster.render_frame_pose(rig, cameras[0], chunk_size=chunk)
+
+    def timed(fn):
+        """``fn()``'s frame, host ms and K1 launches."""
+        fused_nerf_apply.launches = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        return (out, (time.perf_counter() - start) * 1e3,
+                fused_nerf_apply.launches)
+
+    indexed = [timed(lambda: caster.render_frame(rig, camera,
+                                                 chunk_size=chunk))
+               for camera in range(3)]
+    posed = [timed(lambda: caster.render_frame_pose(
+        rig, cameras[camera], chunk_size=chunk)) for camera in range(3)]
+    novel = timed(lambda: caster.render_frame_pose(rig, cameras[3],
+                                                   chunk_size=chunk))
+    reference = timed(lambda: caster.render_frame(fresh, 0,
+                                                  chunk_size=chunk))
+    rig_equal = all(np.array_equal(a[0], b[0])
+                    for a, b in zip(posed, indexed))
+    novel_equal = bool(np.array_equal(novel[0], reference[0]))
+
+    focus_start = time.perf_counter()
+    focus = RaySampler(bounds, cameras[:1], 128, "cuda", opacity_model=model,
+                       batch_size=args.batch_size)
+    torch.cuda.synchronize()
+    focus_setup_s = time.perf_counter() - focus_start
+    focus_frame, focus_ms, focus_launches = timed(
+        lambda: caster.render_frame_pose(focus, cameras[3], chunk_size=chunk))
+    row = {"indexed_ms": [f[1] for f in indexed],
+           "pose_ms": [f[1] for f in posed], "novel_pose_ms": novel[1],
+           "rig_pose_equals_indexed": rig_equal,
+           "novel_pose_equals_fresh_sampler": novel_equal,
+           "launches_indexed": [f[2] for f in indexed],
+           "launches": [f[2] for f in posed] + [novel[2]],
+           "launches_fresh_sampler": reference[2], "focus_pose_ms": focus_ms,
+           "focus_rig_setup_s": focus_setup_s,
+           "focus_launches": focus_launches}
+    log(f"pose frames ({FRAME_RES}x{FRAME_RES}, --preset fast, bf16, K1): "
+        f"rig cameras through the pose path equal the indexed frames bit "
+        f"for bit: {rig_equal}; a novel pose equals a sampler built around "
+        f"it: {novel_equal}; ms a frame, indexed "
+        f"{', '.join(f'{ms:.3f}' for ms in row['indexed_ms'])}, pose "
+        f"{', '.join(f'{ms:.3f}' for ms in row['pose_ms'])}, novel pose "
+        f"{novel[1]:.3f} (host clock, each ending in its host copy); K1 "
+        f"launches a frame, indexed {row['launches_indexed']}, pose "
+        f"{row['launches']} (the novel pose last; its fresh sampler's "
+        f"frame {reference[2]}); one focus pose frame (128 samples, CDFs "
+        f"swept on the fly) {focus_ms:.3f} ms, {focus_launches} K1 "
+        f"launches (the rig sampler's own sweep of 1 camera "
+        f"{focus_setup_s:.3f} s)")
+    # each pose frame launches K1 as often as the indexed frame it equals
+    if not rig_equal or not novel_equal \
+            or row["launches"] != row["launches_indexed"] + [reference[2]] \
+            or min(row["launches"]) <= 0 or focus_launches <= 0 \
+            or not focus_frame.any():
+        raise AssertionError("pose frames disagree with the indexed path "
+                             "or did not launch K1 on every frame")
+    return row
+
+
+def phase_chunked() -> dict:
+    """2 frames of ``orbit_video --chunked --preset fast`` (the chunked
+    parity path, ``render_image``) of the random flagship, each within
+    +-1 of ``render_frame``."""
+    from fourier_feature_nets_torch.cameras import Resolution
+    from fourier_feature_nets_torch.cli import orbit_video
+    from fourier_feature_nets_torch.models import load_model
+    from fourier_feature_nets_torch.render import Raycaster
+    from fourier_feature_nets_torch.utils import orbit
+
+    checkpoint = os.path.join(OUT_DIR, "flagship_seed0.npz")
+    frames_dir = os.path.join(OUT_DIR, "chunked_frames")
+    flags = ["--preset", "fast", "--chunked", "--num-frames", "2",
+             "--device", "cuda"]
+    output, launches, wall = run_orbit(checkpoint, frames_dir, FRAME_RES,
+                                       flags)
+    times = orbit_summary(output)
+    args = orbit_video._parse_args([checkpoint, str(FRAME_RES), frames_dir,
+                                    *flags])
+    cameras = orbit(orbit_video.VECTORS[args.up_dir],
+                    orbit_video.VECTORS[args.forward_dir], 2,
+                    args.fov_y_degrees, Resolution(FRAME_RES, FRAME_RES),
+                    args.distance)
+    model = load_model(checkpoint).cuda()
+    sampler = orbit_video.build_render_sampler(
+        args, model, cameras, np.diag([2.0, 2.0, 2.0, 1.0]).astype(
+            np.float32))
+    caster = Raycaster(model, compute_dtype=torch.bfloat16)
+    # one K1 launch for each batch of each frame's valid rays
+    expected = sum(-(-sampler.rays_for_camera(frame).positions.shape[0]
+                     // args.batch_size) for frame in range(2))
+    diffs = []
+    for frame in range(2):
+        with open(os.path.join(frames_dir, f"frame_{frame:05d}.png"),
+                  "rb") as handle:
+            chunked = png_pixels(handle.read()).astype(np.int32)
+        whole = caster.render_frame(sampler, frame,
+                                    chunk_size=args.batch_size * 4)
+        diffs.append(int(np.abs(chunked - whole.astype(np.int32)).max()))
+    log(f"orbit_video --chunked --preset fast: 2 PNG frames of "
+        f"{FRAME_RES}x{FRAME_RES}, {wall:.3f} s for the CLI call; frames "
+        f"{times['first_frame_ms']:.3f} ms then "
+        f"{times['steady_frame_ms']:.3f} ms; K1 launches {launches} (held: "
+        f"one a batch of {args.batch_size} valid rays, {expected}); max "
+        f"|d| against render_frame {diffs} (limit 1)")
+    if launches != expected or max(diffs) > 1:
+        raise AssertionError("the chunked frames disagree with render_frame "
+                             "or did not launch K1 on every batch")
+    return {"launches": launches, "wall_s": wall, "max_abs_diff": diffs,
+            **times}
+
+
+def student_kernels(rng) -> dict:
+    """K1 and K2 in bf16 at the serving student's width (6x192, the
+    distill CLI's student) and distillation's batch (1024 rays x 128
+    samples) against their twins: K1 within K1_BF16_ATOL /
+    K1_BF16_MEAN_ATOL, K2 within GRAD_SHARE under the tail cotangent
+    (the other cotangents logged); each timed beside its twin and its
+    bound."""
+    from fourier_feature_nets_torch.cli.common import RECOMMENDED_STUDENT
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        fused_nerf_apply, fused_nerf_reference, prepare_fused_nerf)
+    from fourier_feature_nets_torch.kernels.fused_nerf_train import (
+        fused_nerf_backward, fused_nerf_backward_reference)
+    from fourier_feature_nets_torch.models import NeRF
+
+    layers, channels = RECOMMENDED_STUDENT
+    student = NeRF(layers, channels, 9.0, 10, 3.0, 4, [layers // 2], True,
+                   generator=torch.Generator().manual_seed(SEED)).cuda()
+    weights = prepare_fused_nerf(student, torch.bfloat16)
+    num = TRAIN_POINTS
+    positions, views = random_points(num, rng, "cuda")
+    with torch.no_grad():
+        out = fused_nerf_apply(weights, positions, views)
+        ref = fused_nerf_reference(weights, positions, views)
+    err = (out - ref).abs()
+    macs = nerf_macs(weights)
+    pack = pack_bytes(weights)
+    grads = (weights.weights.numel() + weights.biases.numel()) * 4
+    k1 = {"max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+          "ms": cuda_ms(lambda: fused_nerf_apply(weights, positions, views),
+                        FLAGSHIP_REPS),
+          "plain_ms": cuda_ms(lambda: fused_nerf_reference(
+              weights, positions, views), FLAGSHIP_REPS),
+          **bound(2 * macs * num, "bf16", 40 * num + pack)}
+    gs, least = backward_cotangents(weights, positions, views, rng)
+    table = {key: backward_errors(weights, positions, views, g)
+             for key, g in gs.items()}
+    shares = {key: max(r[2] for r in rows) for key, rows in table.items()}
+    g = gs["random"]
+    k2 = {"max_abs_err": max(r[1] for r in table["tail"]),
+          "max_rel_err": shares, "tail_least_relu_margin": least,
+          "ms": cuda_ms(lambda: fused_nerf_backward(weights, positions,
+                                                    views, g), FLAGSHIP_REPS),
+          "plain_ms": cuda_ms(lambda: fused_nerf_backward_reference(
+              weights, positions, views, g), FLAGSHIP_REPS),
+          **bound(3 * 2 * macs * num, "bf16", 40 * num + pack + grads)}
+    log(f"K1 and K2 at the student's {layers}x{channels}, N={num:,d}, bf16 "
+        f"({macs:,d} MACs a point): K1 max / mean |d| {k1['max_abs_err']:.3e}"
+        f" / {k1['mean_abs_err']:.3e} (limits {K1_BF16_ATOL} / "
+        f"{K1_BF16_MEAN_ATOL}), {k1['ms']:.4f} ms against twin "
+        f"{k1['plain_ms']:.3f} ms, bound {k1['bound_ms']:.4f} ms "
+        f"({k1['bound_by']}); K2 max share by cotangent "
+        + ", ".join(f"{k} {v:.3e}" for k, v in shares.items())
+        + f" (held: tail <= {GRAD_SHARE['tail']['bfloat16']}), "
+        f"{k2['ms']:.4f} ms against twin {k2['plain_ms']:.3f} ms, bound "
+        f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}) (CUDA events, mean of "
+        f"{FLAGSHIP_REPS})")
+    if k1["max_abs_err"] > K1_BF16_ATOL \
+            or k1["mean_abs_err"] > K1_BF16_MEAN_ATOL \
+            or not torch.isfinite(out).all():
+        raise AssertionError("K1 at the student's width disagrees with its "
+                             "twin")
+    if shares["tail"] > GRAD_SHARE["tail"]["bfloat16"]:
+        raise AssertionError("K2 at the student's width disagrees with its "
+                             "twin under the tail cotangent")
+    return {"fused_nerf": k1, "fused_nerf_train": k2,
+            "shape": f"{layers}x{channels}, N={num}"}
+
+
+def _run_distill_cli(flags) -> dict:
+    """cli/distill_model in-process; returns its output, the losses
+    ``distill`` returned, the graph chunks it built and K1's and K2's
+    wrapper counts over the call."""
+    from fourier_feature_nets_torch.cli import distill_model
+    from fourier_feature_nets_torch.render import raycaster
+    returned = []
+    inner = distill_model.distill
+
+    def recording(*args, **kwargs):
+        result = inner(*args, **kwargs)
+        returned.append(result[1])
+        return result
+
+    distill_model.distill = recording
+    _reset_launches()
+    captured = io.StringIO()
+    start = time.perf_counter()
+    try:
+        with _instances(raycaster._GraphChunk) as chunks, \
+                contextlib.redirect_stdout(captured):
+            rc = distill_model.main(flags)
+        torch.cuda.synchronize()
+    finally:
+        distill_model.distill = inner
+    wall = time.perf_counter() - start
+    output = captured.getvalue()
+    if rc != 0:
+        raise AssertionError(f"distill_model {flags} returned {rc}:\n"
+                             f"{output[-2000:]}")
+    return {"output": output, "losses": returned[0], "chunks": chunks,
+            "counts": _launch_counts(), "wall_s": wall}
+
+
+def _graph_launches(run) -> dict:
+    """K1's and K2's launches in a distill CLI call: recorded a chunk in
+    each capture, in the replays (captured x replays), and eager (the
+    wrapper counts less the captures' recordings: the warm-up chunks)."""
+    captured = {k: sum(c.captured[k] * c.captures for c in run["chunks"])
+                for k in run["counts"]}
+    return {"captured_a_chunk": [c.captured for c in run["chunks"]],
+            "replays": [c.replays for c in run["chunks"]],
+            "in_graph_replays": {
+                k: sum(c.captured[k] * c.replays for c in run["chunks"])
+                for k in run["counts"]},
+            "eager": {k: run["counts"][k] - captured[k]
+                      for k in run["counts"]}}
+
+
+def phase_distill(checkpoint) -> dict:
+    """Distillation of smoke-train's 30-step 8x256 checkpoint into the
+    6x192 student with ``--fused`` (1024 rays x 128 samples, the density
+    grid's sampler, a 64-camera hemisphere at 400 px): DISTILL_STEPS
+    steps in chunks of DISTILL_CALL (one CUDA-graph replay each), then
+    ``--resume`` for DISTILL_RESUMED more. K1 and K2 at the student's
+    width against their twins first; K1 (teacher and student) and K2
+    must run in the captured chunks; the loss must fall DISTILL_FALL
+    times; then :func:`distill_step_checks`."""
+    rng = np.random.default_rng(SEED + 14)
+    kernels = student_kernels(rng)
+    out_dir = os.path.join(OUT_DIR, "distill")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    common = [checkpoint, out_dir, "--device", "cuda", "--fused",
+              "--batch-rays", str(DISTILL_BATCH[0]), "--num-samples",
+              str(DISTILL_BATCH[1]), "--steps-per-call",
+              str(DISTILL_CALL), "--checkpoint-interval", str(DISTILL_CALL),
+              "--report-interval", str(DISTILL_CALL)]
+    first = _run_distill_cli([*common, "--num-steps", str(DISTILL_STEPS)])
+    resumed = _run_distill_cli([*common, "--num-steps",
+                                str(DISTILL_STEPS + DISTILL_RESUMED), "--resume"])
+    steady = re.search(r"([0-9.]+) ms/step over calls", first["output"])
+    steady = float(steady.group(1)) if steady else None
+    losses = first["losses"]
+    falls = (float(losses[-20:].mean()) * DISTILL_FALL
+             <= float(losses[:20].mean()))
+    at = re.search(r"Resumed distillation from .*ckpt_(\d+)\.npz at step "
+                   r"(\d+)", resumed["output"])
+    launches = {"first": _graph_launches(first),
+                "resumed": _graph_launches(resumed)}
+    row = {"kernels": kernels, "wall_s": [first["wall_s"],
+                                          resumed["wall_s"]],
+           "ms_per_step": steady, "loss_first_20": float(losses[:20].mean()),
+           "loss_last_20": float(losses[-20:].mean()),
+           "loss_resumed_last": float(resumed["losses"][-1]),
+           "resumed_at": int(at.group(2)) if at else None,
+           "resumed_steps": int(resumed["losses"].shape[0]),
+           "launches": launches}
+    log(f"distill_model --fused, 8x256 -> 6x192, {DISTILL_BATCH[0]} x "
+        f"{DISTILL_BATCH[1]}, --steps-per-call {DISTILL_CALL}: "
+        f"{DISTILL_STEPS} steps in "
+        f"{first['wall_s']:.3f} s for the CLI call, loss {row['loss_first_20']:.4e}"
+        f" (steps 1-20) -> {row['loss_last_20']:.4e} (the last 20; held: "
+        f"a fall of {DISTILL_FALL:g}x at least); "
+        f"--resume: {at.group(0) if at else 'no resume line'}, "
+        f"{row['resumed_steps']} steps in {resumed['wall_s']:.3f} s, loss "
+        f"{row['loss_resumed_last']:.4e}; {steady} ms a step in the "
+        f"replay after the first call (CUDA events); launches {launches}")
+    chunk_ok = all(
+        len(run["chunks"]) == 1 and run["chunks"][0].captures == 1
+        and run["chunks"][0].captured == {"fused_nerf": 2 * DISTILL_CALL,
+                                          "fused_nerf_train": DISTILL_CALL}
+        for run in (first, resumed))
+    if not falls or not chunk_ok or row["resumed_at"] != DISTILL_STEPS \
+            or row["resumed_steps"] != DISTILL_RESUMED or steady is None \
+            or first["chunks"][0].replays != DISTILL_STEPS // DISTILL_CALL:
+        raise AssertionError("distillation did not run its captured "
+                             "chunks, fall and resume at step "
+                             f"{DISTILL_STEPS}")
+    row["one_step"] = distill_step_checks(checkpoint, out_dir)
+    row["student"] = os.path.join(out_dir, "student.npz")
+    return row
+
+
+@contextlib.contextmanager
+def kernel_twins():
+    """K1's and K2's plain twins in place of the kernels on the fused
+    distill path (``render/distill.py``'s teacher, ``FusedNeRFTrain``'s
+    forward and backward): the same bf16 packs, autograd function, loss
+    and Adam, with ``fused_nerf_reference`` for K1 and
+    ``fused_nerf_backward_reference`` for K2."""
+    from fourier_feature_nets_torch.kernels import fused_nerf_train
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        fused_nerf_reference)
+    from fourier_feature_nets_torch.render import distill as distill_module
+    saved = (distill_module.fused_nerf_apply,
+             fused_nerf_train.fused_nerf_apply,
+             fused_nerf_train.fused_nerf_backward)
+    distill_module.fused_nerf_apply = fused_nerf_reference
+    fused_nerf_train.fused_nerf_apply = fused_nerf_reference
+    fused_nerf_train.fused_nerf_backward = (
+        fused_nerf_train.fused_nerf_backward_reference)
+    try:
+        yield
+    finally:
+        (distill_module.fused_nerf_apply, fused_nerf_train.fused_nerf_apply,
+         fused_nerf_train.fused_nerf_backward) = saved
+
+
+def _leaf_shares(out: dict, ref: dict, base=None) -> dict:
+    """Per leaf, mean |out - ref| over mean |ref - base| (``base`` None:
+    over mean |ref|)."""
+    shares = {}
+    for path, b in ref.items():
+        scale = (b - base[path]) if base is not None else b
+        shares[path] = (float((out[path] - b).abs().mean())
+                        / max(float(scale.abs().mean()), 1e-30))
+    return shares
+
+
+def distill_step_checks(checkpoint, out_dir) -> dict:
+    """One distill step on the CLI's sampler three ways, from the fresh
+    student (step 0, seeded as the CLI seeds it) and from the
+    DISTILL_STEPS checkpoint in ``out_dir``, where Adam's moments make
+    the update follow the gradient's size: fused (bf16 K1 for the
+    teacher, K1 + K2 for the student), the same step on the kernels'
+    plain twins (:func:`kernel_twins`) and plain f32.
+
+    Held, fused against the twins, from both states: the loss within
+    DISTILL_TWIN_LOSS_GAP, each leaf's raw gradient (before Adam) within
+    GRAD_SHARE["random"] of its mean |twin gradient| in the mean, and
+    each leaf's update within CHUNK_MEAN_SHARE of its mean update; the
+    fused step launches 2 K1 (teacher, student) and 1 K2, the others
+    none. Held, fused against plain f32 from the fresh student: the
+    loss within DISTILL_PLAIN_LOSS_GAP and each leaf's update within
+    CHUNK_MEAN_SHARE. From the checkpoint the plain f32 step is logged:
+    there the loss is ~200x smaller and the teacher's bf16 rounding is
+    not small beside the residual the gradient follows."""
+    from fourier_feature_nets_torch.cli import distill_model
+    from fourier_feature_nets_torch.models import NeRF, load_model
+    from fourier_feature_nets_torch.models.serialization import (
+        named_parameters)
+    from fourier_feature_nets_torch.render import OccupancyGridSampler
+    from fourier_feature_nets_torch.render.distill import distill
+    from fourier_feature_nets_torch.utils.checkpoint import load_train_state
+
+    args = distill_model.build_parser().parse_args(
+        [checkpoint, out_dir, "--device", "cuda", "--num-samples",
+         str(DISTILL_BATCH[1])])
+    teacher = load_model(checkpoint).cuda().requires_grad_(False)
+    cameras, bounds, _, _ = distill_model._supervision(args, "cuda")
+    sampler = OccupancyGridSampler.from_model(
+        teacher, cameras, args.num_samples, stratified=True,
+        grid_resolution=args.occupancy_resolution,
+        alpha_threshold=args.density_threshold,
+        scale=float(bounds[0, 0]) / 2.0, bounds=bounds)
+    state_dir = os.path.join(OUT_DIR, "distill_step")
+    shutil.rmtree(state_dir, ignore_errors=True)
+    os.makedirs(state_dir)
+    source = os.path.join(out_dir, "checkpoints",
+                          f"ckpt_{DISTILL_STEPS:08d}.npz")
+    shutil.copy(source, state_dir)
+
+    def student(first):
+        if first:
+            return load_train_state(source).model.cuda()
+        layers, channels = args.student_layers, args.student_channels
+        return NeRF(layers, channels, 9.0, args.student_freq_pos, 3.0,
+                    args.student_freq_view, [layers // 2], True,
+                    generator=torch.Generator().manual_seed(args.seed)
+                    ).cuda()
+
+    def one_step(first, variant):
+        model = student(first)
+        start = {k: v.detach().clone()
+                 for k, v in named_parameters(model).items()}
+        fused = variant != "plain"
+        _reset_launches()
+        with (kernel_twins() if variant == "twins"
+              else contextlib.nullcontext()):
+            _, loss = distill(teacher, model, sampler, first + 1,
+                              batch_rays=DISTILL_BATCH[0], steps_per_call=1,
+                              seed=args.seed, fused_teacher=fused,
+                              fused_student=fused, checkpoint_dir=state_dir,
+                              resume=first > 0)
+        torch.cuda.synchronize()
+        leaves = named_parameters(model)
+        return {"loss": float(loss[0]), "start": start,
+                "grad": {k: v.grad.detach().clone()
+                         for k, v in leaves.items()},
+                "param": {k: v.detach().clone() for k, v in leaves.items()},
+                "launches": _launch_counts()}
+
+    rows = {}
+    for first in (0, DISTILL_STEPS):
+        runs = {v: one_step(first, v) for v in ("fused", "twins", "plain")}
+        fused = runs["fused"]
+        row = {"launches": {v: r["launches"] for v, r in runs.items()}}
+        for ref in ("twins", "plain"):
+            other = runs[ref]
+            grads = _leaf_shares(fused["grad"], other["grad"])
+            updates = _leaf_shares(fused["param"], other["param"],
+                                   other["start"])
+            row[ref] = {
+                "fused_loss": fused["loss"], "loss": other["loss"],
+                "loss_rel_gap": abs(fused["loss"] - other["loss"])
+                / other["loss"],
+                "grad_mean_share": max(grads.values()),
+                "grad_worst_leaf": max(grads, key=grads.get),
+                "update_mean_share": max(updates.values()),
+                "update_worst_leaf": max(updates, key=updates.get)}
+            log(f"one distill step from step {first}, fused (bf16 K1 "
+                f"teacher, K1 + K2 student) vs "
+                + ("the kernels' twins (the same bf16 packs)"
+                   if ref == "twins" else "plain f32")
+                + f": loss {fused['loss']:.6e} vs {other['loss']:.6e} (rel "
+                f"gap {row[ref]['loss_rel_gap']:.3e}); each leaf's raw "
+                f"gradient mean |d| at most "
+                f"{row[ref]['grad_mean_share']:.3e} of its mean "
+                f"({row[ref]['grad_worst_leaf']}), its update's at most "
+                f"{row[ref]['update_mean_share']:.3e} of the mean update "
+                f"({row[ref]['update_worst_leaf']}); by leaf (gradient, "
+                f"update): " + ", ".join(
+                    f"{path} {grads[path]:.2e} {updates[path]:.2e}"
+                    for path in grads))
+        rows[f"step {first}"] = row
+        log(f"launches of the one-step runs from step {first}: "
+            f"{row['launches']}")
+    failed = []
+    for label, row in rows.items():
+        twins = row["twins"]
+        if (twins["loss_rel_gap"] > DISTILL_TWIN_LOSS_GAP
+                or twins["grad_mean_share"] > GRAD_SHARE["random"]["bfloat16"]
+                or twins["update_mean_share"] > CHUNK_MEAN_SHARE):
+            failed.append(f"{label}: the fused step left its twins' step")
+        if (row["launches"]["fused"] != {"fused_nerf": 2,
+                                         "fused_nerf_train": 1}
+                or any(row["launches"][v] != {"fused_nerf": 0,
+                                              "fused_nerf_train": 0}
+                       for v in ("twins", "plain"))):
+            failed.append(f"{label}: launches {row['launches']}")
+    plain = rows["step 0"]["plain"]
+    if (plain["loss_rel_gap"] > DISTILL_PLAIN_LOSS_GAP
+            or plain["update_mean_share"] > CHUNK_MEAN_SHARE):
+        failed.append("step 0: the fused step left the plain f32 step")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return rows
+
+
+def _http(url: str, data=None) -> bytes:
+    import urllib.request
+    request = urllib.request.Request(url, data=data,
+                                     method="POST" if data else "GET")
+    with urllib.request.urlopen(request, timeout=300) as response:
+        return response.read()
+
+
+def _stream_frames(url: str, count: int) -> int:
+    body = _http(f"{url}/stream.mjpeg?count={count}")
+    return body.count(b"Content-Type: image/jpeg")
+
+
+def phase_serve(student_path: str) -> dict:
+    """The 6x192 student served at 800x800 ``--preset fast`` on
+    127.0.0.1 and an ephemeral port (in-process RenderServer): raw /frame
+    equals render_frame, the PNG decodes (zlib) to it, the JPEG is well
+    formed, /pose of a rig camera equals /frame; a 16-frame stream, then
+    SERVE_CLIENTS concurrent streams, and /stats; the JPEG encoder's ms a
+    frame; then ``python -m fourier_feature_nets_torch.cli.serve`` as a
+    process: one request, then stopped."""
+    import json as json_module
+    import threading
+
+    from fourier_feature_nets_torch.cameras import Resolution
+    from fourier_feature_nets_torch.cli import orbit_video
+    from fourier_feature_nets_torch.cli import serve as serve_cli
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        fused_nerf_apply)
+    from fourier_feature_nets_torch.models import load_model
+    from fourier_feature_nets_torch.render import Raycaster
+    from fourier_feature_nets_torch.render.server import RenderServer, serve
+    from fourier_feature_nets_torch.utils import orbit
+    from fourier_feature_nets_torch.utils.jpeg import encode_jpeg
+
+    args = serve_cli._parse_args([student_path, str(FRAME_RES), "--preset",
+                                  "fast", "--num-frames",
+                                  str(SERVE_CAMERAS)])
+    cameras = orbit(orbit_video.VECTORS[args.up_dir],
+                    orbit_video.VECTORS[args.forward_dir], SERVE_CAMERAS,
+                    args.fov_y_degrees, Resolution(FRAME_RES, FRAME_RES),
+                    args.distance)
+    model = load_model(student_path).cuda()
+    sampler = orbit_video.build_render_sampler(
+        args, model, cameras, np.diag([2.0, 2.0, 2.0, 1.0]).astype(
+            np.float32))
+    caster = Raycaster(model, compute_dtype=torch.bfloat16)
+    server = RenderServer(caster, sampler, chunk_size=args.chunk_size)
+    warmup = server.warmup()
+    # each rig camera's K1 launches in a direct frame: the server must
+    # launch as many for each frame it serves
+    direct, per_camera = [], []
+    for camera in range(SERVE_CAMERAS):
+        fused_nerf_apply.launches = 0
+        direct.append(caster.render_frame(sampler, camera,
+                                          chunk_size=args.chunk_size))
+        per_camera.append(fused_nerf_apply.launches)
+    http = serve(server, "127.0.0.1", 0)
+    thread = threading.Thread(target=http.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{http.server_address[1]}"
+    shape = (FRAME_RES, FRAME_RES, 3)
+    try:
+        fused_nerf_apply.launches = 0
+        raw = np.frombuffer(_http(f"{url}/frame?camera=3&format=raw"),
+                            np.uint8).reshape(shape)
+        frame_launches = fused_nerf_apply.launches
+        png = png_pixels(_http(f"{url}/frame?camera=3&format=png"))
+        jpeg = jpeg_header(_http(f"{url}/frame?camera=3&format=jpg"))
+        calibration = {"extrinsics": cameras[2].extrinsics.tolist(),
+                       "intrinsics": cameras[2].intrinsics.tolist(),
+                       "format": "raw"}
+        fused_nerf_apply.launches = 0
+        posed = np.frombuffer(_http(f"{url}/pose", json_module.dumps(
+            calibration).encode()), np.uint8).reshape(shape)
+        pose_launches = fused_nerf_apply.launches
+        rig2 = np.frombuffer(_http(f"{url}/frame?camera=2&format=raw"),
+                             np.uint8).reshape(shape)
+        with server._latency_lock:
+            server._latencies.clear()
+        fused_nerf_apply.launches = 0
+        start = time.perf_counter()
+        streamed = _stream_frames(url, SERVE_CAMERAS)
+        stream_s = time.perf_counter() - start
+        one = json_module.loads(_http(f"{url}/stats"))
+        with server._latency_lock:
+            server._latencies.clear()
+        counts = [0] * SERVE_CLIENTS
+
+        def client(i):
+            counts[i] = _stream_frames(url, SERVE_CAMERAS)
+
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVE_CLIENTS)]
+        start = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        clients_s = time.perf_counter() - start
+        stream_launches = fused_nerf_apply.launches
+        many = json_module.loads(_http(f"{url}/stats"))
+    finally:
+        http.shutdown()
+        http.server_close()
+        server.close()
+    start = time.perf_counter()
+    for _ in range(5):
+        encode_jpeg(direct[3])
+    jpeg_ms = (time.perf_counter() - start) * 1e3 / 5
+    row = {"warmup_s": warmup, "launches_a_camera": per_camera,
+           "frame_launches": frame_launches, "pose_launches": pose_launches,
+           "stream_launches": stream_launches,
+           "raw_equals_render_frame": bool(np.array_equal(raw, direct[3])),
+           "png_equals_raw": bool(np.array_equal(png, raw)),
+           "pose_equals_frame": bool(np.array_equal(posed, rig2)),
+           "jpeg": jpeg, "jpeg_encode_ms": jpeg_ms,
+           "stream": {"frames": streamed, "wall_s": stream_s,
+                      "stats": {k: one.get(k) for k in
+                                ("frames", "p50_ms", "p90_ms", "fps")}},
+           "clients": {"frames": counts, "wall_s": clients_s,
+                       "fps": sum(counts) / clients_s,
+                       "stats": {k: many.get(k) for k in
+                                 ("frames", "p50_ms", "p90_ms", "fps")}}}
+    log(f"serve, the 6x192 student at {FRAME_RES}x{FRAME_RES} --preset fast "
+        f"(bf16, K1): warm-up {warmup:.3f} s; raw /frame equals render_frame:"
+        f" {row['raw_equals_render_frame']}; PNG (zlib) equals it: "
+        f"{row['png_equals_raw']}; JPEG {jpeg}; /pose of rig camera 2 equals"
+        f" /frame: {row['pose_equals_frame']}; K1 launches: the direct "
+        f"frames {per_camera}, /frame of camera 3 {frame_launches}, /pose "
+        f"of camera 2 {pose_launches}, the {1 + SERVE_CLIENTS} streams "
+        f"{stream_launches} (held: {1 + SERVE_CLIENTS} x "
+        f"{sum(per_camera)}); a {SERVE_CAMERAS}-frame stream {streamed} "
+        f"frames in {stream_s:.3f} s, /stats {row['stream']['stats']}; "
+        f"{SERVE_CLIENTS} concurrent streams {counts} in {clients_s:.3f} s "
+        f"({row['clients']['fps']:.3f} frames/s), /stats "
+        f"{row['clients']['stats']}; JPEG encode {jpeg_ms:.3f} ms a frame "
+        f"(host, mean of 5)")
+    if not (row["raw_equals_render_frame"] and row["png_equals_raw"]
+            and row["pose_equals_frame"] and streamed == SERVE_CAMERAS
+            and counts == [SERVE_CAMERAS] * SERVE_CLIENTS
+            and min(per_camera) > 0 and frame_launches == per_camera[3]
+            and pose_launches == per_camera[2]
+            and stream_launches == (1 + SERVE_CLIENTS) * sum(per_camera)
+            and jpeg["height"] == FRAME_RES and jpeg["width"] == FRAME_RES
+            and jpeg["sampling"] == [0x22, 0x11, 0x11]):
+        raise AssertionError("the render server's frames disagree, or K1 "
+                             "did not run on every frame")
+    row["cli"] = serve_cli_process(student_path)
+    return row
+
+
+def serve_cli_process(student_path: str) -> dict:
+    """``python -m fourier_feature_nets_torch.cli.serve`` as a process on
+    an ephemeral port: one raw frame, then SIGTERM; it must exit 0."""
+    import selectors
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    start = time.perf_counter()
+    process = subprocess.Popen(
+        [sys.executable, "-m", "fourier_feature_nets_torch.cli.serve",
+         student_path, str(FRAME_RES), "--preset", "fast", "--port", "0",
+         "--num-frames", "8", "--device", "cuda"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        selector = selectors.DefaultSelector()
+        selector.register(process.stdout, selectors.EVENT_READ)
+        found = None
+        while found is None:
+            if time.perf_counter() - start > 300 or \
+                    not selector.select(timeout=300):
+                raise AssertionError("cli.serve did not start:\n"
+                                     + "".join(lines[-40:]))
+            line = process.stdout.readline()
+            if not line:
+                raise AssertionError("cli.serve exited:\n"
+                                     + "".join(lines[-40:]))
+            lines.append(line)
+            found = re.search(r"serving .* on (http://\S+)", line)
+        ready_s = time.perf_counter() - start
+        begin = time.perf_counter()
+        body = _http(f"{found.group(1)}/frame?camera=1&format=raw")
+        request_ms = (time.perf_counter() - begin) * 1e3
+    finally:
+        process.terminate()
+        try:
+            rc = process.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            process.kill()
+            rc = process.wait()
+    log(f"python -m fourier_feature_nets_torch.cli.serve (--preset fast, "
+        f"--port 0): serving after {ready_s:.3f} s, one raw frame of "
+        f"{len(body):,d} bytes in {request_ms:.3f} ms, exit code {rc} after "
+        f"SIGTERM; its lines: {[l.strip() for l in lines]}")
+    if len(body) != FRAME_RES * FRAME_RES * 3 or rc != 0:
+        raise AssertionError("cli.serve did not serve a frame and stop")
+    return {"ready_s": ready_s, "request_ms": request_ms, "rc": rc}
+
+
 def _chunk_launches(chunks, resume, occupancy, kernel: str) -> dict:
     """A kernel's launches on the chunked, resumed and occupancy-guided
     train paths: eager (the wrapper's count: warm-up, validation) and in
@@ -3112,6 +3984,12 @@ def main(argv=None) -> int:
         "trained": timed("quality_orbit_trained", phase_quality_orbit,
                          checkpoint, "30-step trained checkpoint")}
     model = flagship_nerf(torch.Generator().manual_seed(SEED)).cuda()
+    face = timed("face_probe", phase_face_probe, model)
+    pose = timed("pose", phase_pose, model)
+    chunked = timed("chunked", phase_chunked)
+    distilled = timed("distill", phase_distill, checkpoint)
+    served = timed("serve", phase_serve, distilled["student"])
+    torch.cuda.empty_cache()
     log("K3 vs plain twin, flagship:")
     render_checks = phase_ray_render_vs_twin(model)
     render = phase_ray_render_timing(model)
@@ -3207,7 +4085,20 @@ def main(argv=None) -> int:
             **_chunk_launches(chunks, resume, occupancy, "fused_nerf"),
             "orbit_preset_quality": {
                 name: {"total": row["launches"], **row["pass_launches"]}
-                for name, row in quality.items()}},
+                for name, row in quality.items()},
+            "orbit_pose": pose["launches"],
+            "orbit_pose_focus": pose["focus_launches"],
+            "orbit_chunked": chunked["launches"],
+            "serve_student": served["stream_launches"],
+            "distill": {name: {"in_graph_replays":
+                               row["in_graph_replays"]["fused_nerf"],
+                               "eager": row["eager"]["fused_nerf"]}
+                        for name, row in distilled["launches"].items()}},
+        "student_6x192": distilled["kernels"]["fused_nerf"],
+        "face_probe": face,
+        "pose": pose,
+        "chunked": chunked,
+        "serve": served,
         "quality_orbit": quality,
         "focus_orbit": focus,
         "octree_orbit": octree,
@@ -3243,7 +4134,13 @@ def main(argv=None) -> int:
         "launches_by_path": {
             "train_nerf": train_launches["fused_nerf_train"],
             **_chunk_launches(chunks, resume, occupancy,
-                              "fused_nerf_train")},
+                              "fused_nerf_train"),
+            "distill": {name: {"in_graph_replays":
+                               row["in_graph_replays"]["fused_nerf_train"],
+                               "eager": row["eager"]["fused_nerf_train"]}
+                        for name, row in distilled["launches"].items()}},
+        "student_6x192": distilled["kernels"]["fused_nerf_train"],
+        "distill": {k: v for k, v in distilled.items() if k != "kernels"},
         "train_chunks": chunks,
         "train_resume": resume,
         "train_occupancy": occupancy,

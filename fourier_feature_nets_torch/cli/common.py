@@ -14,8 +14,8 @@ import torch
 
 from ..utils.errors import not_ported
 
-__all__ = ["RENDER_PRESETS", "add_common_train_args", "add_preset_arg",
-           "apply_render_preset", "bench_ms", "fit_kwargs",
+__all__ = ["RECOMMENDED_STUDENT", "RENDER_PRESETS", "add_common_train_args",
+           "add_preset_arg", "apply_render_preset", "bench_ms", "fit_kwargs",
            "get_compute_dtype", "kernel_device", "load_opacity",
            "load_train_val",
            "make_visualizers", "resolve_data_path", "save_best_model",
@@ -246,6 +246,11 @@ def bench_ms(fn, reps: int, device) -> float:
     end.synchronize()
     return start.elapsed_time(end) / reps
 
+
+# The serving student's (num_layers, num_channels): the shape
+# ``--preset fast`` pairs with, and distill_model's default student (the
+# JAX package's ``RECOMMENDED_STUDENT``).
+RECOMMENDED_STUDENT = (6, 192)
 
 RENDER_PRESETS = {
     "fast": {

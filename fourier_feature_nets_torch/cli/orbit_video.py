@@ -8,14 +8,17 @@ density grid (``--density-grid``, ``--preset fast``), an octree
 uniform samples (``--no-focus``). ``--early-term`` (with
 ``--early-split``) terminates the rays of a culled frame early, as
 ``--preset quality`` does. Frames are written as PNGs by a standard
-library encoder. ``--chunked``, ``--data-parallel`` and ``--mp4`` raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+library encoder. ``--chunked`` renders each frame the chunked way
+(``Raycaster.render_image``, the parity path). ``--data-parallel`` and
+``--mp4`` raise ``NotImplementedError`` naming the ROADMAP.md item that
+ports them.
 
     python -m fourier_feature_nets_torch.cli.orbit_video model.npz 800 out/ \\
         --preset fast --num-frames 10
 """
 
 import os
+import sys
 import time
 from argparse import ArgumentDefaultsHelpFormatter, ArgumentParser
 
@@ -94,11 +97,15 @@ def _parse_args(argv=None):
 
 def _reject_unported(args):
     """Raises for every flag whose path the port does not have yet
-    (the sampler flags are checked by :func:`build_render_sampler`)."""
+    (the sampler flags are checked by :func:`build_render_sampler`);
+    ``--chunked`` ignores ``--data-parallel`` and ``--early-term``, with
+    the JAX CLI's warning."""
     if args.chunked:
-        raise not_ported("--chunked (render_image)",
-                          "Pose rendering and serving")
-    if args.data_parallel:
+        if args.data_parallel or args.early_term:
+            print("WARNING: --chunked is the single-device parity path; "
+                  "--data-parallel/--early-term are ignored",
+                  file=sys.stderr)
+    elif args.data_parallel:
         raise not_ported("--data-parallel", "Remaining models, data, "
                           "CLIs and parallel")
     if args.mp4:
@@ -170,13 +177,16 @@ def main(argv=None):
         # device work and the copy (the culled path syncs once per
         # frame on the hit count, so frames are not pipelined)
         start = time.perf_counter()
-        image = raycaster.render_frame(sampler, frame,
-                                       chunk_size=args.batch_size * 4,
-                                       early_term=args.early_term,
-                                       early_split=args.early_split)
+        if args.chunked:
+            image = raycaster.render_image(sampler, frame, args.batch_size)
+        else:
+            image = raycaster.render_frame(sampler, frame,
+                                           chunk_size=args.batch_size * 4,
+                                           early_term=args.early_term,
+                                           early_split=args.early_split)
+            hit += raycaster.frame_rays["hit"]
+            survived += raycaster.frame_rays.get("survived", 0)
         frame_ms.append((time.perf_counter() - start) * 1e3)
-        hit += raycaster.frame_rays["hit"]
-        survived += raycaster.frame_rays.get("survived", 0)
         write_png(os.path.join(args.output_dir,
                                "frame_{:05d}.png".format(frame)), image)
     progress.finish()
@@ -186,7 +196,7 @@ def main(argv=None):
     steady = (f"{np.mean(frame_ms[1:]):.3f} ms/frame over frames 2.."
               f"{len(frame_ms)}" if len(frame_ms) > 1 else "no later frames")
     early = ""
-    if "survived" in raycaster.frame_rays:
+    if "survived" in getattr(raycaster, "frame_rays", {}):
         early = (f", early termination at {args.early_term:g}: "
                  f"{survived} of {hit} hit rays survived pass 1")
     print(f"orbit_video: {args.num_frames} frames of {args.resolution}x"

@@ -9,6 +9,7 @@ from .blend import (
 )
 from .encoding import encode_phases, positional_encoding_matrix
 from .intersection import NearFar, bounds_min_max, ray_aabb_near_far
+from .metrics import psnr_from_mse
 from .sampling import (
     anneal_near_far,
     batch_linspace,
@@ -37,6 +38,7 @@ __all__ = [
     "merge_sorted",
     "per_ray_uniform",
     "positional_encoding_matrix",
+    "psnr_from_mse",
     "ray_aabb_near_far",
     "uniform_t_values",
     "unit_linspace",

@@ -13,7 +13,12 @@ the model's own density field, :meth:`from_model`) places samples by
 The JAX package's default probe reads a max-pooled ``probe_resolution``
 cubed table through a one-hot matmul, because dynamic gathers are slow
 on a TPU. Here the probe is a gather from the SAME max-pooled table, so
-the hit sets match the JAX default (``probe_mode="matmul"``) exactly.
+the CDF weights match the JAX default (``probe_mode="matmul"``) exactly.
+The culling signal (``hit``) is conservative at cell faces: a probe
+within ``FACE_DELTA`` cells of a face also counts the occupancy of the
+cell across it, so a ray's flag does not turn on how its f32 geometry
+was rounded (the JAX package computes it in one XLA program, the port
+op by op); off such probes it is the same gather.
 The JAX constructor's ``trilinear`` and ``probe_mode="gather"`` options
 are not ported (ROADMAP.md, queue 1, item 7). A stratified sampler
 draws one jittered CDF quantile per stratum when :meth:`sample` is
@@ -37,8 +42,14 @@ from ..ops.sampling import (
 )
 from .ray_sampler import RaySampler, RaySamples
 
-__all__ = ["occupancy_grid_from_tree", "density_grid_from_model",
+__all__ = ["FACE_DELTA", "occupancy_grid_from_tree", "density_grid_from_model",
            "OccupancyGridSampler"]
+
+# How close (in cells of the probe table) a probe must lie to a cell face
+# for the hit flag to count the cell across it too: 10x the largest gap
+# measured between the JAX package's and the port's f32 probe positions
+# on the same rays (1e-5 cells).
+FACE_DELTA = 1e-4
 
 
 def _model_device(model) -> torch.device:
@@ -96,6 +107,44 @@ def density_grid_from_model(model, resolution: int = 64,
         alpha = 1.0 - torch.exp(-sigma * cell)
     return (alpha > alpha_threshold).float().cpu().numpy().reshape(
         resolution, resolution, resolution)
+
+
+def _neighbour_masks(table: np.ndarray) -> np.ndarray:
+    """(side^3,) int32 masks of a (side, side, side) probe table: bit
+    ``(dz + 1) * 9 + (dy + 1) * 3 + (dx + 1)`` of a cell is set when the
+    cell at offset (dz, dy, dx), each in {-1, 0, 1}, is occupied (an
+    offset out of the table reads the cell itself, as a clamped index
+    does)."""
+    side = table.shape[0]
+    padded = np.pad(table > 0, 1, mode="edge")
+    masks = np.zeros((side, side, side), np.int32)
+    for dz in range(3):
+        for dy in range(3):
+            for dx in range(3):
+                bit = np.int32(1 << (dz * 9 + dy * 3 + dx))
+                masks |= np.where(padded[dz:dz + side, dy:dy + side,
+                                         dx:dx + side], bit, np.int32(0))
+    return masks.reshape(-1)
+
+
+def _face_queries() -> np.ndarray:
+    """(27,) int32: for a point's steps (sz, sy, sx), each in {-1, 0, 1}
+    (the face it is near on that axis, if any), at index ``(sz + 1) * 9 +
+    (sy + 1) * 3 + (sx + 1)``, the neighbour-mask bits of the cells it
+    reads: every offset in {0, sz} x {0, sy} x {0, sx}."""
+    queries = np.zeros(27, np.int32)
+    for sz in (-1, 0, 1):
+        for sy in (-1, 0, 1):
+            for sx in (-1, 0, 1):
+                for dz in {0, sz}:
+                    for dy in {0, sy}:
+                        for dx in {0, sx}:
+                            queries[(sz + 1) * 9 + (sy + 1) * 3 + sx + 1] |= (
+                                1 << ((dz + 1) * 9 + (dy + 1) * 3 + dx + 1))
+    return queries
+
+
+_FACE_QUERIES = _face_queries()
 
 
 class OccupancyGridSampler(RaySampler):
@@ -157,15 +206,19 @@ class OccupancyGridSampler(RaySampler):
                               side, factor).max((1, 3, 5))
         # flat cell id = (z * side + y) * side + x
         table = np.ascontiguousarray(coarse.reshape(-1))
+        neighbours = torch.from_numpy(_neighbour_masks(coarse))
         occupancy = getattr(self, "occupancy", None)
         if occupancy is not None and occupancy.shape == grid.shape:
             occupancy.copy_(torch.from_numpy(grid))
             self.probe_table.copy_(torch.from_numpy(table))
+            self.neighbour_table.copy_(neighbours)
             return
         self._grid_resolution = grid_resolution
         self._probe_resolution = side
         self.occupancy = torch.from_numpy(grid).to(self.device)
         self.probe_table = torch.from_numpy(table).to(self.device)
+        self.neighbour_table = neighbours.to(self.device)
+        self._face_queries = torch.from_numpy(_FACE_QUERIES).to(self.device)
 
     @classmethod
     def from_tree(cls, tree: OcTree, cameras: List[CameraInfo],
@@ -202,15 +255,57 @@ class OccupancyGridSampler(RaySampler):
         return cls(grid, scale, cameras, num_samples,
                    empty_weight=empty_weight, bounds=bounds, **kwargs)
 
-    def _occupancy_at(self, points: torch.Tensor) -> torch.Tensor:
-        """Occupancy of the max-pooled table at (..., 3) world points."""
+    def _cells(self, points: torch.Tensor) -> torch.Tensor:
+        """(..., 3) world points -> their (N, 3) f32 coordinates in
+        cells of the probe table."""
         side = self._probe_resolution
-        flat_pts = points.reshape(-1, 3)
-        cell = torch.clamp(
-            ((flat_pts / self._grid_scale + 1.0) * 0.5 * side)
-            .to(torch.int64), 0, side - 1)
-        flat = (cell[:, 2] * side + cell[:, 1]) * side + cell[:, 0]
-        return self.probe_table[flat].reshape(points.shape[:-1])
+        return (points.reshape(-1, 3) / self._grid_scale + 1.0) * 0.5 * side
+
+    def _table_at(self, x: torch.Tensor, y: torch.Tensor,
+                  z: torch.Tensor) -> torch.Tensor:
+        """The probe table at (N,) int64 cell indices, each clamped."""
+        side = self._probe_resolution
+        x, y, z = (torch.clamp(c, 0, side - 1) for c in (x, y, z))
+        return self.probe_table[(z * side + y) * side + x]
+
+    def _occupancy_at(self, points: torch.Tensor) -> torch.Tensor:
+        """Occupancy of the max-pooled table at (..., 3) world points:
+        the cell each point's f32 position truncates into."""
+        cell = self._cells(points).to(torch.int64)
+        return self._table_at(*cell.unbind(-1)).reshape(points.shape[:-1])
+
+    def _occupied_near(self, points: torch.Tensor) -> torch.Tensor:
+        """The hit flag's occupancy at (..., 3) world points: whether a
+        cell within ``FACE_DELTA`` of each point is occupied. On an axis
+        where a point lies that close to a face, the cell across it
+        counts too (up to 8 cells at a corner); elsewhere only the
+        point's own cell, :meth:`_occupancy_at`'s. One read of the own
+        cell's neighbour mask (:func:`_neighbour_masks`) and one of the
+        query mask of the faces the point is near (``_FACE_QUERIES``)."""
+        side = self._probe_resolution
+        cell = self._cells(points)
+        own = cell.to(torch.int64)
+        frac = cell - own
+        # -1 / +1 on an axis where the point is within FACE_DELTA of the
+        # lower / upper face of its cell, then kept inside the table
+        step = ((frac > 1.0 - FACE_DELTA).to(torch.int64)
+                - (frac < FACE_DELTA).to(torch.int64))
+        across = torch.clamp(own + step, 0, side - 1)
+        own = torch.clamp(own, 0, side - 1)
+        step = across - own + 1
+        x, y, z = own.unbind(-1)
+        sx, sy, sz = step.unbind(-1)
+        masks = self.neighbour_table[(z * side + y) * side + x]
+        queries = self._face_queries[(sz * 3 + sy) * 3 + sx]
+        return ((masks & queries) != 0).reshape(points.shape[:-1])
+
+    def _probe_positions(self, starts, directions, near, far):
+        """The probes of explicit ray geometry: (R, P+1) bin edges and
+        the (R, P, 3) positions of the bin midpoints."""
+        edges = batch_linspace(near, far, self.num_probes + 1)
+        mids = 0.5 * (edges[..., :-1] + edges[..., 1:])
+        return edges, (starts[:, None, :]
+                       + mids[..., None] * directions[:, None, :])
 
     def _probe_cdf_geometry(self, starts, directions, near, far):
         """Probes occupancy along explicit ray geometry.
@@ -218,22 +313,21 @@ class OccupancyGridSampler(RaySampler):
         Returns:
             (edges, cdf, hit): (R, P+1) probe bin edges, (R, P+1)
             occupancy-weighted CDF over them, and an (R,) bool marking
-            rays whose probes touched any occupied cell (the
-            empty-space-culling signal).
+            rays with a probe in or within ``FACE_DELTA`` cells of an
+            occupied cell (the empty-space-culling signal).
         """
-        edges = batch_linspace(near, far, self.num_probes + 1)
-        mids = 0.5 * (edges[..., :-1] + edges[..., 1:])
-        probe_pos = (starts[:, None, :]
-                     + mids[..., None] * directions[:, None, :])
-        occ = self._occupancy_at(probe_pos)
-        hit = occ.amax(dim=-1) > 0
+        edges, probe_pos = self._probe_positions(starts, directions, near,
+                                                 far)
+        hit = self._occupied_near(probe_pos).amax(dim=-1) > 0
+        return edges, self._cdf(edges, self._occupancy_at(probe_pos)), hit
 
+    def _cdf(self, edges, occ):
+        """(R, P+1) occupancy-weighted CDF over the probe bins."""
         lengths = edges[..., 1:] - edges[..., :-1]
         weights = lengths * (occ + self.empty_weight) + 1e-12
         cdf = torch.cumsum(weights, dim=-1)
         cdf = cdf / cdf[..., -1:]
-        cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
-        return edges, cdf, hit
+        return torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
 
     def t_from_cdf(self, edges: torch.Tensor, cdf: torch.Tensor,
                    idx: Optional[torch.Tensor] = None, step=None,
@@ -251,12 +345,14 @@ class OccupancyGridSampler(RaySampler):
                                      jitter=jitter)
 
     def _sample_geometry(self, starts, directions, near, far, idx,
-                         step=None, rng=None):
-        # placement follows the probe CDF alone (no annealing); the
+                         step=None, rng=None, cdf_rows=None):
+        # placement follows the probe CDF alone (no annealing, no focus
+        # tables, so a free pose needs no table of the rig); the
         # quantiles are jittered only for a stratified sampler given a
         # key, as in training (:meth:`RaySampler.sample`)
-        edges, cdf, _ = self._probe_cdf_geometry(starts, directions,
-                                                 near, far)
+        edges, probe_pos = self._probe_positions(starts, directions, near,
+                                                 far)
+        cdf = self._cdf(edges, self._occupancy_at(probe_pos))
         t_values = self.t_from_cdf(edges, cdf, idx, step, rng)
         positions = (starts[:, None, :]
                      + t_values[..., None] * directions[:, None, :])

@@ -86,8 +86,9 @@ class OctreeRaySampler(RaySampler):
         self._tree_depth = tree.depth
 
     def _sample_geometry(self, starts, directions, near, far, idx,
-                         step=None, rng=None):
-        # no annealing or focus tables: placement comes from the tree
+                         step=None, rng=None, cdf_rows=None):
+        # no annealing or focus tables: placement comes from the tree, so
+        # a free pose needs no table of the rig
         path = device_batch_intersect(
             self._node_index, self._leaf_index, starts, directions,
             scale=self._tree_scale, max_depth=self._tree_depth,

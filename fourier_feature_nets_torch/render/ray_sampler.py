@@ -3,7 +3,8 @@
 Port of ``fourier_feature_nets_tpu/render/ray_sampler.py``:
 ``RaySamples``, the per-camera calibration tables, the gather-free ray
 geometry (``camera_ray_geometry``, ``pose_ray_geometry``,
-``sample_camera_rays``), the lazy per-ray tables of the training path,
+``sample_camera_rays``) and that of any camera pose
+(``pose_calibration``, ``sample_pose_rays``), the lazy per-ray tables of the training path,
 index sampling (``sample``) with stratified jitter and near/far
 annealing, focus sampling (half the samples drawn from per-ray CDFs of
 an opacity model's density), ``to_valid``, ``rays_for_camera`` and
@@ -204,13 +205,20 @@ class RaySampler:
                                      tables.near[idx], tables.far[idx], idx,
                                      step, rng)
 
-    def camera_ray_geometry(self, camera: int, offsets: torch.Tensor):
-        """Ray geometry for pixel ``offsets`` of one rig camera.
+    def camera_ray_geometry(self, camera, offsets: torch.Tensor):
+        """Ray geometry for pixel ``offsets`` of one rig camera, an int
+        or a 0-d int64 device tensor (read with no host copy, as a CUDA
+        graph's draws are).
 
         Returns:
             (starts, directions, near, far, valid) of shape (R, 3) /
             (R,).
         """
+        if isinstance(camera, torch.Tensor):
+            row = camera.reshape(1)
+            return self.pose_ray_geometry(
+                self.cam_ray_m.index_select(0, row)[0],
+                self.cam_positions.index_select(0, row)[0], offsets)
         return self.pose_ray_geometry(self.cam_ray_m[camera],
                                       self.cam_positions[camera], offsets)
 
@@ -236,8 +244,43 @@ class RaySampler:
         far = torch.where(nf.valid, nf.far, 2.0)
         return starts, d, near, far, nf.valid
 
-    def sample_camera_rays(self, camera: int, offsets: torch.Tensor):
-        """Samples the rays of pixel ``offsets`` of one camera.
+    @staticmethod
+    def pose_calibration(camera: CameraInfo, device="cpu"):
+        """``(ray_m, position)``, the calibration of one
+        :class:`CameraInfo` that :meth:`pose_ray_geometry` takes: f32
+        tensors on ``device``, equal to the rig tables' rows for a rig
+        camera."""
+        ray_m = (camera.extrinsics[:3, :3]
+                 @ np.linalg.inv(camera.intrinsics)).astype(np.float32)
+        position = camera.position[0].astype(np.float32)
+        return (torch.from_numpy(ray_m).to(device),
+                torch.from_numpy(position).to(device))
+
+    def sample_pose_rays(self, ray_m: torch.Tensor, position: torch.Tensor,
+                         offsets: torch.Tensor, step=None, rng=None):
+        """:meth:`sample_camera_rays` for any camera pose, given by its
+        calibration (:meth:`pose_calibration`). The pixel offset is the
+        ray id of the jitter's key (a free pose has no global ray
+        index). A focus sampler computes the rays' CDFs on the fly
+        (:meth:`_cdfs_for_geometry`): its precomputed tables cover only
+        the rig's pixels.
+
+        Returns:
+            (RaySamples, valid) — valid marks rays hitting the volume.
+        """
+        starts, directions, near, far, valid = self.pose_ray_geometry(
+            ray_m, position, offsets)
+        cdf_rows = None
+        if self.focus_sampling:
+            cdf_rows = self._cdfs_for_geometry(starts, directions, near, far)
+        return self._sample_geometry(starts, directions, near, far, offsets,
+                                     step, rng, cdf_rows=cdf_rows), valid
+
+    def sample_camera_rays(self, camera, offsets: torch.Tensor, step=None,
+                           rng=None):
+        """Samples the rays of pixel ``offsets`` of one camera (an int or
+        a 0-d int64 device tensor); ``step`` and ``rng`` as in
+        :meth:`sample`, keyed by the global ray ids.
 
         Returns:
             (RaySamples, valid) — valid marks rays hitting the volume.
@@ -245,11 +288,14 @@ class RaySampler:
         starts, directions, near, far, valid = self.camera_ray_geometry(
             camera, offsets)
         idx = camera * self.rays_per_camera + offsets
-        return self._sample_geometry(starts, directions, near, far,
-                                     idx), valid
+        return self._sample_geometry(starts, directions, near, far, idx,
+                                     step, rng), valid
 
     def _sample_geometry(self, starts, directions, near, far, idx,
-                         step=None, rng=None):
+                         step=None, rng=None, cdf_rows=None):
+        """Samples explicit ray geometry; a focus sampler reads the
+        rays' CDFs from ``cdf_rows`` or, without them, from its table
+        at ``idx``."""
         near0, far0 = near, far   # pre-anneal bounds: the CDF's domain
         if step is not None and self.num_anneal_steps > 0:
             near, far = anneal_near_far(near, far, step, self.anneal_start,
@@ -269,8 +315,10 @@ class RaySampler:
                 focus_quantiles = (strata + u) / self.num_focus_samples
         t_values = uniform_t_values(near, far, num_uniform, jitter)
         if self.focus_sampling:
+            if cdf_rows is None:
+                cdf_rows = self.cdfs[idx]
             focus_t = inverse_cdf_t_values(
-                near0, far0, self.cdfs[idx], self.num_focus_samples,
+                near0, far0, cdf_rows, self.num_focus_samples,
                 self.num_focus_samples, focus_quantiles)
             t_values = merge_sorted(t_values, focus_t)
         positions = (starts[:, None, :]

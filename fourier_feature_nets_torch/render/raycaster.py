@@ -15,8 +15,9 @@ through the fused Hopper kernels by default (:func:`resolve_fused`): K1
 (:mod:`..kernels.fused_nerf`) for rendering, K1 forward and K2 backward
 (:mod:`..kernels.fused_nerf_train`) for training.
 
-Pose rendering and the data-parallel mesh are not ported yet
-(ROADMAP.md, queue 1).
+Frames of any camera pose (``render_frame_pose``) share the indexed
+frame's code, and ``render_image`` is the chunked parity path. The
+data-parallel mesh is not ported yet (ROADMAP.md, queue 1).
 """
 
 import time
@@ -247,23 +248,20 @@ class Raycaster:
         span_px = focal * cell / max(distance, 1e-6)
         return stride if span_px >= 3.0 * stride else 1
 
-    def _render_rays(self, sampler: RaySampler, camera: int,
-                     offsets: torch.Tensor) -> torch.Tensor:
-        """(R,) pixel offsets of one camera -> (R, 3) colors."""
-        rays, _ = sampler.sample_camera_rays(camera, offsets)
-        return self.render(rays).color
-
     @staticmethod
-    def _compute_hit(sampler, camera: int, probe_subsample: int):
+    def _compute_hit(sampler, camera, probe_subsample: int):
         """Probe phase of the culled frame: which of the frame's rays
-        touch occupied space. With ``probe_subsample`` s > 1 only every
-        s-th pixel in each image axis is probed and the coarse hit
-        raster is 3x3 max-dilated before upsampling: a ray is culled
-        only when its probe and every neighboring coarse probe miss."""
+        touch occupied space. ``camera`` is a rig index or a ``(ray_m,
+        position)`` calibration (:func:`_frame_rays`). With
+        ``probe_subsample`` s > 1 only every s-th pixel in each image
+        axis is probed and the coarse hit raster is 3x3 max-dilated
+        before upsampling: a ray is culled only when its probe and every
+        neighboring coarse probe miss."""
+        geometry, _ = _frame_rays(sampler, camera)
         height, width = sampler.image_height, sampler.image_width
         device = sampler.device
         offsets = torch.arange(sampler.rays_per_camera, device=device)
-        _, _, _, _, valid = sampler.camera_ray_geometry(camera, offsets)
+        starts, dirs, near, far, valid = geometry(offsets)
         if probe_subsample > 1:
             s = probe_subsample
             coarse_h = -(-height // s)
@@ -273,8 +271,7 @@ class Raycaster:
             cx = torch.clamp(torch.arange(coarse_w, device=device) * s,
                              max=width - 1)
             coarse_off = (cy[:, None] * width + cx[None, :]).reshape(-1)
-            cs, cd, cn, cf, cvalid = sampler.camera_ray_geometry(
-                camera, coarse_off)
+            cs, cd, cn, cf, cvalid = geometry(coarse_off)
             _, _, hit_c = sampler._probe_cdf_geometry(cs, cd, cn, cf)
             grid = (hit_c & cvalid).reshape(1, 1, coarse_h, coarse_w)
             dilated = F.max_pool2d(grid.float(), 3, stride=1, padding=1) > 0
@@ -282,18 +279,20 @@ class Raycaster:
                 s, 1)[:height, :width]
             hit = fine.reshape(-1)
         else:
-            starts, dirs, near, far, _ = sampler.camera_ray_geometry(
-                camera, offsets)
             _, _, hit = sampler._probe_cdf_geometry(starts, dirs, near, far)
         return hit & valid
 
-    def _render_prefix(self, sampler: RaySampler, camera: int,
-                       offsets: torch.Tensor, k1: int):
+    def _render_rays(self, sample, offsets: torch.Tensor) -> torch.Tensor:
+        """(R,) pixel offsets -> (R, 3) colors; ``sample`` draws their
+        samples (:func:`_frame_rays`)."""
+        return self.render(sample(offsets)).color
+
+    def _render_prefix(self, sample, offsets: torch.Tensor, k1: int):
         """Pass 1 of early termination: each ray's first ``k1`` samples.
 
         Returns:
             ((R, 3) partial color, (R,) transmittance after them)."""
-        rays, _ = sampler.sample_camera_rays(camera, offsets)
+        rays = sample(offsets)
         logits = self._query(rays.positions[:, :k1].reshape(-1, 3),
                              rays.view_directions[:, :k1].reshape(-1, 3))
         logits = logits.reshape(offsets.shape[0], k1, 4)
@@ -303,13 +302,13 @@ class Raycaster:
                           dim=-2)
         return color, trans_out
 
-    def _render_suffix(self, sampler: RaySampler, camera: int,
-                       offsets: torch.Tensor, k1: int) -> torch.Tensor:
+    def _render_suffix(self, sample, offsets: torch.Tensor,
+                       k1: int) -> torch.Tensor:
         """Pass 2 of early termination: the samples after the first
         ``k1`` of each surviving ray, composited unscaled (the frame
         multiplies by pass 1's transmittance). The samples are drawn
         again from the ray geometry, as the JAX frame does."""
-        rays, _ = sampler.sample_camera_rays(camera, offsets)
+        rays = sample(offsets)
         logits = self._query(rays.positions[:, k1:].reshape(-1, 3),
                              rays.view_directions[:, k1:].reshape(-1, 3))
         logits = logits.reshape(offsets.shape[0], -1, 4)
@@ -348,6 +347,16 @@ class Raycaster:
         and surviving ray counts of the frame are left in
         ``self.frame_rays``.
         """
+        return self._frame(sampler, camera % sampler.num_cameras, chunk_size,
+                           cull_empty, probe_subsample, early_term,
+                           early_split)
+
+    def _frame(self, sampler: RaySampler, camera, chunk_size: int,
+               cull_empty: bool, probe_subsample: int, early_term: float,
+               early_split: int) -> torch.Tensor:
+        """The frame of a rig index or a ``(ray_m, position)``
+        calibration (:func:`_frame_rays`): the indexed and the pose
+        path share it, and its probe."""
         cull = cull_empty and hasattr(sampler, "_probe_cdf_geometry")
         if early_term > 0.0 and not cull:
             raise ValueError(
@@ -359,7 +368,7 @@ class Raycaster:
         if early_term > 0.0 and not 1 <= k1 < num_samples:
             raise ValueError(f"early_split {k1} must be in [1, "
                              f"{num_samples})")
-        camera = camera % sampler.num_cameras
+        geometry, sample = _frame_rays(sampler, camera)
         rays_per_cam = sampler.rays_per_camera
         device = sampler.device
         if cull:
@@ -373,14 +382,14 @@ class Raycaster:
             ray_offsets = torch.nonzero(mask).reshape(-1)
         else:
             ray_offsets = torch.arange(rays_per_cam, device=device)
-            mask = sampler.camera_ray_geometry(camera, ray_offsets)[4]
+            mask = geometry(ray_offsets)[4]
         colors = torch.zeros(rays_per_cam, 3, device=device)
         self.frame_rays = {"hit": int(ray_offsets.shape[0])}
         if cull and early_term > 0.0:
             trans = torch.zeros(rays_per_cam, device=device)
             for chunk, (color, trans_out) in self._chunks(
                     ray_offsets, chunk_size,
-                    lambda c: self._render_prefix(sampler, camera, c, k1)):
+                    lambda c: self._render_prefix(sample, c, k1)):
                 colors[chunk] = color
                 trans[chunk] = trans_out
             survivors = torch.nonzero(mask & (trans > early_term)).reshape(-1)
@@ -388,13 +397,13 @@ class Raycaster:
             suffix = torch.zeros(rays_per_cam, 3, device=device)
             for chunk, color in self._chunks(
                     survivors, chunk_size,
-                    lambda c: self._render_suffix(sampler, camera, c, k1)):
+                    lambda c: self._render_suffix(sample, c, k1)):
                 suffix[chunk] = color
             colors = colors + trans[:, None] * suffix
         else:
             for chunk, color in self._chunks(
                     ray_offsets, chunk_size,
-                    lambda c: self._render_rays(sampler, camera, c)):
+                    lambda c: self._render_rays(sample, c)):
                 colors[chunk] = color
         colors = torch.where(mask[:, None], colors, 0.0)
         image = torch.clamp(colors, 0.0, 1.0).reshape(
@@ -408,12 +417,58 @@ class Raycaster:
                      color_space: str = "RGB") -> np.ndarray:
         """:meth:`render_frame_async`, copied to a host (H, W, 3) uint8
         array; a ``YCrCb`` model's frame is converted to RGB."""
-        image = self.render_frame_async(
+        return _to_host(self.render_frame_async(
             sampler, camera, chunk_size, cull_empty, probe_subsample,
-            early_term, early_split).cpu().numpy()
-        if color_space == "YCrCb":
-            image = ycrcb_to_rgb(image)
-        return image
+            early_term, early_split), color_space)
+
+    @torch.no_grad()
+    def render_frame_pose_async(self, sampler: RaySampler, camera,
+                                chunk_size: int = 16384,
+                                cull_empty: bool = True,
+                                probe_subsample: int = 2,
+                                early_term: float = 0.0,
+                                early_split: int = 0) -> torch.Tensor:
+        """:meth:`render_frame_async` for any camera pose: ``camera`` is
+        a :class:`CameraInfo` at the sampler's resolution (another
+        resolution raises ``ValueError``) or a ``(ray_m, position)``
+        calibration pair (:meth:`RaySampler.pose_calibration`). A rig
+        camera's pose renders the indexed frame bit for bit. Its rays
+        are keyed by pixel offset, and a focus sampler computes their
+        CDFs on the fly."""
+        if hasattr(camera, "extrinsics"):
+            resolution = tuple(camera.resolution)
+            expected = (sampler.image_width, sampler.image_height)
+            if resolution != expected:
+                raise ValueError(f"pose resolution {resolution} != sampler "
+                                 f"resolution {expected}")
+            camera = RaySampler.pose_calibration(camera, sampler.device)
+        ray_m, position = camera
+        return self._frame(sampler, (ray_m.to(sampler.device),
+                                     position.to(sampler.device)),
+                           chunk_size, cull_empty, probe_subsample,
+                           early_term, early_split)
+
+    def render_frame_pose(self, sampler: RaySampler, camera,
+                          chunk_size: int = 16384, cull_empty: bool = True,
+                          probe_subsample: int = 2, early_term: float = 0.0,
+                          early_split: int = 0,
+                          color_space: str = "RGB") -> np.ndarray:
+        """:meth:`render_frame_pose_async`, copied to a host (H, W, 3)
+        uint8 array; a ``YCrCb`` model's frame is converted to RGB."""
+        return _to_host(self.render_frame_pose_async(
+            sampler, camera, chunk_size, cull_empty, probe_subsample,
+            early_term, early_split), color_space)
+
+    def render_image(self, sampler: RaySampler, index: int, batch_size: int,
+                     color_space: str = "RGB") -> np.ndarray:
+        """A camera's frame the chunked way (the JAX package's parity
+        path): its valid rays' samples (``rays_for_camera``), rendered
+        ``batch_size`` rays at a time, scattered into an (H, W, 3)
+        uint8 image (``to_image``)."""
+        camera = index % sampler.num_cameras
+        samples = sampler.rays_for_camera(camera)
+        pred = self.batched_render(samples, batch_size, False)
+        return sampler.to_image(camera, pred.color, color_space)
 
     # ------------------------------------------------------------------
     # training
@@ -480,8 +535,25 @@ class Raycaster:
 
             return train_step
         if sampler.device.type == "cuda":
-            return _GraphChunk(self, one_step, optimizer, batch_size,
-                               steps_per_call)
+            def chunk_fn(inputs):
+                perm = inputs["perm"]
+                modulo = max(perm.shape[0] - batch_size + 1, 1)
+                rows = torch.arange(min(batch_size, perm.shape[0]),
+                                    device=perm.device)
+                loss = None
+                for k in range(steps_per_call):
+                    start = (inputs["offset"] + k * batch_size) % modulo
+                    loss = one_step(perm[start + rows], inputs["step"] + k,
+                                    inputs["seed"])
+                return loss
+
+            def drop_pack():
+                # the replay moved the weights without bumping their
+                # version counters
+                self._fused_key = None
+
+            return _GraphChunk(chunk_fn, optimizer,
+                               ("perm", "offset", "step", "seed"), drop_pack)
 
         def eager_chunk(perm: torch.Tensor, offset: int, step: int,
                         rng: int) -> torch.Tensor:
@@ -807,68 +879,80 @@ class Raycaster:
         return log
 
 
-class _GraphChunk:
-    """``steps_per_call`` train steps as one CUDA graph.
+def _frame_rays(sampler: RaySampler, camera):
+    """(geometry, sample) of one frame's rays: functions of (R,) pixel
+    offsets giving (starts, directions, near, far, valid) and their
+    RaySamples. ``camera`` is a rig index or a ``(ray_m, position)``
+    calibration on the sampler's device."""
+    if isinstance(camera, tuple):
+        ray_m, position = camera
+        return (lambda off: sampler.pose_ray_geometry(ray_m, position, off),
+                lambda off: sampler.sample_pose_rays(ray_m, position,
+                                                     off)[0])
+    return (lambda off: sampler.camera_ray_geometry(camera, off),
+            lambda off: sampler.sample_camera_rays(camera, off)[0])
 
-    The perm, the offset, the first step and the jitter key live in
-    static device tensors, written before each replay; inner step ``k``
-    gathers its rays at ``(offset + k * batch_size) % modulo`` and takes
-    its learning rate from the step tensor, so nothing in the graph
-    reads the host. The graph is captured at the first call, and again
-    when the perm's length changes (a new sampling mode): first one
-    eager warm-up chunk on a side stream (the slab-image index uploads,
-    the optimizer state, the library handles), after which the weights
-    and the optimizer state are restored, then the capture. Capture
-    errors are raised; the chunk never runs eagerly in its stead.
+
+def _to_host(image: torch.Tensor, color_space: str) -> np.ndarray:
+    """A device uint8 frame as a host array, a ``YCrCb`` frame in RGB."""
+    image = image.cpu().numpy()
+    if color_space == "YCrCb":
+        image = ycrcb_to_rgb(image)
+    return image
+
+
+class _GraphChunk:
+    """Several optimizer steps as one CUDA graph.
+
+    ``chunk_fn(inputs)`` runs the chunk's steps on ``inputs``, a dict of
+    static device tensors named by ``names``: each call's positional
+    arguments in that order, an int written into a 0-d int64 tensor
+    (a counter: the first step, an offset, a key) and a tensor copied
+    into a static one. So nothing in the graph reads the host. The graph
+    is captured at the first call, and again when a tensor argument's
+    shape changes (the train step's perm, in a new sampling mode):
+    first one eager warm-up chunk on a side stream (the slab-image index
+    uploads, the optimizer state, the library handles), after which the
+    optimizer's parameters and state are restored, then the capture.
+    Capture errors are raised; the chunk never runs eagerly in its
+    stead. A call returns what ``chunk_fn`` returned at the capture (a
+    static tensor the next replay overwrites); ``on_replay`` runs after
+    each replay.
 
     ``captured`` holds each kernel wrapper's launches recorded into the
     graph, ``replays`` the number of replays: a replay launches the
     graph, not the wrappers, so their counts do not grow with it.
     """
 
-    def __init__(self, raycaster: Raycaster, one_step, optimizer: ClippedAdam,
-                 batch_size: int, steps: int):
+    def __init__(self, chunk_fn, optimizer: ClippedAdam, names,
+                 on_replay=None):
         if not optimizer.capturable:
             raise ValueError("a CUDA-graph chunk needs a capturable "
                              "ClippedAdam")
-        self.raycaster = raycaster
-        self.one_step = one_step
+        self.chunk_fn = chunk_fn
         self.optimizer = optimizer
-        self.batch_size = batch_size
-        self.steps = steps
+        self.names = tuple(names)
+        self.on_replay = on_replay
         self.graph = None
-        self.perm = None
-        self.loss = None
+        self.inputs = None
+        self.result = None
         self.captured = {}
         self.replays = 0
         self.captures = 0
 
-    def _chunk(self):
-        """The chunk's steps on the static tensors."""
-        loss = None
-        for k in range(self.steps):
-            start = (self.offset + k * self.batch_size) % self.modulo
-            loss = self.one_step(self.perm[start + self.rows],
-                                 self.step + k, self.seed)
-        return loss
-
-    def _capture(self, perm: torch.Tensor) -> None:
-        self.graph = self.loss = None
-        device = perm.device
-        self.perm = perm.clone()
-        self.modulo = max(perm.shape[0] - self.batch_size + 1, 1)
-        self.rows = torch.arange(min(self.batch_size, perm.shape[0]),
-                                 device=device)
-        self.offset, self.step, self.seed = (
-            torch.zeros((), dtype=torch.int64, device=device)
-            for _ in range(3))
+    def _capture(self, values, device) -> None:
+        self.graph = self.result = None
+        self.inputs = {
+            name: (value.clone() if isinstance(value, torch.Tensor)
+                   else torch.zeros((), dtype=torch.int64, device=device))
+            for name, value in zip(self.names, values)}
         state = [*self.optimizer.params, *self.optimizer.state_tensors()]
         with torch.no_grad():
             saved = [t.detach().clone() for t in state]
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            self._chunk()
+            self.chunk_fn(self.inputs)
         torch.cuda.current_stream(device).wait_stream(side)
         with torch.no_grad():
             for tensor, value in zip(state, saved):
@@ -877,28 +961,32 @@ class _GraphChunk:
         before = _kernel_launches()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            self.loss = self._chunk()
+            self.result = self.chunk_fn(self.inputs)
         after = _kernel_launches()
         self.captured = {name: after[name] - before[name] for name in after}
         self.graph = graph
         self.captures += 1
 
-    def __call__(self, perm: torch.Tensor, offset: int, step: int,
-                 rng: int) -> torch.Tensor:
-        """Runs the chunk's steps from ``step`` on; returns the last
-        step's loss (a static tensor the next replay overwrites)."""
-        if self.graph is None or perm.shape != self.perm.shape:
-            self._capture(perm)
-        self.perm.copy_(perm)
-        self.offset.fill_(offset)
-        self.step.fill_(step)
-        self.seed.fill_(rng)
+    def __call__(self, *values):
+        """Writes ``values`` into the static inputs, replays the graph
+        (capturing it first when needed) and returns the chunk's
+        result."""
+        device = self.optimizer.params[0].device
+        if self.graph is None or any(
+                isinstance(v, torch.Tensor)
+                and v.shape != self.inputs[name].shape
+                for name, v in zip(self.names, values)):
+            self._capture(values, device)
+        for name, value in zip(self.names, values):
+            if isinstance(value, torch.Tensor):
+                self.inputs[name].copy_(value)
+            else:
+                self.inputs[name].fill_(value)
         self.graph.replay()
         self.replays += 1
-        # the replay moved the weights without bumping their version
-        # counters: drop the render pack
-        self.raycaster._fused_key = None
-        return self.loss
+        if self.on_replay is not None:
+            self.on_replay()
+        return self.result
 
 
 def _kernel_launches() -> dict:

@@ -53,7 +53,8 @@ class ClippedAdam:
             params: the parameters to train.
             learning_rate: the initial learning rate.
             weight_decay: Adam's L2 weight decay.
-            clip_value / clip_norm: the gradient clips.
+            clip_value / clip_norm: the gradient clips (None: no clip,
+                as distillation's plain Adam).
             capturable: build ``Adam(capturable=True)`` with the learning
                 rate in a 0-d f32 tensor on the parameters' device (a
                 CUDA device), so that :meth:`step` can be captured in a
@@ -78,8 +79,10 @@ class ClippedAdam:
         ``learning_rate``: a float, or for a capturable optimizer also a
         device tensor, which is copied into its learning-rate tensor on
         the device."""
-        torch.nn.utils.clip_grad_value_(self.params, self.clip_value)
-        torch.nn.utils.clip_grad_norm_(self.params, self.clip_norm)
+        if self.clip_value is not None:
+            torch.nn.utils.clip_grad_value_(self.params, self.clip_value)
+        if self.clip_norm is not None:
+            torch.nn.utils.clip_grad_norm_(self.params, self.clip_norm)
         if isinstance(learning_rate, torch.Tensor):
             self.lr.copy_(learning_rate)
         elif self.capturable:

@@ -19,7 +19,6 @@ import jax.numpy as jnp
 from fourier_feature_nets_torch.models import NeRF as TorchNeRF
 from fourier_feature_nets_torch.models import params_from_jax
 from fourier_feature_nets_torch.ops import (
-    batch_linspace,
     blend_weights_prefix,
     blend_weights_suffix,
     calculate_blend_weights,
@@ -28,6 +27,7 @@ from fourier_feature_nets_torch.render import (
     OccupancyGridSampler as TorchOccupancy,
 )
 from fourier_feature_nets_torch.render import Raycaster as TorchRaycaster
+from fourier_feature_nets_torch.render.occupancy_sampler import FACE_DELTA
 from fourier_feature_nets_torch.render import RaySampler as TorchRaySampler
 from fourier_feature_nets_tpu import ops as jax_ops
 from fourier_feature_nets_tpu.cameras import Resolution
@@ -38,6 +38,7 @@ from fourier_feature_nets_tpu.render.occupancy_sampler import (
     OccupancyGridSampler,
 )
 from fourier_feature_nets_tpu.utils.camera_paths import orbit
+from face_probe import face_bound
 
 CONFIG = dict(num_layers=3, num_channels=32, max_log_scale_pos=4.0,
               num_freq_pos=5, max_log_scale_view=2.0, num_freq_view=3,
@@ -209,46 +210,44 @@ def test_early_term_without_culling_raises(scene):
                                           early_term=1e-3)
 
 
-class _FaceBound:
+class _SureHit:
     """A port occupancy sampler whose probe reports, for each ray, the
-    hit flag that holds however a probe within ``delta`` cells of a cell
-    face rounds: ``sure`` hits only where every such rounding hits,
-    otherwise where any one does."""
+    hit flag that holds however a probe within FACE_DELTA cells of a
+    cell face rounds: a hit only where every such rounding hits (the
+    repaired flag is the other side: where any one does)."""
 
-    def __init__(self, sampler, sure, delta=1e-4):
-        self.sampler, self.sure, self.delta = sampler, sure, delta
+    def __init__(self, sampler):
+        self.sampler = sampler
 
     def __getattr__(self, name):
         return getattr(self.sampler, name)
 
     def _probe_cdf_geometry(self, starts, directions, near, far):
         s = self.sampler
-        edges = batch_linspace(near, far, s.num_probes + 1)
-        mids = 0.5 * (edges[..., :-1] + edges[..., 1:])
-        pos = starts[:, None, :] + mids[..., None] * directions[:, None, :]
-        side = s._probe_resolution
-        cell = (pos / s._grid_scale + 1.0) * 0.5 * side
-        ends = [torch.clamp(torch.floor(cell + d).to(torch.int64), 0,
-                            side - 1) for d in (-self.delta, self.delta)]
+        _, pos = s._probe_positions(starts, directions, near, far)
+        cell = s._cells(pos)
+        ends = [torch.floor(cell + d).to(torch.int64)
+                for d in (-FACE_DELTA, FACE_DELTA)]
         occ = torch.stack([
-            s.probe_table[(ends[z][..., 2] * side + ends[y][..., 1]) * side
-                          + ends[x][..., 0]]
-            for z in (0, 1) for y in (0, 1) for x in (0, 1)])
-        occ = occ.amin(0) if self.sure else occ.amax(0)
-        return edges, None, occ.amax(-1) > 0
+            s._table_at(ends[x][:, 0], ends[y][:, 1], ends[z][:, 2])
+            for z in (0, 1) for y in (0, 1) for x in (0, 1)]).amin(0)
+        return None, None, occ.reshape(pos.shape[:-1]).amax(-1) > 0
 
 
 @pytest.mark.parametrize("camera", [0, 1, 2])
 def test_eight_probe_hit_sets_differ_only_at_cell_faces(camera):
-    """The open parity fault of the occupancy probe (ROADMAP.md, queue 3):
-    with 8 probes the rig's axis-aligned cameras put probes exactly on
-    cell faces, and there a ray's hit flag turns on the f32 rounding of
-    its probe positions. The JAX frame computes them in one XLA program,
-    the port op by op, and the two round a few of those rays apart. The
-    port's probe equals JAX's own probe, run op by op on the same ray
-    geometry, bit for bit. Off the face-bound rays (a probe within 1e-4
-    of a cell, 10x the geometry's measured f32 gap) the hit sets agree
-    and the early-term frame is within +-1 of JAX's."""
+    """The occupancy probe's hit flag at cell faces (ROADMAP.md, queue
+    3): with 8 probes the rig's axis-aligned cameras put probes exactly
+    on cell faces, where the JAX frame (one XLA program) and the port
+    (op by op) round the f32 probe positions a few ulps apart. The
+    port's flag also counts the cell across a face within FACE_DELTA
+    (1e-4 cells, 10x the geometry's measured f32 gap), so on its own
+    geometry it is a superset of JAX's probe run op by op, equal to it
+    off the face-bound rays; no ray that the JAX frame renders is black
+    in the port's; off the rays whose frame flag the faces decide, the
+    early-term frame is within +-1 of JAX's; and where the port's culled
+    frame renders a ray that only a face decides, it is within +-1 of
+    its own frame without culling."""
     cameras = orbit(np.array([0.0, 1.0, 0.0]), np.array([0.0, 0.0, 1.0]),
                     3, 40.0, Resolution(20, 20), 3.0)
     grid = _sphere_grid(16)
@@ -258,27 +257,39 @@ def test_eight_probe_hit_sets_differ_only_at_cell_faces(camera):
     port_sampler = TorchOccupancy(grid, 1.0, cameras, 12, num_probes=8,
                                   empty_weight=0.1, bounds=BOUNDS)
     offsets = torch.arange(port_sampler.rays_per_camera)
-    geometry = port_sampler.camera_ray_geometry(camera, offsets)
-    _, _, hit = port_sampler._probe_cdf_geometry(*geometry[:4])
+    geometry = port_sampler.camera_ray_geometry(camera, offsets)[:4]
+    _, _, hit = port_sampler._probe_cdf_geometry(*geometry)
     _, _, ref_hit = jax_sampler._probe_cdf_geometry(
-        *(jnp.asarray(g.numpy()) for g in geometry[:4]))
-    np.testing.assert_array_equal(hit.numpy(), np.asarray(ref_hit))
+        *(jnp.asarray(g.numpy()) for g in geometry))
+    hit, ref_hit = hit.numpy(), np.asarray(ref_hit)
+    bound = face_bound(port_sampler, *geometry).numpy()
+    assert (hit >= ref_hit).all()
+    np.testing.assert_array_equal(hit[~bound], ref_hit[~bound])
+    assert (hit != ref_hit).any() or bound.any()
 
     stride = TorchRaycaster._safe_probe_subsample(port_sampler, 2)
-    sure, maybe = (TorchRaycaster._compute_hit(
-        _FaceBound(port_sampler, flag), camera, stride).numpy()
-        for flag in (True, False))
+    sure = TorchRaycaster._compute_hit(_SureHit(port_sampler), camera,
+                                       stride).numpy()
     frame_hit = TorchRaycaster._compute_hit(port_sampler, camera,
                                             stride).numpy()
-    assert (sure <= frame_hit).all() and (frame_hit <= maybe).all()
-    settled = (sure == maybe).reshape(20, 20)
+    assert (sure <= frame_hit).all()
+    settled = (sure == frame_hit).reshape(20, 20)
     assert not settled.all(), "the rig no longer probes a cell face"
 
     model, params, port = _nerf_pair(1, opacity_bias=6.0)
     early = dict(early_term=1e-3, early_split=4)
     ref = Raycaster(model).render_frame(params, jax_sampler, camera,
                                         chunk_size=64, **early)
-    ours = TorchRaycaster(port).render_frame(port_sampler, camera,
-                                             chunk_size=64, **early)
+    caster = TorchRaycaster(port)
+    ours = caster.render_frame(port_sampler, camera, chunk_size=64, **early)
+    assert not ((ref.max(-1) > 0) & (ours.max(-1) == 0)).any()
     gap = np.abs(ours.astype(int) - ref.astype(int)).max(-1)
     assert gap[settled].max() <= 1
+
+    culled = caster.render_frame(port_sampler, camera, chunk_size=64)
+    whole = caster.render_frame(port_sampler, camera, chunk_size=64,
+                                cull_empty=False)
+    decided = ~settled & frame_hit.reshape(20, 20)
+    assert decided.any()
+    assert np.abs(culled.astype(int)
+                  - whole.astype(int)).max(-1)[decided].max() <= 1

@@ -69,7 +69,8 @@ def test_walk_found_the_slice_modules(imported):
         "cli.kernel_io_floor_bench", "octree", "octree.build", "octree.host",
         "octree.octree", "octree.traversal", "octree.mesh",
         "render.octree_sampler", "cli.voxelize_model", "cli.mesh_to_octree",
-        "utils.color", "utils.checkpoint"}
+        "utils.color", "utils.checkpoint", "utils.jpeg", "ops.metrics",
+        "render.server", "render.distill", "cli.serve", "cli.distill_model"}
     found = {name.split(".", 1)[1] for name in imported["modules"]}
     assert expected <= found
 

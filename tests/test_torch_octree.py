@@ -45,6 +45,7 @@ from fourier_feature_nets_tpu.render.occupancy_sampler import (
 )
 from fourier_feature_nets_tpu.render.octree_sampler import OctreeRaySampler
 from fourier_feature_nets_tpu.utils.camera_paths import orbit
+from face_probe import face_bound, gather_hit
 
 CONFIG = dict(num_layers=2, num_channels=32, max_log_scale_pos=9.0,
               num_freq_pos=10, max_log_scale_view=3.0, num_freq_view=4,
@@ -381,10 +382,15 @@ def test_occupancy_from_tree_samples_match_jax(bench_trees, rig):
     geometry = jax_sampler.camera_ray_geometry(
         jnp.int32(1), jnp.asarray(offsets, jnp.int32))
     _, _, ref_hit = jax_sampler._probe_cdf_geometry(*geometry[:4])
-    _, _, hit = port_sampler._probe_cdf_geometry(
-        *[torch.from_numpy(np.array(g)) for g in geometry[:4]])
-    np.testing.assert_array_equal(hit.numpy(), np.asarray(ref_hit))
+    ours = [torch.from_numpy(np.array(g)) for g in geometry[:4]]
+    _, _, hit = port_sampler._probe_cdf_geometry(*ours)
+    np.testing.assert_array_equal(gather_hit(port_sampler, *ours).numpy(),
+                                  np.asarray(ref_hit))
     assert np.asarray(ref_hit).any() and not np.asarray(ref_hit).all()
+    bound = face_bound(port_sampler, *ours).numpy()
+    assert (hit.numpy() >= np.asarray(ref_hit)).all()
+    np.testing.assert_array_equal(hit.numpy()[~bound],
+                                  np.asarray(ref_hit)[~bound])
     ref, _ = jax_sampler.sample_camera_rays(jnp.int32(1),
                                             jnp.asarray(offsets, jnp.int32))
     ours, _ = port_sampler.sample_camera_rays(1, torch.from_numpy(offsets))

@@ -22,6 +22,7 @@ from fourier_feature_nets_torch.render import (
 )
 from fourier_feature_nets_torch.utils import orbit as torch_orbit_path
 from fourier_feature_nets_torch.utils import write_png
+from face_probe import face_bound, gather_hit
 from fourier_feature_nets_tpu.cameras import Resolution
 from fourier_feature_nets_tpu.cli import common as jax_common
 from fourier_feature_nets_tpu.models import NeRF, save_model
@@ -119,8 +120,10 @@ def test_uniform_samples_match_jax(cameras):
 @pytest.mark.parametrize("resolution", [16, 64])
 def test_probe_hit_set_identical_to_jax_matmul(cameras, resolution):
     """The gather reads the same max-pooled table as the JAX default
-    one-hot-matmul probe, so on the same geometry the hit sets are
-    identical (64^3 pools to 32^3; 16^3 is used as is)."""
+    one-hot-matmul probe, so on the same geometry its hit sets are
+    identical (64^3 pools to 32^3; 16^3 is used as is); the culling
+    flag, which also reads the cell across a face within FACE_DELTA, is
+    a superset, equal to it off the face-bound rays."""
     grid = _sphere_grid(resolution)
     jax_sampler, port_sampler = _occupancy_pair(cameras, grid)
     assert jax_sampler.probe_mode == "matmul"
@@ -130,10 +133,17 @@ def test_probe_hit_set_identical_to_jax_matmul(cameras, resolution):
         jnp.int32(0), jnp.arange(400, dtype=jnp.int32))
     ref_edges, ref_cdf, ref_hit = jax_sampler._probe_cdf_geometry(
         *geometry[:4])
-    edges, cdf, hit = port_sampler._probe_cdf_geometry(
-        *[torch.from_numpy(np.array(g)) for g in geometry[:4]])
-    np.testing.assert_array_equal(hit.numpy(), np.asarray(ref_hit))
+    ours = [torch.from_numpy(np.array(g)) for g in geometry[:4]]
+    edges, cdf, hit = port_sampler._probe_cdf_geometry(*ours)
+    np.testing.assert_array_equal(gather_hit(port_sampler, *ours).numpy(),
+                                  np.asarray(ref_hit))
     assert np.asarray(ref_hit).any() and not np.asarray(ref_hit).all()
+    # the culling flag (conservative at cell faces) adds only face-bound
+    # rays to the gather's
+    hit, ref_hit = hit.numpy(), np.asarray(ref_hit)
+    bound = face_bound(port_sampler, *ours).numpy()
+    assert (hit >= ref_hit).all()
+    np.testing.assert_array_equal(hit[~bound], ref_hit[~bound])
     np.testing.assert_allclose(edges.numpy(), np.asarray(ref_edges),
                                rtol=1e-6)
     np.testing.assert_allclose(cdf.numpy(), np.asarray(ref_cdf), rtol=1e-5,
@@ -409,7 +419,7 @@ def test_orbit_video_cli_early_term_matches_jax(checkpoint, tmp_path, flags,
 
 
 @pytest.mark.parametrize("flags", [
-    ["--no-focus", "--chunked"],
+    ["--no-focus", "--chunked", "--mp4", "out.mp4"],
     ["--no-focus", "--data-parallel"],
     ["--no-focus", "--mp4", "out.mp4"],
 ])
