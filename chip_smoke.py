@@ -85,6 +85,29 @@ and drives the port's paths at the flagship width:
   ``/stats``, the JPEG encoder's ms) and by ``cli.serve`` as a process
   (one request, then SIGTERM); K1 must launch on every served and pose
   frame;
+* the FFN family, the voxel fields and the regression CLIs, on which no
+  kernel runs (the fused kernels take a NeRF only): ``train_tiny_nerf``
+  on smoke-train's scene, positional and gaussian at the CLI's widths (3
+  x 256, embedding 256, 128 samples, 1024 rays), 200 steps each, val
+  PSNR rising by more than 1 dB, K1 and K2 launching 0 times, then
+  ``orbit_video --preset fast`` of the positional checkpoint (two
+  800x800 frames, well formed and not constant); ``train_voxels`` (a
+  dense 128^3 grid at 256 samples for 1000 steps and a rank-16
+  factorized field for 200, val PSNR rising by more than 1 dB; each
+  again at ``--steps-per-call 8``, one CUDA graph a chunk) and
+  ``train_tiny_nerf --opacity-model`` of the dense grid;
+  ``train_image_regression synthetic:512`` gaussian and positional at
+  the CLI's defaults for 200 steps (PSNR rising, ``superres.png``
+  1024x1024); ``train_signal_regression multifreq --fourier --no-plot``
+  (val loss falling); ``convert_checkpoint`` NPZ -> .pt -> NPZ
+  bit-equal for each type with a .pt format (a factorized field's must
+  raise); and each model type (the flagship NeRF, both FFNs, the grid,
+  the factorized field) on 65,536 points on the card against the same
+  module on the CPU within the JAX suite's f32 rtol / atol and within
+  rtol = atol = 1e-5, which the MLPs with TF32 products break (the
+  control); one train
+  step of each new cell under ``torch.profiler`` (its top kernels); each
+  with its ms a step or forward, and the card's name and power limit;
 * kernel validation: K3 (K1's kernels with a per-ray view product and a
   compositing epilogue) against its plain twin in bf16 and f32 within
   its limits (kernels/fused_ray_render.py: bf16 max K3_BF16_ATOL and
@@ -325,6 +348,7 @@ TIME_REPS = 200      # back-to-back calls for wrapper ms and host us
 GRAPH_CALLS = 100    # calls captured in one CUDA graph for device ms
 GRAPH_REPLAYS = 10
 FLAGSHIP_REPS = 10   # K1, K2, K3 calls (milliseconds each) per timing
+CARD = ""            # the card's name and power limit (phase_device)
 
 
 def log(message: str) -> None:
@@ -597,7 +621,9 @@ def phase_device():
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {line.strip()}")
-    log(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    log(CARD)
     return name
 
 
@@ -3883,6 +3909,490 @@ def serve_cli_process(student_path: str) -> dict:
     return {"ready_s": ready_s, "request_ms": request_ms, "rc": rc}
 
 
+# ---------------------------------------------------------------------------
+# the FFN family, the voxel fields and the regression CLIs (no kernel: the
+# fused kernels take the NeRF only)
+# ---------------------------------------------------------------------------
+
+FFN_STEPS = 200                # tiny NeRF, voxels, image regression steps
+FFN_REPORT = 100               # their validation interval (and steps 0-9)
+DENSE_STEPS = 1000             # a dense grid's val PSNR first dips, then rises
+DENSE_REPORT = 250
+FIT_MIN_RISE = 1.0             # dB a fit's val PSNR must rise
+FOCUS_STEPS = 10               # train_tiny_nerf --opacity-model <voxels.npz>
+VOXEL_SIDE = 128
+VOXEL_RANK = 16
+IMAGE_SIZE = 512               # train_image_regression's default
+SIGNAL_STEPS = 500
+CARD_CPU_POINTS = 65_536       # each model type on the card against the CPU
+CARD_CPU_TOL = 1e-5            # its tight rtol = atol (f32 readings < 1e-6)
+TF32_CONTROL = ("nerf", "fourier_positional", "fourier_gaussian")
+
+
+def run_main(main, argv):
+    """A CLI's ``main(argv)`` with its standard output captured; returns
+    (the output, the wall seconds, K1's and K2's launches in the call).
+    Raises unless it returns 0 or a log (the regression CLIs)."""
+    os.environ["FFN_TORCH_DATA_DIR"] = os.path.join(OUT_DIR, "data")
+    _reset_launches()
+    captured = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(captured):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    output = captured.getvalue()
+    if rc not in (0, None) and not isinstance(rc, list):
+        raise AssertionError(f"{argv} returned {rc}:\n{output[-2000:]}")
+    return output, wall, _launch_counts()
+
+
+def _no_kernel(label: str, launches: dict) -> None:
+    """The fused kernels take a NeRF only: none may launch on an FFN,
+    voxel or regression path."""
+    if any(launches.values()):
+        raise AssertionError(f"{label}: the fused kernels launched "
+                             f"{launches} on a path without a NeRF")
+
+
+def _steady_ms(output: str) -> float:
+    """The ms a step after the first call, from a CLI's summary
+    line."""
+    found = re.search(r"([0-9.]+) ms/step over steps", output)
+    if found is None:
+        raise AssertionError(f"no ms/step in:\n{output[-2000:]}")
+    return float(found.group(1))
+
+
+def _fit_psnrs(results: str):
+    """The (step, train PSNR, val PSNR) rows of a fit's log.txt, all
+    finite, at least two."""
+    rows = _read_log(os.path.join(results, "log.txt"))
+    psnrs = [p for row in rows for p in row[1:]]
+    if len(rows) < 2 or not all(np.isfinite(psnrs)):
+        raise AssertionError(f"{results}: PSNRs {rows}")
+    return rows
+
+
+def _fit_run(main, label: str, argv) -> dict:
+    """A fit CLI (train_tiny_nerf, train_voxels) whose val PSNR must rise
+    by more than FIT_MIN_RISE dB from its first report to its last, with
+    no fused kernel launched."""
+    output, wall, launches = run_main(main, argv)
+    _no_kernel(label, launches)
+    rows = _fit_psnrs(argv[2])          # the results directory
+    row = {"steps": [r[0] for r in rows],
+           "train_psnr": [rows[0][1], rows[-1][1]],
+           "val_psnr": [rows[0][2], rows[-1][2]],
+           "ms_per_step": _steady_ms(output), "wall_s": wall,
+           "launches": launches}
+    log(f"{label}: val PSNR {row['val_psnr'][0]:.3f} -> "
+        f"{row['val_psnr'][1]:.3f} dB, train PSNR "
+        f"{row['train_psnr'][0]:.3f} -> {row['train_psnr'][1]:.3f} dB at "
+        f"steps {row['steps']} (held: the val PSNR rises by more than "
+        f"{FIT_MIN_RISE} dB), "
+        f"{row['ms_per_step']:.3f} ms/step (CUDA events, after the first "
+        f"call), {wall:.3f} s for the CLI call, K1/K2 launches "
+        f"{launches['fused_nerf']}/{launches['fused_nerf_train']} ({CARD})")
+    first, last = row["val_psnr"]
+    if not last - first > FIT_MIN_RISE:
+        raise AssertionError(f"{label}: val PSNR did not rise by more than "
+                             f"{FIT_MIN_RISE} dB")
+    return row
+
+
+def phase_tiny_nerf() -> dict:
+    """train_tiny_nerf on smoke-train's scene, positional and gaussian,
+    at the JAX CLI's widths (3 x 256, embedding 256, 128 samples, 1024
+    rays), FFN_STEPS steps each; then orbit_video --preset fast of the
+    positional checkpoint (the density grid of a model without views),
+    two 800x800 frames that must be well formed and not constant."""
+    from fourier_feature_nets_torch.cli import orbit_video, train_tiny_nerf
+    rows = {}
+    for encoding in ("positional", "gaussian"):
+        results = os.path.join(OUT_DIR, "tiny_nerf", encoding)
+        rows[encoding] = _fit_run(
+            train_tiny_nerf.main, f"train_tiny_nerf {encoding}",
+            ["synthetic", encoding, results, "--device", "cuda",
+             "--num-steps", str(FFN_STEPS), "--report-interval",
+             str(FFN_REPORT), "--image-interval", "0"])
+    checkpoint = os.path.join(OUT_DIR, "tiny_nerf", "positional",
+                              "tiny_nerf.npz")
+    frames_dir = os.path.join(OUT_DIR, "tiny_nerf_frames")
+    shutil.rmtree(frames_dir, ignore_errors=True)
+    output, wall, launches = run_main(
+        orbit_video.main, [checkpoint, str(FRAME_RES), frames_dir,
+                           "--device", "cuda", "--preset", "fast",
+                           "--num-frames", "2"])
+    _no_kernel("orbit_video of a tiny NeRF", launches)
+    check_frames(frames_dir, 2, FRAME_RES)
+    for name in sorted(os.listdir(frames_dir)):
+        with open(os.path.join(frames_dir, name), "rb") as handle:
+            pixels = png_pixels(handle.read())
+        if pixels.min() == pixels.max():
+            raise AssertionError(f"{name}: a constant frame")
+    rows["orbit"] = {**orbit_summary(output), "wall_s": wall,
+                     "launches": launches}
+    orbit_row = rows["orbit"]
+    log(f"orbit_video --preset fast of the positional tiny NeRF: 2 frames "
+        f"of {FRAME_RES}x{FRAME_RES}, density grid {orbit_row['setup_s']:.3f}"
+        f" s, frames {orbit_row['first_frame_ms']:.3f} then "
+        f"{orbit_row['steady_frame_ms']:.3f} ms ({CARD})")
+    return rows
+
+
+def phase_train_voxels() -> dict:
+    """train_voxels on smoke-train's scene: a dense VOXEL_SIDE^3 grid at
+    256 samples for DENSE_STEPS steps and a rank-VOXEL_RANK factorized
+    field for FFN_STEPS, each eager and at --steps-per-call CHUNK_STEPS
+    (one CUDA graph a chunk), their val PSNR rising; then
+    train_tiny_nerf focus-sampled by the dense grid (--opacity-model)
+    for FOCUS_STEPS steps."""
+    from fourier_feature_nets_torch.cli import train_tiny_nerf, train_voxels
+    rows = {}
+    # a dense grid's val PSNR moves 0.08 dB in 200 steps and dips before
+    # it rises (11.03, 10.84, 11.97, 14.94 dB at steps 0, 250, 500, 1000
+    # on an H100), so the dense runs take DENSE_STEPS
+    dense = [str(DENSE_STEPS), str(DENSE_REPORT)]
+    factorized = [str(FFN_STEPS), str(FFN_REPORT), "--factorized-rank",
+                  str(VOXEL_RANK)]
+    chunks = ["--steps-per-call", str(CHUNK_STEPS)]
+    for label, (steps, report, *flags) in (
+            ("dense", dense), ("factorized", factorized),
+            ("dense_chunks", dense + chunks),
+            ("factorized_chunks", factorized + chunks)):
+        results = os.path.join(OUT_DIR, "voxels", label)
+        rows[label] = _fit_run(
+            train_voxels.main, f"train_voxels {label} side {VOXEL_SIDE}",
+            ["synthetic", str(VOXEL_SIDE), results, "--device", "cuda",
+             "--num-steps", steps, "--report-interval", report,
+             "--image-interval", "0", *flags])
+    results = os.path.join(OUT_DIR, "tiny_nerf", "voxel_focus")
+    output, wall, launches = run_main(train_tiny_nerf.main, [
+        "synthetic", "positional", results, "--device", "cuda",
+        "--num-steps", str(FOCUS_STEPS), "--report-interval",
+        str(FOCUS_STEPS), "--image-interval", "0", "--opacity-model",
+        os.path.join(OUT_DIR, "voxels", "dense", "voxels.npz")])
+    _no_kernel("train_tiny_nerf --opacity-model voxels", launches)
+    fit_rows = _fit_psnrs(results)
+    first, last = fit_rows[0][2], fit_rows[-1][2]
+    rows["tiny_nerf_voxel_focus"] = {
+        "val_psnr": [first, last], "ms_per_step": _steady_ms(output),
+        "wall_s": wall}
+    log(f"train_tiny_nerf --opacity-model <dense voxels>: {FOCUS_STEPS + 1} "
+        f"focus-sampled steps, val PSNR {first:.3f} -> {last:.3f} dB, "
+        f"{rows['tiny_nerf_voxel_focus']['ms_per_step']:.3f} ms/step, "
+        f"{wall:.3f} s for the CLI call ({CARD})")
+    if not all(np.isfinite([first, last])):
+        raise AssertionError("the voxel-focused tiny NeRF's PSNR")
+    return rows
+
+
+def _log_rows(path: str):
+    with open(path) as handle:
+        lines = handle.read().strip().splitlines()[1:]
+    return [[float(v) for v in line.split("\t")] for line in lines]
+
+
+def phase_regression() -> dict:
+    """train_image_regression synthetic:IMAGE_SIZE, gaussian and
+    positional, at the CLI's defaults for FFN_STEPS steps (PSNR rises,
+    superres.png is 2 IMAGE_SIZE square); train_signal_regression
+    multifreq --fourier --no-plot for SIGNAL_STEPS steps (val loss
+    falls)."""
+    from fourier_feature_nets_torch.cli import (
+        train_image_regression,
+        train_signal_regression,
+    )
+    rows = {}
+    for encoding in ("gaussian", "positional"):
+        results = os.path.join(OUT_DIR, "image_regression", encoding)
+        output, wall, launches = run_main(
+            train_image_regression.main,
+            [f"synthetic:{IMAGE_SIZE}", encoding, results, "--device",
+             "cuda", "--image-size", str(IMAGE_SIZE), "--num-steps",
+             str(FFN_STEPS)])
+        _no_kernel(f"train_image_regression {encoding}", launches)
+        psnrs = [row[1] for row in _log_rows(os.path.join(results,
+                                                          "log.txt"))]
+        shape, _ = png_shape(os.path.join(results, "superres.png"))
+        rows[encoding] = {"psnr": [psnrs[0], psnrs[-1]],
+                          "ms_per_step": _steady_ms(output), "wall_s": wall}
+        log(f"train_image_regression {encoding}: PSNR {psnrs[0]:.3f} -> "
+            f"{psnrs[-1]:.3f} dB, {rows[encoding]['ms_per_step']:.3f} "
+            f"ms/step (CUDA events), {wall:.3f} s for the CLI call, "
+            f"superres {shape} ({CARD})")
+        if not psnrs[-1] > psnrs[0]:
+            raise AssertionError(f"image regression {encoding}: PSNR "
+                                 f"did not rise")
+        if shape != (2 * IMAGE_SIZE, 2 * IMAGE_SIZE, 3):
+            raise AssertionError(f"superres.png is {shape}")
+    results = os.path.join(OUT_DIR, "signal_regression")
+    output, wall, launches = run_main(
+        train_signal_regression.main,
+        ["multifreq", results, "--device", "cuda", "--fourier",
+         "--no-plot", "--num-steps", str(SIGNAL_STEPS)])
+    _no_kernel("train_signal_regression", launches)
+    losses = [row[2] for row in _log_rows(os.path.join(results, "log.txt"))]
+    rows["signal"] = {"val_loss": [losses[0], losses[-1]],
+                      "ms_per_step": _steady_ms(output), "wall_s": wall}
+    log(f"train_signal_regression multifreq --fourier: val loss "
+        f"{losses[0]:.4g} -> {losses[-1]:.4g}, "
+        f"{rows['signal']['ms_per_step']:.3f} ms/step, {wall:.3f} s for the "
+        f"CLI call ({CARD})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("signal regression: val loss did not fall")
+    return rows
+
+
+def phase_convert(checkpoints) -> dict:
+    """convert_checkpoint NPZ -> .pt -> NPZ of each checkpoint: the
+    weights come back bit-equal; a factorized field's .pt must raise."""
+    from fourier_feature_nets_torch.cli import convert_checkpoint
+    rows = {}
+    for label, path in checkpoints.items():
+        pt_path = os.path.join(OUT_DIR, "convert", f"{label}.pt")
+        back = os.path.join(OUT_DIR, "convert", f"{label}.npz")
+        os.makedirs(os.path.dirname(pt_path), exist_ok=True)
+        with np.load(path) as data:
+            manifest = json.loads(str(data["__manifest__"]))
+            before = {k: data[k] for k in data.files if k != "__manifest__"}
+        if manifest["type"] == "factorized_voxels":
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    convert_checkpoint.main([path, pt_path])
+            except ValueError:
+                rows[label] = "no .pt format (raised)"
+                continue
+            raise AssertionError("a factorized field's .pt did not raise")
+        with contextlib.redirect_stdout(io.StringIO()):
+            convert_checkpoint.main([path, pt_path])
+            convert_checkpoint.main([pt_path, back])
+        with np.load(back) as data:
+            after = {k: data[k] for k in data.files if k != "__manifest__"}
+        if sorted(after) != sorted(before) or not all(
+                np.array_equal(after[k], before[k]) for k in before):
+            raise AssertionError(f"{label}: the NPZ -> .pt -> NPZ weights "
+                                 f"differ")
+        rows[label] = f"bit-equal over {len(before)} arrays"
+    log("convert_checkpoint NPZ -> .pt -> NPZ: "
+        + ", ".join(f"{k}: {v}" for k, v in rows.items()))
+    return rows
+
+
+def _model_zoo():
+    """One seeded model of each type at its CLI's full width: the
+    flagship NeRF, the tiny NeRF's positional and gaussian FFNs (3 x 256,
+    embedding 256), a VOXEL_SIDE^3 grid (random, not the zero init) and
+    a rank-VOXEL_RANK factorized field."""
+    from fourier_feature_nets_torch import models
+    def gen():
+        return torch.Generator().manual_seed(SEED)
+    voxels = models.Voxels(VOXEL_SIDE, 1.0)
+    with torch.no_grad():
+        voxels.voxels.normal_(generator=gen())
+    return {
+        "nerf": models.flagship_nerf(gen()),
+        "fourier_positional": models.PositionalFourierMLP(
+            3, 4, 5.5, generator=gen()),
+        "fourier_gaussian": models.GaussianFourierMLP(
+            3, 4, 6.05, generator=gen()),
+        "voxels": voxels,
+        "factorized_voxels": models.FactorizedVoxels(
+            VOXEL_SIDE, 1.0, VOXEL_RANK, generator=gen()),
+    }
+
+
+def phase_card_vs_cpu() -> dict:
+    """Each model type at full width on CARD_CPU_POINTS seeded points:
+    the module's f32 output on the card against the same module on the
+    CPU, within the JAX suite's rtol / atol and within the far tighter
+    CARD_CPU_TOL (rtol = atol); each forward timed on the card (CUDA
+    events). The control: the MLPs (TF32_CONTROL) again on the card with
+    allow_tf32 on, which must break CARD_CPU_TOL, so that the bound
+    tells an f32 product from a TF32 one."""
+    from fourier_feature_nets_torch.models import query_model
+    rng = np.random.default_rng(SEED)
+    positions, views = random_points(CARD_CPU_POINTS, rng, "cpu")
+    rows = {}
+    for label, model in _model_zoo().items():
+        with torch.no_grad():
+            ref = query_model(model, positions, views)
+            on_card = model.cuda()
+            pos, vd = positions.cuda(), views.cuda()
+            out = query_model(on_card, pos, vd).cpu()
+            ms = cuda_ms(lambda: query_model(on_card, pos, vd), 10)
+            tf32 = None
+            if label in TF32_CONTROL:
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    tf32 = query_model(on_card, pos, vd).cpu()
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+        rel = ref.abs()
+        err = (out - ref).abs()
+        rows[label] = {
+            "max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+            "max_tight_ratio": float((err / (CARD_CPU_TOL * (1 + rel))).max()),
+            "ms": ms}
+        if tf32 is not None:
+            tf32_err = (tf32 - ref).abs()
+            rows[label]["tf32_max_abs_err"] = float(tf32_err.max())
+            rows[label]["tf32_tight_ratio"] = float(
+                (tf32_err / (CARD_CPU_TOL * (1 + rel))).max())
+            rows[label]["tf32_within_f32_bound"] = bool(
+                (tf32_err <= F32_ATOL + F32_RTOL * rel).all())
+        row = rows[label]
+        control = ("" if tf32 is None else
+                   f"; TF32 control max |d| {row['tf32_max_abs_err']:.3g}, "
+                   f"{row['tf32_tight_ratio']:.3g} x the tight bound, "
+                   f"{'within' if row['tf32_within_f32_bound'] else 'outside'}"
+                   f" the rtol {F32_RTOL} / atol {F32_ATOL} bound")
+        log(f"  {label}: card vs CPU on {CARD_CPU_POINTS} points, max |d| "
+            f"{row['max_abs_err']:.3g}, mean {row['mean_abs_err']:.3g}, "
+            f"{row['max_tight_ratio']:.3g} x the tight bound (rtol = atol "
+            f"= {CARD_CPU_TOL}){control}; forward {ms:.4f} ms ({CARD})")
+        if not bool((err <= F32_ATOL + F32_RTOL * rel).all()):
+            raise AssertionError(f"{label}: the card's f32 output is not "
+                                 f"the CPU's within rtol {F32_RTOL} / atol "
+                                 f"{F32_ATOL}")
+        if not row["max_tight_ratio"] <= 1.0:
+            raise AssertionError(f"{label}: the card's f32 output is not "
+                                 f"the CPU's within rtol = atol = "
+                                 f"{CARD_CPU_TOL}")
+        if tf32 is not None and not row["tf32_tight_ratio"] > 1.0:
+            raise AssertionError(f"{label}: a TF32 forward passes the tight "
+                                 f"bound, which then tells nothing")
+        del model, on_card
+    return rows
+
+
+def _step_split(step) -> dict:
+    """One call of ``step`` under torch.profiler, after a warm-up call:
+    its wall ms (host clock to a synchronise), its device ms summed
+    over kernels (None when the trace holds no device time, which
+    happened to the last of several traces in one process), and the
+    four kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    kernels = sorted(
+        ((event.key, getattr(event, "self_device_time_total",
+                             getattr(event, "self_cuda_time_total", 0.0))
+          / 1e3)
+         for event in prof.key_averages()
+         if event.device_type == DeviceType.CUDA),
+        key=lambda pair: -pair[1])
+    device_ms = sum(ms for _, ms in kernels)
+    return {"wall_ms": wall_ms, "device_ms": device_ms or None,
+            "top_kernels": [[name[:60], ms] for name, ms in kernels[:4]]}
+
+
+def phase_ffn_step_split() -> dict:
+    """Where a step of each new training cell goes: one step of the
+    tiny NeRF (positional, 1024 x 128), the dense and the factorized
+    voxel fields (1024 x 256) through ``Raycaster``'s train step on
+    smoke-train's scene, and one image regression step at IMAGE_SIZE,
+    each under torch.profiler."""
+    from fourier_feature_nets_torch import models
+    from fourier_feature_nets_torch.cli import train_image_regression
+    from fourier_feature_nets_torch.datasets import ImageDataset
+    from fourier_feature_nets_torch.datasets.pixel_dataset import (
+        PixelDataset)
+    from fourier_feature_nets_torch.render import Raycaster
+    from fourier_feature_nets_torch.utils.optim import ClippedAdam
+    scene = os.path.join(OUT_DIR, "data", "synthetic_100.npz")
+    rows = {}
+
+    def gen():
+        return torch.Generator().manual_seed(SEED)
+
+    for label, model, samples in (
+            ("tiny_nerf", models.PositionalFourierMLP(
+                3, 4, 5.5, generator=gen()), 128),
+            ("voxels_dense", models.Voxels(VOXEL_SIDE, 1.0), 256),
+            ("voxels_factorized", models.FactorizedVoxels(
+                VOXEL_SIDE, 1.0, VOXEL_RANK, generator=gen()), 256)):
+        model = model.cuda()
+        data = ImageDataset.load(scene, "train", samples, True, True,
+                                 batch_size=1024, device="cuda")
+        perm = torch.from_numpy(data.index_pool()).cuda()
+        step = Raycaster(model)._make_train_step(
+            data, 1024, 1e-3, 0.1, 25000,
+            ClippedAdam(model.parameters(), 1e-3))
+        rows[label] = _step_split(lambda: step(perm, 0, 1, 1))
+    image = os.path.join(OUT_DIR, "data", f"synthetic_image_{IMAGE_SIZE}.png")
+    pixels = PixelDataset.create(image, "RGB", IMAGE_SIZE, device="cuda")
+    model = models.GaussianFourierMLP(2, 3, 10.0, generator=gen()).cuda()
+    step = train_image_regression.make_train_step(model, pixels, 1e-3, 0.1,
+                                                  2500)
+    rows["image_regression"] = _step_split(lambda: step(1))
+    for label, row in rows.items():
+        device = ("no device time in the trace (not measured)"
+                  if row["device_ms"] is None
+                  else f"{row['device_ms']:.3f} ms of device time")
+        log(f"  {label}: one step {row['wall_ms']:.3f} ms wall, {device}; "
+            "top kernels "
+            + "; ".join(f"{name} {ms:.3f}" for name, ms in row["top_kernels"])
+            + f" ({CARD})")
+    return rows
+
+
+def phase_ffn_paths() -> dict:
+    """The slice's phases, each timed: tiny NeRF (and its orbit), the
+    voxel fields, the regressions, the checkpoint conversion and the
+    card against the CPU."""
+    rows, seconds = {}, {}
+    for name, fn in (("tiny_nerf", phase_tiny_nerf),
+                     ("train_voxels", phase_train_voxels),
+                     ("regression", phase_regression)):
+        start = time.perf_counter()
+        rows[name] = fn()
+        seconds[name] = time.perf_counter() - start
+    start = time.perf_counter()
+    rows["convert"] = phase_convert({
+        "tiny_nerf": os.path.join(OUT_DIR, "tiny_nerf", "gaussian",
+                                  "tiny_nerf.npz"),
+        "voxels": os.path.join(OUT_DIR, "voxels", "dense", "voxels.npz"),
+        "factorized_voxels": os.path.join(OUT_DIR, "voxels", "factorized",
+                                          "voxels.npz"),
+        "nerf": os.path.join(OUT_DIR, "flagship_seed0.npz")})
+    log("each model type on the card against the CPU, f32:")
+    rows["card_vs_cpu"] = phase_card_vs_cpu()
+    log("one train step of each new cell under torch.profiler:")
+    rows["step_split"] = phase_ffn_step_split()
+    seconds["convert_card_vs_cpu_split"] = time.perf_counter() - start
+    rows["phase_s"] = seconds
+    log("FFN, voxel and regression phases: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in seconds.items())
+        + f", {sum(seconds.values()):.3f} s in all ({CARD})")
+    return rows
+
+
+def _ffn_launches(ffn, kernel: str) -> dict:
+    """A kernel's launches on the FFN, voxel and orbit paths (0: the
+    fused kernels take a NeRF only)."""
+    return {"train_tiny_nerf_positional":
+                ffn["tiny_nerf"]["positional"]["launches"][kernel],
+            "train_tiny_nerf_gaussian":
+                ffn["tiny_nerf"]["gaussian"]["launches"][kernel],
+            "orbit_tiny_nerf": ffn["tiny_nerf"]["orbit"]["launches"][kernel],
+            "train_voxels_dense":
+                ffn["train_voxels"]["dense"]["launches"][kernel],
+            "train_voxels_factorized":
+                ffn["train_voxels"]["factorized"]["launches"][kernel],
+            **{f"train_voxels_{name}":
+               ffn["train_voxels"][name]["launches"][kernel]
+               for name in ("dense_chunks", "factorized_chunks")}}
+
+
 def _chunk_launches(chunks, resume, occupancy, kernel: str) -> dict:
     """A kernel's launches on the chunked, resumed and occupancy-guided
     train paths: eager (the wrapper's count: warm-up, validation) and in
@@ -3989,6 +4499,9 @@ def main(argv=None) -> int:
     chunked = timed("chunked", phase_chunked)
     distilled = timed("distill", phase_distill, checkpoint)
     served = timed("serve", phase_serve, distilled["student"])
+    log("the FFN family, the voxel fields and the regression CLIs (no "
+        "kernel on these paths):")
+    ffn = timed("ffn_paths", phase_ffn_paths)
     torch.cuda.empty_cache()
     log("K3 vs plain twin, flagship:")
     render_checks = phase_ray_render_vs_twin(model)
@@ -4093,8 +4606,10 @@ def main(argv=None) -> int:
             "distill": {name: {"in_graph_replays":
                                row["in_graph_replays"]["fused_nerf"],
                                "eager": row["eager"]["fused_nerf"]}
-                        for name, row in distilled["launches"].items()}},
+                        for name, row in distilled["launches"].items()},
+            **_ffn_launches(ffn, "fused_nerf")},
         "student_6x192": distilled["kernels"]["fused_nerf"],
+        "ffn_voxel_regression": ffn,
         "face_probe": face,
         "pose": pose,
         "chunked": chunked,
@@ -4138,7 +4653,8 @@ def main(argv=None) -> int:
             "distill": {name: {"in_graph_replays":
                                row["in_graph_replays"]["fused_nerf_train"],
                                "eager": row["eager"]["fused_nerf_train"]}
-                        for name, row in distilled["launches"].items()}},
+                        for name, row in distilled["launches"].items()},
+            **_ffn_launches(ffn, "fused_nerf_train")},
         "student_6x192": distilled["kernels"]["fused_nerf_train"],
         "distill": {k: v for k, v in distilled.items() if k != "kernels"},
         "train_chunks": chunks,

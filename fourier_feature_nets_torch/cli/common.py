@@ -15,10 +15,10 @@ import torch
 from ..utils.errors import not_ported
 
 __all__ = ["RECOMMENDED_STUDENT", "RENDER_PRESETS", "add_common_train_args",
-           "add_preset_arg", "apply_render_preset", "bench_ms", "fit_kwargs",
-           "get_compute_dtype", "kernel_device", "load_opacity",
-           "load_train_val",
-           "make_visualizers", "resolve_data_path", "save_best_model",
+           "add_preset_arg", "apply_render_preset", "bench_ms", "build_ffn",
+           "device_name", "fit_kwargs", "get_compute_dtype", "kernel_device",
+           "load_opacity", "load_train_val", "make_visualizers",
+           "resolve_data_path", "save_best_model", "timing_detail",
            "write_run_log"]
 
 
@@ -181,17 +181,78 @@ def get_compute_dtype(args):
 def save_best_model(results_dir, name, model, log):
     """Writes ``<name>_best.npz``, the report snapshot with the highest
     val PSNR, beside the final model."""
-    from ..models import params_from_jax, save_model
+    from ..models import build_model, params_from_jax, save_model
     entries = [e for e in log if np.isfinite(e.val_psnr)]
     if not entries:
         return None
     best = max(entries, key=lambda e: e.val_psnr)
     path = os.path.join(results_dir, f"{name}_best.npz")
-    snapshot = type(model)(**model.params_manifest)
+    snapshot = build_model(model.model_type, model.params_manifest)
     save_model(params_from_jax(snapshot, best.state), path)
     print(f"best val checkpoint: step {best.step} "
           f"({best.val_psnr:.2f} dB) -> {path}")
     return path
+
+
+def build_ffn(name: str, num_inputs: int, num_outputs: int, args,
+              generator=None):
+    """One of the four FFN variants (``mlp``, ``basic``, ``positional``,
+    ``gaussian``) at the CLI's ``--num-channels``, ``--embedding-size``,
+    ``--pos-max-log-scale`` and ``--gauss-sigma``, drawn from
+    ``generator`` (the Gaussian matrix first, then the layers)."""
+    from ..models import (
+        MLP,
+        BasicFourierMLP,
+        GaussianFourierMLP,
+        PositionalFourierMLP,
+    )
+    if name == "mlp":
+        return MLP(num_inputs, num_outputs, num_channels=args.num_channels,
+                   generator=generator)
+    if name == "basic":
+        return BasicFourierMLP(num_inputs, num_outputs,
+                               num_channels=args.num_channels,
+                               generator=generator)
+    if name == "positional":
+        return PositionalFourierMLP(num_inputs, num_outputs,
+                                    max_log_scale=args.pos_max_log_scale,
+                                    num_channels=args.num_channels,
+                                    embedding_size=args.embedding_size,
+                                    generator=generator)
+    if name == "gaussian":
+        return GaussianFourierMLP(num_inputs, num_outputs,
+                                  sigma=args.gauss_sigma,
+                                  num_channels=args.num_channels,
+                                  embedding_size=args.embedding_size,
+                                  generator=generator)
+    raise NotImplementedError(f"Unsupported model: {name}")
+
+
+def timing_detail(raycaster, device) -> str:
+    """A fit's step times: for one step a call "first step ... ms,
+    ... ms/step over steps 2..N"; for chunks "first call ... (k steps,
+    with its capture on CUDA), ... ms/step over steps k+1..N, host ...
+    ms a call"."""
+    step_ms, steps = raycaster.step_ms, raycaster.call_steps
+    total = sum(steps)
+    later = sum(ms * n for ms, n in zip(step_ms[1:], steps[1:]))
+    steady = (f"{later / (total - steps[0]):.3f} ms/step over steps "
+              f"{steps[0] + 1}..{total}" if len(steps) > 1
+              else "no later steps")
+    if max(steps) == 1:
+        return f"first step {step_ms[0]:.3f} ms, {steady}"
+    host = (f", host {np.mean(raycaster.host_ms[1:]):.3f} ms a call"
+            if len(steps) > 1 else "")
+    capture = ", with its capture" if device.type == "cuda" else ""
+    return (f"first call {step_ms[0] * steps[0]:.3f} ms ({steps[0]} "
+            f"steps{capture}), {steady}{host}")
+
+
+def device_name(device) -> str:
+    """The card's name on CUDA, else the device."""
+    device = torch.device(device)
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else str(device))
 
 
 def write_run_log(path, args, log):

@@ -33,6 +33,7 @@ from ..ops import psnr_from_mse
 from ..render import OccupancyGridSampler, Raycaster, RaySampler
 from ..render.distill import distill
 from ..utils import ETABar, hemisphere
+from ..utils.errors import not_ported
 from .common import RECOMMENDED_STUDENT, resolve_data_path
 from .orbit_video import VECTORS
 
@@ -156,9 +157,11 @@ def main(argv=None) -> int:
                      "--num-steps")
     device = torch.device(args.device)
     os.makedirs(args.results_dir, exist_ok=True)
-    # load_model raises NotImplementedError for a model type the port
-    # does not have yet, naming its ROADMAP.md item
     teacher = load_model(args.teacher_path).to(device).requires_grad_(False)
+    if teacher.model_type != "nerf":
+        raise not_ported(f"distillation from a {teacher.model_type} "
+                         "teacher", "Remaining models, data, CLIs and "
+                         "parallel")
 
     cameras, bounds, val_cameras, gt_rgb = _supervision(args, device)
     if args.uniform:

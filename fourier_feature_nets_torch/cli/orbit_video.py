@@ -1,7 +1,9 @@
-"""CLI: renders an orbit of frames of a trained NeRF.
+"""CLI: renders an orbit of frames of a trained model.
 
-Port of ``fourier_feature_nets_tpu/cli/orbit_video.py`` with all of
-its samplers: focus sampling with the model as its own opacity model
+Port of ``fourier_feature_nets_tpu/cli/orbit_video.py``: the model is a
+checkpoint of any of the four types (a NeRF, an FFN, dense or
+factorized voxels; NPZ or ``.pt``), rendered with all of the JAX CLI's
+samplers: focus sampling with the model as its own opacity model
 (the default), with another checkpoint (``--opacity-model``), the
 density grid (``--density-grid``, ``--preset fast``), an octree
 (``--octree`` with ``--octree-mode occupancy|traversal``) and plain

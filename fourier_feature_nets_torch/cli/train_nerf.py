@@ -22,7 +22,6 @@ naming their ROADMAP.md item.
 import os
 from argparse import ArgumentDefaultsHelpFormatter, ArgumentParser
 
-import numpy as np
 import torch
 
 from ..models import NeRF, save_model
@@ -82,34 +81,12 @@ def main(argv=None):
     common.save_best_model(args.results_dir, "nerf", model, log)
     common.write_run_log(os.path.join(args.results_dir, "log.txt"), args,
                          log)
-    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
-             else str(device))
     print(f"train_nerf: {sum(raycaster.call_steps)} steps of "
-          f"{args.batch_size} rays x {args.num_samples} samples on {where}, "
-          f"{args.compute_dtype}, "
+          f"{args.batch_size} rays x {args.num_samples} samples on "
+          f"{common.device_name(device)}, {args.compute_dtype}, "
           f"{'fused' if raycaster.fused_train else 'plain'}: "
-          f"{_timing_detail(raycaster, device)}")
+          f"{common.timing_detail(raycaster, device)}")
     return 0
-
-
-def _timing_detail(raycaster, device) -> str:
-    """The first call's time and the later steps' mean: for one step a
-    call "first step ... ms/step over steps 2..N"; for chunks "first
-    call ... (k steps, with its capture on CUDA), ... ms/step over steps
-    k+1..N, host ... ms a call"."""
-    step_ms, steps = raycaster.step_ms, raycaster.call_steps
-    total = sum(steps)
-    later = sum(ms * n for ms, n in zip(step_ms[1:], steps[1:]))
-    steady = (f"{later / (total - steps[0]):.3f} ms/step over steps "
-              f"{steps[0] + 1}..{total}" if len(steps) > 1
-              else "no later steps")
-    if max(steps) == 1:
-        return f"first step {step_ms[0]:.3f} ms, {steady}"
-    host = (f", host {np.mean(raycaster.host_ms[1:]):.3f} ms a call"
-            if len(steps) > 1 else "")
-    capture = ", with its capture" if device.type == "cuda" else ""
-    return (f"first call {step_ms[0] * steps[0]:.3f} ms ({steps[0]} "
-            f"steps{capture}), {steady}{host}")
 
 
 if __name__ == "__main__":

@@ -1,11 +1,14 @@
 """Synthetic multi-view dataset generation.
 
 Port of ``make_scene_volume``, ``render_dataset_images``,
-``generate_synthetic_dataset`` and ``load_or_generate`` from
+``generate_synthetic_dataset``, ``load_or_generate`` and
+``generate_synthetic_image`` from
 ``fourier_feature_nets_tpu/datasets/synthetic.py``: a procedural RGBA
 volume is ray-marched into posed RGBA images and written as an NPZ in
 the schema :meth:`ImageDataset.load` reads, so training runs without a
-downloaded dataset. The trilinear lookup is ``F.grid_sample``
+downloaded dataset; a procedural test image (the JAX package's pixels,
+written by the port's PNG writer) stands in for image regression's
+photos. The trilinear lookup is ``F.grid_sample``
 (``padding_mode="border"``, ``align_corners=False``), the call the JAX
 package's ``ops/grid_sample.py`` reproduces.
 """
@@ -25,9 +28,11 @@ from ..ops import (
     ray_aabb_near_far,
 )
 from ..utils.camera_paths import hemisphere
+from ..utils.png import write_png
 
 __all__ = ["make_scene_volume", "render_dataset_images",
-           "generate_synthetic_dataset", "load_or_generate"]
+           "generate_synthetic_dataset", "generate_synthetic_image",
+           "load_or_generate"]
 
 
 def make_scene_volume(side: int = 64) -> np.ndarray:
@@ -152,4 +157,36 @@ def load_or_generate(path: str, **kwargs) -> str:
     """Returns ``path``, generating the synthetic dataset on first use."""
     if not os.path.exists(path):
         generate_synthetic_dataset(path, **kwargs)
+    return path
+
+
+def generate_synthetic_image(path: str, size: int = 512,
+                             seed: int = 20080524) -> str:
+    """Writes a procedural (size, size) RGB test image for 2-D image
+    regression as a PNG at ``path``: smooth color gradients,
+    mid-frequency radial rings, a high-frequency diagonal checker patch
+    and soft blobs, so that the four FFN variants separate as they do on
+    natural images. Its pixels are the JAX package's."""
+    coords = np.linspace(-1.0, 1.0, size, dtype=np.float32)
+    y, x = np.meshgrid(coords, coords, indexing="ij")
+    r = np.sqrt(x * x + y * y)
+
+    rng = np.random.default_rng(seed)
+    red = 0.5 + 0.5 * np.sin(3.0 * x + 9.0 * r)
+    green = 0.5 + 0.5 * np.cos(14.0 * r + 2.0 * y)
+    blue = 0.4 + 0.6 * (0.5 + 0.5 * np.sin(40.0 * (x + y)
+                                           ) * (r < 0.6))
+    for _ in range(6):
+        cx, cy = rng.uniform(-0.8, 0.8, 2)
+        radius = rng.uniform(0.05, 0.25)
+        blob = np.exp(-((x - cx) ** 2 + (y - cy) ** 2)
+                      / (2 * radius ** 2))
+        channel = rng.integers(0, 3)
+        [red, green, blue][channel][:] = np.clip(
+            [red, green, blue][channel] + 0.6 * blob, 0.0, 1.0)
+
+    rgb = np.stack([red, green, blue], -1)
+    pixels = (np.clip(rgb, 0.0, 1.0) * 255).astype(np.uint8)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    write_png(path, pixels)
     return path

@@ -1,8 +1,30 @@
-"""Models of the port."""
+"""Models of the port: the NeRF, the Fourier Feature MLP family and the
+dense and factorized voxel fields."""
 
-from .module import Linear, linear_apply
+from .factorized import FactorizedVoxels
+from .fourier import (
+    MLP,
+    BasicFourierMLP,
+    FourierFeatureMLP,
+    GaussianFourierMLP,
+    PositionalFourierMLP,
+)
+from .module import Linear, linear_apply, mlp_apply, mlp_layers, query_model
 from .nerf import NeRF, flagship_nerf
-from .serialization import load_model, params_from_jax, params_to_jax, save_model
+from .serialization import (
+    build_model,
+    load_model,
+    load_torch_model,
+    params_from_jax,
+    params_to_jax,
+    save_model,
+    save_torch_model,
+)
+from .voxels import Voxels
 
-__all__ = ["Linear", "NeRF", "flagship_nerf", "linear_apply", "load_model",
-           "params_from_jax", "params_to_jax", "save_model"]
+__all__ = ["BasicFourierMLP", "FactorizedVoxels", "FourierFeatureMLP",
+           "GaussianFourierMLP", "Linear", "MLP", "NeRF",
+           "PositionalFourierMLP", "Voxels", "build_model", "flagship_nerf",
+           "linear_apply", "load_model", "load_torch_model", "mlp_apply",
+           "mlp_layers", "params_from_jax", "params_to_jax", "query_model",
+           "save_model", "save_torch_model"]

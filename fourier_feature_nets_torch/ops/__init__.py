@@ -7,7 +7,13 @@ from .blend import (
     calculate_blend_weights,
     exclusive_cumprod,
 )
-from .encoding import encode_phases, positional_encoding_matrix
+from .encoding import (
+    basic_encoding_matrix,
+    encode_phases,
+    fourier_encode,
+    gaussian_encoding_matrix,
+    positional_encoding_matrix,
+)
 from .intersection import NearFar, bounds_min_max, ray_aabb_near_far
 from .metrics import psnr_from_mse
 from .sampling import (
@@ -25,6 +31,7 @@ from .sampling import (
 __all__ = [
     "NearFar",
     "anneal_near_far",
+    "basic_encoding_matrix",
     "batch_linspace",
     "blend_weights_prefix",
     "blend_weights_suffix",
@@ -33,6 +40,8 @@ __all__ = [
     "determine_cdf",
     "encode_phases",
     "exclusive_cumprod",
+    "fourier_encode",
+    "gaussian_encoding_matrix",
     "inverse_cdf_from_bins",
     "inverse_cdf_t_values",
     "merge_sorted",

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..cameras import CameraInfo
+from ..models.module import query_model
 from ..octree import OcTree
 from ..ops.sampling import (
     batch_linspace,
@@ -101,7 +102,7 @@ def density_grid_from_model(model, resolution: int = 64,
         np.stack([xx, yy, zz], -1).reshape(-1, 3).astype(np.float32)
     ).to(device)
     with torch.no_grad():
-        out = model(points, torch.zeros_like(points))
+        out = query_model(model, points, torch.zeros_like(points))
         sigma = torch.nn.functional.softplus(out[:, 3])
         cell = 2.0 * scale / resolution
         alpha = 1.0 - torch.exp(-sigma * cell)

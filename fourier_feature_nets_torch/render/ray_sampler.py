@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..cameras import CameraInfo, raycast_grid
+from ..models.module import query_model
 from ..ops import (
     anneal_near_far,
     batch_linspace,
@@ -160,8 +161,8 @@ class RaySampler:
                      + t_values[..., None] * directions[:, None, :])
         views = directions[:, None, :].expand(positions.shape)
         with torch.no_grad():
-            logits = model(positions.reshape(-1, 3),
-                           views.reshape(-1, 3))[:, -1]
+            logits = query_model(model, positions.reshape(-1, 3),
+                                 views.reshape(-1, 3))[:, -1]
         opacity = F.softplus(logits).reshape(-1, self.num_focus_samples)
         return determine_cdf(t_values, opacity).to(self.device)
 

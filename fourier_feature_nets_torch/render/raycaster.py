@@ -16,8 +16,11 @@ through the fused Hopper kernels by default (:func:`resolve_fused`): K1
 (:mod:`..kernels.fused_nerf_train`) for training.
 
 Frames of any camera pose (``render_frame_pose``) share the indexed
-frame's code, and ``render_image`` is the chunked parity path. The
-data-parallel mesh is not ported yet (ROADMAP.md, queue 1).
+frame's code, and ``render_image`` is the chunked parity path. A model
+without view directions (the FFNs, the voxel fields) is queried on the
+positions alone (:func:`~..models.module.query_model`), and its last
+layer's units render as an activation grid (``render_activations``).
+The data-parallel mesh is not ported yet (ROADMAP.md, queue 1).
 """
 
 import time
@@ -33,6 +36,7 @@ from ..kernels.fused_nerf import (
     prepare_fused_nerf,
 )
 from ..kernels.fused_nerf_train import fused_nerf_train_apply
+from ..models.module import query_model
 from ..models.serialization import (
     named_parameters,
     params_from_jax,
@@ -158,7 +162,7 @@ class Raycaster:
             return fused_nerf_apply(self._get_fused_weights(),
                                     positions.contiguous(),
                                     views.contiguous())
-        return self.model(positions, views, compute_dtype=self.compute_dtype)
+        return query_model(self.model, positions, views, self.compute_dtype)
 
     @torch.no_grad()
     def render(self, ray_samples: RaySamples,
@@ -470,6 +474,58 @@ class Raycaster:
         pred = self.batched_render(samples, batch_size, False)
         return sampler.to_image(camera, pred.color, color_space)
 
+    @torch.no_grad()
+    def render_activations(self, sampler: RaySampler, index: int,
+                           batch_size: int,
+                           color_space: str = "RGB") -> np.ndarray:
+        """An 8x8 grid of renders of one camera, one a unit of the
+        model's last hidden layer (the JAX package's
+        ``render_activations``).
+
+        Cell ``u`` renders the camera with unit ``u``'s contribution as
+        the model's output: its activation times its row of the last
+        layer's weights, plus the last layer's bias. Needs a model with
+        ``return_hidden`` (the FFN family) and at least 64 hidden units.
+        The model runs in f32, ``batch_size`` rays at a time.
+
+        Returns:
+            (8 H, 8 W, 3) uint8 RGB image.
+        """
+        camera = index % sampler.num_cameras
+        samples = sampler.rays_for_camera(camera)
+        out_layer = self.model.layers[-1]
+        palette = out_layer.weight.T     # (hidden, 4)
+        num_rays = samples.positions.shape[0]
+        unit_colors = []
+        for start in range(0, num_rays, batch_size):
+            positions = samples.positions[start:start + batch_size]
+            t_values = samples.t_values[start:start + batch_size]
+            _, hidden = self.model(positions.reshape(-1, 3),
+                                   return_hidden=True)
+            # (units, rays * samples, 4): unit u contributes
+            # hidden[:, u] (outer) palette[u, :] + bias
+            per_unit = (hidden.T[:, :, None] * palette[:, None, :]
+                        + out_layer.bias)
+            per_unit = per_unit.reshape(palette.shape[0], t_values.shape[0],
+                                        -1, 4)
+            weights = calculate_blend_weights(
+                t_values, F.softplus(per_unit[..., 3]))
+            unit_colors.append(torch.sum(
+                weights[..., None] * torch.sigmoid(per_unit[..., :3]),
+                dim=-2))
+        unit_colors = torch.cat(unit_colors, dim=1).cpu().numpy()
+
+        num_grid = 8
+        cell_h, cell_w = sampler.image_height, sampler.image_width
+        act_pixels = np.zeros((cell_h * num_grid, cell_w * num_grid, 3),
+                              np.uint8)
+        for i in range(num_grid):
+            for j in range(num_grid):
+                act_pixels[i * cell_h:(i + 1) * cell_h,
+                           j * cell_w:(j + 1) * cell_w] = sampler.to_image(
+                    camera, unit_colors[i * num_grid + j], color_space)
+        return act_pixels
+
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
@@ -488,8 +544,8 @@ class Raycaster:
             packed = pack_fused_nerf(self.model, dtype)
             logits = fused_nerf_train_apply(packed, positions, views)
         else:
-            logits = self.model(positions, views,
-                                compute_dtype=self.compute_dtype)
+            logits = query_model(self.model, positions, views,
+                                 self.compute_dtype)
         return _composite(logits.reshape(num_rays, num_samples, 4),
                           rays.t_values, False)
 
@@ -714,8 +770,8 @@ class Raycaster:
                                        include_depth)
 
         def render_act_fn(sampler, camera):
-            raise not_ported("activation renders",
-                             "Remaining models, data, CLIs and parallel")
+            return self.render_activations(sampler, camera, batch_size,
+                                           train_dataset.color_space)
 
         checkpointer = None
         if checkpoint_dir and checkpoint_interval:

@@ -6,8 +6,9 @@ file format: one NPZ holding a JSON ``__manifest__`` (the model's
 ``"format": "ffn_tpu_train_state_v1"``), the weights under
 ``params/<path>``, the Adam moments under ``opt/mu/<path>`` and
 ``opt/nu/<path>`` and the Adam step count under ``opt/step``, every
-matrix stored (in, out) as the JAX package keeps it. A checkpoint that
-either package writes resumes in the other, and
+value in the JAX package's layout (:func:`~.layout.to_jax_layout`), for
+each of the four model types. A checkpoint that either package writes
+resumes in the other, and
 :func:`~..models.serialization.load_model` reads its weights.
 
 :class:`AsyncCheckpointer` snapshots the state with a device ``clone()``
@@ -22,9 +23,14 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
-from ..models.nerf import NeRF
-from ..models.serialization import named_parameters, params_from_jax
+from ..models.serialization import (
+    build_model,
+    named_parameters,
+    params_from_jax,
+)
+from .layout import to_jax_layout
 
 __all__ = ["AdamState", "AsyncCheckpointer", "TrainState",
            "latest_checkpoint", "load_train_state", "save_train_state"]
@@ -44,15 +50,16 @@ class AdamState(NamedTuple):
 class TrainState(NamedTuple):
     """Everything needed to resume a training run."""
 
-    model: NeRF
+    model: nn.Module
     params: Dict[str, np.ndarray]
     opt_state: AdamState
     step: int
     seed: int
 
 
-def save_train_state(path: str, model: NeRF, params: Dict[str, np.ndarray],
-                     opt_state: AdamState, step: int, seed: int = 0) -> None:
+def save_train_state(path: str, model: nn.Module,
+                     params: Dict[str, np.ndarray], opt_state: AdamState,
+                     step: int, seed: int = 0) -> None:
     """Writes a resumable checkpoint NPZ at exactly ``path``.
 
     Args:
@@ -93,18 +100,14 @@ def load_train_state(path: str) -> TrainState:
             f"{path} is not a resumable train-state checkpoint (manifest "
             f"format={fmt!r}); weights-only model files load via "
             "models.load_model")
-    if manifest["type"] != "nerf":
-        raise NotImplementedError(
-            f"model type {manifest['type']!r} is not ported yet; the "
-            "PyTorch port loads only 'nerf' checkpoints (see ROADMAP.md, "
-            "queue 1, 'Remaining models, data, CLIs and parallel')")
 
     def part(prefix):
         return {k[len(prefix):]: v for k, v in flat.items()
                 if k.startswith(prefix)}
 
     params = part("params/")
-    model = params_from_jax(NeRF(**manifest["params"]), params)
+    model = params_from_jax(build_model(manifest["type"],
+                                        manifest["params"]), params)
     opt_state = AdamState(int(flat["opt/step"]), part("opt/mu/"),
                           part("opt/nu/"))
     return TrainState(model, params, opt_state, int(manifest["step"]),
@@ -155,7 +158,8 @@ class AsyncCheckpointer:
                                         name="ffn-torch-async-ckpt")
         self._thread.start()
 
-    def save(self, model: NeRF, optimizer, step: int, seed: int = 0) -> None:
+    def save(self, model: nn.Module, optimizer, step: int,
+             seed: int = 0) -> None:
         """Snapshots ``model``'s weights and ``optimizer``'s
         (:class:`~.optim.ClippedAdam`) state on the device and enqueues
         the write of the checkpoint of ``step``."""
@@ -225,8 +229,8 @@ class AsyncCheckpointer:
             steps.add(int(adam_step.cpu()))
             for out, tensor in ((params, value), (mu, exp_avg),
                                 (nu, exp_avg_sq)):
-                array = tensor.cpu().numpy()
-                out[path] = array.T.copy() if array.ndim == 2 else array
+                out[path] = np.ascontiguousarray(
+                    to_jax_layout(path, tensor.cpu().numpy()))
         path = os.path.join(self.directory, f"{self.prefix}{step:08d}.npz")
         save_train_state(path, model, params, AdamState(max(steps), mu, nu),
                          step, seed)

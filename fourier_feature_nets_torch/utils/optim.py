@@ -12,7 +12,7 @@ with its learning rate in a device tensor) can be captured in a CUDA
 graph: nothing in its step reads the host. Its state maps both ways to
 the JAX package's ``AdamState`` (one ``step``, ``mu`` and ``nu`` named
 and laid out as :func:`~..models.serialization.params_to_jax` lays out
-the weights, (in, out)), so a train-state checkpoint resumes in either
+the weights), so a train-state checkpoint resumes in either
 package.
 """
 
@@ -20,6 +20,8 @@ from typing import Dict, Iterable, Tuple
 
 import numpy as np
 import torch
+
+from .layout import from_jax_layout, to_jax_layout
 
 __all__ = ["ClippedAdam", "exponential_lr"]
 
@@ -125,9 +127,10 @@ class ClippedAdam:
         """The state as the JAX package's ``AdamState``: (step, mu, nu),
         ``mu`` and ``nu`` flat ``{path: array}`` dicts keyed as
         ``named`` (path -> parameter, e.g.
-        :func:`~..models.serialization.named_parameters`), 2-D moments
-        transposed to (in, out). torch keeps a step per parameter; they
-        are all equal under this optimizer."""
+        :func:`~..models.serialization.named_parameters`), each moment
+        in its path's JAX layout (:func:`~.layout.to_jax_layout`). torch
+        keeps a step per parameter; they are all equal under this
+        optimizer."""
         self.init_state()
         mu, nu, steps = {}, {}, set()
         for path, p in named.items():
@@ -135,7 +138,7 @@ class ClippedAdam:
             steps.add(int(state["step"]))
             for out, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
                 value = state[key].detach().cpu().numpy()
-                out[path] = (value.T if value.ndim == 2 else value).copy()
+                out[path] = to_jax_layout(path, value).copy()
         if len(steps) != 1:
             raise ValueError(f"parameters at different Adam steps {steps}")
         return steps.pop(), mu, nu
@@ -152,10 +155,8 @@ class ClippedAdam:
                 state = self.optimizer.state[p]
                 state["step"].fill_(float(step))
                 for source, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
-                    value = torch.from_numpy(np.asarray(source[path],
-                                                        np.float32))
-                    if value.ndim == 2:
-                        value = value.T
+                    value = torch.tensor(from_jax_layout(
+                        path, np.asarray(source[path], np.float32)))
                     if tuple(value.shape) != tuple(p.shape):
                         raise ValueError(
                             f"{key} of {path}: shape {tuple(value.shape)} "

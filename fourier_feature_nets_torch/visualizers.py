@@ -1,12 +1,15 @@
 """Training-loop visualization hooks.
 
-Port of ``Visualizer`` and ``EvaluationVisualizer`` from
+Port of ``Visualizer``, ``EvaluationVisualizer`` and
+``ActivationVisualizer`` (with its orbit rig) from
 ``fourier_feature_nets_tpu/visualizers.py``: a visualizer receives a
 ``render(samples, include_depth)`` callable that runs the current model
-through the chunked renderer, so it never touches model state. Images
-are written by the port's standard-library PNG writer. The orbit,
-activation and comparison visualizers are not ported yet (ROADMAP.md,
-queue 1, item 7).
+through the chunked renderer, and an ``act_render(sampler, camera)``
+callable that renders the activation grid
+(``Raycaster.render_activations``), so it never touches model state.
+Images are written by the port's standard-library PNG writer. The orbit
+and comparison visualizers are not ported yet (ROADMAP.md, queue 1,
+item 7).
 """
 
 import os
@@ -15,12 +18,14 @@ from typing import Callable
 
 import numpy as np
 
+from .cameras import Resolution
 from .datasets.image_dataset import ImageDataset
 from .render.ray_sampler import RaySampler, RaySamples
 from .render.raycaster import RenderResult
+from .utils.camera_paths import orbit
 from .utils.png import write_png
 
-__all__ = ["Visualizer", "EvaluationVisualizer"]
+__all__ = ["Visualizer", "EvaluationVisualizer", "ActivationVisualizer"]
 
 ImageRender = Callable[[RaySamples, bool], RenderResult]
 ActivationRender = Callable[[RaySampler, int], np.ndarray]
@@ -96,4 +101,48 @@ class EvaluationVisualizer(Visualizer):
 
         name = "s{:07}_c{:03}.png".format(step, camera)
         write_png(os.path.join(self._output_dir, name), compare)
+        self._index += 1
+
+
+class _OrbitRigVisualizer(Visualizer):
+    """The orbit visualizers' set-up: an orbit rig of its own (distance
+    4, fov 40, bounds 2 I, the reference's construction) on ``device``,
+    one frame an interval of ``num_steps // num_frames`` steps."""
+
+    def __init__(self, results_dir: str, subdir: str, num_steps: int,
+                 resolution: Resolution, num_frames: int,
+                 num_samples: int, color_space: str, device="cpu"):
+        out_dir = os.path.join(results_dir, subdir)
+        os.makedirs(out_dir, exist_ok=True)
+        self._output_dir = out_dir
+        cameras = orbit(np.array([0.0, 1.0, 0.0]),
+                        np.array([0.0, 0.0, -1.0]), num_frames, 40,
+                        Resolution(*resolution).square(), 4)
+        bounds = np.eye(4, dtype=np.float32) * 2
+        self._sampler = RaySampler(bounds, cameras, num_samples, device)
+        self._interval = max(1, num_steps // num_frames)
+        self._index = 0
+        self._color_space = color_space
+
+
+class ActivationVisualizer(_OrbitRigVisualizer):
+    """An orbit video of the last hidden layer's activation grid, one
+    frame (``activations/frame_NNNNN.png``) an interval."""
+
+    def __init__(self, results_dir: str, num_steps: int,
+                 resolution: Resolution, num_frames: int,
+                 num_samples: int, color_space: str, device="cpu"):
+        super().__init__(results_dir, "activations", num_steps,
+                         resolution, num_frames, num_samples,
+                         color_space, device)
+
+    def visualize(self, step: int, _: ImageRender,
+                  act_render: ActivationRender):
+        """Writes one activation-grid frame if the step is on the
+        interval."""
+        if not self._due(step):
+            return
+        image = act_render(self._sampler, self._index)
+        name = "frame_{:05d}.png".format(self._index)
+        write_png(os.path.join(self._output_dir, name), image)
         self._index += 1

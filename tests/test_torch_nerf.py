@@ -175,10 +175,26 @@ def test_params_from_jax_rejects_bad_shapes_and_keys():
 
 
 def test_non_nerf_checkpoint_is_not_ported(tmp_path):
+    """Every model type the JAX package has is ported now: a JAX voxels
+    NPZ loads into the port's ``Voxels`` (its outputs are held in
+    tests/test_torch_voxels.py). What the port still turns away is a
+    checkpoint type neither package has, and the factorized field's
+    reference ``.pt``, which neither package defines."""
+    from fourier_feature_nets_torch.models import FactorizedVoxels
+    from fourier_feature_nets_torch.models import Voxels as TorchVoxels
+    from fourier_feature_nets_torch.models import save_torch_model
     from fourier_feature_nets_tpu.models import Voxels
     model = Voxels(4, 1.0)
     params = model.init(jax.random.PRNGKey(0))
     path = str(tmp_path / "vox.npz")
     jax_save(model, params, path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_load(path)
+    assert isinstance(torch_load(path), TorchVoxels)
+    unknown = str(tmp_path / "unknown.npz")
+    with open(unknown, "wb") as handle:
+        np.savez(handle, __manifest__=json.dumps({"type": "mesh",
+                                                  "params": {}}))
+    with pytest.raises(ValueError, match="mesh"):
+        torch_load(unknown)
+    with pytest.raises(ValueError, match="no reference torch format"):
+        save_torch_model(FactorizedVoxels(4, 1.0, rank=2),
+                         str(tmp_path / "f.pt"))

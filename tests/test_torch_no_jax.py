@@ -70,7 +70,13 @@ def test_walk_found_the_slice_modules(imported):
         "octree.octree", "octree.traversal", "octree.mesh",
         "render.octree_sampler", "cli.voxelize_model", "cli.mesh_to_octree",
         "utils.color", "utils.checkpoint", "utils.jpeg", "ops.metrics",
-        "render.server", "render.distill", "cli.serve", "cli.distill_model"}
+        "render.server", "render.distill", "cli.serve", "cli.distill_model",
+        "models.fourier", "models.voxels", "models.factorized",
+        "datasets.pixel_dataset", "datasets.signal_dataset", "utils.image",
+        "utils.layout",
+        "cli.train_tiny_nerf", "cli.train_voxels",
+        "cli.train_image_regression", "cli.train_signal_regression",
+        "cli.convert_checkpoint"}
     found = {name.split(".", 1)[1] for name in imported["modules"]}
     assert expected <= found
 
