@@ -108,6 +108,23 @@ and drives the port's paths at the flagship width:
   control); one train
   step of each new cell under ``torch.profiler`` (its top kernels); each
   with its ms a step or forward, and the card's name and power limit;
+* queue 1, item 7: ``--make-video`` of ``train_nerf`` (flagship, bf16,
+  ``--fused``, 40 steps: 5 orbit frames at the JAX cadence, through K1),
+  ``train_voxels`` and ``train_tiny_nerf`` (no kernel); one
+  ``ComparisonVisualizer`` strip of the 30-step checkpoint (through K1);
+  ``distill_model --fused`` of the dense 128^3 voxel grid into 6x192 in
+  100-step graph chunks (the loss falls; each capture records the
+  student's K1 and K2 alone); ``export_mesh`` of a voxel ball at 192^3
+  (radii within one ball cell), the card's mesh at 64^3 equal to the
+  CPU's within 1e-5, and the 8x256 field sweep at 192^3 timed with its
+  peak memory; a two-run ``sweep`` of ``train_signal_regression``
+  processes sharing the card; ``inspect_ray_sampling`` plain and
+  stratified-focused; bench.py's tree at 800 px in ``trilinear`` and
+  ``probe_mode="gather"`` (gather's hit set within the default's, each
+  culled frame within 1 of its unculled frame where it renders), a
+  focus frame and batch with ``FFN_TORCH_IID_FOCUS_QUANTILES``; a NaN
+  weight that raises under ``enable_debug_nans`` and not without it, and
+  whether a graph captures under it;
 * kernel validation: K3 (K1's kernels with a per-ray view product and a
   compositing epilogue) against its plain twin in bf16 and f32 within
   its limits (kernels/fused_ray_render.py: bf16 max K3_BF16_ATOL and
@@ -4410,6 +4427,576 @@ def _chunk_launches(chunks, resume, occupancy, kernel: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# queue 1, item 7: --make-video, the comparison strip, a voxel teacher,
+# mesh export, the sweep, the inspector, the sampler switches, debug NaNs
+# ---------------------------------------------------------------------------
+
+VIDEO_STEPS = 40               # train_nerf --make-video (flagship, bf16)
+VIDEO_FRAMES = 4               # --num-frames: a frame every 10 steps, 0..40
+VIDEO_SHORT_STEPS = 10         # train_voxels / train_tiny_nerf --make-video
+BALL_SIDE = 24                 # tests/test_mesh_export.py's ball field
+BALL_RADIUS = 0.5
+MESH_RESOLUTION = 192          # export_mesh's default
+MESH_CPU_RESOLUTION = 64       # the card's vertices against the CPU's
+MESH_CPU_ATOL = 1e-5
+SWEEP_VALUES = ("16", "32")    # --num-channels of the two sweep runs
+SWEEP_STEPS = 200
+
+
+def _video_frames(results: str, count: int, resolution: int,
+                  varied: bool) -> list:
+    """``count`` orbit frames ``video/frame_NNNNN.png``, each well formed
+    (resolution^2 x 3, read back with zlib) and, when ``varied``, not
+    constant (a zero-initialized voxel grid renders black at first)."""
+    frames_dir = os.path.join(results, "video")
+    names = sorted(os.listdir(frames_dir))
+    if names != [f"frame_{i:05d}.png" for i in range(count)]:
+        raise AssertionError(f"unexpected frames: {names}")
+    for name in names:
+        with open(os.path.join(frames_dir, name), "rb") as handle:
+            pixels = png_pixels(handle.read())
+        if pixels.shape != (resolution, resolution, 3) or (
+                varied and pixels.min() == pixels.max()):
+            raise AssertionError(f"{frames_dir}/{name}: {pixels.shape}, "
+                                 f"{pixels.min()}..{pixels.max()}")
+    return names
+
+
+@contextlib.contextmanager
+def _visualizer_launches(cls):
+    """K1's launches inside ``cls.visualize`` alone (the frames), summed
+    over the block."""
+    counted = {"fused_nerf": 0}
+    inner = cls.visualize
+
+    def counting(self, *args, **kwargs):
+        before = _launch_counts()["fused_nerf"]
+        inner(self, *args, **kwargs)
+        counted["fused_nerf"] += _launch_counts()["fused_nerf"] - before
+
+    cls.visualize = counting
+    try:
+        yield counted
+    finally:
+        cls.visualize = inner
+
+
+def phase_make_video() -> dict:
+    """``--make-video`` of the three NeRF-field trainers on smoke-train's
+    scene: train_nerf at the flagship (8x256), bf16, --fused for
+    VIDEO_STEPS steps with VIDEO_FRAMES frames (at JAX's cadence, steps
+    0, 10, .., 40: one more frame than --num-frames), whose frames must
+    launch K1; then train_voxels (a VOXEL_SIDE^3 grid) and
+    train_tiny_nerf (positional, 3 x 256) for VIDEO_SHORT_STEPS steps
+    with 2 frames, which launch no kernel. Every frame is well formed;
+    the flagship's are not constant (a zero-initialized grid renders
+    black at first)."""
+    from fourier_feature_nets_torch import visualizers
+    from fourier_feature_nets_torch.cli import (train_nerf, train_tiny_nerf,
+                                                train_voxels)
+    resolution = 100                      # the synthetic scene's cameras
+    rows = {}
+    runs = (
+        ("train_nerf", train_nerf.main, [], VIDEO_STEPS, VIDEO_FRAMES,
+         ["--compute-dtype", "bfloat16", "--fused"]),
+        ("train_voxels", train_voxels.main, [str(VOXEL_SIDE)],
+         VIDEO_SHORT_STEPS, 2, []),
+        ("train_tiny_nerf", train_tiny_nerf.main, ["positional"],
+         VIDEO_SHORT_STEPS, 2, []))
+    for label, main, positional, steps, frames, flags in runs:
+        results = os.path.join(OUT_DIR, "make_video", label)
+        shutil.rmtree(results, ignore_errors=True)
+        with _visualizer_launches(visualizers.OrbitVideoVisualizer) as k1:
+            output, wall, launches = run_main(main, [
+                "synthetic", *positional, results, "--device", "cuda",
+                "--num-steps", str(steps), "--report-interval", str(steps),
+                "--make-video", "--num-frames", str(frames), *flags])
+        varied = label == "train_nerf"
+        names = _video_frames(results, steps // (steps // frames) + 1,
+                              resolution, varied)
+        rows[label] = {"frames": len(names), "frame_launches": k1[
+            "fused_nerf"], "launches": launches, "wall_s": wall,
+            "ms_per_step": _steady_ms(output)}
+        log(f"{label} --make-video --num-frames {frames}, {steps} steps: "
+            f"{len(names)} frames of {resolution}x{resolution} in video/ "
+            f"(well formed{', not constant' if varied else ''}), K1 "
+            f"launches in the frames "
+            f"{k1['fused_nerf']}, in the whole call {launches}, "
+            f"{rows[label]['ms_per_step']:.3f} ms/step, {wall:.3f} s for "
+            f"the CLI call ({CARD})")
+    if rows["train_nerf"]["frame_launches"] <= 0:
+        raise AssertionError("the fused train_nerf's orbit frames did not "
+                             "launch K1")
+    for label in ("train_voxels", "train_tiny_nerf"):
+        _no_kernel(f"{label} --make-video", rows[label]["launches"])
+    return rows
+
+
+def phase_comparison(checkpoint) -> dict:
+    """One ComparisonVisualizer strip of smoke-train's checkpoint (bf16,
+    through K1): the train set's first cameras beside the val set's,
+    ground truth beside the prediction, (H * cameras, 4 W, 3)."""
+    from fourier_feature_nets_torch.cli.common import resolve_data_path
+    from fourier_feature_nets_torch.datasets import ImageDataset
+    from fourier_feature_nets_torch.models import load_model
+    from fourier_feature_nets_torch.render import Raycaster
+    from fourier_feature_nets_torch.visualizers import ComparisonVisualizer
+    os.environ["FFN_TORCH_DATA_DIR"] = os.path.join(OUT_DIR, "data")
+    scene = resolve_data_path("synthetic", "cuda")
+    val = ImageDataset.load(scene, "val", 128, device="cuda")
+    train = ImageDataset.load(scene, "train", 128, device="cuda").subset(
+        list(range(val.num_cameras)), 128, False, "train")
+    caster = Raycaster(load_model(checkpoint).cuda(),
+                       compute_dtype=torch.bfloat16)
+    out_dir = os.path.join(OUT_DIR, "comparison")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    visualizer = ComparisonVisualizer(out_dir, 1, 1, train, val)
+    _reset_launches()
+    start = time.perf_counter()
+    visualizer.visualize(0, lambda s, d: caster.batched_render(s, 16384, d),
+                         None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = _launch_counts()["fused_nerf"]
+    shape, peak = png_shape(os.path.join(out_dir, "compare",
+                                         "frame_00000.png"))
+    width, height = val.cameras[0].resolution
+    expected = (height * val.num_cameras, 4 * width, 3)
+    log(f"ComparisonVisualizer of the 30-step checkpoint: strip {shape} "
+        f"(held: {expected}), max pixel {peak}, {wall * 1e3:.3f} ms, K1 "
+        f"launches {launches} ({CARD})")
+    if shape != expected or peak == 0 or launches <= 0:
+        raise AssertionError("the comparison strip")
+    return {"shape": list(shape), "ms": wall * 1e3, "launches": launches}
+
+
+def phase_distill_voxels() -> dict:
+    """distill_model --fused of the dense VOXEL_SIDE^3 grid
+    (phase_train_voxels' checkpoint) into the 6x192 student: 1024 rays x
+    128 samples on the stratified uniform sampler a non-NeRF teacher
+    takes, DISTILL_STEPS steps in chunks of DISTILL_CALL, each one
+    CUDA-graph replay. Held: the loss falls; each capture records K1 and
+    K2 once a step, the student's (the teacher's query is plain: K1 0
+    times for it)."""
+    teacher = os.path.join(OUT_DIR, "voxels", "dense", "voxels.npz")
+    out_dir = os.path.join(OUT_DIR, "distill_voxels")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    run = _run_distill_cli([
+        teacher, out_dir, "--device", "cuda", "--fused", "--batch-rays",
+        str(DISTILL_BATCH[0]), "--num-samples", str(DISTILL_BATCH[1]),
+        "--steps-per-call", str(DISTILL_CALL), "--report-interval",
+        str(DISTILL_CALL), "--num-steps", str(DISTILL_STEPS)])
+    steady = re.search(r"([0-9.]+) ms/step over calls", run["output"])
+    losses = run["losses"]
+    launches = _graph_launches(run)
+    row = {"ms_per_step": float(steady.group(1)) if steady else None,
+           "loss_first_20": float(losses[:20].mean()),
+           "loss_last_20": float(losses[-20:].mean()),
+           "wall_s": run["wall_s"], "launches": launches}
+    log(f"distill_model --fused, dense {VOXEL_SIDE}^3 voxels -> 6x192, "
+        f"{DISTILL_BATCH[0]} x {DISTILL_BATCH[1]}, --steps-per-call "
+        f"{DISTILL_CALL}: {DISTILL_STEPS} steps in {run['wall_s']:.3f} s "
+        f"for the CLI call, loss {row['loss_first_20']:.4e} (steps 1-20) "
+        f"-> {row['loss_last_20']:.4e} (the last 20; held: it falls); "
+        f"{row['ms_per_step']} ms a step in the replay after the first "
+        f"call (CUDA events; predicted 2.3-3.0); launches {launches} "
+        f"({CARD})")
+    student_only = {"fused_nerf": DISTILL_CALL,
+                    "fused_nerf_train": DISTILL_CALL}
+    if not row["loss_last_20"] < row["loss_first_20"] \
+            or row["ms_per_step"] is None or len(run["chunks"]) != 1 \
+            or run["chunks"][0].captured != student_only \
+            or launches["in_graph_replays"]["fused_nerf_train"] <= 0:
+        raise AssertionError("distillation from the voxel teacher did not "
+                             "fall, or its captures were not the "
+                             f"student's K1 and K2 alone: {launches}")
+    return row
+
+
+def _ball_voxels(path: str) -> None:
+    """tests/test_mesh_export.py's field: an opaque red ball of radius
+    BALL_RADIUS in a BALL_SIDE^3 Voxels grid over [-1, 1]^3, saved."""
+    from fourier_feature_nets_torch.models import Voxels, save_model
+    centers = (np.arange(BALL_SIDE) + 0.5) / BALL_SIDE * 2 - 1
+    z, y, x = np.meshgrid(centers, centers, centers, indexing="ij")
+    inside = x * x + y * y + z * z < BALL_RADIUS ** 2
+    grid = np.zeros((4, BALL_SIDE, BALL_SIDE, BALL_SIDE), np.float32)
+    grid[0], grid[1:3] = 15.0, -15.0
+    grid[3] = np.where(inside, 200.0, -200.0)
+    model = Voxels(BALL_SIDE, 1.0)
+    with torch.no_grad():
+        model.voxels.copy_(torch.from_numpy(grid)[None])
+        model.bias.zero_()
+    save_model(model, path)
+
+
+def _obj_counts(path: str):
+    """(vertices, faces) of an OBJ, every face's indices within the
+    vertices and every vertex with its color."""
+    verts = faces = 0
+    with open(path) as obj:
+        for line in obj:
+            if line.startswith("v "):
+                verts += 1
+                if len(line.split()) != 7:
+                    raise AssertionError(f"a vertex line {line!r}")
+            elif line.startswith("f "):
+                faces += 1
+                if not all(1 <= int(i) <= verts for i in line.split()[1:]):
+                    raise AssertionError(f"a face line {line!r}")
+    return verts, faces
+
+
+def phase_export_mesh(checkpoint) -> dict:
+    """export_mesh on the card: the ball field at the CLI's default
+    MESH_RESOLUTION (vertex radii within one of the ball grid's cells of
+    BALL_RADIUS, the OBJ parses), the card's vertices at
+    MESH_CPU_RESOLUTION against the CPU's (within MESH_CPU_ATOL, the
+    same triangles), and the field sweep of smoke-train's 8x256
+    checkpoint at MESH_RESOLUTION^3 points timed, with its peak device
+    memory (nothing held about its surface)."""
+    from fourier_feature_nets_torch.cli import export_mesh
+    from fourier_feature_nets_torch.mesh_export import (alpha_field,
+                                                        mesh_from_model,
+                                                        surface_nets)
+    from fourier_feature_nets_torch.models import load_model
+    out_dir = os.path.join(OUT_DIR, "mesh")
+    os.makedirs(out_dir, exist_ok=True)
+    ball = os.path.join(out_dir, "ball.npz")
+    _ball_voxels(ball)
+    obj = os.path.join(out_dir, "ball.obj")
+    output, wall, _ = run_main(export_mesh.main,
+                               [ball, obj, "--device", "cuda"])
+    verts, faces = _obj_counts(obj)
+    with open(obj) as handle:
+        points = np.array([[float(v) for v in line.split()[1:4]]
+                           for line in handle if line.startswith("v ")])
+    radii = np.linalg.norm(points, axis=1)
+    cell = 2.0 / BALL_SIDE
+    row = {"ball": {"vertices": verts, "faces": faces, "wall_s": wall,
+                    "radius_min": float(radii.min()),
+                    "radius_max": float(radii.max())}}
+    log(f"export_mesh of the ball field at {MESH_RESOLUTION}^3: {verts} "
+        f"vertices, {faces} triangles, radii {radii.min():.4f}..."
+        f"{radii.max():.4f} (held: within {cell:.4f} of {BALL_RADIUS}), "
+        f"{wall:.3f} s for the CLI call ({CARD})")
+    if verts < 1000 or np.abs(radii - BALL_RADIUS).max() >= cell:
+        raise AssertionError("the ball's mesh")
+
+    model = load_model(ball)
+    ours = mesh_from_model(model.cuda(), MESH_CPU_RESOLUTION)
+    ref = mesh_from_model(model.cpu(), MESH_CPU_RESOLUTION)
+    gap = float(np.abs(ours[0] - ref[0]).max())
+    row["card_vs_cpu"] = {"vertices": len(ours[0]), "max_abs_err": gap}
+    log(f"mesh_from_model at {MESH_CPU_RESOLUTION}^3, card against CPU: "
+        f"{len(ours[0])} vertices, max |d| {gap:.3e} (held: "
+        f"{MESH_CPU_ATOL:g}), the same triangles ({CARD})")
+    if ours[0].shape != ref[0].shape or gap > MESH_CPU_ATOL \
+            or not np.array_equal(ours[1], ref[1]):
+        raise AssertionError("the card's mesh is not the CPU's")
+
+    nerf = load_model(checkpoint).cuda()
+    alpha_field(nerf, 16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    field = alpha_field(nerf, MESH_RESOLUTION)
+    query_s = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    start = time.perf_counter()
+    vertices, triangles = surface_nets(field - 0.5, 0.0)
+    nets_s = time.perf_counter() - start
+    row["nerf_8x256"] = {"query_s": query_s, "peak_bytes": peak,
+                         "surface_nets_s": nets_s,
+                         "vertices": len(vertices),
+                         "alpha_max": float(field.max())}
+    log(f"mesh field sweep of the 30-step 8x256 checkpoint at "
+        f"{MESH_RESOLUTION}^3 = {MESH_RESOLUTION ** 3} points (plain f32, "
+        f"batches of 2^18, one host copy): {query_s:.4f} s (predicted "
+        f"0.15-0.5; the FFMA bound ~0.125), peak device memory "
+        f"{peak / 2 ** 20:.1f} MiB; surface nets on the host "
+        f"{nets_s:.3f} s, {len(vertices)} vertices at alpha 0.5 (max alpha "
+        f"{field.max():.3f}; not held) ({CARD})")
+    return row
+
+
+def phase_sweep() -> dict:
+    """sweep train_signal_regression, grid over --num-channels
+    SWEEP_VALUES, two trainer processes at a time on the card, each
+    SWEEP_STEPS steps of multifreq --fourier --no-plot; held: both exit
+    0 with a finite val loss, and the sweep names a best run. (The
+    signal trainer has no --learning-rate flag, in JAX neither.)"""
+    from fourier_feature_nets_torch.cli import sweep
+    codes = {}
+    inner = sweep._launch
+
+    def recording(trainer, run_dir, trainer_args, overrides, extra_env=None):
+        code = inner(trainer, run_dir, trainer_args, overrides, extra_env)
+        codes[os.path.basename(run_dir)] = code
+        return code
+
+    sweep_dir = os.path.join(OUT_DIR, "sweep")
+    shutil.rmtree(sweep_dir, ignore_errors=True)
+    sweep._launch = recording
+    start = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            best, scores = sweep.run_sweep(
+                "train_signal_regression", "num-channels",
+                list(SWEEP_VALUES), sweep_dir,
+                ["multifreq", "--device", "cuda", "--fourier", "--no-plot",
+                 "--num-steps", str(SWEEP_STEPS), "--report-interval",
+                 str(SWEEP_STEPS // 2)],
+                metric="val_loss", max_concurrent=2)
+    finally:
+        sweep._launch = inner
+    wall = time.perf_counter() - start
+    log(f"sweep train_signal_regression --num-channels "
+        f"{','.join(SWEEP_VALUES)}, 2 at a time on the card: exit codes "
+        f"{codes}, best val loss by run {scores}, best {best}, {wall:.3f} s "
+        f"({CARD})")
+    if sorted(codes.values()) != [0, 0] or not all(
+            np.isfinite(list(scores.values()))) or best not in SWEEP_VALUES:
+        raise AssertionError("the sweep's runs")
+    return {"codes": codes, "scores": scores, "best": best, "wall_s": wall}
+
+
+def phase_inspect() -> dict:
+    """inspect_ray_sampling on smoke-train's scene, plain and
+    --stratified --opacity-model <the dense voxels>: a mask PNG a mode a
+    camera (4 cameras; full, sparse, center, dilate) and
+    t_histogram.png."""
+    from fourier_feature_nets_torch.cli import inspect_ray_sampling
+    rows = {}
+    for label, flags in (("plain", []), ("stratified_focus", [
+            "--stratified", "--opacity-model",
+            os.path.join(OUT_DIR, "voxels", "dense", "voxels.npz")])):
+        out_dir = os.path.join(OUT_DIR, "inspect", label)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        output, wall, _ = run_main(inspect_ray_sampling.main,
+                                   ["synthetic", out_dir, "--device",
+                                    "cuda", *flags])
+        names = sorted(os.listdir(out_dir))
+        masks = [n for n in names if n.endswith(".png")
+                 and n != "t_histogram.png"]
+        expected = {f"{mode}_cam{c:03d}.png" for c in range(4)
+                    for mode in ("full", "sparse", "center", "dilate")}
+        shape, _ = png_shape(os.path.join(out_dir, "t_histogram.png"))
+        rows[label] = {"masks": len(masks), "wall_s": wall}
+        log(f"inspect_ray_sampling {label}: {len(masks)} mask PNGs, "
+            f"t_histogram.png {shape}, {wall:.3f} s for the CLI call "
+            f"({CARD})")
+        if set(masks) != expected or shape != (400, 800, 3):
+            raise AssertionError(f"inspect_ray_sampling {label}: {names}")
+    return rows
+
+
+def phase_sampler_switches(model) -> dict:
+    """The occupancy sampler's modes on bench.py's tree (the smoke-octree
+    sampler, 32 samples, bf16 through K1) at FRAME_RES: one frame in each
+    of ``trilinear=True`` and ``probe_mode="gather"`` beside the default,
+    each timed; held: the gather mode's hit set within the default's
+    (max-pooling only grows occupancy), and each culled frame within 1
+    of the same mode's unculled frame on every pixel it renders (the
+    random flagship has density everywhere, so the culled rays, black in
+    the culled frame, are counted, not held). Then a focus frame with
+    FFN_TORCH_IID_FOCUS_QUANTILES set (a frame draws no jitter: equal to
+    the frame without it) and a stratified 1024-ray batch of that
+    sampler with and without it (the iid quantiles sorted, and not the
+    stratified ones)."""
+    from fourier_feature_nets_torch.cameras import Resolution
+    from fourier_feature_nets_torch.cli import orbit_video
+    from fourier_feature_nets_torch.octree import OcTree
+    from fourier_feature_nets_torch.render import (OccupancyGridSampler,
+                                                   Raycaster, RaySampler)
+    from fourier_feature_nets_torch.utils import orbit
+    args = orbit_video._parse_args(["m.npz", str(FRAME_RES), OUT_DIR])
+    cameras = orbit(orbit_video.VECTORS[args.up_dir],
+                    orbit_video.VECTORS[args.forward_dir], 3,
+                    args.fov_y_degrees, Resolution(FRAME_RES, FRAME_RES),
+                    args.distance)
+    bounds = np.diag([2.0, 2.0, 2.0, 1.0]).astype(np.float32)
+    tree = OcTree.load(os.path.join(OUT_DIR, "bench_tree.npz"))
+    caster = Raycaster(model, compute_dtype=torch.bfloat16)
+    rows, hits = {}, {}
+    for mode, kwargs in (("default", {}), ("trilinear", {"trilinear": True}),
+                         ("gather", {"probe_mode": "gather"})):
+        sampler = OccupancyGridSampler.from_tree(tree, cameras, 32,
+                                                 bounds=bounds,
+                                                 device="cuda", **kwargs)
+        hits[mode] = Raycaster._compute_hit(sampler, 1, 1)
+        _reset_launches()
+        culled = caster.render_frame(sampler, 1)
+        launches = _launch_counts()["fused_nerf"]
+        frame_ms = _frames_ms(caster, sampler, [1], reps=3)
+        whole = caster.render_frame(sampler, 1, cull_empty=False)
+        gap = np.abs(culled.astype(int) - whole.astype(int)).max(-1)
+        drawn = culled.any(-1)
+        rows[mode] = {"frame_ms": frame_ms, "launches": launches,
+                      "hit_rays": int(hits[mode].sum()),
+                      "max_gap_rendered": int(gap[drawn].max(initial=0)),
+                      "pixels_off_culled": int((gap[~drawn] > 1).sum())}
+        log(f"occupancy sampler {mode}, bench tree at {FRAME_RES}px, 32 "
+            f"samples, bf16: {frame_ms:.3f} ms a frame (mean of 3 after a "
+            f"warm-up), K1 launches {launches}, {rows[mode]['hit_rays']} hit "
+            f"rays (stride 1); culled vs unculled: max |d| "
+            f"{rows[mode]['max_gap_rendered']} on the rendered pixels "
+            f"(held: 1), {rows[mode]['pixels_off_culled']} culled pixels the "
+            f"unculled frame colors (not held) ({CARD})")
+        if launches <= 0 or rows[mode]["max_gap_rendered"] > 1:
+            raise AssertionError(f"the {mode} sampler's frame")
+    if bool((hits["gather"] & ~hits["default"]).any()):
+        raise AssertionError("the gather mode hit a ray the max-pooled "
+                             "table missed")
+    log(f"gather hit set within the default's: "
+        f"{rows['gather']['hit_rays']} of {rows['default']['hit_rays']}")
+
+    focus_cameras = cameras[1:2]
+    sampler = RaySampler(bounds, focus_cameras, 64, "cuda", stratified=True,
+                         opacity_model=model)
+    plain = caster.render_frame(sampler, 0, cull_empty=False)
+    offsets = torch.arange(0, FRAME_RES * FRAME_RES, 625, device="cuda")
+    batch = {}
+    for iid in (False, True):
+        if iid:
+            os.environ["FFN_TORCH_IID_FOCUS_QUANTILES"] = "1"
+        try:
+            start = time.perf_counter()
+            frame = caster.render_frame(sampler, 0, cull_empty=False)
+            focus_ms = (time.perf_counter() - start) * 1e3
+            batch[iid] = sampler.sample_camera_rays(0, offsets, 3, 7)[0]
+        finally:
+            os.environ.pop("FFN_TORCH_IID_FOCUS_QUANTILES", None)
+    t_iid = batch[True].t_values
+    rows["iid_focus"] = {"frame_ms": focus_ms,
+                         "frame_equal": bool(np.array_equal(frame, plain))}
+    log(f"focus frame with FFN_TORCH_IID_FOCUS_QUANTILES: {focus_ms:.3f} ms,"
+        f" equal to the frame without it: {rows['iid_focus']['frame_equal']}"
+        f"; a stratified batch of {offsets.numel()} rays: sorted t "
+        f"{bool((t_iid.diff(dim=-1) >= 0).all())}, differs from the "
+        f"stratified draw {not torch.equal(t_iid, batch[False].t_values)} "
+        f"({CARD})")
+    if not rows["iid_focus"]["frame_equal"] or not bool(
+            (t_iid.diff(dim=-1) >= 0).all()) or torch.equal(
+            t_iid, batch[False].t_values):
+        raise AssertionError("the iid focus quantiles")
+    return rows
+
+
+def phase_debug_nans() -> dict:
+    """One plain (not fused) flagship train step (1024 rays x 128) with a
+    NaN in one weight: under enable_debug_nans it raises, without it it
+    does not. Then whether a CUDA graph captures a backward under the
+    NaN check, and that a graph chunk refuses the switch."""
+    from fourier_feature_nets_torch.cli.common import resolve_data_path
+    from fourier_feature_nets_torch.datasets import ImageDataset
+    from fourier_feature_nets_torch.models import flagship_nerf
+    from fourier_feature_nets_torch.render import Raycaster
+    from fourier_feature_nets_torch.render.raycaster import _GraphChunk
+    from fourier_feature_nets_torch.utils.debug import enable_debug_nans
+    from fourier_feature_nets_torch.utils.optim import ClippedAdam
+    os.environ["FFN_TORCH_DATA_DIR"] = os.path.join(OUT_DIR, "data")
+    dataset = ImageDataset.load(resolve_data_path("synthetic", "cuda"),
+                                "train", 128, stratified=True, device="cuda")
+    perm = torch.from_numpy(np.asarray(dataset.index_pool(), np.int64)
+                            ).cuda()
+    row = {}
+    for debug in (False, True):
+        model = flagship_nerf(torch.Generator().manual_seed(SEED)).cuda()
+        with torch.no_grad():
+            model.layers[0].weight[0, 0] = float("nan")
+        caster = Raycaster(model, fused=False, fused_train=False)
+        step = caster._make_train_step(dataset, 1024, 5e-4, 0.1, 250000,
+                                       ClippedAdam(model.parameters(), 5e-4))
+        enable_debug_nans(debug)
+        try:
+            start = time.perf_counter()
+            loss = float(step(perm, 0, 0, 0))
+            row[f"debug_{debug}"] = f"no raise, loss {loss}"
+        except RuntimeError as error:
+            row[f"debug_{debug}"] = f"raised: {str(error)[:160]}"
+        finally:
+            torch.cuda.synchronize()
+            row[f"debug_{debug}_ms"] = (time.perf_counter() - start) * 1e3
+            enable_debug_nans(False)
+    layer = torch.nn.Linear(64, 64).cuda()
+    x = torch.randn(256, 64, device="cuda")
+    layer(x).sum().backward()
+    enable_debug_nans(True)
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            layer(x).sum().backward()
+        row["graph_capture"] = "captured"
+    except RuntimeError as error:
+        row["graph_capture"] = f"raised: {str(error)[:200]}"
+    try:
+        _GraphChunk(lambda inputs: None,
+                    ClippedAdam(layer.parameters(), 1e-3, capturable=True),
+                    ("step",))(0)
+        row["graph_chunk"] = "ran"
+    except ValueError as error:
+        row["graph_chunk"] = f"ValueError: {str(error)[:120]}"
+    finally:
+        enable_debug_nans(False)
+    torch.cuda.synchronize()
+    log(f"debug NaNs, flagship plain step with a NaN weight: without the "
+        f"switch {row['debug_False']} ({row['debug_False_ms']:.1f} ms); "
+        f"with it {row['debug_True']} ({row['debug_True_ms']:.1f} ms); a "
+        f"CUDA graph capture of a backward under the NaN check: "
+        f"{row['graph_capture']}; a graph chunk under it: "
+        f"{row['graph_chunk']} ({CARD})")
+    if not row["debug_True"].startswith("raised") \
+            or not row["debug_False"].startswith("no raise") \
+            or not row["graph_chunk"].startswith("ValueError"):
+        raise AssertionError("the debug NaN switch")
+    return row
+
+
+def phase_item7_paths(model, checkpoint) -> dict:
+    """The slice's phases, each timed."""
+    rows, seconds = {}, {}
+    for name, fn, args in (
+            ("make_video", phase_make_video, ()),
+            ("comparison", phase_comparison, (checkpoint,)),
+            ("distill_voxels", phase_distill_voxels, ()),
+            ("export_mesh", phase_export_mesh, (checkpoint,)),
+            ("sweep", phase_sweep, ()),
+            ("inspect", phase_inspect, ()),
+            ("sampler_switches", phase_sampler_switches, (model,)),
+            ("debug_nans", phase_debug_nans, ())):
+        start = time.perf_counter()
+        rows[name] = fn(*args)
+        seconds[name] = time.perf_counter() - start
+    rows["phase_s"] = seconds
+    log("item-7 phases: " + ", ".join(f"{k} {v:.3f} s"
+                                      for k, v in seconds.items())
+        + f", {sum(seconds.values()):.3f} s in all ({CARD})")
+    return rows
+
+
+def _item7_launches(item7, kernel: str) -> dict:
+    """A kernel's launches on the item-7 paths: the orbit frames of each
+    --make-video trainer (K1), the comparison strip (K1), the voxel
+    teacher's distillation (eager and in the graph replays) and the
+    sampler modes' frames (K1)."""
+    distill = item7["distill_voxels"]["launches"]
+    rows = {"distill_voxel_teacher": {
+        "in_graph_replays": distill["in_graph_replays"][kernel],
+        "eager": distill["eager"][kernel]}}
+    if kernel == "fused_nerf":
+        rows.update({f"make_video_{label}": row["frame_launches"]
+                     for label, row in item7["make_video"].items()})
+        rows["comparison"] = item7["comparison"]["launches"]
+        rows.update({f"occupancy_{mode}_frame": item7["sampler_switches"][
+            mode]["launches"] for mode in ("trilinear", "gather")})
+    else:
+        rows.update({f"make_video_{label}": row["launches"][kernel]
+                     for label, row in item7["make_video"].items()})
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch port on one NVIDIA GPU")
@@ -4502,6 +5089,10 @@ def main(argv=None) -> int:
     log("the FFN family, the voxel fields and the regression CLIs (no "
         "kernel on these paths):")
     ffn = timed("ffn_paths", phase_ffn_paths)
+    log("queue 1, item 7: --make-video, the comparison strip, a voxel "
+        "teacher, mesh export, the sweep, the inspector, the sampler "
+        "switches, debug NaNs:")
+    item7 = timed("item7_paths", phase_item7_paths, model, checkpoint)
     torch.cuda.empty_cache()
     log("K3 vs plain twin, flagship:")
     render_checks = phase_ray_render_vs_twin(model)
@@ -4607,9 +5198,11 @@ def main(argv=None) -> int:
                                row["in_graph_replays"]["fused_nerf"],
                                "eager": row["eager"]["fused_nerf"]}
                         for name, row in distilled["launches"].items()},
-            **_ffn_launches(ffn, "fused_nerf")},
+            **_ffn_launches(ffn, "fused_nerf"),
+            **_item7_launches(item7, "fused_nerf")},
         "student_6x192": distilled["kernels"]["fused_nerf"],
         "ffn_voxel_regression": ffn,
+        "item7_paths": item7,
         "face_probe": face,
         "pose": pose,
         "chunked": chunked,
@@ -4654,7 +5247,8 @@ def main(argv=None) -> int:
                                row["in_graph_replays"]["fused_nerf_train"],
                                "eager": row["eager"]["fused_nerf_train"]}
                         for name, row in distilled["launches"].items()},
-            **_ffn_launches(ffn, "fused_nerf_train")},
+            **_ffn_launches(ffn, "fused_nerf_train"),
+            **_item7_launches(item7, "fused_nerf_train")},
         "student_6x192": distilled["kernels"]["fused_nerf_train"],
         "distill": {k: v for k, v in distilled.items() if k != "kernels"},
         "train_chunks": chunks,

@@ -86,9 +86,7 @@ def add_common_train_args(parser):
 def fit_kwargs(args) -> dict:
     """``fit`` kwargs from the common flags: the seed, steps per call,
     occupancy-guided training and checkpoint/resume, as the JAX CLI
-    passes them. ``--make-video`` and ``--data-parallel`` raise here."""
-    if args.make_video:
-        raise not_ported("--make-video", _REMAINING)
+    passes them. ``--data-parallel`` raises here."""
     if args.data_parallel:
         raise not_ported("--data-parallel", _REMAINING)
     kwargs = {"seed": args.seed, "steps_per_call": args.steps_per_call}
@@ -162,10 +160,19 @@ def load_train_val(args, opacity_model=None, num_samples=None):
     return train, val
 
 
-def make_visualizers(args, train_dataset, val_dataset):
-    """The per-run visualizers: evaluation grids of the train and val
-    sets every ``--image-interval`` steps (0 disables them)."""
-    from ..visualizers import EvaluationVisualizer
+def make_visualizers(args, train_dataset, val_dataset, num_samples=None):
+    """The per-run visualizers: with ``--make-video`` an orbit video of
+    ``--num-frames`` frames at the train cameras' resolution and
+    ``num_samples`` (default ``--num-samples``) samples on
+    ``args.device``; else evaluation grids of the train and val sets
+    every ``--image-interval`` steps (0 disables them)."""
+    from ..visualizers import EvaluationVisualizer, OrbitVideoVisualizer
+    if args.make_video:
+        return [OrbitVideoVisualizer(
+            args.results_dir, args.num_steps,
+            train_dataset.cameras[0].resolution, args.num_frames,
+            num_samples or args.num_samples, args.color_space,
+            args.device)]
     if args.image_interval <= 0:
         return []
     return [EvaluationVisualizer(args.results_dir, train_dataset,

@@ -11,8 +11,10 @@ takes a local NPZ or ``synthetic[:res]`` and reports the student's (and
 with ``--eval-teacher`` the teacher's) val PSNR at 128 uniform samples.
 Writes ``student.npz`` and ``distill_log.txt``; ``--checkpoint-interval``
 and ``--resume`` keep and resume train-state checkpoints in
-``<results_dir>/checkpoints``. A teacher of another model type raises
-``NotImplementedError`` naming its ROADMAP.md item.
+``<results_dir>/checkpoints``. The teacher may be any model type (a
+voxel field, an FFN): one that is not a NeRF is queried plain and takes
+the stratified uniform sampler, as ``--uniform`` does, and ``--fused``
+then reaches the student alone.
 
     python -m fourier_feature_nets_torch.cli.distill_model teacher.npz out/ \\
         --num-steps 20000
@@ -33,7 +35,6 @@ from ..ops import psnr_from_mse
 from ..render import OccupancyGridSampler, Raycaster, RaySampler
 from ..render.distill import distill
 from ..utils import ETABar, hemisphere
-from ..utils.errors import not_ported
 from .common import RECOMMENDED_STUDENT, resolve_data_path
 from .orbit_video import VECTORS
 
@@ -42,7 +43,7 @@ def build_parser() -> ArgumentParser:
     parser = ArgumentParser("Model Distillation (baking for serving)",
                             formatter_class=ArgumentDefaultsHelpFormatter)
     parser.add_argument("teacher_path", help="Trained teacher checkpoint "
-                        "(.npz)")
+                        "(.npz, any model type)")
     parser.add_argument("results_dir")
     parser.add_argument("--device", default="cuda",
                         help="Torch device to distill on")
@@ -158,13 +159,10 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
     os.makedirs(args.results_dir, exist_ok=True)
     teacher = load_model(args.teacher_path).to(device).requires_grad_(False)
-    if teacher.model_type != "nerf":
-        raise not_ported(f"distillation from a {teacher.model_type} "
-                         "teacher", "Remaining models, data, CLIs and "
-                         "parallel")
+    is_nerf = teacher.model_type == "nerf"
 
     cameras, bounds, val_cameras, gt_rgb = _supervision(args, device)
-    if args.uniform:
+    if args.uniform or not is_nerf:
         sampler = RaySampler(bounds, cameras, args.num_samples, device,
                              stratified=True)
     else:
@@ -201,7 +199,8 @@ def main(argv=None) -> int:
         batch_rays=args.batch_rays, learning_rate=args.learning_rate,
         decay_rate=args.decay_rate, decay_steps=args.decay_steps,
         seed=args.seed, steps_per_call=args.steps_per_call,
-        fused_teacher=args.fused, fused_student=args.fused,
+        fused_teacher=args.fused if is_nerf else False,
+        fused_student=args.fused,
         report_interval=args.report_interval, reporter=reporter,
         checkpoint_dir=(os.path.join(args.results_dir, "checkpoints")
                         if args.checkpoint_interval or args.resume

@@ -12,8 +12,10 @@ the train and val rays with that checkpoint's density.
 replay; ``--checkpoint-interval`` writes resumable train-state
 checkpoints to ``<results_dir>/checkpoints`` and ``--resume`` continues
 from the newest; ``--occupancy-*`` trains occupancy-guided.
-``--make-video`` and ``--data-parallel`` raise ``NotImplementedError``
-naming their ROADMAP.md item.
+``--make-video`` writes an orbit of ``--num-frames`` frames over the
+run to ``<results_dir>/video`` (through K1 when the run is fused) in
+place of the evaluation grids. ``--data-parallel`` raises
+``NotImplementedError`` naming its ROADMAP.md item.
 
     python -m fourier_feature_nets_torch.cli.train_nerf synthetic out/ \\
         --num-steps 30 --report-interval 10 --steps-per-call 8

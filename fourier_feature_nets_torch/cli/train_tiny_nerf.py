@@ -7,8 +7,9 @@ and defaults plus ``--device`` (default ``cuda``): a 3 -> 4 FFN variant
 fused kernels are the NeRF's only), optionally focus-sampled by
 ``--opacity-model`` (any checkpoint type). ``--make-activations`` writes
 an orbit of the last hidden layer's activation grid to
-``<results_dir>/activations``. ``--steps-per-call``, ``--resume`` and
-the other common training flags work as in ``train_nerf``. Writes
+``<results_dir>/activations``. ``--steps-per-call``, ``--resume``,
+``--make-video`` and the other common training flags work as in
+``train_nerf``. Writes
 ``tiny_nerf.npz``, ``tiny_nerf_best.npz`` and ``log.txt``.
 
     python -m fourier_feature_nets_torch.cli.train_tiny_nerf synthetic \\

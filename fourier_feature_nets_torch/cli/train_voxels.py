@@ -7,8 +7,8 @@ grid of ``side`` cubed cells, or with ``--factorized-rank R`` > 0 a
 through ``Raycaster.fit`` as plain PyTorch, with no crop curriculum and
 no weight decay. The cube spans the render volume: its half extent is
 ``bounds[0, 0] / 2`` (the JAX package's corrected form).
-``--steps-per-call``, ``--resume`` and the other common training flags
-work as in ``train_nerf``. Writes ``voxels.npz``, ``voxels_best.npz``
+``--steps-per-call``, ``--resume``, ``--make-video`` and the other
+common training flags work as in ``train_nerf``. Writes ``voxels.npz``, ``voxels_best.npz``
 and ``log.txt``.
 
     python -m fourier_feature_nets_torch.cli.train_voxels synthetic 128 out/

@@ -14,6 +14,7 @@ from .encoding import (
     gaussian_encoding_matrix,
     positional_encoding_matrix,
 )
+from .interpolation import interpolate_bilinear
 from .intersection import NearFar, bounds_min_max, ray_aabb_near_far
 from .metrics import psnr_from_mse
 from .sampling import (
@@ -43,6 +44,7 @@ __all__ = [
     "fourier_encode",
     "gaussian_encoding_matrix",
     "inverse_cdf_from_bins",
+    "interpolate_bilinear",
     "inverse_cdf_t_values",
     "merge_sorted",
     "per_ray_uniform",

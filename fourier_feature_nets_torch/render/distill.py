@@ -1,7 +1,8 @@
 """Teacher -> student radiance-field distillation (baking a serving model).
 
 Port of ``fourier_feature_nets_tpu/render/distill.py``: a smaller student
-NeRF is trained directly against a trained teacher's field, at the
+NeRF is trained directly against a trained teacher's field (of any model
+type: a NeRF, an FFN, a voxel field), at the
 sample points of rays a renderer asks for (a camera rig and a sampler),
 with no dataset. The loss matches, per sample point,
 
@@ -15,12 +16,14 @@ both masked to the rays that hit the volume. Adam has torch semantics
 with L2 ``weight_decay`` and no clipping, at ``exponential_lr``.
 
 With the kernels (``fused_teacher`` / ``fused_student``; None: for a
-NeRF on CUDA, as the JAX package turns its kernels on on a TPU) the
-frozen teacher runs K1 from one bf16 pack built once, and the student
-runs K1 forward and K2 backward (``fused_nerf_train_apply``) on a bf16
-pack of its live weights, rebuilt each step; both packs are bf16
-whatever ``compute_dtype`` is, as in the JAX package. Without them both
-run the plain model at ``compute_dtype``.
+NeRF on CUDA, as the JAX package turns its kernels on on a TPU) a
+frozen NeRF teacher runs K1 from one bf16 pack built once, and the
+student runs K1 forward and K2 backward (``fused_nerf_train_apply``) on
+a bf16 pack of its live weights, rebuilt each step; both packs are bf16
+whatever ``compute_dtype`` is, as in the JAX package. The kernels take a
+NeRF only: another teacher is always queried plain
+(``models.module.query_model``, without the views when it takes none).
+Without them both run the plain model at ``compute_dtype``.
 
 Each step draws its camera, its pixels and the sampler's jitter on the
 device from a stateless hash of (seed, absolute step)
@@ -48,6 +51,7 @@ from ..kernels.fused_nerf import (
     prepare_fused_nerf,
 )
 from ..kernels.fused_nerf_train import fused_nerf_train_apply
+from ..models.module import query_model
 from ..models.serialization import named_parameters, params_from_jax
 from ..ops.sampling import per_ray_uniform
 from ..utils.optim import ClippedAdam, exponential_lr
@@ -106,14 +110,15 @@ def distill_loss(t_logits: torch.Tensor, s_logits: torch.Tensor,
 
 
 def _teacher_fn(teacher, fused: bool, compute_dtype):
-    """(positions, views) -> (N, 4) logits of the frozen teacher."""
-    if fused:
+    """(positions, views) -> (N, 4) logits of the frozen teacher: K1 for
+    a NeRF when ``fused``, else the plain query of any model type."""
+    if fused and teacher.model_type == "nerf":
         weights = prepare_fused_nerf(teacher, torch.bfloat16)
         return lambda pos, views: fused_nerf_apply(weights, pos, views)
 
     def plain(pos, views):
         with torch.no_grad():
-            return teacher(pos, views, compute_dtype=compute_dtype)
+            return query_model(teacher, pos, views, compute_dtype)
     return plain
 
 
@@ -171,8 +176,8 @@ def distill(teacher, student, sampler, num_steps: int,
     """Trains ``student`` (in place) to match ``teacher``'s field.
 
     Args:
-        teacher: the trained NeRF to bake (frozen), on the sampler's
-            device.
+        teacher: the trained field to bake (frozen; any model type), on
+            the sampler's device.
         student: the NeRF to train, initialized by the caller (the CLI
             seeds it with ``seed``), on the same device.
         sampler: the ray source, any sampler with
@@ -190,9 +195,10 @@ def distill(teacher, student, sampler, num_steps: int,
             steps that remain; on CUDA each call is one CUDA-graph
             replay.
         rgb_floor: the alpha-weight floor of the color term.
-        fused_teacher / fused_student: the kernels (K1 for the
+        fused_teacher / fused_student: the kernels (K1 for a NeRF
             teacher, K1 + K2 for the student); None: for a NeRF on CUDA.
-            On the CPU they run the kernels' plain twins.
+            A teacher of another type is queried plain either way. On
+            the CPU they run the kernels' plain twins.
         compute_dtype: the plain models' matmul dtype (None: f32).
         reporter: ``f(step, loss)``, called after a call whose last step
             count is a multiple of ``report_interval``, and at the end.

@@ -14,13 +14,21 @@ The JAX package's default probe reads a max-pooled ``probe_resolution``
 cubed table through a one-hot matmul, because dynamic gathers are slow
 on a TPU. Here the probe is a gather from the SAME max-pooled table, so
 the CDF weights match the JAX default (``probe_mode="matmul"``) exactly.
+``probe_mode="gather"`` reads the exact ``grid_resolution`` grid instead,
+and ``trilinear`` interpolates it (``F.grid_sample`` in 3-D, border
+clamping, ``align_corners=False``, the clamping of the JAX package's
+``grid_sample_3d`` and of the port's ``Voxels``); their CDF weights are
+the JAX modes' too.
 The culling signal (``hit``) is conservative at cell faces: a probe
 within ``FACE_DELTA`` cells of a face also counts the occupancy of the
 cell across it, so a ray's flag does not turn on how its f32 geometry
 was rounded (the JAX package computes it in one XLA program, the port
-op by op); off such probes it is the same gather.
-The JAX constructor's ``trilinear`` and ``probe_mode="gather"`` options
-are not ported (ROADMAP.md, queue 1, item 7). A stratified sampler
+op by op); off such probes it is the gather of the table the mode reads
+(the max-pooled one by default, the exact grid with ``"gather"``). With
+``trilinear`` a probe counts when any cell within one of its own is
+occupied: every cell its interpolation can weigh, however the probe's
+position rounds (a superset of the JAX flag, ``occupancy > 0``).
+A stratified sampler
 draws one jittered CDF quantile per stratum when :meth:`sample` is
 given a key, as occupancy-guided training does. Refreshing the grid at
 its resolution rewrites the tables in place
@@ -32,6 +40,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..cameras import CameraInfo
 from ..models.module import query_model
@@ -103,7 +112,7 @@ def density_grid_from_model(model, resolution: int = 64,
     ).to(device)
     with torch.no_grad():
         out = query_model(model, points, torch.zeros_like(points))
-        sigma = torch.nn.functional.softplus(out[:, 3])
+        sigma = F.softplus(out[:, 3])
         cell = 2.0 * scale / resolution
         alpha = 1.0 - torch.exp(-sigma * cell)
     return (alpha > alpha_threshold).float().cpu().numpy().reshape(
@@ -158,7 +167,8 @@ class OccupancyGridSampler(RaySampler):
                  num_probes: int = 32, empty_weight: float = 1e-2,
                  bounds: Optional[np.ndarray] = None,
                  probe_resolution: int = 32, device="cpu",
-                 stratified: bool = False):
+                 stratified: bool = False, trilinear: bool = False,
+                 probe_mode: str = "matmul"):
         """Constructor.
 
         Args:
@@ -175,7 +185,15 @@ class OccupancyGridSampler(RaySampler):
             device: where the tables and samples live.
             stratified: jitter the CDF quantiles when :meth:`sample` is
                 given a key (occupancy-guided training).
+            trilinear: interpolate the grid's occupancy (8 reads a
+                probe) instead of reading a cell; overrides
+                ``probe_mode``.
+            probe_mode: "matmul" (the JAX package's default) reads the
+                max-pooled table, "gather" the exact grid.
         """
+        if probe_mode not in ("matmul", "gather"):
+            raise ValueError(f"probe_mode {probe_mode!r}: 'matmul' or "
+                             "'gather'")
         if bounds is None:
             side = 2 * grid_scale
             bounds = np.diag([side, side, side, 1.0]).astype(np.float32)
@@ -183,14 +201,18 @@ class OccupancyGridSampler(RaySampler):
                          stratified=stratified)
         self.num_probes = num_probes
         self.empty_weight = empty_weight
+        self.trilinear = trilinear
+        self.probe_mode = probe_mode
         self._grid_scale = float(grid_scale)
         grid = np.asarray(occupancy_grid, np.float32)
         self._probe_target = min(probe_resolution, int(grid.shape[0]))
         self.set_occupancy_grid(grid)
 
     def set_occupancy_grid(self, grid: np.ndarray) -> None:
-        """(Re)installs the occupancy volume and its max-pooled probe
-        table (max-pooling only ever grows occupancy).
+        """(Re)installs the occupancy volume, its max-pooled probe table
+        (max-pooling only ever grows occupancy) and the neighbour masks
+        of the table the hit flag reads (the max-pooled one, or the grid
+        in the ``"gather"`` and ``trilinear`` modes).
 
         A grid of the installed resolution is copied into the existing
         tensors, which keep their storage: a CUDA graph captured
@@ -207,7 +229,9 @@ class OccupancyGridSampler(RaySampler):
                               side, factor).max((1, 3, 5))
         # flat cell id = (z * side + y) * side + x
         table = np.ascontiguousarray(coarse.reshape(-1))
-        neighbours = torch.from_numpy(_neighbour_masks(coarse))
+        exact = self.trilinear or self.probe_mode == "gather"
+        neighbours = torch.from_numpy(_neighbour_masks(grid if exact
+                                                       else coarse))
         occupancy = getattr(self, "occupancy", None)
         if occupancy is not None and occupancy.shape == grid.shape:
             occupancy.copy_(torch.from_numpy(grid))
@@ -216,6 +240,7 @@ class OccupancyGridSampler(RaySampler):
             return
         self._grid_resolution = grid_resolution
         self._probe_resolution = side
+        self._hit_resolution = grid_resolution if exact else side
         self.occupancy = torch.from_numpy(grid).to(self.device)
         self.probe_table = torch.from_numpy(table).to(self.device)
         self.neighbour_table = neighbours.to(self.device)
@@ -227,15 +252,15 @@ class OccupancyGridSampler(RaySampler):
                   num_probes: int = 32, empty_weight: float = 1e-2,
                   bounds: Optional[np.ndarray] = None,
                   probe_resolution: int = 32,
-                  device="cpu") -> "OccupancyGridSampler":
+                  device="cpu", **kwargs) -> "OccupancyGridSampler":
         """Sampler guided by an octree (e.g. ``voxelize_model``'s),
         rasterized at ``grid_resolution`` over the tree's cube, with the
-        JAX constructor's defaults."""
+        JAX constructor's defaults; ``kwargs`` go to the constructor."""
         grid = occupancy_grid_from_tree(tree, grid_resolution)
         return cls(grid, tree.scale, cameras, num_samples,
                    num_probes=num_probes, empty_weight=empty_weight,
                    bounds=bounds, probe_resolution=probe_resolution,
-                   device=device)
+                   device=device, **kwargs)
 
     @classmethod
     def from_model(cls, model, cameras: List[CameraInfo], num_samples: int,
@@ -256,10 +281,12 @@ class OccupancyGridSampler(RaySampler):
         return cls(grid, scale, cameras, num_samples,
                    empty_weight=empty_weight, bounds=bounds, **kwargs)
 
-    def _cells(self, points: torch.Tensor) -> torch.Tensor:
+    def _cells(self, points: torch.Tensor,
+               side: Optional[int] = None) -> torch.Tensor:
         """(..., 3) world points -> their (N, 3) f32 coordinates in
-        cells of the probe table."""
-        side = self._probe_resolution
+        cells of a table of ``side`` cells an axis (default: the probe
+        table's)."""
+        side = self._probe_resolution if side is None else side
         return (points.reshape(-1, 3) / self._grid_scale + 1.0) * 0.5 * side
 
     def _table_at(self, x: torch.Tensor, y: torch.Tensor,
@@ -270,10 +297,25 @@ class OccupancyGridSampler(RaySampler):
         return self.probe_table[(z * side + y) * side + x]
 
     def _occupancy_at(self, points: torch.Tensor) -> torch.Tensor:
-        """Occupancy of the max-pooled table at (..., 3) world points:
-        the cell each point's f32 position truncates into."""
-        cell = self._cells(points).to(torch.int64)
-        return self._table_at(*cell.unbind(-1)).reshape(points.shape[:-1])
+        """The CDF's occupancy at (..., 3) world points: of the cell each
+        point's f32 position truncates into, in the max-pooled table or
+        (``"gather"``) the grid; or (``trilinear``) the grid
+        interpolated."""
+        shape = points.shape[:-1]
+        if self.trilinear:
+            coords = (points / self._grid_scale).reshape(1, 1, 1, -1, 3)
+            return F.grid_sample(self.occupancy[None, None], coords,
+                                 mode="bilinear", padding_mode="border",
+                                 align_corners=False).reshape(shape)
+        if self.probe_mode == "gather":
+            res = self._grid_resolution
+            cell = torch.clamp(self._cells(points, res).to(torch.int64), 0,
+                               res - 1)
+            x, y, z = cell.unbind(-1)
+            return self.occupancy.reshape(-1)[
+                (z * res + y) * res + x].reshape(shape)
+        cell = self._cells(points, self._probe_resolution).to(torch.int64)
+        return self._table_at(*cell.unbind(-1)).reshape(shape)
 
     def _occupied_near(self, points: torch.Tensor) -> torch.Tensor:
         """The hit flag's occupancy at (..., 3) world points: whether a
@@ -282,10 +324,17 @@ class OccupancyGridSampler(RaySampler):
         counts too (up to 8 cells at a corner); elsewhere only the
         point's own cell, :meth:`_occupancy_at`'s. One read of the own
         cell's neighbour mask (:func:`_neighbour_masks`) and one of the
-        query mask of the faces the point is near (``_FACE_QUERIES``)."""
-        side = self._probe_resolution
-        cell = self._cells(points)
+        query mask of the faces the point is near (``_FACE_QUERIES``).
+        The table is the max-pooled one, or the grid in the ``"gather"``
+        and ``trilinear`` modes; with ``trilinear`` every cell within one
+        of the point's own counts (any bit of its neighbour mask)."""
+        side = self._hit_resolution
+        cell = self._cells(points, side)
         own = cell.to(torch.int64)
+        if self.trilinear:
+            x, y, z = torch.clamp(own, 0, side - 1).unbind(-1)
+            return (self.neighbour_table[(z * side + y) * side + x]
+                    != 0).reshape(points.shape[:-1])
         frac = cell - own
         # -1 / +1 on an axis where the point is within FACE_DELTA of the
         # lower / upper face of its cell, then kept inside the table

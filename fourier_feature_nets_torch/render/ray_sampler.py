@@ -8,12 +8,14 @@ geometry (``camera_ray_geometry``, ``pose_ray_geometry``,
 index sampling (``sample``) with stratified jitter and near/far
 annealing, focus sampling (half the samples drawn from per-ray CDFs of
 an opacity model's density), ``to_valid``, ``rays_for_camera`` and
-``to_image``. The JAX package's iid-quantile ablation switch
-(``FFN_TPU_IID_FOCUS_QUANTILES``) is not ported: focus quantiles are
-always stratified.
+``to_image``. A stratified focus sampler draws one jittered quantile a
+stratum; with ``FFN_TORCH_IID_FOCUS_QUANTILES`` set (the JAX package's
+``FFN_TPU_IID_FOCUS_QUANTILES`` ablation) it draws them iid and sorted,
+as the reference does.
 """
 
 import functools
+import os
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -36,6 +38,13 @@ from ..ops import (
 from ..utils.color import ycrcb_to_rgb
 
 __all__ = ["RaySamples", "RaySampler", "RayTables"]
+
+
+def _iid_focus_quantiles() -> bool:
+    """The parity-ablation switch, read at each draw: a stratified focus
+    sampler's fine quantiles drawn iid and sorted, as the reference
+    draws them, instead of one a stratum."""
+    return bool(os.environ.get("FFN_TORCH_IID_FOCUS_QUANTILES"))
 
 
 class RaySamples(NamedTuple):
@@ -311,9 +320,12 @@ class RaySampler:
             if self.focus_sampling:
                 u = per_ray_uniform(rng, key_step, idx,
                                     self.num_focus_samples, salt=1)
-                strata = torch.arange(self.num_focus_samples,
-                                      dtype=u.dtype, device=u.device)
-                focus_quantiles = (strata + u) / self.num_focus_samples
+                if _iid_focus_quantiles():
+                    focus_quantiles = torch.sort(u, dim=-1).values
+                else:
+                    strata = torch.arange(self.num_focus_samples,
+                                          dtype=u.dtype, device=u.device)
+                    focus_quantiles = (strata + u) / self.num_focus_samples
         t_values = uniform_t_values(near, far, num_uniform, jitter)
         if self.focus_sampling:
             if cdf_rows is None:

@@ -48,6 +48,7 @@ from ..ops import (
     calculate_blend_weights,
 )
 from ..utils.color import ycrcb_to_rgb
+from ..utils.debug import debug_nans_enabled
 from ..utils.errors import not_ported
 from ..utils.optim import ClippedAdam, exponential_lr
 from ..utils.progress import LogEntry
@@ -971,7 +972,9 @@ class _GraphChunk:
     uploads, the optimizer state, the library handles), after which the
     optimizer's parameters and state are restored, then the capture.
     Capture errors are raised; the chunk never runs eagerly in its
-    stead. A call returns what ``chunk_fn`` returned at the capture (a
+    stead. Under autograd's NaN check (``utils.debug.enable_debug_nans``,
+    ``FFN_TORCH_DEBUG_NANS``), which reads every gradient on the host,
+    the capture raises ``ValueError``. A call returns what ``chunk_fn`` returned at the capture (a
     static tensor the next replay overwrites); ``on_replay`` runs after
     each replay.
 
@@ -997,6 +1000,12 @@ class _GraphChunk:
         self.captures = 0
 
     def _capture(self, values, device) -> None:
+        if debug_nans_enabled():
+            raise ValueError(
+                "a CUDA-graph chunk (--steps-per-call > 1 on CUDA) cannot "
+                "run under the debug NaN check (enable_debug_nans, "
+                "FFN_TORCH_DEBUG_NANS), whose host reads a graph cannot "
+                "capture: turn one of them off")
         self.graph = self.result = None
         self.inputs = {
             name: (value.clone() if isinstance(value, torch.Tensor)

@@ -1,15 +1,16 @@
 """Training-loop visualization hooks.
 
-Port of ``Visualizer``, ``EvaluationVisualizer`` and
-``ActivationVisualizer`` (with its orbit rig) from
-``fourier_feature_nets_tpu/visualizers.py``: a visualizer receives a
+Port of ``fourier_feature_nets_tpu/visualizers.py``: ``Visualizer``,
+``EvaluationVisualizer``, the orbit visualizers (``OrbitVideoVisualizer``
+and ``ActivationVisualizer``, on an orbit rig of their own) and
+``ComparisonVisualizer``. A visualizer receives a
 ``render(samples, include_depth)`` callable that runs the current model
-through the chunked renderer, and an ``act_render(sampler, camera)``
+through the chunked renderer (through K1 for a fused NeRF,
+``Raycaster.batched_render``), and an ``act_render(sampler, camera)``
 callable that renders the activation grid
 (``Raycaster.render_activations``), so it never touches model state.
-Images are written by the port's standard-library PNG writer. The orbit
-and comparison visualizers are not ported yet (ROADMAP.md, queue 1,
-item 7).
+Images are written by the port's standard-library PNG writer, one PNG a
+frame (the JAX package writes no video file here either).
 """
 
 import os
@@ -17,6 +18,7 @@ from abc import ABC, abstractmethod
 from typing import Callable
 
 import numpy as np
+import torch
 
 from .cameras import Resolution
 from .datasets.image_dataset import ImageDataset
@@ -25,7 +27,8 @@ from .render.raycaster import RenderResult
 from .utils.camera_paths import orbit
 from .utils.png import write_png
 
-__all__ = ["Visualizer", "EvaluationVisualizer", "ActivationVisualizer"]
+__all__ = ["Visualizer", "EvaluationVisualizer", "OrbitVideoVisualizer",
+           "ActivationVisualizer", "ComparisonVisualizer"]
 
 ImageRender = Callable[[RaySamples, bool], RenderResult]
 ActivationRender = Callable[[RaySampler, int], np.ndarray]
@@ -125,6 +128,31 @@ class _OrbitRigVisualizer(Visualizer):
         self._color_space = color_space
 
 
+class OrbitVideoVisualizer(_OrbitRigVisualizer):
+    """An orbit video of the model, one frame
+    (``video/frame_NNNNN.png``) an interval."""
+
+    def __init__(self, results_dir: str, num_steps: int,
+                 resolution: Resolution, num_frames: int,
+                 num_samples: int, color_space: str, device="cpu"):
+        super().__init__(results_dir, "video", num_steps, resolution,
+                         num_frames, num_samples, color_space, device)
+
+    def visualize(self, step: int, render: ImageRender,
+                  _: ActivationRender):
+        """Writes one orbit frame if the step is on the interval."""
+        if not self._due(step):
+            return
+        camera = self._index % self._sampler.num_cameras
+        samples = self._sampler.rays_for_camera(camera)
+        pred = render(samples, False)
+        image = self._sampler.to_image(camera, pred.color,
+                                       self._color_space)
+        name = "frame_{:05d}.png".format(self._index)
+        write_png(os.path.join(self._output_dir, name), image)
+        self._index += 1
+
+
 class ActivationVisualizer(_OrbitRigVisualizer):
     """An orbit video of the last hidden layer's activation grid, one
     frame (``activations/frame_NNNNN.png``) an interval."""
@@ -145,4 +173,54 @@ class ActivationVisualizer(_OrbitRigVisualizer):
         image = act_render(self._sampler, self._index)
         name = "frame_{:05d}.png".format(self._index)
         write_png(os.path.join(self._output_dir, name), image)
+        self._index += 1
+
+
+class ComparisonVisualizer(Visualizer):
+    """Train and val strips (``compare/frame_NNNNN.png``), one frame an
+    interval of ``num_steps // num_frames`` steps: a row a camera, each
+    ground truth beside the prediction, train then val, (H * cameras,
+    4 W, 3). ``device`` (None: the datasets' own) is where the renderer
+    takes the rays' samples."""
+
+    def __init__(self, results_dir: str, num_steps: int, num_frames: int,
+                 train: ImageDataset, val: ImageDataset, device=None):
+        compare_dir = os.path.join(results_dir, "compare")
+        os.makedirs(compare_dir, exist_ok=True)
+        if train.num_cameras != val.num_cameras:
+            raise ValueError(f"{train.num_cameras} train cameras against "
+                             f"{val.num_cameras} val cameras")
+        self._output_dir = compare_dir
+        self._train = train
+        self._val = val
+        self._device = None if device is None else torch.device(device)
+        self._interval = max(1, num_steps // num_frames)
+        self._index = 0
+
+    def visualize(self, step: int, render: ImageRender,
+                  _: ActivationRender):
+        """Writes one comparison strip if the step is on the interval."""
+        if not self._due(step):
+            return
+        num_cameras = self._train.num_cameras
+        resolution = self._train.cameras[0].resolution
+        frame = np.zeros((resolution.height * num_cameras,
+                          resolution.width * 4, 3), np.uint8)
+        c = [i * resolution.width for i in range(5)]
+        for camera in range(num_cameras):
+            r0 = camera * resolution.height
+            r1 = r0 + resolution.height
+            for offset, dataset in ((0, self._train), (2, self._val)):
+                samples = dataset.rays_for_camera(camera)
+                act = dataset.render(samples.rays)
+                if self._device is not None:
+                    samples = RaySamples(*(t.to(self._device)
+                                           for t in samples))
+                pred = render(samples, False)
+                frame[r0:r1, c[offset]:c[offset + 1]] = dataset.to_image(
+                    camera, act.color.cpu().numpy())
+                frame[r0:r1, c[offset + 1]:c[offset + 2]] = dataset.to_image(
+                    camera, np.clip(pred.color, 0, 1))
+        name = "frame_{:05d}.png".format(self._index)
+        write_png(os.path.join(self._output_dir, name), frame)
         self._index += 1

@@ -397,8 +397,15 @@ def test_cli_defaults_and_non_nerf_teacher(tmp_path):
     args = port_cli.build_parser().parse_args(["t.npz", "out"])
     assert (args.student_layers, args.student_channels) == (6, 192)
     assert args.device == "cuda" and args.fused is None
+    # a voxel teacher distils (it raised before the port took any model
+    # type): the student is a NeRF
     voxels = Voxels(side=4, scale=1.0)
     path = str(tmp_path / "voxels.npz")
     save_model(voxels, voxels.init(jax.random.PRNGKey(0)), path)
-    with pytest.raises(NotImplementedError, match="Remaining models"):
-        port_cli.main([path, str(tmp_path / "out"), "--device", "cpu"])
+    out = tmp_path / "out"
+    assert port_cli.main([path, str(out), "--device", "cpu",
+                          "--student-layers", "2", "--student-channels",
+                          "16", "--batch-rays", "16", "--num-samples", "8",
+                          "--resolution", "8", "--num-cameras", "2",
+                          "--num-steps", "2", "--steps-per-call", "2"]) == 0
+    assert port_load_model(str(out / "student.npz")).model_type == "nerf"
