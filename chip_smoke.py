@@ -125,6 +125,24 @@ and drives the port's paths at the flagship width:
   focus frame and batch with ``FFN_TORCH_IID_FOCUS_QUANTILES``; a NaN
   weight that raises under ``enable_debug_nans`` and not without it, and
   whether a graph captures under it;
+* queue 1, item 7, sub-items 8-12: ``orbit_video --preset fast --mp4``
+  (K1 renders the frames; every MP4 sample is the port's JPEG of its PNG
+  byte for byte and the port's decoder reads it back within
+  MP4_MIN_PSNR; encode and decode timed on the host), ``near_orbit``,
+  ``train_image_regression --make-video`` and
+  ``train_signal_regression --make-video`` (which must raise naming
+  matplotlib where it is missing); ``PixelDataset`` from a ``.jpg`` and
+  a few image-regression steps on it, a 512px decode timed;
+  ``view_angle_animation`` of the trained checkpoint (its depth through
+  K1); the three ``to_scenepic`` entry points raising ``ImportError``;
+  then a one-rank NCCL mesh (``MASTER_ADDR=127.0.0.1``, a free port):
+  fused bf16 flagship steps under it and without it, eager and in a
+  CUDA-graph chunk that captures the all-reduce, losses within
+  MESH_LOSS_RTOL and ms a step side by side, ``train_nerf
+  --data-parallel --steps-per-call``, a culled frame under the mesh
+  within 1 of the frame without it, and ``serve --data-parallel`` as a
+  process answering a few requests; the group stays up for
+  ``validate_kernels``, whose two mesh checks must print OK;
 * kernel validation: K3 (K1's kernels with a per-ray view product and a
   compositing epilogue) against its plain twin in bf16 and f32 within
   its limits (kernels/fused_ray_render.py: bf16 max K3_BF16_ATOL and
@@ -139,7 +157,8 @@ and drives the port's paths at the flagship width:
   a buffer); K3, its twin and K1 followed by ``_composite`` timed at
   16384 rays x 48 and x 128 samples, and K3 at the validate CLI's own
   launches; then ``cli/validate_kernels``, which must launch K1, K2, K3
-  and the scan and end in ``ALL OK``;
+  and the scan, print its two mesh checks OK (under the one-rank NCCL
+  group) and end in ``ALL OK``;
 * the probes: P1a and P1b (both also with their operands one row and
   one element into larger buffers, P1b once more from a CUDA graph
   replay), P1c in int8 and P3a-c bit for bit against their
@@ -2301,6 +2320,10 @@ def phase_validate():
     log(f"validate_kernels: rc {rc}, {wall:.3f} s, launches {launches}")
     if rc != 0 or lines[-1] != "ALL OK":
         raise AssertionError(f"validate_kernels returned {rc}")
+    for check in ("shard_map fused train step (mesh) loss",
+                  "render_frame fused under mesh (uint8)"):
+        if not any(line.startswith(f"OK  {check}") for line in lines):
+            raise AssertionError(f"validate_kernels: no OK line for {check}")
     missing = [name for name, count in launches.items() if count <= 0]
     if missing:
         raise AssertionError(f"validate_kernels did not launch {missing}")
@@ -4997,6 +5020,496 @@ def _item7_launches(item7, kernel: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# queue 1, item 7, sub-items 8-12: the MP4 writer (orbit_video --mp4,
+# near_orbit, the regressions' --make-video), JPEG input, the view-angle
+# animation, the scenepic entry points, and a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+MP4_FRAMES = 3                 # orbit_video --mp4 --preset fast frames
+MP4_MIN_PSNR = 25.0            # each decoded sample against its PNG (dB)
+NEAR_FRAMES = 10               # near_orbit's frames
+NEAR_RES = 256
+REGRESSION_VIDEO_STEPS = 20    # train_image_regression --make-video
+JPEG_SIDE = 512                # the decode timing's image
+MESH_BATCH = 1024              # rays a step under the mesh (global)
+MESH_SAMPLES = 64
+MESH_STEPS = 8                 # steps of each mesh run (eager; 2 chunks of 4)
+MESH_CHUNK = 4
+MESH_LOSS_RTOL = 1e-3          # mesh against no mesh: K2's atomics only
+SERVE_MESH_FRAMES = 3
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _psnr(a, b) -> float:
+    mse = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64))
+                  ** 2)
+    return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+
+
+def phase_mp4_orbit() -> dict:
+    """``orbit_video --mp4`` on the seeded flagship at ``--preset fast``:
+    K1 renders the frames; every MP4 sample is the port's JPEG of its
+    PNG byte for byte and decodes (the port's decoder) close to it; the
+    encode and the decode are timed on the host."""
+    from fourier_feature_nets_torch.utils.jpeg import decode_jpeg, encode_jpeg
+    from fourier_feature_nets_torch.utils.png import read_png
+    from fourier_feature_nets_torch.utils.video import read_mp4
+    checkpoint = os.path.join(OUT_DIR, "flagship_seed0.npz")
+    frames_dir = os.path.join(OUT_DIR, "mp4_frames")
+    mp4 = os.path.join(OUT_DIR, "orbit.mp4")
+    output, launches, wall = run_orbit(
+        checkpoint, frames_dir, FRAME_RES,
+        ["--preset", "fast", "--num-frames", str(MP4_FRAMES), "--mp4", mp4])
+    check_frames(frames_dir, MP4_FRAMES, FRAME_RES)
+    rate, size, samples = read_mp4(mp4)
+    if (rate, size, len(samples)) != (20.0, (FRAME_RES, FRAME_RES),
+                                      MP4_FRAMES):
+        raise AssertionError(f"orbit.mp4: {rate} fps, {size}, "
+                             f"{len(samples)} samples")
+    encode_ms, decode_ms, psnrs = [], [], []
+    for index, sample in enumerate(samples):
+        png = read_png(os.path.join(frames_dir, f"frame_{index:05d}.png"))
+        start = time.perf_counter()
+        data = encode_jpeg(png)
+        encode_ms.append((time.perf_counter() - start) * 1e3)
+        start = time.perf_counter()
+        decoded = decode_jpeg(sample)
+        decode_ms.append((time.perf_counter() - start) * 1e3)
+        psnrs.append(_psnr(decoded, png))
+        if data != sample:
+            raise AssertionError(f"sample {index} is not the JPEG of its "
+                                 "PNG")
+    row = {"launches": launches, "wall_s": wall, "bytes": os.path.getsize(mp4),
+           "encode_ms_per_frame": float(np.mean(encode_ms)),
+           "decode_ms_per_frame": float(np.mean(decode_ms)),
+           "psnr_db": psnrs,
+           "cli_line": [l for l in output.splitlines() if "wrote" in l]}
+    log(f"orbit_video --preset fast --mp4: {MP4_FRAMES} frames of "
+        f"{FRAME_RES}x{FRAME_RES}, K1 launches {launches}, {wall:.3f} s for "
+        f"the CLI call, {row['bytes']:,d} bytes of MJPEG in MP4; "
+        f"{row['cli_line']}; the port's JPEG encode "
+        f"{row['encode_ms_per_frame']:.1f} ms a frame and decode "
+        f"{row['decode_ms_per_frame']:.1f} ms a frame (host), decoded "
+        f"samples against their PNGs {', '.join(f'{p:.2f}' for p in psnrs)} "
+        f"dB ({CARD})")
+    if launches <= 0 or min(psnrs) < MP4_MIN_PSNR:
+        raise AssertionError("orbit_video --mp4")
+    return row
+
+
+def phase_video_clis() -> dict:
+    """``near_orbit`` on the synthetic scene, ``train_image_regression
+    --make-video`` (5 fps, a frame a report) and
+    ``train_signal_regression --make-video``, which draws with matplotlib:
+    without it (the card's machine) it must raise naming matplotlib."""
+    from fourier_feature_nets_torch.cli import (near_orbit,
+                                                train_image_regression,
+                                                train_signal_regression)
+    from fourier_feature_nets_torch.cli.common import resolve_data_path
+    from fourier_feature_nets_torch.utils.jpeg import decode_jpeg
+    from fourier_feature_nets_torch.utils.video import read_mp4
+    os.environ["FFN_TORCH_DATA_DIR"] = os.path.join(OUT_DIR, "data")
+    rows = {}
+    near = os.path.join(OUT_DIR, "near_orbit.mp4")
+    output, wall, launches = run_main(near_orbit.main, [
+        resolve_data_path("synthetic", "cuda"), near, "--num-frames",
+        str(NEAR_FRAMES), "--resolution", str(NEAR_RES)])
+    rate, size, samples = read_mp4(near)
+    shapes = {decode_jpeg(s).shape for s in samples}
+    rows["near_orbit"] = {"wall_s": wall, "frames": len(samples)}
+    log(f"near_orbit: {len(samples)} frames of {size} at {rate} fps in "
+        f"{wall:.3f} s, decoded shapes {shapes}")
+    if len(samples) != NEAR_FRAMES or shapes != {(NEAR_RES, NEAR_RES, 3)}:
+        raise AssertionError("near_orbit")
+    _no_kernel("near_orbit", launches)
+
+    results = os.path.join(OUT_DIR, "image_video")
+    shutil.rmtree(results, ignore_errors=True)
+    output, wall, launches = run_main(train_image_regression.main, [
+        "synthetic:256", "gaussian", results, "--device", "cuda",
+        "--image-size", "64", "--num-steps", str(REGRESSION_VIDEO_STEPS),
+        "--report-interval", "10", "--make-video"])
+    rate, size, samples = read_mp4(os.path.join(results, "training.mp4"))
+    rows["image_regression"] = {"wall_s": wall, "frames": len(samples),
+                                "framerate": rate}
+    log(f"train_image_regression --make-video: {len(samples)} frames of "
+        f"{size} at {rate} fps, {wall:.3f} s for the CLI call")
+    if len(samples) != 3 or rate != 5.0 or size != (128, 64):
+        raise AssertionError("train_image_regression --make-video")
+    _no_kernel("train_image_regression --make-video", launches)
+
+    argv = ["multifreq", os.path.join(OUT_DIR, "signal_video"), "--device",
+            "cuda", "--num-steps", "10", "--report-interval", "5",
+            "--make-video"]
+    try:
+        import matplotlib  # noqa: F401
+        have_matplotlib = True
+    except ModuleNotFoundError:
+        have_matplotlib = False
+    if have_matplotlib:
+        run_main(train_signal_regression.main, argv)
+        outcome = "wrote training.mp4 (matplotlib is installed)"
+    else:
+        try:
+            run_main(train_signal_regression.main, argv)
+        except ModuleNotFoundError as error:
+            if "matplotlib" not in str(error):
+                raise
+            outcome = f"raised ModuleNotFoundError: {error}"
+        else:
+            raise AssertionError("train_signal_regression --make-video ran "
+                                 "without matplotlib")
+    rows["signal_regression"] = outcome
+    log(f"train_signal_regression --make-video: {outcome}")
+    return rows
+
+
+def phase_jpeg_input() -> dict:
+    """``PixelDataset`` from a ``.jpg`` (the port's encoder, of the
+    synthetic test image) and a few image-regression steps on it; the
+    decode of a 512px JPEG timed on the host."""
+    from fourier_feature_nets_torch.cli import train_image_regression
+    from fourier_feature_nets_torch.datasets import PixelDataset
+    from fourier_feature_nets_torch.datasets.synthetic import (
+        generate_synthetic_image)
+    from fourier_feature_nets_torch.utils.jpeg import decode_jpeg, encode_jpeg
+    from fourier_feature_nets_torch.utils.png import read_png
+    png = os.path.join(OUT_DIR, "test_image.png")
+    generate_synthetic_image(png, JPEG_SIDE)
+    image = read_png(png)
+    data = encode_jpeg(image)
+    path = os.path.join(OUT_DIR, "test_image.jpg")
+    with open(path, "wb") as handle:
+        handle.write(data)
+    times = []
+    for _ in range(3):
+        start = time.perf_counter()
+        decoded = decode_jpeg(data)
+        times.append((time.perf_counter() - start) * 1e3)
+    dataset = PixelDataset.create(path, "RGB", 64, device="cuda")
+    results = os.path.join(OUT_DIR, "jpeg_regression")
+    shutil.rmtree(results, ignore_errors=True)
+    output, wall, _ = run_main(train_image_regression.main, [
+        path, "positional", results, "--device", "cuda", "--image-size",
+        "64", "--num-steps", "20", "--report-interval", "10"])
+    psnrs = [float(v) for v in re.findall(r"val: ([0-9.]+)", output)]
+    row = {"decode_ms": float(np.median(times)), "bytes": len(data),
+           "psnr_db": _psnr(decoded, image), "val_psnr": psnrs,
+           "dataset_device": str(dataset.device)}
+    log(f"JPEG input: a {JPEG_SIDE}px test image as a {len(data):,d}-byte "
+        f"JPEG decodes in {row['decode_ms']:.1f} ms (median of 3, host) at "
+        f"{row['psnr_db']:.2f} dB; PixelDataset on {dataset.device}; "
+        f"train_image_regression on the .jpg: val PSNR {psnrs} ({CARD})")
+    if len(psnrs) != 3 or not all(np.isfinite(psnrs)) \
+            or dataset.device.type != "cuda":
+        raise AssertionError("JPEG input")
+    return row
+
+
+def phase_view_angle(checkpoint) -> dict:
+    """``view_angle_animation`` of smoke-train's 30-step flagship
+    checkpoint on the synthetic scene: the source pixel's depth through
+    K1 (bf16), the frames drawn in NumPy and written as PNGs and an
+    MP4."""
+    from fourier_feature_nets_torch.cli.common import resolve_data_path
+    from fourier_feature_nets_torch.datasets import ImageDataset
+    from fourier_feature_nets_torch.lecture import view_angle_animation
+    from fourier_feature_nets_torch.models import load_model
+    from fourier_feature_nets_torch.render import Raycaster
+    from fourier_feature_nets_torch.utils.video import read_mp4
+    os.environ["FFN_TORCH_DATA_DIR"] = os.path.join(OUT_DIR, "data")
+    dataset = ImageDataset.load(resolve_data_path("synthetic", "cuda"),
+                                "train", 64, device="cuda")
+    caster = Raycaster(load_model(checkpoint).cuda(),
+                       compute_dtype=torch.bfloat16)
+    out = os.path.join(OUT_DIR, "lecture")
+    shutil.rmtree(out, ignore_errors=True)
+    _reset_launches()
+    start = time.perf_counter()
+    count = view_angle_animation(dataset, caster, out, angle_threshold=0.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = _launch_counts()["fused_nerf"]
+    _, size, samples = read_mp4(os.path.join(out, "view_angle.mp4"))
+    row = {"frames": count, "launches": launches, "wall_s": wall,
+           "ms_per_frame": wall * 1e3 / max(count, 1), "size": size}
+    log(f"view_angle_animation (30-step flagship, bf16, fused): {count} "
+        f"frames of {size}, {row['ms_per_frame']:.1f} ms a frame over "
+        f"{wall:.3f} s (depth, drawing, PNG and JPEG writes), K1 launches "
+        f"{launches} ({CARD})")
+    if count < 1 or len(samples) != count or launches <= 0:
+        raise AssertionError("view_angle_animation")
+    return row
+
+
+def phase_scenepic() -> dict:
+    """The three ``to_scenepic`` entry points raise the JAX package's
+    ImportError: scenepic is not installed."""
+    from fourier_feature_nets_torch.cli.common import resolve_data_path
+    from fourier_feature_nets_torch.datasets import ImageDataset
+    from fourier_feature_nets_torch.models import flagship_nerf
+    from fourier_feature_nets_torch.render import Raycaster
+    dataset = ImageDataset.load(resolve_data_path("synthetic", "cuda"),
+                                "val", 8, device="cuda")
+    caster = Raycaster(flagship_nerf(torch.Generator().manual_seed(SEED))
+                       .cuda())
+    raised = []
+    for call in (dataset.cameras[0].to_scenepic, dataset.to_scenepic,
+                 lambda: caster.to_scenepic(dataset)):
+        try:
+            call()
+        except ImportError as error:
+            raised.append(str(error))
+    log(f"to_scenepic: {len(raised)} of 3 entry points raised ImportError "
+        f"({raised[:1]})")
+    if len(raised) != 3 or not all("scenepic" in r for r in raised):
+        raise AssertionError("to_scenepic did not raise ImportError")
+    return {"raised": raised}
+
+
+def _mesh_steps(train, mesh, calls: int):
+    """MESH_STEPS fused bf16 flagship steps from the seeded weights, one
+    a call (eager) or ``calls`` a call (a CUDA graph), under ``mesh`` or
+    none; returns (each call's loss, ms a step after the first call, the
+    wrappers' launches, the graph chunk or None)."""
+    from fourier_feature_nets_torch.models import flagship_nerf
+    from fourier_feature_nets_torch.render import Raycaster
+    from fourier_feature_nets_torch.render import raycaster as raycaster_mod
+    from fourier_feature_nets_torch.utils.optim import ClippedAdam
+    model = flagship_nerf(torch.Generator().manual_seed(SEED)).cuda()
+    caster = Raycaster(model, compute_dtype=torch.bfloat16)
+    optimizer = ClippedAdam(model.parameters(), 5e-4, capturable=calls > 1)
+    pool = torch.from_numpy(train.index_pool())
+    perm = pool[torch.randperm(len(pool), generator=torch.Generator()
+                               .manual_seed(SEED))].cuda()
+    _reset_launches()
+    with _instances(raycaster_mod._GraphChunk) as chunks:
+        step = caster._make_train_step(train, MESH_BATCH, 5e-4, 0.1, 250000,
+                                       optimizer, calls, mesh)
+        losses, marks = [], []
+        for k in range(MESH_STEPS // calls):
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            marks.append(event)
+            losses.append(step(perm, k * calls * MESH_BATCH, k * calls, 7))
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+    marks.append(end)
+    ms = marks[1].elapsed_time(marks[-1]) / (MESH_STEPS - calls)
+    return ([float(v) for v in losses], ms, _launch_counts(),
+            chunks[0] if chunks else None)
+
+
+def phase_mesh(checkpoint) -> dict:
+    """A one-rank NCCL mesh (``MASTER_ADDR=127.0.0.1``, a free port):
+    fused bf16 flagship steps under it and without it, eager and in a
+    CUDA-graph chunk that captures the all-reduce, their losses held
+    within MESH_LOSS_RTOL and their ms a step compared (the all-reduce's
+    cost); ``train_nerf --data-parallel --steps-per-call`` (fit under the
+    mesh); a ``--preset fast`` frame under the mesh against the frame
+    without it, within 1; ``serve --data-parallel`` as a process of its
+    own one-rank group answering a few requests. The group stays up for
+    ``validate_kernels``' mesh checks."""
+    import selectors
+
+    import torch.distributed as dist
+
+    from fourier_feature_nets_torch.cli.common import resolve_data_path
+    from fourier_feature_nets_torch.datasets import ImageDataset
+    from fourier_feature_nets_torch.models import load_model
+    from fourier_feature_nets_torch.parallel import (initialize_distributed,
+                                                     make_mesh)
+    from fourier_feature_nets_torch.render import (OccupancyGridSampler,
+                                                   Raycaster)
+    from fourier_feature_nets_torch.cameras import Resolution
+    from fourier_feature_nets_torch.utils import orbit
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                      WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    os.environ["FFN_TORCH_DATA_DIR"] = os.path.join(OUT_DIR, "data")
+    if not initialize_distributed(device="cuda"):
+        raise AssertionError("initialize_distributed did not start a group")
+    mesh = make_mesh()
+    backend = dist.get_backend()
+    if backend != "nccl" or (mesh.size, mesh.rank) != (1, 0):
+        raise AssertionError(f"mesh {mesh} on {backend}")
+    scene = resolve_data_path("synthetic", "cuda")
+    train = ImageDataset.load(scene, "train", MESH_SAMPLES, stratified=True,
+                              device="cuda")
+    rows = {"mesh": repr(mesh)}
+    for label, calls in (("eager", 1), ("chunk", MESH_CHUNK)):
+        plain = _mesh_steps(train, None, calls)
+        meshed = _mesh_steps(train, mesh, calls)
+        err = max(abs(a - b) / abs(b) for a, b in zip(meshed[0], plain[0]))
+        chunk = meshed[3]
+        launches = meshed[2]
+        if chunk is not None:
+            launches = {"eager": launches, "in_graph_replays": {
+                k: v * chunk.replays for k, v in chunk.captured.items()}}
+            if any(chunk.captured[k] != calls for k in chunk.captured):
+                raise AssertionError(f"the mesh chunk captured "
+                                     f"{chunk.captured}")
+        rows[label] = {"losses": meshed[0], "plain_losses": plain[0],
+                       "max_rel_err": err, "ms_per_step": meshed[1],
+                       "plain_ms_per_step": plain[1], "launches": launches}
+        log(f"flagship fused bf16, {MESH_BATCH} rays x {MESH_SAMPLES} "
+            f"samples, {label} ({calls} step(s) a call): under the one-rank "
+            f"NCCL mesh {meshed[1]:.3f} ms/step against "
+            f"{plain[1]:.3f} without it; losses {meshed[0]} against "
+            f"{plain[0]}, max rel err {err:.2e}; launches {launches} "
+            f"({CARD})")
+        if err > MESH_LOSS_RTOL:
+            raise AssertionError(f"mesh {label} losses")
+    if rows["eager"]["launches"]["fused_nerf_train"] != MESH_STEPS:
+        raise AssertionError("the eager mesh steps did not launch K2 once "
+                             "a step")
+
+    # fit under the mesh, through the CLI, in graph chunks
+    _reset_launches()
+    output, caster, chunks = run_train_cli(
+        os.path.join(OUT_DIR, "mesh_train"),
+        ["--data-parallel", "--compute-dtype", "bfloat16", "--fused",
+         "--steps-per-call", str(MESH_CHUNK), "--num-steps",
+         str(MESH_STEPS - 1), "--report-interval", str(MESH_STEPS),
+         "--image-interval", "0", "--num-samples", str(MESH_SAMPLES)])
+    eager = _launch_counts()
+    fit_launches = {"eager": eager, "in_graph_replays": {
+        k: v * sum(c.replays for c in chunks)
+        for k, v in chunks[0].captured.items()}}
+    rows["fit_cli"] = {"launches": fit_launches,
+                       "ms_per_step": _steady_ms_per_step(caster)}
+    log(f"train_nerf --data-parallel --steps-per-call {MESH_CHUNK} (one-rank "
+        f"NCCL mesh): {sum(caster.call_steps)} steps, "
+        f"{rows['fit_cli']['ms_per_step']:.3f} ms/step after the capture, "
+        f"launches {fit_launches}")
+    if not os.path.exists(os.path.join(OUT_DIR, "mesh_train", "nerf.npz")):
+        raise AssertionError("train_nerf --data-parallel wrote no model")
+
+    # a culled frame under the mesh against the frame without it
+    model = load_model(checkpoint).cuda()
+    cameras = orbit(np.array([0.0, 1.0, 0.0]), np.array([0.0, 0.0, -1.0]),
+                    2, 40.0, Resolution(FRAME_RES, FRAME_RES), 4.0)
+    sampler = OccupancyGridSampler.from_model(
+        model, cameras, 48,
+        bounds=np.diag([2.0, 2.0, 2.0, 1.0]).astype(np.float32))
+    frame_caster = Raycaster(model, compute_dtype=torch.bfloat16)
+    frame_caster.render_frame(sampler, 1)
+    _reset_launches()
+    start = time.perf_counter()
+    ours = frame_caster.render_frame(sampler, 1, mesh=mesh)
+    mesh_ms = (time.perf_counter() - start) * 1e3
+    frame_launches = _launch_counts()["fused_nerf"]
+    start = time.perf_counter()
+    ref = frame_caster.render_frame(sampler, 1)
+    plain_ms = (time.perf_counter() - start) * 1e3
+    diff = int(np.abs(ours.astype(int) - ref.astype(int)).max())
+    rows["frame"] = {"max_diff": diff, "launches": frame_launches,
+                     "ms": mesh_ms, "plain_ms": plain_ms}
+    log(f"render_frame(mesh=...) of the 30-step checkpoint, {FRAME_RES}px "
+        f"--preset fast: max |diff| {diff} against the frame without the "
+        f"mesh, {mesh_ms:.1f} ms against {plain_ms:.1f} ms (host clock, one "
+        f"frame each), K1 launches {frame_launches} ({CARD})")
+    if diff > 1 or frame_launches <= 0 or not ours.any():
+        raise AssertionError("render_frame under the mesh")
+
+    # serve --data-parallel: a process of its own, a one-rank group
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""),
+               MASTER_PORT=str(_free_port()))
+    start = time.perf_counter()
+    process = subprocess.Popen(
+        [sys.executable, "-m", "fourier_feature_nets_torch.cli.serve",
+         checkpoint, "400", "--preset", "fast", "--port", "0",
+         "--num-frames", "8", "--device", "cuda", "--data-parallel"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines, bodies = [], []
+    try:
+        selector = selectors.DefaultSelector()
+        selector.register(process.stdout, selectors.EVENT_READ)
+        found = None
+        while found is None:
+            if time.perf_counter() - start > 300 or \
+                    not selector.select(timeout=300):
+                raise AssertionError("serve --data-parallel did not start:\n"
+                                     + "".join(lines[-40:]))
+            line = process.stdout.readline()
+            if not line:
+                raise AssertionError("serve --data-parallel exited:\n"
+                                     + "".join(lines[-40:]))
+            lines.append(line)
+            found = re.search(r"serving .* on (http://\S+)", line)
+        begin = time.perf_counter()
+        for camera in range(SERVE_MESH_FRAMES):
+            bodies.append(_http(f"{found.group(1)}/frame?camera={camera}"
+                                "&format=raw"))
+        request_ms = (time.perf_counter() - begin) * 1e3 / SERVE_MESH_FRAMES
+    finally:
+        process.terminate()
+        try:
+            rc = process.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            process.kill()
+            rc = process.wait()
+    rows["serve"] = {"frames": len(bodies), "request_ms": request_ms,
+                     "rc": rc}
+    log(f"serve --data-parallel (a one-rank NCCL group, 400px --preset "
+        f"fast): {len(bodies)} raw frames, {request_ms:.1f} ms a request, "
+        f"exit code {rc} after SIGTERM")
+    if rc != 0 or any(len(b) != 400 * 400 * 3 for b in bodies):
+        raise AssertionError("serve --data-parallel")
+    return rows
+
+
+def phase_finish_paths(checkpoint) -> dict:
+    """The sub-items 8-12 phases, each timed."""
+    rows, seconds = {}, {}
+    for name, fn, args in (
+            ("mp4_orbit", phase_mp4_orbit, ()),
+            ("video_clis", phase_video_clis, ()),
+            ("jpeg_input", phase_jpeg_input, ()),
+            ("view_angle", phase_view_angle, (checkpoint,)),
+            ("scenepic", phase_scenepic, ()),
+            ("mesh", phase_mesh, (checkpoint,))):
+        start = time.perf_counter()
+        rows[name] = fn(*args)
+        seconds[name] = time.perf_counter() - start
+    rows["phase_s"] = seconds
+    log("sub-items 8-12 phases: " + ", ".join(f"{k} {v:.3f} s"
+                                              for k, v in seconds.items())
+        + f", {sum(seconds.values()):.3f} s in all ({CARD})")
+    return rows
+
+
+def _finish_launches(finish, kernel: str) -> dict:
+    """A kernel's launches on the sub-items 8-12 paths: the --mp4 orbit
+    and the view-angle depth (K1), the mesh steps (eager, and in the
+    graph replays), fit under the mesh through the CLI, the frame under
+    the mesh (K1)."""
+    mesh = finish["mesh"]
+    chunk = mesh["chunk"]["launches"]
+    rows = {"mesh_steps_eager": mesh["eager"]["launches"][kernel],
+            "mesh_steps_chunk": {
+                "eager": chunk["eager"][kernel],
+                "in_graph_replays": chunk["in_graph_replays"][kernel]},
+            "train_nerf_data_parallel": {
+                "eager": mesh["fit_cli"]["launches"]["eager"][kernel],
+                "in_graph_replays":
+                    mesh["fit_cli"]["launches"]["in_graph_replays"][kernel]}}
+    if kernel == "fused_nerf":
+        rows.update(orbit_mp4=finish["mp4_orbit"]["launches"],
+                    view_angle=finish["view_angle"]["launches"],
+                    mesh_frame=mesh["frame"]["launches"])
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch port on one NVIDIA GPU")
@@ -5094,6 +5607,11 @@ def main(argv=None) -> int:
         "switches, debug NaNs:")
     item7 = timed("item7_paths", phase_item7_paths, model, checkpoint)
     torch.cuda.empty_cache()
+    log("queue 1, item 7, sub-items 8-12: orbit_video --mp4, near_orbit, "
+        "the regressions' --make-video, JPEG input, the view-angle "
+        "animation, to_scenepic, a one-rank NCCL mesh:")
+    finish = timed("finish_paths", phase_finish_paths, checkpoint)
+    torch.cuda.empty_cache()
     log("K3 vs plain twin, flagship:")
     render_checks = phase_ray_render_vs_twin(model)
     render = phase_ray_render_timing(model)
@@ -5101,6 +5619,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     scan = phase_scan()
     validate_launches = phase_validate()
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
     log("P1, the int8 probe's kernels, vs plain twins:")
     probe = phase_int8_probe()
     log("P2, K1's kernels in each ablation mode, vs plain twin and K1, "
@@ -5199,10 +5720,12 @@ def main(argv=None) -> int:
                                "eager": row["eager"]["fused_nerf"]}
                         for name, row in distilled["launches"].items()},
             **_ffn_launches(ffn, "fused_nerf"),
-            **_item7_launches(item7, "fused_nerf")},
+            **_item7_launches(item7, "fused_nerf"),
+            **_finish_launches(finish, "fused_nerf")},
         "student_6x192": distilled["kernels"]["fused_nerf"],
         "ffn_voxel_regression": ffn,
         "item7_paths": item7,
+        "finish_paths": finish,
         "face_probe": face,
         "pose": pose,
         "chunked": chunked,
@@ -5248,7 +5771,8 @@ def main(argv=None) -> int:
                                "eager": row["eager"]["fused_nerf_train"]}
                         for name, row in distilled["launches"].items()},
             **_ffn_launches(ffn, "fused_nerf_train"),
-            **_item7_launches(item7, "fused_nerf_train")},
+            **_item7_launches(item7, "fused_nerf_train"),
+            **_finish_launches(finish, "fused_nerf_train")},
         "student_6x192": distilled["kernels"]["fused_nerf_train"],
         "distill": {k: v for k, v in distilled.items() if k != "kernels"},
         "train_chunks": chunks,

@@ -122,6 +122,11 @@ class CameraInfo(NamedTuple):
         origins = np.broadcast_to(camera_pos, ray_dir.shape).copy()
         return Ray(origins, ray_dir)
 
+    def to_scenepic(self, znear=0.01, zfar=100):
+        """Creates a scenepic camera (optional dependency)."""
+        from .scenepic_io import camera_to_scenepic
+        return camera_to_scenepic(self, znear, zfar)
+
 
 def pixel_grid(resolution: Resolution) -> np.ndarray:
     """(H*W, 2) integer pixel coordinates in row-major (x fastest) order."""

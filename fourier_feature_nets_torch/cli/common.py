@@ -12,17 +12,13 @@ import time
 import numpy as np
 import torch
 
-from ..utils.errors import not_ported
-
 __all__ = ["RECOMMENDED_STUDENT", "RENDER_PRESETS", "add_common_train_args",
            "add_preset_arg", "apply_render_preset", "bench_ms", "build_ffn",
-           "device_name", "fit_kwargs", "get_compute_dtype", "kernel_device",
+           "data_parallel_mesh", "device_name", "fit_kwargs",
+           "get_compute_dtype", "is_primary", "kernel_device",
            "load_opacity", "load_train_val", "make_visualizers",
            "resolve_data_path", "save_best_model", "timing_detail",
            "write_run_log"]
-
-
-_REMAINING = "Remaining models, data, CLIs and parallel"
 
 
 def add_common_train_args(parser):
@@ -43,7 +39,8 @@ def add_common_train_args(parser):
     parser.add_argument("--anneal-start", type=float, default=0.2)
     parser.add_argument("--num-anneal-steps", type=int, default=2000)
     parser.add_argument("--data-parallel", action="store_true",
-                        help="Shard the ray batch across all devices")
+                        help="Shard the ray batch across the ranks that "
+                             "torchrun started (one device each)")
     parser.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
                         default="float32",
                         help="Matmul dtype for the model body")
@@ -83,13 +80,35 @@ def add_common_train_args(parser):
                         help="Full-sampling steps after each guided call")
 
 
+def data_parallel_mesh(device):
+    """The ``--data-parallel`` mesh: the ranks ``torchrun`` started
+    (``$MASTER_ADDR`` and the rest; NCCL on CUDA, gloo on the CPU), or
+    a mesh of this process alone without a launcher. The JAX CLI's
+    flag takes every local chip in one process; here each rank is a
+    process with one device."""
+    from ..parallel import initialize_distributed, make_mesh
+    initialize_distributed(device=device)
+    return make_mesh(device)
+
+
+def is_primary(args) -> bool:
+    """Whether this process writes the run's files: always, but under
+    ``--data-parallel`` rank 0 only."""
+    mesh = getattr(args, "mesh", None)
+    return mesh is None or mesh.is_primary
+
+
 def fit_kwargs(args) -> dict:
     """``fit`` kwargs from the common flags: the seed, steps per call,
     occupancy-guided training and checkpoint/resume, as the JAX CLI
-    passes them. ``--data-parallel`` raises here."""
-    if args.data_parallel:
-        raise not_ported("--data-parallel", _REMAINING)
+    passes them, and with ``--data-parallel`` the mesh
+    (:func:`data_parallel_mesh`), which also sets ``args.mesh`` and
+    ``args.device`` to this rank's device."""
     kwargs = {"seed": args.seed, "steps_per_call": args.steps_per_call}
+    args.mesh = None
+    if args.data_parallel:
+        args.mesh = kwargs["mesh"] = data_parallel_mesh(args.device)
+        args.device = str(args.mesh.device)
     if args.occupancy_interval:
         kwargs.update(
             occupancy_interval=args.occupancy_interval,
@@ -116,17 +135,22 @@ def data_dir() -> str:
                         "fourier_feature_nets_torch")
 
 
-def resolve_data_path(path: str, device="cpu") -> str:
+def resolve_data_path(path: str, device="cpu", mesh=None) -> str:
     """Resolves a dataset path; ``synthetic[:<res>]`` generates the
     built-in synthetic scene on ``device`` into :func:`data_dir` on
     first use (the scheme must match exactly: a file named
-    ``synthetic_800.npz`` is a path)."""
+    ``synthetic_800.npz`` is a path). Under a ``mesh`` rank 0 generates
+    it while the others wait, then they read it."""
     parts = path.split(":")
     if parts[0] == "synthetic":
         from ..datasets.synthetic import load_or_generate
         res = int(parts[1]) if len(parts) > 1 else 100
         out = os.path.join(data_dir(), f"synthetic_{res}.npz")
-        return load_or_generate(out, resolution=res, device=device)
+        if mesh is not None and not mesh.is_primary:
+            mesh.barrier()
+        path = load_or_generate(out, resolution=res, device=device)
+        if mesh is not None and mesh.is_primary:
+            mesh.barrier()
     return path
 
 
@@ -167,6 +191,8 @@ def make_visualizers(args, train_dataset, val_dataset, num_samples=None):
     ``args.device``; else evaluation grids of the train and val sets
     every ``--image-interval`` steps (0 disables them)."""
     from ..visualizers import EvaluationVisualizer, OrbitVideoVisualizer
+    if not is_primary(args):
+        return []
     if args.make_video:
         return [OrbitVideoVisualizer(
             args.results_dir, args.num_steps,

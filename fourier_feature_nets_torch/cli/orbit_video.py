@@ -11,9 +11,12 @@ uniform samples (``--no-focus``). ``--early-term`` (with
 ``--early-split``) terminates the rays of a culled frame early, as
 ``--preset quality`` does. Frames are written as PNGs by a standard
 library encoder. ``--chunked`` renders each frame the chunked way
-(``Raycaster.render_image``, the parity path). ``--data-parallel`` and
-``--mp4`` raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them.
+(``Raycaster.render_image``, the parity path). ``--mp4`` also writes the
+frames, read back from their PNGs, into an MP4 as Motion-JPEG
+(:mod:`..utils.video`; the JAX CLI's frames are MPEG-4 Part 2).
+``--data-parallel`` renders each frame over the ranks ``torchrun``
+started: each renders its slab of every chunk (K1 where fused) and rank
+0 writes the files.
 
     python -m fourier_feature_nets_torch.cli.orbit_video model.npz 800 out/ \\
         --preset fast --num-frames 10
@@ -37,8 +40,14 @@ from ..render import (
     RaySampler,
 )
 from ..utils import ETABar, orbit, write_png
-from ..utils.errors import not_ported
-from .common import add_preset_arg, apply_render_preset, load_opacity
+from ..utils.png import read_png
+from ..utils.video import VideoWriter
+from .common import (
+    add_preset_arg,
+    apply_render_preset,
+    data_parallel_mesh,
+    load_opacity,
+)
 
 VECTORS = {
     "x+": np.array([1, 0, 0], np.float32),
@@ -97,22 +106,19 @@ def _parse_args(argv=None):
     return apply_render_preset(parser.parse_args(argv), parser, argv)
 
 
-def _reject_unported(args):
-    """Raises for every flag whose path the port does not have yet
-    (the sampler flags are checked by :func:`build_render_sampler`);
-    ``--chunked`` ignores ``--data-parallel`` and ``--early-term``, with
-    the JAX CLI's warning."""
+def _frame_mesh(args):
+    """The ``--data-parallel`` mesh, or None: ``--chunked`` ignores
+    ``--data-parallel`` and ``--early-term``, with the JAX CLI's
+    warning."""
     if args.chunked:
         if args.data_parallel or args.early_term:
             print("WARNING: --chunked is the single-device parity path; "
                   "--data-parallel/--early-term are ignored",
                   file=sys.stderr)
-    elif args.data_parallel:
-        raise not_ported("--data-parallel", "Remaining models, data, "
-                          "CLIs and parallel")
-    if args.mp4:
-        raise not_ported("--mp4", "Remaining models, data, CLIs and "
-                          "parallel")
+        return None
+    if args.data_parallel:
+        return data_parallel_mesh(args.device)
+    return None
 
 
 def build_render_sampler(args, model, cameras, bounds):
@@ -147,8 +153,9 @@ def build_render_sampler(args, model, cameras, bounds):
 
 def main(argv=None):
     args = _parse_args(argv)
-    _reject_unported(args)
-    device = torch.device(args.device)
+    mesh = _frame_mesh(args)
+    primary = mesh is None or mesh.is_primary
+    device = torch.device(args.device) if mesh is None else mesh.device
     orbit_cameras = orbit(VECTORS[args.up_dir], VECTORS[args.forward_dir],
                           args.num_frames, args.fov_y_degrees,
                           Resolution(args.resolution, args.resolution),
@@ -170,7 +177,8 @@ def main(argv=None):
     # ray of the orbit, or a grid's rasterization
     setup_s = time.perf_counter() - start
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    if primary:
+        os.makedirs(args.output_dir, exist_ok=True)
     progress = ETABar("Rendering", max=args.num_frames)
     frame_ms, hit, survived = [], 0, 0
     for frame in range(args.num_frames):
@@ -185,13 +193,29 @@ def main(argv=None):
             image = raycaster.render_frame(sampler, frame,
                                            chunk_size=args.batch_size * 4,
                                            early_term=args.early_term,
-                                           early_split=args.early_split)
+                                           early_split=args.early_split,
+                                           mesh=mesh)
             hit += raycaster.frame_rays["hit"]
             survived += raycaster.frame_rays.get("survived", 0)
         frame_ms.append((time.perf_counter() - start) * 1e3)
-        write_png(os.path.join(args.output_dir,
-                               "frame_{:05d}.png".format(frame)), image)
+        if primary:
+            write_png(os.path.join(args.output_dir,
+                                   "frame_{:05d}.png".format(frame)), image)
     progress.finish()
+    if not primary:
+        return 0
+
+    if args.mp4:
+        # as the JAX CLI: the frames are read back from their PNGs
+        start = time.perf_counter()
+        with VideoWriter(args.mp4, args.framerate,
+                         (args.resolution, args.resolution)) as writer:
+            for frame in range(args.num_frames):
+                writer.write(read_png(os.path.join(
+                    args.output_dir, "frame_{:05d}.png".format(frame))))
+        print(f"wrote {args.mp4}: {args.num_frames} frames, "
+              f"{(time.perf_counter() - start) * 1e3 / args.num_frames:.3f}"
+              " ms/frame to read and encode")
 
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else str(device))

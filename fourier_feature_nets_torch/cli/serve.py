@@ -6,9 +6,10 @@ model and an orbit rig's sampler stay on the device, and
 ``/frame``, ``/pose``, ``/stream.mjpeg``, ``/stats``). The sampler
 comes from the orbit CLI's flags and presets (``build_render_sampler``);
 the kernels follow ``Raycaster``'s default (``resolve_fused``: K1 in
-bf16 on CUDA). ``--data-parallel`` raises ``NotImplementedError``
-naming its ROADMAP.md item. ``--port 0`` takes a free port, which the
-serving line names.
+bf16 on CUDA). ``--data-parallel`` renders every frame over the ranks
+``torchrun`` started: rank 0 serves HTTP and broadcasts each frame
+request, the others follow (``render/server.py::follow``) until it
+stops. ``--port 0`` takes a free port, which the serving line names.
 
     python -m fourier_feature_nets_torch.cli.serve student.npz 800 \\
         --preset fast --port 8765
@@ -25,10 +26,9 @@ import torch
 from ..cameras import Resolution
 from ..models import load_model
 from ..render import Raycaster
-from ..render.server import RenderServer, serve
+from ..render.server import RenderServer, follow, serve
 from ..utils import orbit
-from ..utils.errors import not_ported
-from .common import add_preset_arg, apply_render_preset
+from .common import add_preset_arg, apply_render_preset, data_parallel_mesh
 from .orbit_video import VECTORS, build_render_sampler
 
 
@@ -63,7 +63,8 @@ def _parse_args(argv=None):
     parser.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
                         default="bfloat16")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="Shard each frame's rays across all devices")
+                        help="Shard each frame's rays across the ranks "
+                        "that torchrun started (one device each)")
     parser.add_argument("--early-term", type=float, default=0.0,
                         help="Early-ray-termination transmittance "
                         "threshold (0 = off; needs an occupancy sampler)")
@@ -76,10 +77,8 @@ def _parse_args(argv=None):
 
 def main(argv=None):
     args = _parse_args(argv)
-    if args.data_parallel:
-        raise not_ported("--data-parallel", "Remaining models, data, CLIs "
-                         "and parallel")
-    device = torch.device(args.device)
+    mesh = data_parallel_mesh(args.device) if args.data_parallel else None
+    device = torch.device(args.device) if mesh is None else mesh.device
     cameras = orbit(VECTORS[args.up_dir], VECTORS[args.forward_dir],
                     args.num_frames, args.fov_y_degrees,
                     Resolution(args.resolution, args.resolution),
@@ -92,9 +91,13 @@ def main(argv=None):
     # fused=None (resolve_fused): K1 for a NeRF on CUDA in bf16
     raycaster = Raycaster(model, compute_dtype=compute_dtype)
     sampler = build_render_sampler(args, model, cameras, bounds)
-    server = RenderServer(raycaster, sampler, chunk_size=args.chunk_size,
-                          early_term=args.early_term,
-                          early_split=args.early_split)
+    options = dict(chunk_size=args.chunk_size, early_term=args.early_term,
+                   early_split=args.early_split)
+    if mesh is not None and not mesh.is_primary:
+        frames = follow(raycaster, sampler, mesh, **options)
+        print(f"rank {mesh.rank}: joined {frames} frames", flush=True)
+        return 0
+    server = RenderServer(raycaster, sampler, mesh=mesh, **options)
     print(f"warming up ({args.resolution}x{args.resolution}, "
           f"{args.num_samples} samples, "
           f"{'fused' if raycaster.fused else 'plain'})...", flush=True)

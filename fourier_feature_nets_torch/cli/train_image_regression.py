@@ -11,8 +11,10 @@ last) it prints the val PSNR and writes ``val<step>.png`` (ground truth
 beside the prediction, or the activation grid with ``--activations``);
 at the end ``superres.png`` (a 2x render), ``log.txt`` and
 ``model.npz``, and a summary line with the ms a step (CUDA events on a
-card). ``--make-video`` raises ``NotImplementedError`` naming its
-ROADMAP.md item (no video writer without OpenCV).
+card). ``--make-video`` also writes each report's composite frame to
+``training.mp4`` at 5 frames a second, as the JAX CLI does, as
+Motion-JPEG in MP4 (:mod:`..utils.video`; JAX's frames are MPEG-4 Part
+2).
 
     python -m fourier_feature_nets_torch.cli.train_image_regression \\
         synthetic:512 gaussian out/
@@ -27,9 +29,9 @@ import torch
 from ..datasets.pixel_dataset import PixelDataset
 from ..models import save_model
 from ..render.raycaster import _StepTimer
-from ..utils.errors import not_ported
 from ..utils.optim import ClippedAdam, exponential_lr
 from ..utils.png import write_png
+from ..utils.video import VideoWriter
 from . import common
 
 
@@ -100,9 +102,6 @@ def make_train_step(model, dataset: PixelDataset, learning_rate: float,
 
 def main(argv=None):
     args = _parse_args(argv)
-    if args.make_video:
-        raise not_ported("--make-video", "Remaining models, data, CLIs and "
-                         "parallel")
     device = torch.device(args.device)
     os.makedirs(args.results_dir, exist_ok=True)
 
@@ -140,6 +139,11 @@ def main(argv=None):
         else:
             frame[:, :size] = dataset.image
 
+    writer = None
+    if args.make_video:
+        writer = VideoWriter(os.path.join(args.results_dir, "training.mp4"),
+                             5, (width, height))
+
     timer = _StepTimer(device)
     log = []
     for step in range(args.num_steps + 1):
@@ -163,9 +167,14 @@ def main(argv=None):
                     frame[:, :size] = act_image
             write_png(os.path.join(args.results_dir, f"val{step:05}.png"),
                       frame)
+            if writer is not None:
+                writer.write(frame)
         timer.start()
         train_step(step)
         timer.stop()
+
+    if writer is not None:
+        writer.release()
 
     # the 2x super-resolution render
     uvs = PixelDataset.generate_uvs(size * 2, device)

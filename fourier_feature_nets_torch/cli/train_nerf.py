@@ -14,8 +14,12 @@ checkpoints to ``<results_dir>/checkpoints`` and ``--resume`` continues
 from the newest; ``--occupancy-*`` trains occupancy-guided.
 ``--make-video`` writes an orbit of ``--num-frames`` frames over the
 run to ``<results_dir>/video`` (through K1 when the run is fused) in
-place of the evaluation grids. ``--data-parallel`` raises
-``NotImplementedError`` naming its ROADMAP.md item.
+place of the evaluation grids. ``--data-parallel`` trains over the
+ranks ``torchrun`` started, each on its slab of every batch (K1/K2 on
+each rank when fused), and only rank 0 writes files:
+
+    torchrun --nproc-per-node 4 -m fourier_feature_nets_torch.cli.train_nerf \
+        synthetic out/ --data-parallel --compute-dtype bfloat16
 
     python -m fourier_feature_nets_torch.cli.train_nerf synthetic out/ \\
         --num-steps 30 --report-interval 10 --steps-per-call 8
@@ -60,7 +64,8 @@ def main(argv=None):
     args = _parse_args(argv)
     kwargs = common.fit_kwargs(args)
     device = torch.device(args.device)
-    args.data_path = common.resolve_data_path(args.data_path, device)
+    args.data_path = common.resolve_data_path(args.data_path, device,
+                                              args.mesh)
     os.makedirs(args.results_dir, exist_ok=True)
 
     model = NeRF(args.num_layers, args.num_channels,
@@ -79,6 +84,8 @@ def main(argv=None):
                         args.decay_steps, args.weight_decay, visualizers,
                         **kwargs)
 
+    if not common.is_primary(args):
+        return 0
     save_model(model, os.path.join(args.results_dir, "nerf.npz"))
     common.save_best_model(args.results_dir, "nerf", model, log)
     common.write_run_log(os.path.join(args.results_dir, "log.txt"), args,

@@ -10,8 +10,10 @@ last) it prints the train and val loss; at the end it writes
 ``log.txt``, ``model.npz`` and, unless ``--no-plot``, ``final.png``
 (which needs matplotlib: without it the run raises naming it), and a
 summary line with the ms a step (CUDA events on a card).
-``--make-video`` raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+``--make-video`` redraws the plot at every report, as the JAX CLI does,
+and writes each drawing as a frame of ``training.mp4`` at
+``--framerate`` (Motion-JPEG in MP4, :mod:`..utils.video`); it needs the
+plot, so with ``--no-plot`` it raises ``ValueError``.
 
     python -m fourier_feature_nets_torch.cli.train_signal_regression \\
         multifreq out/ --fourier --no-plot
@@ -27,8 +29,8 @@ import torch
 from ..datasets.signal_dataset import SignalDataset, pyplot
 from ..models import FourierFeatureMLP, save_model
 from ..render.raycaster import _StepTimer
-from ..utils.errors import not_ported
 from ..utils.optim import ClippedAdam
+from ..utils.video import VideoWriter
 from . import common
 
 LEARNING_RATE = 5e-4
@@ -133,9 +135,9 @@ def make_train_step(model, dataset: SignalDataset):
 
 def main(argv=None):
     args = _parse_args(argv)
-    if args.make_video:
-        raise not_ported("--make-video", "Remaining models, data, CLIs and "
-                         "parallel")
+    if args.make_video and args.no_plot:
+        raise ValueError("--make-video writes the plot's drawings as its "
+                         "frames: drop --no-plot")
     plt = None if args.no_plot else pyplot()
     device = torch.device(args.device)
     dataset = SignalDataset.create(SIGNALS[args.signal], args.num_samples,
@@ -143,6 +145,32 @@ def main(argv=None):
     model = build_model(args, dataset).to(device)
     os.makedirs(args.results_dir, exist_ok=True)
     train_step = make_train_step(model, dataset)
+
+    width, height = (int(v) for v in args.resolution.split("x"))
+    if plt is not None:
+        fig = plt.figure(figsize=(width / 100, height / 100), dpi=100)
+        colors = plt.get_cmap("viridis")(
+            np.linspace(0, 1, args.num_plot))[..., :3]
+        hidden_ax = fig.add_subplot(121)
+        space_ax = fig.add_subplot(122)
+
+    def draw(entry):
+        space_ax.cla()
+        hidden_ax.cla()
+        hidden_ax.set_title("Hidden Layer Basis")
+        space_ax.set_title("{}MLP {}x{} {:.3f}@{:05d}".format(
+            "Fourier " if args.fourier else "", args.num_layers,
+            args.num_channels, entry.val_loss, entry.step))
+        dataset.plot(space_ax, hidden_ax, model, args.num_plot, colors,
+                     args.max_hidden)
+        fig.tight_layout()
+        fig.canvas.draw()
+        return np.asarray(fig.canvas.buffer_rgba())[..., :3]
+
+    writer = None
+    if args.make_video:
+        writer = VideoWriter(os.path.join(args.results_dir, "training.mp4"),
+                             args.framerate, (width, height))
 
     timer = _StepTimer(device)
     log = []
@@ -157,21 +185,14 @@ def main(argv=None):
             train_loss = float(loss)
             print(step, "train:", train_loss, "val:", val_loss)
             log.append(LogEntry(step, train_loss, val_loss))
+            if writer is not None:
+                writer.write(np.ascontiguousarray(draw(log[-1])))
 
+    if writer is not None:
+        writer.release()
     if plt is not None:
-        width, height = (int(v) for v in args.resolution.split("x"))
-        fig = plt.figure(figsize=(width / 100, height / 100), dpi=100)
-        colors = plt.get_cmap("viridis")(
-            np.linspace(0, 1, args.num_plot))[..., :3]
-        hidden_ax = fig.add_subplot(121)
-        space_ax = fig.add_subplot(122)
-        hidden_ax.set_title("Hidden Layer Basis")
-        space_ax.set_title("{}MLP {}x{} {:.3f}@{:05d}".format(
-            "Fourier " if args.fourier else "", args.num_layers,
-            args.num_channels, log[-1].val_loss, log[-1].step))
-        dataset.plot(space_ax, hidden_ax, model, args.num_plot, colors,
-                     args.max_hidden)
-        fig.tight_layout()
+        if writer is None:
+            draw(log[-1])
         fig.savefig(os.path.join(args.results_dir, "final.png"))
         plt.close(fig)
 

@@ -56,7 +56,8 @@ def main(argv=None):
     args = _parse_args(argv)
     kwargs = common.fit_kwargs(args)
     device = torch.device(args.device)
-    args.data_path = common.resolve_data_path(args.data_path, device)
+    args.data_path = common.resolve_data_path(args.data_path, device,
+                                              args.mesh)
     os.makedirs(args.results_dir, exist_ok=True)
 
     model = common.build_ffn(
@@ -65,7 +66,7 @@ def main(argv=None):
     opacity_model = common.load_opacity(args.opacity_model, device)
     train_dataset, val_dataset = common.load_train_val(args, opacity_model)
     visualizers = common.make_visualizers(args, train_dataset, val_dataset)
-    if args.make_activations:
+    if args.make_activations and common.is_primary(args):
         visualizers.append(ActivationVisualizer(
             args.results_dir, args.num_steps,
             train_dataset.cameras[0].resolution, args.num_frames,
@@ -79,6 +80,8 @@ def main(argv=None):
                         args.decay_steps, args.weight_decay, visualizers,
                         **kwargs)
 
+    if not common.is_primary(args):
+        return 0
     save_model(model, os.path.join(args.results_dir, "tiny_nerf.npz"))
     common.save_best_model(args.results_dir, "tiny_nerf", model, log)
     common.write_run_log(os.path.join(args.results_dir, "log.txt"), args,

@@ -47,7 +47,8 @@ def main(argv=None):
     args = _parse_args(argv)
     kwargs = common.fit_kwargs(args)
     device = torch.device(args.device)
-    args.data_path = common.resolve_data_path(args.data_path, device)
+    args.data_path = common.resolve_data_path(args.data_path, device,
+                                              args.mesh)
     os.makedirs(args.results_dir, exist_ok=True)
 
     train_dataset, val_dataset = common.load_train_val(args)
@@ -70,6 +71,8 @@ def main(argv=None):
                         args.report_interval, args.decay_rate,
                         args.decay_steps, 0.0, visualizers, **kwargs)
 
+    if not common.is_primary(args):
+        return 0
     save_model(model, os.path.join(args.results_dir, "voxels.npz"))
     common.save_best_model(args.results_dir, "voxels", model, log)
     common.write_run_log(os.path.join(args.results_dir, "log.txt"), args,

@@ -17,11 +17,14 @@ sizes and tolerances:
 * T1, K3's exclusive-cumprod scan, within rtol 1e-5 of
   ``ops.blend.exclusive_cumprod`` at 128, 20 and 77 lanes.
 
-The JAX tool's mesh checks (a fused train step and a fused frame under
-a device mesh) wait for ``parallel/`` (ROADMAP.md, queue 1, item 7);
-the CLI says so on a line of its own. It prints ``OK``/``FAIL`` lines
-in the JAX tool's format, then ``ALL OK`` and exits 0, or exits 1 on
-any failure. It runs on ``--device cuda`` (the default) and exits 2
+* under a data-parallel mesh (the JAX tool's mesh checks; the ranks
+  ``torchrun`` started, or this process alone): a fused train step (3
+  steps a call, one CUDA graph on a card) against the plain one from
+  the same weights, loss within 1e-3, and a fused frame against the
+  same frame without the mesh, uint8 within 1.
+
+It prints ``OK``/``FAIL`` lines in the JAX tool's format, then ``ALL
+OK`` and exits 0, or exits 1 on any failure. It runs on ``--device cuda`` (the default) and exits 2
 without a CUDA device; ``--device cpu`` runs the wrappers' plain twins,
 which checks no kernel.
 
@@ -198,6 +201,57 @@ def check_scan(report: Report, rng: np.random.Generator, device,
                                  f"max rel err {err:.2e} (rtol {rtol:g})")
 
 
+def check_mesh(report: Report, device):
+    """The JAX tool's mesh checks on a 2x32 NeRF and its 24 px synthetic
+    scene: a fused data-parallel train step (3 steps a call) against
+    the plain one from the same weights, and a fused frame under the
+    mesh against the same frame without it."""
+    import tempfile
+
+    from ..datasets import ImageDataset
+    from ..datasets.synthetic import load_or_generate
+    from ..parallel import make_shard_map_train_step
+    from .common import data_parallel_mesh
+
+    start = time.perf_counter()
+    mesh = data_parallel_mesh(device)
+    print(f"mesh: {mesh}", file=sys.stderr)
+    with tempfile.TemporaryDirectory() as root:
+        path = f"{root}/scene.npz"
+        if mesh.is_primary:
+            load_or_generate(path, resolution=24, device=mesh.device)
+        mesh.barrier()
+        scene = ImageDataset.load(path, "train", 16, device=mesh.device)
+        mesh.barrier()
+
+    def make_model():
+        return NeRF(num_layers=2, num_channels=32, max_log_scale_pos=3.0,
+                    num_freq_pos=4, max_log_scale_view=1.0, num_freq_view=2,
+                    skips=[1], include_inputs=True,
+                    generator=torch.Generator().manual_seed(0)).to(
+                        mesh.device)
+
+    idx = torch.from_numpy(scene.index_pool()[:128]).to(mesh.device)
+    losses = {}
+    for fused in (True, False):
+        caster = Raycaster(make_model(), fused_train=fused)
+        step = make_shard_map_train_step(caster, scene, 128, 5e-4, 0.1,
+                                         250000, 0.0, mesh, fused=fused,
+                                         steps_per_call=3)
+        losses[fused] = float(step(idx, 0, 0, 0))
+    report.check("shard_map fused train step (mesh) loss", losses[True],
+                 losses[False], 1e-3)
+
+    caster = Raycaster(make_model(), fused=True)
+    frame_mesh = caster.render_frame(scene.sampler, 0, chunk_size=2048,
+                                     mesh=mesh)
+    frame_one = caster.render_frame(scene.sampler, 0, chunk_size=2048)
+    report.check("render_frame fused under mesh (uint8)", frame_mesh,
+                 frame_one, 1.0)
+    print(f"  (fused-under-mesh run {time.perf_counter() - start:.1f}s)",
+          file=sys.stderr)
+
+
 def main(argv=None) -> int:
     parser = ArgumentParser("Validates the port's Hopper kernels against "
                             "plain PyTorch")
@@ -219,8 +273,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
     check_ray_render(report, rng, device)
     check_scan(report, rng, device)
-    print("NOT PORTED mesh checks (fused train step and fused frame under a "
-          "device mesh): parallel/ is ROADMAP.md queue 1, item 7")
+    check_mesh(report, device)
     print("ALL OK" if report.ok else "FAILURES — see above")
     return 0 if report.ok else 1
 

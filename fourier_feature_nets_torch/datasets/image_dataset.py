@@ -287,6 +287,13 @@ class ImageDataset(RayDataset):
                             self.sampler.num_anneal_steps,
                             self.alpha_weight, self.device)
 
+    def to_scenepic(self):
+        """Ray-sampling inspection scene (optional scenepic dependency,
+        :func:`..scenepic_io.dataset_to_scenepic`); the PNG-based
+        alternative is ``cli/inspect_ray_sampling``."""
+        from ..scenepic_io import dataset_to_scenepic
+        return dataset_to_scenepic(self)
+
     @staticmethod
     def load(path: str, split: str, num_samples: int,
              include_alpha: bool = True, stratified: bool = False,

@@ -4,8 +4,10 @@ Port of ``fourier_feature_nets_tpu/datasets/pixel_dataset.py``: an
 image's pixels and their UV grid as tensors on an explicit device, so
 the full-batch train step runs on the device. UVs span [0, 2), the
 input range the FFNs expect. The image is read by the port's PNG reader
-(:mod:`..utils.png`) and shrunk by its NumPy ``INTER_AREA``
-(:mod:`..utils.image`), since the card's machine has no OpenCV.
+(:mod:`..utils.png`) or baseline JPEG decoder (:mod:`..utils.jpeg`),
+picked by the file's first bytes, and shrunk by its NumPy
+``INTER_AREA`` (:mod:`..utils.image`), since the card's machine has no
+OpenCV.
 """
 
 import math
@@ -17,7 +19,8 @@ import torch
 
 from ..utils.color import rgb_to_ycrcb, ycrcb_to_rgb
 from ..utils.image import resize_area
-from ..utils.png import read_png
+from ..utils.jpeg import decode_jpeg
+from ..utils.png import decode_png
 
 __all__ = ["PixelData", "PixelDataset"]
 
@@ -33,6 +36,23 @@ def _uv_grid(size: int) -> np.ndarray:
     """(size, size, 2) f32 UVs over [0, 2), u along the columns."""
     vals = np.linspace(0, 2, size, endpoint=False, dtype=np.float32)
     return np.stack(np.meshgrid(vals, vals), axis=-1)
+
+
+def read_image(path: str) -> np.ndarray:
+    """A PNG's or a JPEG's pixels, (H, W, C) uint8, picked by the file's
+    magic bytes (``\\x89PNG`` or ``\\xFF\\xD8``)."""
+    with open(path, "rb") as handle:
+        data = handle.read()
+    if data.startswith(b"\x89PNG"):
+        return decode_png(data)
+    if data.startswith(b"\xff\xd8"):
+        return decode_jpeg(data)
+    kinds = {b"GIF8": "GIF", b"BM": "BMP", b"RIFF": "RIFF (WebP)",
+             b"II*\x00": "TIFF", b"MM\x00*": "TIFF"}
+    kind = next((name for magic, name in kinds.items()
+                 if data.startswith(magic)), f"unknown ({data[:4]!r})")
+    raise ValueError(f"{path}: a {kind} image; PixelDataset reads PNG and "
+                     "baseline JPEG")
 
 
 class PixelDataset:
@@ -54,7 +74,10 @@ class PixelDataset:
     def create(path: str, color_space: str, size=512,
                data_dir: str = None, device="cpu") -> "PixelDataset":
         """A dataset from a PNG file (8-bit grey, RGB or RGBA; the alpha
-        is dropped, as OpenCV's colour read drops it).
+        is dropped, as OpenCV's colour read drops it) or a baseline JPEG
+        (:func:`..utils.jpeg.decode_jpeg`, upright by its EXIF
+        orientation, as OpenCV reads it); any other file raises
+        ``ValueError`` naming what its first bytes say it is.
 
         Center-crops to a square, resizes it to ``size`` (INTER_AREA),
         converts to the color space (``RGB`` or ``YCrCb``), and builds
@@ -69,7 +92,7 @@ class PixelDataset:
             path = os.path.join(data_dir, path)
         if not os.path.exists(path):
             raise FileNotFoundError(path)
-        pixels = read_png(path)
+        pixels = read_image(path)
         if pixels.shape[2] == 1:
             pixels = np.repeat(pixels, 3, axis=2)
         pixels = pixels[..., :3]

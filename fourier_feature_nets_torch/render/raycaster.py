@@ -20,7 +20,12 @@ frame's code, and ``render_image`` is the chunked parity path. A model
 without view directions (the FFNs, the voxel fields) is queried on the
 positions alone (:func:`~..models.module.query_model`), and its last
 layer's units render as an activation grid (``render_activations``).
-The data-parallel mesh is not ported yet (ROADMAP.md, queue 1).
+
+Under a data-parallel mesh (:mod:`..parallel`, one process a device) a
+train step takes this rank's slab of the global ray batch and averages
+the loss and the gradients over the ranks before the clipped Adam step,
+and a frame is a collective: every rank renders its slab of each chunk
+and gathers the others'.
 """
 
 import time
@@ -49,7 +54,6 @@ from ..ops import (
 )
 from ..utils.color import ycrcb_to_rgb
 from ..utils.debug import debug_nans_enabled
-from ..utils.errors import not_ported
 from ..utils.optim import ClippedAdam, exponential_lr
 from ..utils.progress import LogEntry
 from .ray_sampler import RaySampler, RaySamples
@@ -322,11 +326,15 @@ class Raycaster:
         return torch.sum(weights[..., None] * torch.sigmoid(logits[..., :3]),
                          dim=-2)
 
-    def _chunks(self, ray_offsets: torch.Tensor, chunk_size: int, fn):
-        """Runs ``fn`` on each ``chunk_size`` slice of ``ray_offsets``."""
+    def _chunks(self, ray_offsets: torch.Tensor, chunk_size: int, fn,
+                mesh=None):
+        """Runs ``fn`` on each ``chunk_size`` slice of ``ray_offsets``;
+        under a ``mesh`` each rank runs it on its slab of the slice and
+        gathers the other slabs (:meth:`..parallel.Mesh.map_rows`)."""
         for start in range(0, ray_offsets.shape[0], chunk_size):
             chunk = ray_offsets[start:start + chunk_size]
-            yield chunk, fn(chunk)
+            yield chunk, (fn(chunk) if mesh is None
+                          else mesh.map_rows(fn, chunk))
 
     @torch.no_grad()
     def render_frame_async(self, sampler: RaySampler, camera: int,
@@ -334,7 +342,8 @@ class Raycaster:
                            cull_empty: bool = True,
                            probe_subsample: int = 2,
                            early_term: float = 0.0,
-                           early_split: int = 0) -> torch.Tensor:
+                           early_split: int = 0,
+                           mesh=None) -> torch.Tensor:
         """Renders one camera frame and returns it as an (H, W, 3) uint8
         tensor on the render device, without a host copy.
 
@@ -351,17 +360,26 @@ class Raycaster:
         skipped sample adds at most ``early_term`` of a color. The hit
         and surviving ray counts of the frame are left in
         ``self.frame_rays``.
+
+        Under a data-parallel ``mesh`` the frame is a collective: every
+        rank calls it with the same camera, computes the same hit set
+        from the same probe, and renders its slab of each chunk (the
+        chunk rounded up to a multiple of the mesh size, the last one
+        padded, as the JAX frame's shard_map); the slabs are gathered,
+        so every rank returns the whole frame.
         """
         return self._frame(sampler, camera % sampler.num_cameras, chunk_size,
                            cull_empty, probe_subsample, early_term,
-                           early_split)
+                           early_split, mesh)
 
     def _frame(self, sampler: RaySampler, camera, chunk_size: int,
                cull_empty: bool, probe_subsample: int, early_term: float,
-               early_split: int) -> torch.Tensor:
+               early_split: int, mesh=None) -> torch.Tensor:
         """The frame of a rig index or a ``(ray_m, position)``
         calibration (:func:`_frame_rays`): the indexed and the pose
         path share it, and its probe."""
+        if mesh is not None:
+            chunk_size = -(-chunk_size // mesh.size) * mesh.size
         cull = cull_empty and hasattr(sampler, "_probe_cdf_geometry")
         if early_term > 0.0 and not cull:
             raise ValueError(
@@ -394,7 +412,7 @@ class Raycaster:
             trans = torch.zeros(rays_per_cam, device=device)
             for chunk, (color, trans_out) in self._chunks(
                     ray_offsets, chunk_size,
-                    lambda c: self._render_prefix(sample, c, k1)):
+                    lambda c: self._render_prefix(sample, c, k1), mesh):
                 colors[chunk] = color
                 trans[chunk] = trans_out
             survivors = torch.nonzero(mask & (trans > early_term)).reshape(-1)
@@ -402,13 +420,13 @@ class Raycaster:
             suffix = torch.zeros(rays_per_cam, 3, device=device)
             for chunk, color in self._chunks(
                     survivors, chunk_size,
-                    lambda c: self._render_suffix(sample, c, k1)):
+                    lambda c: self._render_suffix(sample, c, k1), mesh):
                 suffix[chunk] = color
             colors = colors + trans[:, None] * suffix
         else:
             for chunk, color in self._chunks(
                     ray_offsets, chunk_size,
-                    lambda c: self._render_rays(sample, c)):
+                    lambda c: self._render_rays(sample, c), mesh):
                 colors[chunk] = color
         colors = torch.where(mask[:, None], colors, 0.0)
         image = torch.clamp(colors, 0.0, 1.0).reshape(
@@ -419,12 +437,12 @@ class Raycaster:
                      chunk_size: int = 16384, cull_empty: bool = True,
                      probe_subsample: int = 2, early_term: float = 0.0,
                      early_split: int = 0,
-                     color_space: str = "RGB") -> np.ndarray:
+                     color_space: str = "RGB", mesh=None) -> np.ndarray:
         """:meth:`render_frame_async`, copied to a host (H, W, 3) uint8
         array; a ``YCrCb`` model's frame is converted to RGB."""
         return _to_host(self.render_frame_async(
             sampler, camera, chunk_size, cull_empty, probe_subsample,
-            early_term, early_split), color_space)
+            early_term, early_split, mesh), color_space)
 
     @torch.no_grad()
     def render_frame_pose_async(self, sampler: RaySampler, camera,
@@ -432,14 +450,16 @@ class Raycaster:
                                 cull_empty: bool = True,
                                 probe_subsample: int = 2,
                                 early_term: float = 0.0,
-                                early_split: int = 0) -> torch.Tensor:
+                                early_split: int = 0,
+                                mesh=None) -> torch.Tensor:
         """:meth:`render_frame_async` for any camera pose: ``camera`` is
         a :class:`CameraInfo` at the sampler's resolution (another
         resolution raises ``ValueError``) or a ``(ray_m, position)``
         calibration pair (:meth:`RaySampler.pose_calibration`). A rig
         camera's pose renders the indexed frame bit for bit. Its rays
         are keyed by pixel offset, and a focus sampler computes their
-        CDFs on the fly."""
+        CDFs on the fly. Under a ``mesh`` it is a collective, as
+        :meth:`render_frame_async`."""
         if hasattr(camera, "extrinsics"):
             resolution = tuple(camera.resolution)
             expected = (sampler.image_width, sampler.image_height)
@@ -451,18 +471,19 @@ class Raycaster:
         return self._frame(sampler, (ray_m.to(sampler.device),
                                      position.to(sampler.device)),
                            chunk_size, cull_empty, probe_subsample,
-                           early_term, early_split)
+                           early_term, early_split, mesh)
 
     def render_frame_pose(self, sampler: RaySampler, camera,
                           chunk_size: int = 16384, cull_empty: bool = True,
                           probe_subsample: int = 2, early_term: float = 0.0,
                           early_split: int = 0,
-                          color_space: str = "RGB") -> np.ndarray:
+                          color_space: str = "RGB",
+                          mesh=None) -> np.ndarray:
         """:meth:`render_frame_pose_async`, copied to a host (H, W, 3)
         uint8 array; a ``YCrCb`` model's frame is converted to RGB."""
         return _to_host(self.render_frame_pose_async(
             sampler, camera, chunk_size, cull_empty, probe_subsample,
-            early_term, early_split), color_space)
+            early_term, early_split, mesh), color_space)
 
     def render_image(self, sampler: RaySampler, index: int, batch_size: int,
                      color_space: str = "RGB") -> np.ndarray:
@@ -474,6 +495,14 @@ class Raycaster:
         samples = sampler.rays_for_camera(camera)
         pred = self.batched_render(samples, batch_size, False)
         return sampler.to_image(camera, pred.color, color_space)
+
+    def to_scenepic(self, dataset, num_cameras=10, resolution=50,
+                    num_samples=64, empty_threshold=0.1):
+        """Model-state inspection scene (optional scenepic dependency,
+        :func:`..scenepic_io.model_to_scenepic`)."""
+        from ..scenepic_io import model_to_scenepic
+        return model_to_scenepic(self, dataset, num_cameras, resolution,
+                                 num_samples, empty_threshold)
 
     @torch.no_grad()
     def render_activations(self, sampler: RaySampler, index: int,
@@ -533,7 +562,8 @@ class Raycaster:
 
     def _train_forward(self, rays: RaySamples) -> RenderResult:
         """Differentiable forward for training: the fused custom-autograd
-        kernels when enabled, otherwise autograd of the plain model."""
+        kernels when enabled (``self.fused_train``), otherwise autograd
+        of the plain model."""
         num_rays, num_samples = rays.t_values.shape
         positions = rays.positions.reshape(-1, 3)
         views = rays.view_directions.reshape(-1, 3)
@@ -553,7 +583,7 @@ class Raycaster:
     def _make_train_step(self, dataset, batch_size: int,
                          learning_rate: float, decay_rate: float,
                          decay_steps: int, optimizer: ClippedAdam,
-                         steps_per_call: int = 1):
+                         steps_per_call: int = 1, mesh=None):
         """The training step: sample the batch's rays, forward, loss,
         backward, clipped Adam at the step's learning rate.
 
@@ -572,18 +602,39 @@ class Raycaster:
         when it is captured: a step built before a switch into Dilate
         must be built again, as the JAX package rebuilds its step. On
         the CPU they run as an eager loop.
+
+        Under a ``mesh`` (JAX's shard_map step, ``parallel/
+        data_parallel.py``) ``batch_size`` is the global batch, which must
+        divide by the mesh size: rank ``r`` takes rows ``[r * local, (r +
+        1) * local)`` of it, and the loss and the gradients are averaged
+        over the ranks (one all-reduce, then a division) before the
+        clip and the Adam step, which every rank runs on the same
+        values. The stratified jitter is keyed by the global ray id.
+        On CUDA a graph chunk captures the all-reduce.
         """
         sampler = dataset.sampler
+        shard = slice(0, batch_size)
+        if mesh is not None:
+            if batch_size % mesh.size:
+                raise ValueError(f"batch_size {batch_size} must divide "
+                                 f"evenly over the {mesh.size}-device mesh")
+            shard = mesh.shard(batch_size)
 
         def one_step(idx, step, rng):
+            idx = idx[shard]
             rays = sampler.sample(idx, step,
                                   rng if sampler.stratified else None)
             optimizer.zero_grad()
             loss = dataset.loss(idx, self._train_forward(rays))
             loss.backward()
+            loss = loss.detach()
+            if mesh is not None:
+                # JAX's order: the mean over the ranks first, then clip
+                mesh.all_reduce_mean_([loss] + [p.grad for p
+                                                in optimizer.params])
             optimizer.step(exponential_lr(learning_rate, step, decay_rate,
                                           decay_steps))
-            return loss.detach()
+            return loss
 
         if steps_per_call <= 1:
             def train_step(perm: torch.Tensor, offset: int, step: int,
@@ -680,7 +731,14 @@ class Raycaster:
             seed: seeds the epoch shuffles and the stratified jitter
                 (a CPU ``torch.Generator``; after a resume it is keyed
                 by the seed and the first step).
-            mesh: not ported; raises ``NotImplementedError``.
+            mesh: a data-parallel mesh (:func:`..parallel.make_mesh`):
+                ``batch_size`` is the global batch, every rank runs this
+                call with the same arguments, rank 0's weights are
+                broadcast first, each rank trains on its slab of every
+                batch (:meth:`_make_train_step`) and validates every
+                ray; only rank 0 prints, writes checkpoints and runs the
+                visualizers. The occupancy grid is refreshed on every
+                rank from the same weights.
             checkpoint_dir / checkpoint_interval: write a resumable
                 train-state checkpoint (:mod:`..utils.checkpoint`) in
                 the background whenever a call's steps cover a multiple
@@ -725,9 +783,8 @@ class Raycaster:
             density_grid_from_model,
         )
 
-        if mesh is not None:
-            raise not_ported("data-parallel training (a mesh)",
-                             "Remaining models, data, CLIs and parallel")
+        primary = mesh is None or mesh.is_primary
+        say = print if primary else (lambda *args, **kwargs: None)
         device = train_dataset.device
         chunk = max(1, min(steps_per_call, report_interval))
         trainval_dataset = train_dataset.sample_cameras(
@@ -745,7 +802,10 @@ class Raycaster:
                 optimizer.load_jax_state(named_parameters(self.model),
                                          *state.opt_state)
                 start_step = state.step + 1
-                print(f"Resumed from {path} at step {start_step}")
+                say(f"Resumed from {path} at step {start_step}")
+        if mesh is not None:
+            from ..parallel import replicate
+            replicate(self.model, mesh)
         generator = torch.Generator().manual_seed(
             seed if start_step == 0 else hash((seed, start_step)) % 2 ** 63)
 
@@ -762,7 +822,8 @@ class Raycaster:
         def make_step(calls):
             return self._make_train_step(train_dataset, batch_size,
                                          learning_rate, decay_rate,
-                                         decay_steps, optimizer, calls)
+                                         decay_steps, optimizer, calls,
+                                         mesh)
 
         train_step = make_step(chunk)
 
@@ -775,7 +836,7 @@ class Raycaster:
                                            train_dataset.color_space)
 
         checkpointer = None
-        if checkpoint_dir and checkpoint_interval:
+        if checkpoint_dir and checkpoint_interval and primary:
             checkpointer = AsyncCheckpointer(checkpoint_dir)
 
         base_sampler = train_dataset.sampler
@@ -801,9 +862,9 @@ class Raycaster:
                 self.occupancy_refresh_ms.append(
                     (time.perf_counter() - start) * 1e3)
                 return
-            print(f"Enabling occupancy-guided sampling ({occupancy_samples} "
-                  "samples/ray" + (f", {occupancy_mix} full steps/chunk"
-                                   if occupancy_mix else "") + ")...")
+            say(f"Enabling occupancy-guided sampling ({occupancy_samples} "
+                "samples/ray" + (f", {occupancy_mix} full steps/chunk"
+                                 if occupancy_mix else "") + ")...")
             if occupancy_mix and mix_step is None:
                 # the anchor step, built while the dataset still has its
                 # own sampler
@@ -876,10 +937,10 @@ class Raycaster:
                                          / steps_run
                                          if steps_run >= report_interval
                                          else 0)
-                        print("{:07}".format(last),
-                              "{:2f} s/step".format(time_per_step),
-                              "psnr_train: {:2f}".format(train_psnr),
-                              "val_psnr: {:2f}".format(val_psnr))
+                        say("{:07}".format(last),
+                            "{:2f} s/step".format(time_per_step),
+                            "psnr_train: {:2f}".format(train_psnr),
+                            "val_psnr: {:2f}".format(val_psnr))
                         if interval_due:
                             log.append(LogEntry(last,
                                                 current_time - start_time,
@@ -887,7 +948,7 @@ class Raycaster:
                                                 train_psnr, val_psnr))
                         if (train_dataset.mode == modes.Center
                                 and last >= crop_steps):
-                            print("Removing center crop...")
+                            say("Removing center crop...")
                             train_dataset.mode = dataset_mode
                             val_dataset.mode = dataset_mode
                             trainval_dataset.mode = dataset_mode
@@ -905,8 +966,8 @@ class Raycaster:
 
                     if (occupancy_active and occupancy_end is not None
                             and last >= occupancy_end):
-                        print("Restoring full sampling for the fine-tune "
-                              "tail...")
+                        say("Restoring full sampling for the fine-tune "
+                            "tail...")
                         train_dataset.sampler = base_sampler
                         train_step = make_step(chunk)
                         occupancy_active = False
@@ -919,7 +980,7 @@ class Raycaster:
                                > (first - 1) // occupancy_interval)):
                         update_occupancy()
 
-                    if not restart_epoch:
+                    if not restart_epoch and primary:
                         for visualizer in visualizers:
                             visualizer.visualize(last, render_image_fn,
                                                  render_act_fn)
@@ -971,8 +1032,10 @@ class _GraphChunk:
     first one eager warm-up chunk on a side stream (the slab-image index
     uploads, the optimizer state, the library handles), after which the
     optimizer's parameters and state are restored, then the capture.
-    Capture errors are raised; the chunk never runs eagerly in its
-    stead. Under autograd's NaN check (``utils.debug.enable_debug_nans``,
+    Capture errors are raised, naming ``--steps-per-call``; the chunk
+    never runs eagerly in its stead. Under a data-parallel mesh the
+    graph holds the all-reduce of the step's gradients (the warm-up
+    chunk runs it once first, on the process group made before). Under autograd's NaN check (``utils.debug.enable_debug_nans``,
     ``FFN_TORCH_DEBUG_NANS``), which reads every gradient on the host,
     the capture raises ``ValueError``. A call returns what ``chunk_fn`` returned at the capture (a
     static tensor the next replay overwrites); ``on_replay`` runs after
@@ -1025,8 +1088,13 @@ class _GraphChunk:
         self.optimizer.zero_grad()
         before = _kernel_launches()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.result = self.chunk_fn(self.inputs)
+        try:
+            with torch.cuda.graph(graph):
+                self.result = self.chunk_fn(self.inputs)
+        except RuntimeError as error:
+            raise RuntimeError(
+                "capturing the CUDA graph of a chunk of steps "
+                f"(--steps-per-call > 1 on CUDA) failed: {error}") from error
         after = _kernel_launches()
         self.captured = {name: after[name] - before[name] for name in after}
         self.graph = graph

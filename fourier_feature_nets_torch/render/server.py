@@ -34,6 +34,14 @@ tensor. A culled frame reads its hit count on the host (ROADMAP.md,
 queue 3), so the dispatcher waits for each culled frame's probe before
 it queues the frame's model chunks: frames overlap in their copy and
 encode, not in their probe.
+
+Under a data-parallel mesh (``serve --data-parallel``) every frame is a
+collective of all ranks: rank 0 runs the HTTP server and the
+dispatcher, which broadcasts each frame request (a rig camera, or a
+pose's extrinsics and intrinsics) before it renders its slab; the
+other ranks loop in :func:`follow`, render their slabs of each
+broadcast frame, and leave when :meth:`RenderServer.close` broadcasts
+the end.
 """
 
 import json
@@ -49,7 +57,9 @@ import numpy as np
 from ..utils.jpeg import encode_jpeg
 from ..utils.png import encode_png
 
-__all__ = ["RenderServer", "serve"]
+__all__ = ["RenderServer", "follow", "serve"]
+
+_STOP = ("stop", None)
 
 
 class _Request:
@@ -75,7 +85,7 @@ class RenderServer:
 
     def __init__(self, raycaster, sampler, chunk_size: int = 16384,
                  cull_empty: bool = True, early_term: float = 0.0,
-                 early_split: int = 0):
+                 early_split: int = 0, mesh=None):
         """Constructor.
 
         Args:
@@ -83,6 +93,9 @@ class RenderServer:
             sampler: the rig's sampler, on the model's device.
             chunk_size / cull_empty / early_term / early_split: the
                 frame's options (:meth:`Raycaster.render_frame_async`).
+            mesh: a data-parallel mesh, whose other ranks run
+                :func:`follow` with the same model, sampler and
+                options; this is rank 0.
         """
         self.raycaster = raycaster
         self.sampler = sampler
@@ -90,6 +103,7 @@ class RenderServer:
         self.cull_empty = cull_empty
         self.early_term = early_term
         self.early_split = early_split
+        self.mesh = mesh
         self.num_cameras = sampler.num_cameras
         self.resolution = (sampler.image_height, sampler.image_width)
         self._latencies = deque(maxlen=4096)
@@ -108,9 +122,14 @@ class RenderServer:
         self._resolver.start()
 
     def _run_dispatch(self):
+        if self.mesh is not None and self.mesh.device.type == "cuda":
+            import torch
+            torch.cuda.set_device(self.mesh.device)
         while True:
             request = self._queue.get()
             if request.dispatch is None:  # close()
+                if self.mesh is not None:
+                    self.mesh.broadcast_object(_STOP)
                 self._fetch_queue.put((request, None, 0.0))
                 return
             start = time.perf_counter()
@@ -167,11 +186,15 @@ class RenderServer:
             self._queue.put(sentinel)
         sentinel.event.wait()
 
+    def _collective(self, request):
+        """The dispatcher's render: the request is broadcast to the
+        other ranks of a mesh first."""
+        if self.mesh is not None:
+            self.mesh.broadcast_object(request)
+        return _render_request(self, request)
+
     def _dispatch(self, camera: int):
-        return self.raycaster.render_frame_async(
-            self.sampler, camera, chunk_size=self.chunk_size,
-            cull_empty=self.cull_empty, early_term=self.early_term,
-            early_split=self.early_split)
+        return self._collective(("camera", camera))
 
     def warmup(self) -> float:
         """Renders frame 0 (the weight pack and the first launches) and
@@ -191,20 +214,11 @@ class RenderServer:
         """Renders one frame of any camera pose: ``extrinsics`` is the
         4x4 camera-to-world matrix, ``intrinsics`` default to the rig's
         first camera's (``Raycaster.render_frame_pose_async``)."""
-        from ..cameras import CameraInfo, Resolution
-        rig = self.sampler.cameras[0]
         if intrinsics is None:
-            intrinsics = rig.intrinsics
-        camera = CameraInfo.create("pose", Resolution(*rig.resolution),
-                                   intrinsics, extrinsics)
-
-        def dispatch():
-            return self.raycaster.render_frame_pose_async(
-                self.sampler, camera, chunk_size=self.chunk_size,
-                cull_empty=self.cull_empty, early_term=self.early_term,
-                early_split=self.early_split)
-
-        return self._wait(self._submit(dispatch))
+            intrinsics = self.sampler.cameras[0].intrinsics
+        camera = _pose_camera(self.sampler, extrinsics, intrinsics)
+        request = ("pose", (camera.extrinsics, camera.intrinsics))
+        return self._wait(self._submit(lambda: self._collective(request)))
 
     def frames(self, cameras):
         """Yields the frames of ``cameras`` with two requests in flight,
@@ -475,6 +489,51 @@ def _make_handler(server: RenderServer):
                 pass
 
     return Handler
+
+
+def follow(raycaster, sampler, mesh, chunk_size: int = 16384,
+           cull_empty: bool = True, early_term: float = 0.0,
+           early_split: int = 0) -> int:
+    """A follower rank of ``serve --data-parallel``: joins each frame
+    that rank 0's :class:`RenderServer` broadcasts, rendering its slab,
+    until the server closes; returns the number of frames joined. The
+    model, sampler and options must be rank 0's."""
+    from types import SimpleNamespace
+    frames = SimpleNamespace(raycaster=raycaster, sampler=sampler,
+                             chunk_size=chunk_size, cull_empty=cull_empty,
+                             early_term=early_term, early_split=early_split,
+                             mesh=mesh)
+    count = 0
+    while True:
+        request = mesh.broadcast_object()
+        if tuple(request) == _STOP:
+            return count
+        _render_request(frames, request)
+        count += 1
+
+
+def _pose_camera(sampler, extrinsics, intrinsics):
+    from ..cameras import CameraInfo, Resolution
+    rig = sampler.cameras[0]
+    return CameraInfo.create("pose", Resolution(*rig.resolution),
+                             intrinsics, extrinsics)
+
+
+def _render_request(frames, request):
+    """A ``("camera", index)`` or ``("pose", (extrinsics, intrinsics))``
+    request rendered as a device uint8 frame with ``frames``' raycaster,
+    sampler and options (a :class:`RenderServer`'s, or a follower's);
+    under a mesh every rank runs it."""
+    kind, value = request
+    options = dict(chunk_size=frames.chunk_size,
+                   cull_empty=frames.cull_empty,
+                   early_term=frames.early_term,
+                   early_split=frames.early_split, mesh=frames.mesh)
+    if kind == "camera":
+        return frames.raycaster.render_frame_async(frames.sampler, value,
+                                                   **options)
+    return frames.raycaster.render_frame_pose_async(
+        frames.sampler, _pose_camera(frames.sampler, *value), **options)
 
 
 def serve(server: RenderServer, host: str = "127.0.0.1",

@@ -387,8 +387,10 @@ def test_validate_cli_runs_end_to_end_on_cpu_twins(capsys):
     captured = capsys.readouterr()
     lines = captured.out.strip().splitlines()
     assert lines[-1] == "ALL OK"
-    assert lines[-2].startswith("NOT PORTED mesh checks")
-    assert sum(line.startswith("OK ") for line in lines) == 8 + 9 + 3
+    # the JAX tool's two mesh checks, on a mesh of this process alone
+    assert lines[-3].startswith("OK  shard_map fused train step (mesh) loss")
+    assert lines[-2].startswith("OK  render_frame fused under mesh (uint8)")
+    assert sum(line.startswith("OK ") for line in lines) == 8 + 9 + 3 + 2
     assert "no kernel is checked" in captured.err
 
 

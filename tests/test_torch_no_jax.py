@@ -78,7 +78,10 @@ def test_walk_found_the_slice_modules(imported):
         "cli.train_image_regression", "cli.train_signal_regression",
         "cli.convert_checkpoint",
         "ops.interpolation", "utils.debug", "utils.search", "mesh_export",
-        "cli.export_mesh", "cli.sweep", "cli.inspect_ray_sampling"}
+        "cli.export_mesh", "cli.sweep", "cli.inspect_ray_sampling",
+        "utils.video", "cli.near_orbit", "parallel", "parallel.mesh",
+        "parallel.data_parallel", "scenepic_io", "lecture",
+        "lecture.figures", "lecture.animations"}
     found = {name.split(".", 1)[1] for name in imported["modules"]}
     assert expected <= found
 

@@ -348,11 +348,43 @@ def test_signal_regression_cli_on_cpu(tmp_path, flags):
 
 @pytest.mark.parametrize("main", [port_image.main, port_signal.main],
                          ids=["image", "signal"])
-def test_regression_make_video_is_not_ported(tmp_path, main):
-    argv = (["synthetic:8", "mlp", str(tmp_path)] if main is port_image.main
-            else ["multifreq", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="Remaining models"):
-        main(argv + ["--device", "cpu", "--make-video"])
+def test_regression_make_video_writes_mp4(tmp_path, monkeypatch, main):
+    """``--make-video`` writes ``training.mp4`` (Motion-JPEG in MP4) with
+    a frame a report, read back by ``cv2.VideoCapture`` at the JAX CLI's
+    rate (5 fps; the signal's ``--framerate``): the image regression's
+    samples are the JPEGs of its report PNGs, the signal's frames its
+    plot; the signal video needs the plot, so ``--no-plot`` raises,
+    and so does a missing matplotlib, naming it."""
+    from test_torch_video import assert_mp4_holds, read_capture
+    monkeypatch.setenv("FFN_TORCH_DATA_DIR", str(tmp_path / "data"))
+    out = tmp_path / "run"
+    if main is port_image.main:
+        log = main(["synthetic:48", "mlp", str(out), "--device", "cpu",
+                    "--image-size", "32", "--num-steps", "4",
+                    "--report-interval", "2", "--num-channels", "32",
+                    "--make-video"])
+        frames = [read_png(str(out / f"val{step:05d}.png"))
+                  for step, _ in log]
+        assert len(frames) == 3
+        # the test image's checker and rings lose more than 35 dB to
+        # 4:2:0 chroma at this size: held to libjpeg's decode instead
+        assert_mp4_holds(out / "training.mp4", frames, 5, min_psnr=None)
+        return
+    argv = ["multifreq", str(out), "--device", "cpu", "--num-steps", "4",
+            "--report-interval", "2", "--resolution", "320x160",
+            "--framerate", "7", "--make-video"]
+    with pytest.raises(ValueError, match="--no-plot"):
+        main(argv + ["--no-plot"])
+    with monkeypatch.context() as patch:
+        patch.setitem(sys.modules, "matplotlib", None)
+        with pytest.raises(ModuleNotFoundError, match="matplotlib"):
+            main(argv)
+    assert not (out / "training.mp4").exists()
+    pytest.importorskip("matplotlib")
+    main(argv)
+    frames, count, size, fps = read_capture(out / "training.mp4")
+    assert (count, size, fps, len(frames)) == (3, (320, 160), 7.0, 3)
+    assert os.path.exists(out / "final.png")
 
 
 def test_clis_default_to_cuda():

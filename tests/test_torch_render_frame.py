@@ -423,8 +423,36 @@ def test_orbit_video_cli_early_term_matches_jax(checkpoint, tmp_path, flags,
     ["--no-focus", "--data-parallel"],
     ["--no-focus", "--mp4", "out.mp4"],
 ])
-def test_orbit_video_cli_rejects_unported_paths(checkpoint, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch_orbit.main([checkpoint, "16", str(tmp_path), "--num-frames",
-                          "1", "--device", "cpu"] + flags)
-    assert not os.path.exists(os.path.join(tmp_path, "frame_00000.png"))
+def test_orbit_video_cli_mp4_and_data_parallel_match_jax(checkpoint,
+                                                         tmp_path, flags):
+    """``--mp4`` (with and without ``--chunked``) and ``--data-parallel``
+    (a mesh of this process alone; JAX's takes its 8 virtual devices):
+    every frame PNG within 1 of the JAX CLI's, and the MP4 read back by
+    ``cv2.VideoCapture`` with JAX's frame count, size and rate, each
+    sample the port's JPEG of its PNG (tests/test_torch_video.py)."""
+    cv2 = pytest.importorskip("cv2")
+    from fourier_feature_nets_tpu.cli import orbit_video as jax_orbit
+    from fourier_feature_nets_torch.utils.png import read_png
+    from test_torch_video import assert_mp4_holds, read_capture
+    common = [checkpoint, "16"]
+    tail = ["--num-frames", "3", "--num-samples", "8"]
+
+    def named(side):
+        return [str(tmp_path / f"{side}.mp4") if f == "out.mp4" else f
+                for f in flags]
+
+    assert torch_orbit.main(common + [str(tmp_path / "port")] + tail
+                            + named("port") + ["--device", "cpu"]) == 0
+    assert jax_orbit.main(common + [str(tmp_path / "jax")] + tail
+                          + named("jax")) == 0
+    frames = []
+    for frame in range(3):
+        name = f"frame_{frame:05d}.png"
+        ours = cv2.imread(str(tmp_path / "port" / name))
+        _assert_frames_close(ours, cv2.imread(str(tmp_path / "jax" / name)))
+        assert ours.any()
+        frames.append(read_png(str(tmp_path / "port" / name)))
+    if "--mp4" in flags:
+        _, *meta = read_capture(tmp_path / "jax.mp4")
+        assert meta == [3, (16, 16), 20.0]
+        assert_mp4_holds(tmp_path / "port.mp4", frames, 20, min_psnr=None)

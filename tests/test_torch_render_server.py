@@ -380,11 +380,69 @@ def test_serve_cli_serves_a_frame(nerf, tmp_path):
         assert process.wait(timeout=60) == 0
 
 
-def test_serve_cli_data_parallel_not_ported(nerf, tmp_path):
-    from fourier_feature_nets_torch.cli import serve as serve_cli
+def test_serve_cli_data_parallel_serves(nerf, tmp_path):
+    """``cli.serve --data-parallel`` on two gloo ranks started with
+    torchrun's variables: rank 0 serves HTTP and broadcasts each frame,
+    rank 1 follows and renders its slab; a rig frame and a pose frame
+    equal the same frames rendered in one process within 1, and
+    SIGTERM to rank 0 ends both ranks."""
+    import torch
+
+    from fourier_feature_nets_torch.cameras import Resolution as PortResolution
+    from fourier_feature_nets_torch.cli import orbit_video as orbit_cli
+    from fourier_feature_nets_torch.models import load_model as port_load
+    from fourier_feature_nets_torch.render import Raycaster as PortCaster
+    from fourier_feature_nets_torch.render.server import RenderServer
+    from fourier_feature_nets_torch.utils import orbit as port_orbit
+
     model, params, _ = nerf
     checkpoint = str(tmp_path / "nerf.npz")
     save_model(model, params, checkpoint)
-    with pytest.raises(NotImplementedError, match="Remaining models"):
-        serve_cli.main([checkpoint, "16", "--device", "cpu",
-                        "--data-parallel"])
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = [checkpoint, "16", "--device", "cpu", "--num-frames", "4",
+            "--preset", "fast"]
+    processes = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE="2", RANK=str(rank))
+        processes.append(subprocess.Popen(
+            [sys.executable, "-m", "fourier_feature_nets_torch.cli.serve",
+             *argv, "--port", "0", "--data-parallel"], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        line = ""
+        while "serving" not in line:
+            line = processes[0].stdout.readline()
+            assert line, processes[0].stderr.read()
+        url = re.search(r"(http://\S+)", line).group(1)
+        frame = np.frombuffer(_get(url + "/frame?camera=3&format=raw")[0],
+                              np.uint8).reshape(16, 16, 3)
+        cameras = port_orbit(orbit_cli.VECTORS["y+"], orbit_cli.VECTORS["z-"],
+                             4, 40, PortResolution(16, 16), 4)
+        pose = np.frombuffer(_post_pose(url, {
+            "extrinsics": cameras[1].extrinsics.tolist(),
+            "format": "raw"})[0], np.uint8).reshape(16, 16, 3)
+    finally:
+        processes[0].terminate()
+        codes = [p.wait(timeout=120) for p in processes]
+    assert codes == [0, 0], [p.stderr.read()[-2000:] for p in processes]
+    assert "joined" in processes[1].stdout.read()
+
+    # the same frames in one process, without the mesh
+    args = orbit_cli._parse_args([*argv[:2], "unused", *argv[2:]])
+    local = port_load(checkpoint)
+    sampler = orbit_cli.build_render_sampler(
+        args, local, cameras, np.diag([2.0, 2.0, 2.0, 1.0]).astype(
+            np.float32))
+    server = RenderServer(PortCaster(local, compute_dtype=torch.bfloat16),
+                          sampler)
+    try:
+        for ours, ref in ((frame, server.frame(3)),
+                          (pose, server.frame_pose(cameras[1].extrinsics))):
+            assert np.abs(ours.astype(int) - ref.astype(int)).max() <= 1
+            assert ref.any()
+    finally:
+        server.close()

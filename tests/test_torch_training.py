@@ -24,6 +24,7 @@ from fourier_feature_nets_torch.datasets.synthetic import (
     generate_synthetic_dataset as torch_generate,
 )
 from fourier_feature_nets_torch.models import NeRF as TorchNeRF
+from fourier_feature_nets_torch.models import load_model as torch_load_model
 from fourier_feature_nets_torch.models import params_from_jax, params_to_jax
 from fourier_feature_nets_torch.render import Raycaster as TorchRaycaster
 from fourier_feature_nets_torch.render import RaySampler as TorchSampler
@@ -438,19 +439,32 @@ def test_train_nerf_cli_opacity_model(tmp_path, monkeypatch):
                for v in r.split("\t")[2:])
 
 
-# --make-video is ported (tests/test_torch_visualizers.py); beside it the
-# unported --data-parallel still raises
-@pytest.mark.parametrize("flag", [["--make-video", "--data-parallel"],
-                                  ["--data-parallel"]])
-def test_train_nerf_cli_unported_flags_raise(scene, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_train_nerf.main([scene, str(tmp_path), "--device", "cpu",
-                              *flag])
-
-
 _CLI_SMALL = ["--device", "cpu", "--num-layers", "2", "--num-channels", "32",
               "--num-samples", "8", "--batch-size", "64", "--image-interval",
               "0", "--crop-steps", "0", "--report-interval", "4"]
+
+
+# --data-parallel without a launcher is a mesh of this process alone (the
+# gloo ranks: tests/test_torch_parallel.py); beside it --make-video
+@pytest.mark.parametrize("flag", [["--make-video", "--data-parallel"],
+                                  ["--data-parallel"]])
+def test_train_nerf_cli_data_parallel_flags_run(scene, tmp_path, flag):
+    """``--data-parallel`` trains on a mesh of one rank: the same model,
+    bit for bit, as the run without it; with ``--make-video`` the orbit
+    video's frames are written too."""
+    small = [*_CLI_SMALL, "--num-steps", "4", "--num-frames", "2"]
+    out = tmp_path / "dp"
+    assert port_train_nerf.main([scene, str(out), *small, *flag]) == 0
+    assert port_train_nerf.main([scene, str(tmp_path / "one"), *small,
+                                 *flag[:-1]]) == 0
+    ours = params_to_jax(torch_load_model(str(out / "nerf.npz")))
+    ref = params_to_jax(torch_load_model(str(tmp_path / "one" / "nerf.npz")))
+    for name, value in ref.items():
+        np.testing.assert_array_equal(ours[name], value, err_msg=name)
+    if "--make-video" in flag:
+        assert sorted(os.listdir(out / "video")) == sorted(
+            os.listdir(tmp_path / "one" / "video"))
+        assert os.listdir(out / "video")
 
 
 @pytest.mark.parametrize("flag", [["--resume"],
