@@ -220,6 +220,7 @@ Outputs go to ``smoke_out/`` inside the checkout.
 import argparse
 import concurrent.futures
 import contextlib
+import importlib
 import io
 import json
 import os
@@ -3593,7 +3594,9 @@ def kernel_twins():
     from fourier_feature_nets_torch.kernels import fused_nerf_train
     from fourier_feature_nets_torch.kernels.fused_nerf import (
         fused_nerf_reference)
-    from fourier_feature_nets_torch.render import distill as distill_module
+    # the render package's ``distill`` is the function, not its module
+    distill_module = importlib.import_module(
+        "fourier_feature_nets_torch.render.distill")
     saved = (distill_module.fused_nerf_apply,
              fused_nerf_train.fused_nerf_apply,
              fused_nerf_train.fused_nerf_backward)
@@ -5510,6 +5513,185 @@ def _finish_launches(finish, kernel: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the asset cache and the downloader: a named model and dataset, get_rays
+# ---------------------------------------------------------------------------
+
+ASSET_FRAMES = 2               # orbit_video frames of a cached model
+ASSET_TRAIN_STEPS = 6          # train_nerf steps on a cached dataset
+ASSET_RAYS = 20000             # get_rays' dataset-local indices
+
+
+@contextlib.contextmanager
+def _asset_cache():
+    """A fresh ``FFN_TORCH_DATA_DIR`` and an empty working directory, both
+    under ``OUT_DIR``; the old cache variable and directory come back
+    after the block."""
+    import tempfile
+    saved_dir, saved_cwd = os.environ.get("FFN_TORCH_DATA_DIR"), os.getcwd()
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as root:
+        cache, work = os.path.join(root, "cache"), os.path.join(root, "work")
+        os.makedirs(os.path.join(cache, "models"))
+        os.makedirs(work)
+        os.environ["FFN_TORCH_DATA_DIR"] = cache
+        os.chdir(work)
+        try:
+            yield cache
+        finally:
+            os.chdir(saved_cwd)
+            if saved_dir is None:
+                os.environ.pop("FFN_TORCH_DATA_DIR", None)
+            else:
+                os.environ["FFN_TORCH_DATA_DIR"] = saved_dir
+
+
+def _asset_train(data: str, results: str) -> dict:
+    """``train_nerf --fused`` in bf16 for ``ASSET_TRAIN_STEPS`` steps on
+    ``data``: K1's and K2's launches and the wall seconds."""
+    from fourier_feature_nets_torch.cli import train_nerf
+    _reset_launches()
+    captured = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(captured):
+        rc = train_nerf.main([data, results, "--num-steps",
+                              str(ASSET_TRAIN_STEPS), "--report-interval",
+                              str(ASSET_TRAIN_STEPS), "--compute-dtype",
+                              "bfloat16", "--fused"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    output = captured.getvalue()
+    if rc != 0 or not os.path.exists(os.path.join(results, "nerf.npz")):
+        raise AssertionError(f"train_nerf {data} returned {rc}:\n"
+                             f"{output[-2000:]}")
+    return {**_launch_counts(), "wall_s": wall}
+
+
+def phase_assets(model, device="cuda") -> dict:
+    """The loaders' data cache, on the card and off the network, under a
+    temporary ``FFN_TORCH_DATA_DIR``: (a) ``orbit_video <name>.npz`` of
+    the seeded flagship from ``models/`` in the cache, whose frames must
+    equal the same CLI's from the checkpoint's own path, with K1 launched
+    as often; (b) ``train_nerf <name>.npz --fused`` in bf16 on the
+    synthetic scene from the cache, with K1 and K2 launched as on the
+    ``synthetic`` path; (c) ``ImageDataset.get_rays`` on ``cuda`` with a
+    pixel subset, rendered through K1, whose uint8 colours must equal
+    those of ``sampler.sample`` on the same filtered ids; (d)
+    ``download_asset`` of an unknown name returns False and writes
+    nothing. ``device`` is where (c) runs (``cpu`` for a rehearsal)."""
+    from fourier_feature_nets_torch.datasets import ImageDataset, Mode
+    from fourier_feature_nets_torch.render import Raycaster
+    from fourier_feature_nets_torch.utils import download_asset
+    from fourier_feature_nets_torch.utils.png import read_png
+    checkpoint = os.path.join(OUT_DIR, "flagship_seed0.npz")
+    scene = os.path.join(OUT_DIR, "data", "synthetic_100.npz")
+    row, seconds = {}, {}
+    with _asset_cache() as cache:
+        start = time.perf_counter()
+        shutil.copyfile(checkpoint,
+                        os.path.join(cache, "models", "smoke_flagship.npz"))
+        frames = {}
+        for how, path in (("cached", "smoke_flagship.npz"),
+                          ("direct", checkpoint)):
+            frames_dir = os.path.join(OUT_DIR, "asset_frames", how)
+            _, launches, wall = run_orbit(
+                path, frames_dir, FRAME_RES,
+                ["--preset", "fast", "--num-frames", str(ASSET_FRAMES)])
+            check_frames(frames_dir, ASSET_FRAMES, FRAME_RES)
+            frames[how] = [read_png(os.path.join(
+                frames_dir, f"frame_{i:05d}.png")).astype(np.int32)
+                for i in range(ASSET_FRAMES)]
+            row[f"orbit_{how}"] = {"launches": launches, "wall_s": wall}
+        max_d = max(int(np.abs(a - b).max())
+                    for a, b in zip(frames["cached"], frames["direct"]))
+        per_frame = row["orbit_cached"]["launches"] / ASSET_FRAMES
+        row["orbit_max_abs_diff"] = max_d
+        log(f"  (a) orbit_video smoke_flagship.npz from the cache: "
+            f"{ASSET_FRAMES} frames of {FRAME_RES}x{FRAME_RES}, K1 launches "
+            f"{row['orbit_cached']['launches']} ({per_frame:.1f} a frame; "
+            f"{row['orbit_direct']['launches']} from the direct path), "
+            f"frames max |d| {max_d} against the direct path, "
+            f"{row['orbit_cached']['wall_s']:.3f} s for the CLI call")
+        if (max_d != 0 or row["orbit_cached"]["launches"] <= 0
+                or row["orbit_cached"]["launches"]
+                != row["orbit_direct"]["launches"]):
+            raise AssertionError("orbit_video from the cache")
+        seconds["a_orbit"] = time.perf_counter() - start
+
+        start = time.perf_counter()
+        os.environ["FFN_TORCH_DATA_DIR"] = os.path.join(OUT_DIR, "data")
+        row["train_synthetic"] = _asset_train(
+            "synthetic", os.path.join(OUT_DIR, "asset_train", "synthetic"))
+        os.environ["FFN_TORCH_DATA_DIR"] = cache
+        shutil.copyfile(scene, os.path.join(cache, "smoke_scene.npz"))
+        row["train_cached"] = _asset_train(
+            "smoke_scene.npz", os.path.join(OUT_DIR, "asset_train", "cached"))
+        cached, direct = row["train_cached"], row["train_synthetic"]
+        log(f"  (b) train_nerf smoke_scene.npz --fused bf16 from the cache, "
+            f"{ASSET_TRAIN_STEPS} steps: K1 {cached['fused_nerf']}, K2 "
+            f"{cached['fused_nerf_train']} launches (synthetic path: K1 "
+            f"{direct['fused_nerf']}, K2 {direct['fused_nerf_train']}), "
+            f"{cached['wall_s']:.3f} s for the CLI call")
+        if (cached["fused_nerf"] <= 0 or cached["fused_nerf_train"] <= 0
+                or cached["fused_nerf"] != direct["fused_nerf"]
+                or cached["fused_nerf_train"] != direct["fused_nerf_train"]):
+            raise AssertionError("train_nerf from the cache")
+        seconds["b_train"] = time.perf_counter() - start
+
+        start = time.perf_counter()
+        data = ImageDataset.load("smoke_scene.npz", "train", 64,
+                                 device=device)
+        data.mode = Mode.Center
+        subset = range(0, data.sampler.rays_per_camera, 2)
+        data.subsample_index = subset
+        local = np.arange(min(ASSET_RAYS, len(data)))
+        ids = data.crop_index[local]
+        ids = data.to_valid(ids[np.isin(ids % data.sampler.rays_per_camera,
+                                        np.asarray(subset))])
+        caster = Raycaster(model, torch.bfloat16, fused=True)
+        _reset_launches()
+        samples = data.get_rays(local)
+        colors = caster.render(samples).color
+        torch.cuda.synchronize()
+        launches = _launch_counts()["fused_nerf"]
+        expected = caster.render(data.sampler.sample(
+            torch.from_numpy(ids).to(device))).color
+
+        def to_u8(color):
+            return (color.float().clamp(0, 1) * 255).to(torch.uint8).cpu()
+
+        staged = samples.to("cpu").pin_memory().to(device, non_blocking=True)
+        equal = (torch.equal(samples.rays.cpu(), torch.from_numpy(ids))
+                 and torch.equal(to_u8(colors), to_u8(expected))
+                 and all(torch.equal(a, b) for a, b in zip(staged, samples)))
+        row["get_rays"] = {"rays": len(ids), "launches": launches,
+                           "equal": equal}
+        log(f"  (c) get_rays on cuda, Center mode, every other pixel: "
+            f"{len(local)} local ids -> {len(ids)} rays, K1 launches "
+            f"{launches}; uint8 colours equal to sampler.sample on the "
+            f"same ids: {equal}; samples.to('cpu').pin_memory().to('cuda') "
+            f"round trip equal")
+        if not equal or launches <= 0:
+            raise AssertionError("get_rays on the card")
+        seconds["c_get_rays"] = time.perf_counter() - start
+
+        start = time.perf_counter()
+        target = os.path.join(cache, "no-such-asset")
+        got = download_asset("no-such-asset", target)
+        left = sorted(name for name in os.listdir(cache)
+                      if name.startswith("no-such-asset"))
+        row["unknown_asset"] = {"returned": got, "files": left}
+        log(f"  (d) download_asset('no-such-asset'): {got}, files left "
+            f"{left}")
+        if got is not False or left:
+            raise AssertionError("download_asset of an unknown name")
+        seconds["d_unknown"] = time.perf_counter() - start
+    row["phase_s"] = seconds
+    log("asset phases: " + ", ".join(f"{k} {v:.3f} s"
+                                     for k, v in seconds.items())
+        + f" ({CARD})")
+    return row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch port on one NVIDIA GPU")
@@ -5611,6 +5793,10 @@ def main(argv=None) -> int:
         "the regressions' --make-video, JPEG input, the view-angle "
         "animation, to_scenepic, a one-rank NCCL mesh:")
     finish = timed("finish_paths", phase_finish_paths, checkpoint)
+    torch.cuda.empty_cache()
+    log("the data cache: a model and a dataset by name, get_rays, an "
+        "unknown asset (no network):")
+    assets = timed("assets", phase_assets, model)
     torch.cuda.empty_cache()
     log("K3 vs plain twin, flagship:")
     render_checks = phase_ray_render_vs_twin(model)
@@ -5721,8 +5907,13 @@ def main(argv=None) -> int:
                         for name, row in distilled["launches"].items()},
             **_ffn_launches(ffn, "fused_nerf"),
             **_item7_launches(item7, "fused_nerf"),
-            **_finish_launches(finish, "fused_nerf")},
+            **_finish_launches(finish, "fused_nerf"),
+            "orbit_cached_model": assets["orbit_cached"]["launches"],
+            "train_nerf_cached_dataset":
+                assets["train_cached"]["fused_nerf"],
+            "get_rays": assets["get_rays"]["launches"]},
         "student_6x192": distilled["kernels"]["fused_nerf"],
+        "assets": assets,
         "ffn_voxel_regression": ffn,
         "item7_paths": item7,
         "finish_paths": finish,
@@ -5772,7 +5963,9 @@ def main(argv=None) -> int:
                         for name, row in distilled["launches"].items()},
             **_ffn_launches(ffn, "fused_nerf_train"),
             **_item7_launches(item7, "fused_nerf_train"),
-            **_finish_launches(finish, "fused_nerf_train")},
+            **_finish_launches(finish, "fused_nerf_train"),
+            "train_nerf_cached_dataset":
+                assets["train_cached"]["fused_nerf_train"]},
         "student_6x192": distilled["kernels"]["fused_nerf_train"],
         "distill": {k: v for k, v in distilled.items() if k != "kernels"},
         "train_chunks": chunks,

@@ -4,10 +4,9 @@ The JAX package beside this one is the reference. The port imports
 ``torch`` and NumPy and never ``jax``; importing it needs no CUDA. Its
 kernels (:mod:`.kernels`) are hand-written CUDA built at first use.
 
-The package exports the JAX package's names (less ``download_asset``:
-the port downloads nothing) and its own ``flagship_nerf`` and
-``OccupancyGridSampler``. ``FFN_TORCH_DEBUG_NANS`` is read at import
-(:mod:`.utils.debug`).
+The package exports the JAX package's names and its own
+``flagship_nerf`` and ``OccupancyGridSampler``. ``FFN_TORCH_DEBUG_NANS``
+is read at import (:mod:`.utils.debug`).
 """
 
 from . import ops
@@ -41,7 +40,7 @@ from .render import (
     RaySamples,
     RenderResult,
 )
-from .utils import ETABar, hemisphere, orbit
+from .utils import ETABar, download_asset, hemisphere, orbit
 from .utils.debug import init_from_env as _init_debug_from_env
 from .utils.optim import exponential_lr
 from .utils.optim import exponential_lr as exponential_lr_decay
@@ -72,6 +71,7 @@ __all__ = [
     "RaySampler",
     "RaySamples",
     "ETABar",
+    "download_asset",
     "exponential_lr",
     "exponential_lr_decay",
     "hemisphere",

@@ -125,33 +125,36 @@ def fit_kwargs(args) -> dict:
     return kwargs
 
 
-def data_dir() -> str:
-    """Where generated datasets are cached: ``$FFN_TORCH_DATA_DIR`` or
-    ``~/.cache/fourier_feature_nets_torch``."""
-    root = os.environ.get("FFN_TORCH_DATA_DIR")
-    if root:
-        return root
-    return os.path.join(os.path.expanduser("~"), ".cache",
-                        "fourier_feature_nets_torch")
-
-
 def resolve_data_path(path: str, device="cpu", mesh=None) -> str:
-    """Resolves a dataset path; ``synthetic[:<res>]`` generates the
-    built-in synthetic scene on ``device`` into :func:`data_dir` on
-    first use (the scheme must match exactly: a file named
-    ``synthetic_800.npz`` is a path). Under a ``mesh`` rank 0 generates
-    it while the others wait, then they read it."""
-    parts = path.split(":")
-    if parts[0] == "synthetic":
-        from ..datasets.synthetic import load_or_generate
-        res = int(parts[1]) if len(parts) > 1 else 100
-        out = os.path.join(data_dir(), f"synthetic_{res}.npz")
-        if mesh is not None and not mesh.is_primary:
+    """Resolves a dataset path. ``synthetic[:<res>]`` generates the
+    built-in synthetic scene on ``device`` into the data cache on first
+    use (the scheme must match exactly: a file named
+    ``synthetic_800.npz`` is a path). Any other path that does not exist
+    resolves to its copy in the cache, downloaded there first when its
+    name is a known asset (:func:`~..utils.assets.resolve_asset`).
+
+    Under a ``mesh`` rank 0 generates or downloads while the others
+    wait, then they read its file.
+
+    Raises:
+        FileNotFoundError: a path that is neither on disk nor in the
+            cache, and cannot be downloaded.
+    """
+    from ..utils.assets import default_data_dir, resolve_asset
+    primary = mesh is None or mesh.is_primary
+    if not primary:
+        mesh.barrier()
+    try:
+        parts = path.split(":")
+        if parts[0] == "synthetic":
+            from ..datasets.synthetic import load_or_generate
+            res = int(parts[1]) if len(parts) > 1 else 100
+            out = os.path.join(default_data_dir(), f"synthetic_{res}.npz")
+            return load_or_generate(out, resolution=res, device=device)
+        return resolve_asset(path, "dataset", download=primary)
+    finally:
+        if mesh is not None and primary:
             mesh.barrier()
-        path = load_or_generate(out, resolution=res, device=device)
-        if mesh is not None and mesh.is_primary:
-            mesh.barrier()
-    return path
 
 
 def load_opacity(path, device):

@@ -5,13 +5,13 @@ flags, defaults and outputs plus ``--device`` (default ``cuda``): one of
 the four FFN variants (2 -> 3, seeded with ``--seed``) fit to a PNG's
 pixels by full-batch steps of sigmoid + 0.5 * MSE and plain Adam (no
 clipping) at an exponentially decaying learning rate. ``synthetic[:size]``
-generates the procedural test image into the port's data directory
-(``$FFN_TORCH_DATA_DIR``). Every ``--report-interval`` steps (and at the
-last) it prints the val PSNR and writes ``val<step>.png`` (ground truth
-beside the prediction, or the activation grid with ``--activations``);
-at the end ``superres.png`` (a 2x render), ``log.txt`` and
-``model.npz``, and a summary line with the ms a step (CUDA events on a
-card). ``--make-video`` also writes each report's composite frame to
+generates the procedural test image into the data cache
+(:func:`~..utils.assets.default_data_dir`). Every ``--report-interval``
+steps (and at the last) it prints the val PSNR and writes
+``val<step>.png`` (ground truth beside the prediction, or the activation
+grid with ``--activations``); at the end ``superres.png`` (a 2x render),
+``log.txt`` and ``model.npz``, and a summary line with the ms a step
+(CUDA events on a card). ``--make-video`` also writes each report's composite frame to
 ``training.mp4`` at 5 frames a second, as the JAX CLI does, as
 Motion-JPEG in MP4 (:mod:`..utils.video`; JAX's frames are MPEG-4 Part
 2).
@@ -29,6 +29,7 @@ import torch
 from ..datasets.pixel_dataset import PixelDataset
 from ..models import save_model
 from ..render.raycaster import _StepTimer
+from ..utils.assets import default_data_dir
 from ..utils.optim import ClippedAdam, exponential_lr
 from ..utils.png import write_png
 from ..utils.video import VideoWriter
@@ -73,7 +74,7 @@ def resolve_image_path(path: str, default_size: int) -> str:
         return path
     from ..datasets.synthetic import generate_synthetic_image
     size = int(parts[1]) if len(parts) > 1 else default_size
-    out = os.path.join(common.data_dir(), f"synthetic_image_{size}.png")
+    out = os.path.join(default_data_dir(), f"synthetic_image_{size}.png")
     if not os.path.exists(out):
         generate_synthetic_image(out, size)
     return out

@@ -6,16 +6,16 @@ and are gathered per batch of ray ids; the sampling modes (Full,
 Sparse, Center, Dilate, Patch) are host-side index pools, filtered to
 valid rays on first use.
 
-Three departures from the JAX package, all because the card's machine
-has neither OpenCV nor network access: the alpha-mask dilation is
+Three departures from the JAX package: the alpha-mask dilation is
 ``scipy.ndimage.binary_dilation`` with OpenCV's elliptic stencil
-(:func:`ellipse_stencil`), ``YCrCb`` colors come from OpenCV's uint8
-conversion rebuilt in NumPy (:mod:`..utils.color`), and a missing NPZ
-is an error naming the path (the JAX package downloads it).
+(:func:`ellipse_stencil`) and ``YCrCb`` colors come from OpenCV's uint8
+conversion rebuilt in NumPy (:mod:`..utils.color`), because the card's
+machine has no OpenCV; and :meth:`ImageDataset.load` raises
+``FileNotFoundError`` for an NPZ it can neither find in the data cache
+nor download, where the JAX package returns None.
 """
 
-import os
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import scipy.ndimage
@@ -24,6 +24,7 @@ import torch
 from ..cameras import CameraInfo, Resolution, pixel_grid
 from ..render.ray_sampler import RaySampler, RaySamples
 from ..render.raycaster import RenderResult
+from ..utils.assets import resolve_asset
 from ..utils.color import rgb_to_ycrcb
 from .ray_dataset import Mode, RayDataset
 
@@ -66,6 +67,7 @@ class ImageDataset(RayDataset):
         self._mode = Mode.Full
         self._label = label
         self._images = images
+        self._subsample_index = None
         self.device = torch.device(device)
         self.include_alpha = include_alpha
         self.image_height, self.image_width = images.shape[1:3]
@@ -166,6 +168,23 @@ class ImageDataset(RayDataset):
         self._mode = value
 
     @property
+    def subsample_index(self) -> Optional[set]:
+        """The per-camera pixel indices that :meth:`get_rays` and
+        :meth:`rays_for_camera` keep, or None for all of them."""
+        return self._subsample_index
+
+    @subsample_index.setter
+    def subsample_index(self, index):
+        self._subsample_index = (None if index is None
+                                 else set(int(i) for i in index))
+
+    def _keep_subsample(self, pixels: np.ndarray) -> np.ndarray:
+        """A mask of ``pixels`` (per-camera indices) in the subset."""
+        if not self._subsample_index:
+            return np.ones(len(pixels), bool)
+        return np.isin(pixels, np.fromiter(self._subsample_index, np.int64))
+
+    @property
     def num_cameras(self) -> int:
         return self.sampler.num_cameras
 
@@ -222,10 +241,25 @@ class ImageDataset(RayDataset):
             idx = self._mode_index(self._mode)[start:start + per_camera]
         return self.sampler.to_valid(idx) - camera_start
 
+    def get_rays(self, idx, step: Optional[int] = None,
+                 rng: Optional[int] = None) -> RaySamples:
+        """Samples dataset-local indices (a scalar or an array) under the
+        active mode: mapped through the mode's index table (but in Full),
+        kept to :attr:`subsample_index`, then filtered to valid rays.
+        ``step`` and ``rng`` are :meth:`RaySampler.sample`'s."""
+        idx = np.atleast_1d(np.asarray(idx))
+        if self._mode != Mode.Full:
+            idx = self._mode_index(self._mode)[idx]
+        idx = idx[self._keep_subsample(idx % self.sampler.rays_per_camera)]
+        idx = self.sampler.to_valid(idx)
+        return self.sampler.sample(torch.from_numpy(idx).to(self.device),
+                                   step, rng)
+
     def rays_for_camera(self, camera: int) -> RaySamples:
-        """Deterministic ray samples of one camera under the active
-        mode."""
-        idx = (self.index_for_camera(camera)
+        """Deterministic ray samples of one camera under the active mode,
+        kept to :attr:`subsample_index`."""
+        idx = self.index_for_camera(camera)
+        idx = (idx[self._keep_subsample(idx)]
                + camera * self.sampler.rays_per_camera)
         return self.sampler.sample(torch.from_numpy(idx).to(self.device))
 
@@ -303,11 +337,11 @@ class ImageDataset(RayDataset):
              device="cpu") -> "ImageDataset":
         """Loads a split ("train", "val" or "test") of an NPZ: images
         (C,H,W,3|4) u8, bounds (4,4), intrinsics (C,3,3), extrinsics
-        (C,4,4), split_counts (3,) in train/val/test order."""
-        if not os.path.exists(path):
-            raise FileNotFoundError(
-                f"no dataset at {path!r}: the PyTorch port does not "
-                "download datasets; pass a local NPZ or 'synthetic[:res]'")
+        (C,4,4), split_counts (3,) in train/val/test order. A path that
+        does not exist is looked up in the data cache and, when its name
+        is a known asset, downloaded there first
+        (:func:`~..utils.assets.resolve_asset`)."""
+        path = resolve_asset(path, "dataset")
         with np.load(path) as data:
             test_end, height, width = data["images"].shape[:3]
             split_counts = data["split_counts"]

@@ -76,6 +76,11 @@ class RayDataset(ABC):
         """Global *valid* ray ids available under the given mode."""
 
     @abstractmethod
+    def get_rays(self, idx, step: Optional[int] = None,
+                 rng: Optional[int] = None) -> RaySamples:
+        """Samples the given dataset-local ray indices."""
+
+    @abstractmethod
     def render(self, rays: torch.Tensor) -> RenderResult:
         """Ground-truth colors for global ray ids."""
 

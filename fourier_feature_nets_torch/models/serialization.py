@@ -24,7 +24,6 @@ A checkpoint written by either package loads into the other.
 """
 
 import json
-import os
 from typing import Dict
 
 import numpy as np
@@ -118,9 +117,15 @@ def load_model(path: str) -> nn.Module:
     written by either package (plain weights, or the JAX package's
     resumable train state, whose weights sit under ``params/``), or
     from the reference's ``.pt`` / ``.pth`` (:func:`load_torch_model`).
-    Returns the model on the CPU."""
-    if not os.path.exists(path):
-        raise FileNotFoundError(path)
+    Returns the model on the CPU.
+
+    A path that does not exist is looked up in the data cache's
+    ``models/`` and, when its name is a known asset, downloaded there
+    first (:func:`~..utils.assets.resolve_asset`); a file it cannot find
+    or download raises ``FileNotFoundError``."""
+    # imported here: the utils package imports this module
+    from ..utils.assets import resolve_asset
+    path = resolve_asset(path, "model", "models")
     if path.endswith((".pt", ".pth")):
         return load_torch_model(path)
     with np.load(path, allow_pickle=False) as data:

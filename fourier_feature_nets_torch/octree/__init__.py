@@ -2,6 +2,6 @@
 traversal of the render path."""
 
 from .octree import OcTree
-from .traversal import Path
+from .traversal import Path, device_batch_intersect, device_batch_query
 
-__all__ = ["OcTree", "Path"]
+__all__ = ["OcTree", "Path", "device_batch_intersect", "device_batch_query"]

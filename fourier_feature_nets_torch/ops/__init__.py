@@ -16,7 +16,7 @@ from .encoding import (
 )
 from .interpolation import interpolate_bilinear
 from .intersection import NearFar, bounds_min_max, ray_aabb_near_far
-from .metrics import psnr_from_mse
+from .metrics import mse, psnr, psnr_from_mse
 from .sampling import (
     anneal_near_far,
     batch_linspace,
@@ -25,6 +25,7 @@ from .sampling import (
     inverse_cdf_t_values,
     merge_sorted,
     per_ray_uniform,
+    sample_positions,
     uniform_t_values,
     unit_linspace,
 )
@@ -47,10 +48,13 @@ __all__ = [
     "interpolate_bilinear",
     "inverse_cdf_t_values",
     "merge_sorted",
+    "mse",
     "per_ray_uniform",
     "positional_encoding_matrix",
+    "psnr",
     "psnr_from_mse",
     "ray_aabb_near_far",
+    "sample_positions",
     "uniform_t_values",
     "unit_linspace",
 ]

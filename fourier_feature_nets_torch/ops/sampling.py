@@ -19,7 +19,8 @@ from .blend import calculate_blend_weights
 
 __all__ = ["unit_linspace", "batch_linspace", "anneal_near_far",
            "per_ray_uniform", "uniform_t_values", "determine_cdf",
-           "inverse_cdf_from_bins", "inverse_cdf_t_values", "merge_sorted"]
+           "inverse_cdf_from_bins", "inverse_cdf_t_values", "merge_sorted",
+           "sample_positions"]
 
 _MASK32 = 0xFFFFFFFF
 
@@ -249,3 +250,18 @@ def merge_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     equal the JAX package's sort-free one-hot merge: ties are equal
     values, so their order does not show."""
     return torch.sort(torch.cat([a, b], dim=-1), dim=-1).values
+
+
+def sample_positions(starts: torch.Tensor, directions: torch.Tensor,
+                     t_values: torch.Tensor) -> torch.Tensor:
+    """Expands rays into 3D sample positions: ``start + t * direction``.
+
+    Args:
+        starts: (R, 3) ray origins.
+        directions: (R, 3) ray directions.
+        t_values: (R, S) sample depths.
+
+    Returns:
+        (R, S, 3) positions.
+    """
+    return starts[:, None, :] + t_values[..., None] * directions[:, None, :]

@@ -1,5 +1,6 @@
-"""Ray samplers and the raycaster of the render path."""
+"""Ray samplers, the raycaster, the render server and distillation."""
 
+from .distill import distill
 from .occupancy_sampler import (
     OccupancyGridSampler,
     density_grid_from_model,
@@ -8,7 +9,8 @@ from .occupancy_sampler import (
 from .octree_sampler import OctreeRaySampler
 from .ray_sampler import RaySampler, RaySamples
 from .raycaster import Raycaster, RenderResult
+from .server import RenderServer
 
 __all__ = ["OccupancyGridSampler", "OctreeRaySampler", "RaySampler",
-           "RaySamples", "Raycaster", "RenderResult",
-           "density_grid_from_model", "occupancy_grid_from_tree"]
+           "RaySamples", "Raycaster", "RenderResult", "RenderServer",
+           "density_grid_from_model", "distill", "occupancy_grid_from_tree"]

@@ -49,6 +49,7 @@ from ..ops.sampling import (
     batch_linspace,
     inverse_cdf_from_bins,
     per_ray_uniform,
+    sample_positions,
 )
 from .ray_sampler import RaySampler, RaySamples
 
@@ -354,8 +355,7 @@ class OccupancyGridSampler(RaySampler):
         the (R, P, 3) positions of the bin midpoints."""
         edges = batch_linspace(near, far, self.num_probes + 1)
         mids = 0.5 * (edges[..., :-1] + edges[..., 1:])
-        return edges, (starts[:, None, :]
-                       + mids[..., None] * directions[:, None, :])
+        return edges, sample_positions(starts, directions, mids)
 
     def _probe_cdf_geometry(self, starts, directions, near, far):
         """Probes occupancy along explicit ray geometry.
@@ -404,7 +404,6 @@ class OccupancyGridSampler(RaySampler):
                                                  far)
         cdf = self._cdf(edges, self._occupancy_at(probe_pos))
         t_values = self.t_from_cdf(edges, cdf, idx, step, rng)
-        positions = (starts[:, None, :]
-                     + t_values[..., None] * directions[:, None, :])
+        positions = sample_positions(starts, directions, t_values)
         view_directions = directions[:, None, :].expand(positions.shape)
         return RaySamples(positions, view_directions, t_values, idx)

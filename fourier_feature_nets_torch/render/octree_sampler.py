@@ -17,7 +17,11 @@ import torch
 from ..cameras import CameraInfo
 from ..octree import OcTree
 from ..octree.traversal import device_batch_intersect
-from ..ops.sampling import inverse_cdf_from_bins, per_ray_uniform
+from ..ops.sampling import (
+    inverse_cdf_from_bins,
+    per_ray_uniform,
+    sample_positions,
+)
 from .ray_sampler import RaySampler, RaySamples
 
 __all__ = ["OctreeRaySampler", "occupancy_t_values"]
@@ -105,7 +109,6 @@ class OctreeRaySampler(RaySampler):
                                       quantiles)
         # clamp into the render volume's near/far
         t_values = torch.clamp(t_values, near[:, None], far[:, None])
-        positions = (starts[:, None, :]
-                     + t_values[..., None] * directions[:, None, :])
+        positions = sample_positions(starts, directions, t_values)
         view_directions = directions[:, None, :].expand(positions.shape)
         return RaySamples(positions, view_directions, t_values, idx)

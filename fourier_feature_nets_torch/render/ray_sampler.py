@@ -33,6 +33,7 @@ from ..ops import (
     merge_sorted,
     per_ray_uniform,
     ray_aabb_near_far,
+    sample_positions,
     uniform_t_values,
 )
 from ..utils.color import ycrcb_to_rgb
@@ -56,6 +57,27 @@ class RaySamples(NamedTuple):
     view_directions: torch.Tensor
     t_values: torch.Tensor
     rays: Optional[torch.Tensor]
+
+    def _map(self, fn) -> "RaySamples":
+        return RaySamples(*[None if t is None else fn(t) for t in self])
+
+    def subset(self, index) -> "RaySamples":
+        """The rows ``index`` selects (an index tensor, array or mask)."""
+        return self._map(lambda t: t[index])
+
+    def numpy(self) -> "RaySamples":
+        """The samples as NumPy arrays (detached, on the host)."""
+        return self._map(lambda t: t.detach().cpu().numpy())
+
+    def to(self, device, non_blocking: bool = False) -> "RaySamples":
+        """The samples on ``device`` (the JAX package's ``to`` is a
+        no-op)."""
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "RaySamples":
+        """The samples in pinned host memory, for asynchronous copies to
+        the card (the JAX package's ``pin_memory`` is a no-op)."""
+        return self._map(lambda t: t.pin_memory())
 
 
 class RayTables(NamedTuple):
@@ -166,8 +188,7 @@ class RaySampler:
         starts, directions, near, far = (
             x.to(device) for x in (starts, directions, near, far))
         t_values = batch_linspace(near, far, self.num_focus_samples)
-        positions = (starts[:, None, :]
-                     + t_values[..., None] * directions[:, None, :])
+        positions = sample_positions(starts, directions, t_values)
         views = directions[:, None, :].expand(positions.shape)
         with torch.no_grad():
             logits = query_model(model, positions.reshape(-1, 3),
@@ -334,8 +355,7 @@ class RaySampler:
                 near0, far0, cdf_rows, self.num_focus_samples,
                 self.num_focus_samples, focus_quantiles)
             t_values = merge_sorted(t_values, focus_t)
-        positions = (starts[:, None, :]
-                     + t_values[..., None] * directions[:, None, :])
+        positions = sample_positions(starts, directions, t_values)
         view_directions = directions[:, None, :].expand(positions.shape)
         return RaySamples(positions, view_directions, t_values, idx)
 

@@ -69,6 +69,11 @@ class RenderResult(NamedTuple):
     alpha: torch.Tensor
     depth: Optional[torch.Tensor]
 
+    def numpy(self) -> "RenderResult":
+        """The outputs as NumPy arrays (detached, on the host)."""
+        return RenderResult(*[None if t is None else t.detach().cpu().numpy()
+                              for t in self])
+
 
 def _composite(color_o: torch.Tensor, t_values: torch.Tensor,
                include_depth: bool) -> RenderResult:

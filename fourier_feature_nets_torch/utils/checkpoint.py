@@ -25,11 +25,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.serialization import (
-    build_model,
-    named_parameters,
-    params_from_jax,
-)
+# the module, not its names: models.serialization imports this package
+from ..models import serialization
 from .layout import to_jax_layout
 
 __all__ = ["AdamState", "AsyncCheckpointer", "TrainState",
@@ -106,8 +103,8 @@ def load_train_state(path: str) -> TrainState:
                 if k.startswith(prefix)}
 
     params = part("params/")
-    model = params_from_jax(build_model(manifest["type"],
-                                        manifest["params"]), params)
+    model = serialization.build_model(manifest["type"], manifest["params"])
+    model = serialization.params_from_jax(model, params)
     opt_state = AdamState(int(flat["opt/step"]), part("opt/mu/"),
                           part("opt/nu/"))
     return TrainState(model, params, opt_state, int(manifest["step"]),
@@ -163,7 +160,7 @@ class AsyncCheckpointer:
         """Snapshots ``model``'s weights and ``optimizer``'s
         (:class:`~.optim.ClippedAdam`) state on the device and enqueues
         the write of the checkpoint of ``step``."""
-        named = named_parameters(model)
+        named = serialization.named_parameters(model)
         optimizer.init_state()
         with torch.no_grad():
             snapshot = {

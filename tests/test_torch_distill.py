@@ -15,6 +15,7 @@ the port: its chunks are clamped to the steps that remain, a finished
 resume returns no losses, and a resume checks the model and the seed.
 """
 
+import importlib
 import os
 import subprocess
 import sys
@@ -25,7 +26,6 @@ import numpy as np
 import pytest
 import torch
 
-import fourier_feature_nets_torch.render.distill as port_distill
 import fourier_feature_nets_tpu.ops.sampling as jax_sampling
 from fourier_feature_nets_torch.cli import distill_model as port_cli
 from fourier_feature_nets_torch.models import NeRF as TorchNeRF
@@ -57,6 +57,9 @@ from fourier_feature_nets_tpu.utils.checkpoint import (
 # the JAX package's render/__init__ exports the function under the
 # module's name
 jax_distill_module = sys.modules["fourier_feature_nets_tpu.render.distill"]
+# the render package's ``distill`` is the function, not its module
+port_distill = importlib.import_module(
+    "fourier_feature_nets_torch.render.distill")
 
 TEACHER = dict(num_layers=3, num_channels=32, max_log_scale_pos=4.0,
                num_freq_pos=5, max_log_scale_view=2.0, num_freq_view=3,

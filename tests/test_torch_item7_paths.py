@@ -12,7 +12,10 @@ f32 rtol 1e-3 / atol 2e-4 (tests/test_fused_nerf.py:44); iid quantiles
 with injected uniforms within 1e-6.
 """
 
+import argparse
+import importlib
 import os
+import re
 import subprocess
 import sys
 
@@ -23,7 +26,6 @@ import pytest
 import torch
 
 import fourier_feature_nets_torch as port_api
-import fourier_feature_nets_torch.render.distill as port_distill
 import fourier_feature_nets_torch.render.ray_sampler as port_rs
 import fourier_feature_nets_tpu as ffn
 import fourier_feature_nets_tpu.render.ray_sampler as jax_rs
@@ -57,6 +59,10 @@ from fourier_feature_nets_tpu.utils.camera_paths import orbit
 from ffn_parity import flat
 from test_torch_distill import RAYS, SAMPLES, STUDENT, _draws, _inject
 from test_torch_distill import _pair as _nerf_pair
+
+# the render package's ``distill`` is the function, not its module
+port_distill = importlib.import_module(
+    "fourier_feature_nets_torch.render.distill")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32 = dict(rtol=1e-3, atol=2e-4)
@@ -502,9 +508,156 @@ def test_framework_additions_present():
 
 
 def test_every_jax_export_but_the_downloader():
-    names = set(ffn.__all__) - {"download_asset"}
+    """The package's own exports: every JAX export, the downloader
+    included since it was ported (the name predates that), and the
+    port's two additions; every submodule's exports are held by
+    ``test_every_jax_export_has_a_counterpart``."""
+    names = set(ffn.__all__)
+    assert "download_asset" in names
     assert names <= set(port_api.__all__)
     assert set(port_api.__all__) - names == {"flagship_nerf",
                                              "OccupancyGridSampler"}
     assert all(hasattr(port_api, name) for name in port_api.__all__)
     assert port_api.exponential_lr_decay is port_api.exponential_lr
+
+
+# ---------------------------------------------------------------------------
+# every JAX export and CLI flag has a counterpart in the port
+# ---------------------------------------------------------------------------
+
+JAX_DIR = os.path.join(ROOT, "fourier_feature_nets_tpu")
+
+#: JAX modules whose names the port keeps in other modules, searched in
+#: order (a JAX module missing here maps to the port module of its path).
+MOVED = {
+    "ops.fused_nerf": ["kernels.fused_nerf"],
+    "ops.fused_nerf_train": ["kernels.fused_nerf_train",
+                             "kernels.fused_nerf"],
+    "ops.fused_ray_render": ["kernels.fused_ray_render"],
+    "octree.device": ["octree.traversal"],
+    "utils.optim": ["utils.optim", "utils.checkpoint"],
+    "ops.fused_nerf_fm": [],
+    "ops.fused_nerf_train_fm": [],
+    "ops.grid_sample": [],
+}
+
+_FM = ("the feature-major layout split is dropped: the port has one "
+       "kernel layout, and render/raycaster.py::resolve_fused picks the "
+       "fused or the plain path")
+_ADAM = ("the functional Adam of JAX pytrees: utils/optim.py::ClippedAdam "
+         "(torch.optim.Adam behind clip_grad_value_ and clip_grad_norm_)")
+_MODULE = ("a JAX model is a pure init/apply pair; a port model is an "
+           "nn.Module that holds its parameters, built by nn.Linear")
+_SHARDING = ("a JAX sharding; a port rank holds its own rows "
+             "(parallel/mesh.py::shard_rays) and replicated weights "
+             "(replicate)")
+_GRID = "a Pallas grid sampler: the port's voxels call F.grid_sample"
+
+#: JAX exports with no counterpart in the port, each with its reason.
+EXCEPTIONS = {
+    "Model": _MODULE, "linear_init": _MODULE, "mlp_init": _MODULE,
+    "adam_init": _ADAM, "adam_update": _ADAM, "clip_gradients": _ADAM,
+    "global_norm": _ADAM,
+    "data_sharding": _SHARDING, "replicated_sharding": _SHARDING,
+    "grid_sample_3d": _GRID, "grid_sample_3d_fast": _GRID,
+    "FusedNeRFWeightsFM": _FM, "prepare_fused_nerf_fm": _FM,
+    "fused_nerf_apply_fm": _FM, "pack_fused_nerf_fm": _FM,
+    "fused_nerf_train_apply_fm": _FM, "model_statics_fm": _FM,
+    "model_statics": ("the static model description of the TPU kernels' "
+                      "layout: the port's packs (FusedNeRFWeights) carry "
+                      "theirs"),
+}
+
+
+def _jax_modules(with_all: bool):
+    """Dotted names (relative to the package, "" for it) of the JAX
+    modules whose source has an ``__all__`` (or, without ``with_all``,
+    of the CLIs that take arguments), read without importing them."""
+    found = []
+    for folder, _, files in os.walk(JAX_DIR):
+        for name in sorted(files):
+            if not name.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(folder, name), JAX_DIR)
+            dotted = rel[:-3].replace(os.sep, ".")
+            dotted = dotted.removesuffix("__init__").rstrip(".")
+            with open(os.path.join(folder, name)) as handle:
+                source = handle.read()
+            if with_all and re.search(r"^__all__\s*=", source, re.M):
+                found.append(dotted)
+            elif (not with_all and dotted.startswith("cli.")
+                  and "parse_args(" in source):
+                found.append(dotted)
+    return sorted(found)
+
+
+def _full(package, dotted):
+    return f"{package}.{dotted}" if dotted else package
+
+
+@pytest.mark.parametrize("module", _jax_modules(True),
+                         ids=lambda module: module or "package")
+def test_every_jax_export_has_a_counterpart(module):
+    """Every name of the JAX module's ``__all__`` is in the port module
+    of the same path, or of the one that took its place (``MOVED``), or
+    is an ``EXCEPTIONS`` entry."""
+    jax_mod = importlib.import_module(_full("fourier_feature_nets_tpu",
+                                            module))
+    targets = [importlib.import_module(_full("fourier_feature_nets_torch",
+                                             name))
+               for name in MOVED.get(module, [module])]
+    missing = [name for name in jax_mod.__all__
+               if not any(hasattr(target, name) for target in targets)
+               and name not in EXCEPTIONS]
+    assert not missing, f"{module}: no counterpart for {missing}"
+
+
+def test_export_exceptions_are_needed():
+    """Each exception names a JAX export that some port counterpart
+    lacks, never one of this slice's names, and gives a reason."""
+    lacking = set()
+    for module in _jax_modules(True):
+        jax_mod = importlib.import_module(_full("fourier_feature_nets_tpu",
+                                                module))
+        targets = [importlib.import_module(
+            _full("fourier_feature_nets_torch", name))
+            for name in MOVED.get(module, [module])]
+        lacking |= {name for name in jax_mod.__all__
+                    if not any(hasattr(t, name) for t in targets)}
+    assert set(EXCEPTIONS) <= lacking, set(EXCEPTIONS) - lacking
+    assert not {"download_asset", "ASSETS", "default_data_dir", "get_rays",
+                "subsample_index"} & set(EXCEPTIONS)
+    assert all(len(reason) > 20 for reason in EXCEPTIONS.values())
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _cli_flags(package, module, monkeypatch):
+    """The option strings of the CLI's parser, taken from the parser its
+    ``main`` builds (``parse_args`` raises before any work)."""
+    parsers = []
+
+    def capture(self, args=None, namespace=None):
+        parsers.append(self)
+        raise _Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    cli = importlib.import_module(f"{package}.{module}")
+    with pytest.raises(_Parsed):
+        cli.main([])
+    return {flag for action in parsers[0]._actions
+            for flag in action.option_strings}
+
+
+@pytest.mark.parametrize("module", _jax_modules(False))
+def test_every_jax_cli_flag_has_a_counterpart(module, monkeypatch):
+    """Every ``--flag`` of the JAX CLI is a flag of the port CLI of the
+    same name."""
+    jax_flags = _cli_flags("fourier_feature_nets_tpu", module, monkeypatch)
+    port_flags = _cli_flags("fourier_feature_nets_torch", module,
+                            monkeypatch)
+    assert "--help" in jax_flags
+    missing = sorted(jax_flags - port_flags)
+    assert not missing, f"{module}: the port lacks {missing}"

@@ -81,7 +81,7 @@ def test_walk_found_the_slice_modules(imported):
         "cli.export_mesh", "cli.sweep", "cli.inspect_ray_sampling",
         "utils.video", "cli.near_orbit", "parallel", "parallel.mesh",
         "parallel.data_parallel", "scenepic_io", "lecture",
-        "lecture.figures", "lecture.animations"}
+        "lecture.figures", "lecture.animations", "utils.assets"}
     found = {name.split(".", 1)[1] for name in imported["modules"]}
     assert expected <= found
 

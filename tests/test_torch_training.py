@@ -262,11 +262,16 @@ def test_image_dataset_loss_matches_jax(scene, mode):
     assert got == pytest.approx(expected, rel=1e-6)
 
 
-def test_missing_dataset_and_ycrcb_raise(scene, tmp_path):
-    """A missing NPZ raises; YCrCb, once unported, now loads the JAX
-    package's YCrCb colors (tests/test_torch_color_space.py holds the
-    rest of it), and an unknown color space raises."""
-    with pytest.raises(FileNotFoundError, match="does not download"):
+def test_missing_dataset_and_ycrcb_raise(scene, tmp_path, monkeypatch):
+    """A missing NPZ that is neither cached nor downloadable raises
+    (tests/test_torch_assets.py holds the cache and the download);
+    YCrCb, once unported, now loads the JAX package's YCrCb colors
+    (tests/test_torch_color_space.py holds the rest of it), and an
+    unknown color space raises."""
+    from fourier_feature_nets_torch.utils import assets
+    monkeypatch.setenv("FFN_TORCH_DATA_DIR", str(tmp_path / "cache"))
+    monkeypatch.setattr(assets, "download_asset", lambda name, path: False)
+    with pytest.raises(FileNotFoundError, match="could not be downloaded"):
         TorchDataset.load(str(tmp_path / "lego_400.npz"), "train", 16)
     ours = TorchDataset.load(scene, "train", 16, color_space="YCrCb")
     ref = ffn.ImageDataset.load(scene, "train", 16, color_space="YCrCb")

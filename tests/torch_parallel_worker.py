@@ -146,9 +146,33 @@ def job_server(spec, mesh, results):
         server.close()
 
 
+def job_download(spec, mesh, results):
+    """``resolve_data_path`` of a known dataset name missing from the
+    cache (``$FFN_TORCH_DATA_DIR``), with a downloader that copies the
+    scene and counts its calls on this rank."""
+    import shutil
+
+    from fourier_feature_nets_torch.cli.common import resolve_data_path
+    from fourier_feature_nets_torch.utils import assets
+    calls = []
+
+    def download(name, path):
+        calls.append(name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        shutil.copyfile(spec["scene"], path)
+        return True
+
+    assets.download_asset = download
+    path = resolve_data_path(spec["asset"], mesh=mesh)
+    results["downloads"] = np.array(len(calls))
+    results["path"] = np.array(path)
+    results["train_cameras"] = np.array(
+        ImageDataset.load(path, "train", 8).num_cameras)
+
+
 JOBS = {"steps": job_steps, "multi": job_multi, "fit": job_fit,
         "fit_shared": job_fit_shared, "frame": job_frame,
-        "server": job_server}
+        "server": job_server, "download": job_download}
 
 
 def main():
