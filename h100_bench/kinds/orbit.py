@@ -1,0 +1,218 @@
+"""Kind ``orbit``: the frames of an orbit, rendered back to back as
+``orbit_video`` renders them, each copied to the host.
+
+Set-up seeds the model's weights on the device, builds the rig, the
+program's occupancy sampler from the model's density grid and its
+``Raycaster``, and renders one frame (the weight pack, the kernel's
+build and every shape a frame uses). The window then renders the
+cameras in orbit order through ``Raycaster.render_frame_async``, one
+frame ahead, copying the previous frame to the host; ``frame_ms`` is
+the window's seconds over the frames that reached the host in it. A
+traced run then renders ``trace_frames`` more under the tracer.
+
+The check renders a sample of the window's cameras, drawn from the
+seed, with the plain reference from the same weights and compares each
+pixel of the 8-bit frames.
+"""
+
+import numpy as np
+import torch
+
+from ..counts.nerf import forward_flops, k1_bound_s
+from ..reference.frame import effective_stride, frame_hits, render_frame
+from ..reference.geometry import Occupancy, density_grid, rig_tables
+from ..traffic.generator import orbit_rig
+from ..weights import seeded_flat
+from .common import (Check, compute_dtype, mean_abs_gap, now, pick,
+                     program_nerf, reference_nerf, sync)
+
+__all__ = ["Cell", "FrameReference", "window_counts"]
+
+
+class FrameReference:
+    """The plain reference's frames of a rig, from the same weights."""
+
+    def __init__(self, cfg: dict, flat: torch.Tensor, mix: dict, k, e,
+                 device, quant=None):
+        self.mix, self.quant = mix, quant
+        self.model = reference_nerf(cfg, flat, device)
+        occ = mix["occupancy"]
+        scale = mix["box_scale"]
+        grid = density_grid(self.model, occ["resolution"], scale,
+                            occ["alpha_threshold"])
+        self.occupancy = Occupancy(grid, scale, occ["num_probes"],
+                                   occ["empty_weight"],
+                                   occ["probe_resolution"])
+        self.lo = torch.full((3,), -scale, device=device)
+        self.hi = torch.full((3,), scale, device=device)
+        self.ray_m, self.positions = rig_tables(k, e, device)
+        rig_k, rig_e = orbit_rig(mix)
+        self.stride = effective_stride(
+            mix["probe_subsample"], occ["resolution"], scale,
+            float(rig_k[:, 0, 0].min()),
+            float(np.linalg.norm(rig_e[:, :3, 3], axis=-1).max()))
+
+    def frame(self, camera: int):
+        """((H, W, 3) uint8 host frame, drawn rays) of rig camera
+        ``camera``."""
+        size = self.mix["resolution"]
+        image, drawn = render_frame(
+            self.model, self.occupancy, self.ray_m[camera],
+            self.positions[camera], size, size, self.mix["num_samples"],
+            self.stride, self.lo, self.hi, self.quant)
+        return image.cpu().numpy(), drawn
+
+    def drawn(self, camera: int) -> int:
+        """The rays the culled frame of ``camera`` draws."""
+        size = self.mix["resolution"]
+        return int(frame_hits(self.occupancy, self.ray_m[camera],
+                              self.positions[camera], size, size,
+                              self.stride, self.lo, self.hi).sum())
+
+
+def frame_counts(cfg: dict, mix: dict, drawn) -> dict:
+    """Model operations and K1's bound of frames that draw ``drawn``
+    rays each, in chunks of ``chunk_size`` rays."""
+    samples, chunk = mix["num_samples"], mix["chunk_size"]
+    flops, bound = 0, 0.0
+    for rays in drawn:
+        flops += rays * samples * forward_flops(cfg)
+        for start in range(0, rays, chunk):
+            bound += k1_bound_s(cfg, min(chunk, rays - start) * samples)
+    return {"model_flops": flops, "k1_bound_s": bound, "k2_bound_s": 0.0}
+
+
+def window_counts(cfg: dict, mix: dict, drawn, traced, windowed,
+                  window_seconds: float) -> dict:
+    """The per-layer readers' counts: the traced frames' (``units``,
+    K1's bound) and the window's model operations, for frames of the
+    cameras or poses ``traced`` and ``windowed``; ``drawn(c)`` is the rays
+    that ``c``'s culled frame draws."""
+    rays = {c: drawn(c) for c in set(traced) | set(windowed)}
+    slice_ = frame_counts(cfg, mix, [rays[c] for c in traced])
+    window = frame_counts(cfg, mix, [rays[c] for c in windowed])
+    return {"units": len(traced), "k1_bound_s": slice_["k1_bound_s"],
+            "k2_bound_s": 0.0,
+            "window_model_flops": window["model_flops"],
+            "window_seconds": window_seconds}
+
+
+def program_sampler(model, mix: dict, cameras, device,
+                    stratified: bool = False):
+    """The program's occupancy sampler of the model's density grid."""
+    from fourier_feature_nets_torch.render import OccupancyGridSampler
+    occ, scale = mix["occupancy"], mix["box_scale"]
+    bounds = np.diag([2 * scale] * 3 + [1.0]).astype(np.float32)
+    return OccupancyGridSampler.from_model(
+        model, cameras, mix["num_samples"],
+        grid_resolution=occ["resolution"],
+        alpha_threshold=occ["alpha_threshold"],
+        empty_weight=occ["empty_weight"], scale=scale, bounds=bounds,
+        num_probes=occ["num_probes"],
+        probe_resolution=occ["probe_resolution"], device=device,
+        stratified=stratified)
+
+
+def cameras_of(k, e, size: int):
+    from fourier_feature_nets_torch.cameras import CameraInfo, Resolution
+    return [CameraInfo.create(f"cam{i}", Resolution(size, size), ki, ei)
+            for i, (ki, ei) in enumerate(zip(k, e))]
+
+
+class Cell:
+    """One run of an ``orbit`` cell."""
+
+
+    def __init__(self, cfg: dict, mix: dict, seed: int, device, configs):
+        self.cfg, self.mix, self.seed = cfg, mix, seed
+        self.device = torch.device(device)
+        self.frames = {}
+        self.next_camera = 0
+
+    def setup(self) -> None:
+        from fourier_feature_nets_torch.render import Raycaster
+        generator = torch.Generator(self.device).manual_seed(self.seed)
+        self.flat = seeded_flat(self.cfg, generator, self.device)
+        model = program_nerf(self.cfg, self.flat, self.device)
+        self.k, self.e = orbit_rig(self.mix)
+        cameras = cameras_of(self.k, self.e, self.mix["resolution"])
+        self.sampler = program_sampler(model, self.mix, cameras, self.device)
+        self.raycaster = Raycaster(model, compute_dtype=compute_dtype(self.cfg))
+        self._render(0).cpu()
+        sync(self.device)
+
+    def _render(self, camera: int):
+        mix = self.mix
+        return self.raycaster.render_frame_async(
+            self.sampler, camera, chunk_size=mix["chunk_size"],
+            probe_subsample=mix["probe_subsample"])
+
+    def _frames(self, stop):
+        """Renders the orbit from the next camera, one frame ahead, until
+        ``stop(frames launched, seconds)``; (cameras, start, seconds)."""
+        count, cameras = len(self.k), []
+        start = now()
+        camera, launched = self.next_camera, 1
+        pending = self._render(camera)
+        while True:
+            done = stop(launched, now() - start)
+            if not done:
+                following = self._render((camera + 1) % count)
+                launched += 1
+            self.frames[camera] = pending.cpu().numpy()
+            cameras.append(camera)
+            if done:
+                break
+            camera, pending = (camera + 1) % count, following
+        self.next_camera = (camera + 1) % count
+        return cameras, start, now() - start
+
+    def window(self, seconds: float, tracer) -> dict:
+        self.windowed, start, self.window_seconds = self._frames(
+            lambda launched, elapsed: elapsed >= seconds)
+        if tracer.enabled:
+            tracer.start()
+            self.traced = self._frames(
+                lambda launched, elapsed:
+                launched >= self.mix["trace_frames"])[0]
+            tracer.stop()
+        done = len(self.windowed)
+        return {"start": start, "attempted": done, "failed": 0,
+                "metrics": {"frame_ms": (self.window_seconds * 1e3 / done,
+                                         "ms")}}
+
+    def release(self) -> None:
+        """Frees the program's state before the reference runs."""
+        self.raycaster = self.sampler = None
+
+    def reference(self, quant=None) -> FrameReference:
+        return FrameReference(self.cfg, self.flat, self.mix, self.k, self.e,
+                              self.device, quant)
+
+    def check(self, limits: dict) -> list:
+        reference = self.reference()
+        gaps = [mean_abs_gap(self.frames[c], reference.frame(c)[0])
+                for c in pick(self.seed, self.frames,
+                              self.mix["check_frames"])]
+        self._reference = reference
+        return [Check("frame_mean_abs", max(gaps),
+                      limits["frame_mean_abs"])]
+
+    def counts(self) -> dict:
+        """The traced frames' and the window's work, from the reference's
+        culling."""
+        reference = getattr(self, "_reference", None) or self.reference()
+        return window_counts(self.cfg, self.mix, reference.drawn,
+                             self.traced, self.windowed, self.window_seconds)
+
+    def control(self) -> dict:
+        """The readings of the program and of the fp8 control on the
+        checked frames."""
+        reference = self.reference()
+        control = self.reference("fp8")
+        rows = {"program": [], "control": []}
+        for c in pick(self.seed, self.frames, self.mix["check_frames"]):
+            truth = reference.frame(c)[0]
+            rows["program"].append(mean_abs_gap(self.frames[c], truth))
+            rows["control"].append(mean_abs_gap(control.frame(c)[0], truth))
+        return {side: max(values) for side, values in rows.items()}
