@@ -3830,15 +3830,15 @@ def phase_serve(student_path: str) -> dict:
         pose_launches = fused_nerf_apply.launches
         rig2 = np.frombuffer(_http(f"{url}/frame?camera=2&format=raw"),
                              np.uint8).reshape(shape)
-        with server._latency_lock:
-            server._latencies.clear()
+        with server._timing_lock:
+            server._timings.clear()
         fused_nerf_apply.launches = 0
         start = time.perf_counter()
         streamed = _stream_frames(url, SERVE_CAMERAS)
         stream_s = time.perf_counter() - start
         one = json_module.loads(_http(f"{url}/stats"))
-        with server._latency_lock:
-            server._latencies.clear()
+        with server._timing_lock:
+            server._timings.clear()
         counts = [0] * SERVE_CLIENTS
 
         def client(i):

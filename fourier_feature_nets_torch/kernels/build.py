@@ -6,7 +6,9 @@ Each ``csrc/*.cu`` file has a plain C interface. It is compiled with
 shared headers (``csrc/*.cuh``) and the flags, so an edited source is
 rebuilt and an unchanged one is reused.
 The library is then loaded with ``ctypes``. Nothing here runs at import
-time: a machine without CUDA imports the package and never builds.
+time: a machine without CUDA imports the package and never builds. Each
+build or load is a set-up span, ``kernels.build`` (``utils.tracing``),
+whose ``built`` says whether nvcc ran.
 """
 
 import ctypes
@@ -17,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import NamedTuple
+
+from ..utils.tracing import setup_span
 
 __all__ = ["BuiltLibrary", "build_library"]
 
@@ -48,6 +52,13 @@ def _nvcc() -> str:
 
 def build_library(source_name: str) -> BuiltLibrary:
     """Compiles ``csrc/<source_name>`` (if not built yet) and loads it."""
+    with setup_span("kernels.build", source=source_name) as built:
+        library = _build_library(source_name)
+        built.set(built=library.seconds > 0.0)
+    return library
+
+
+def _build_library(source_name: str) -> BuiltLibrary:
     source = CSRC_DIR / source_name
     content = source.read_bytes() + b"".join(
         header.read_bytes() for header in sorted(CSRC_DIR.glob("*.cuh")))

@@ -55,6 +55,7 @@ from ..models.module import query_model
 from ..models.serialization import named_parameters, params_from_jax
 from ..ops.sampling import per_ray_uniform
 from ..utils.optim import ClippedAdam, exponential_lr
+from ..utils.tracing import span
 from .raycaster import _GraphChunk, _StepTimer
 
 __all__ = ["distill", "distill_loss", "draw_rays"]
@@ -211,6 +212,10 @@ def distill(teacher, student, sampler, num_steps: int,
         call_ms: when given, gets one (milliseconds, steps) pair a call
             (CUDA events on a GPU, the host clock elsewhere).
 
+    Each call is a ``distill.call`` span (``utils.tracing``) with its
+    ``steps``, and each report (the loss read on the host, then
+    ``reporter``) a ``distill.report`` span.
+
     Returns:
         (student, losses): the trained student and the (n,) f32 losses
         of the steps this call ran (none after a resume of a finished
@@ -282,7 +287,8 @@ def distill(teacher, student, sampler, num_steps: int,
         while step < num_steps:
             steps = min(chunk, num_steps - step)
             timer.start()
-            losses.append(run_chunk(step, steps))
+            with span("distill.call", steps=steps):
+                losses.append(run_chunk(step, steps))
             timer.stop()
             steps_run.append(steps)
             prev, step = step, step + steps
@@ -292,7 +298,8 @@ def distill(teacher, student, sampler, num_steps: int,
                 checkpointer.save(student, optimizer, step, seed)
             if reporter is not None and (step % report_interval == 0
                                          or step >= num_steps):
-                reporter(step, float(losses[-1][-1]))
+                with span("distill.report"):
+                    reporter(step, float(losses[-1][-1]))
     finally:
         if checkpointer is not None:
             checkpointer.close()

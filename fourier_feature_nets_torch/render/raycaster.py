@@ -56,6 +56,7 @@ from ..utils.color import ycrcb_to_rgb
 from ..utils.debug import debug_nans_enabled
 from ..utils.optim import ClippedAdam, exponential_lr
 from ..utils.progress import LogEntry
+from ..utils.tracing import setup_span, span
 from .ray_sampler import RaySampler, RaySamples
 
 __all__ = ["Raycaster", "RenderResult", "resolve_fused"]
@@ -335,11 +336,13 @@ class Raycaster:
                 mesh=None):
         """Runs ``fn`` on each ``chunk_size`` slice of ``ray_offsets``;
         under a ``mesh`` each rank runs it on its slab of the slice and
-        gathers the other slabs (:meth:`..parallel.Mesh.map_rows`)."""
+        gathers the other slabs (:meth:`..parallel.Mesh.map_rows`). Each
+        chunk's span holds ``fn`` and the caller's work on its result."""
         for start in range(0, ray_offsets.shape[0], chunk_size):
             chunk = ray_offsets[start:start + chunk_size]
-            yield chunk, (fn(chunk) if mesh is None
-                          else mesh.map_rows(fn, chunk))
+            with span("frame.chunk"):
+                yield chunk, (fn(chunk) if mesh is None
+                              else mesh.map_rows(fn, chunk))
 
     @torch.no_grad()
     def render_frame_async(self, sampler: RaySampler, camera: int,
@@ -382,7 +385,11 @@ class Raycaster:
                early_split: int, mesh=None) -> torch.Tensor:
         """The frame of a rig index or a ``(ray_m, position)``
         calibration (:func:`_frame_rays`): the indexed and the pose
-        path share it, and its probe."""
+        path share it, and its probe. Its spans (:mod:`..utils.tracing`):
+        ``frame`` (with its ``hit_rays`` and ``chunks``) holds
+        ``frame.probe``, ``frame.hit_count`` (the host's wait for a
+        count of rays), ``frame.chunks`` (a ``frame.chunk`` each) and
+        ``frame.finish`` (the composite and the uint8 cast)."""
         if mesh is not None:
             chunk_size = -(-chunk_size // mesh.size) * mesh.size
         cull = cull_empty and hasattr(sampler, "_probe_cdf_geometry")
@@ -397,46 +404,63 @@ class Raycaster:
             raise ValueError(f"early_split {k1} must be in [1, "
                              f"{num_samples})")
         geometry, sample = _frame_rays(sampler, camera)
-        rays_per_cam = sampler.rays_per_camera
-        device = sampler.device
-        if cull:
-            probe_subsample = self._safe_probe_subsample(sampler,
-                                                         probe_subsample)
-            mask = self._compute_hit(sampler, camera, probe_subsample)
-            # the stable partition: hit rays in pixel order. nonzero()
-            # reads the hit count on the host, once per pass; the JAX
-            # package instead keeps a fixed chunk count and skips empty
-            # chunks with lax.cond
-            ray_offsets = torch.nonzero(mask).reshape(-1)
-        else:
-            ray_offsets = torch.arange(rays_per_cam, device=device)
-            mask = geometry(ray_offsets)[4]
-        colors = torch.zeros(rays_per_cam, 3, device=device)
-        self.frame_rays = {"hit": int(ray_offsets.shape[0])}
-        if cull and early_term > 0.0:
-            trans = torch.zeros(rays_per_cam, device=device)
-            for chunk, (color, trans_out) in self._chunks(
-                    ray_offsets, chunk_size,
-                    lambda c: self._render_prefix(sample, c, k1), mesh):
-                colors[chunk] = color
-                trans[chunk] = trans_out
-            survivors = torch.nonzero(mask & (trans > early_term)).reshape(-1)
-            self.frame_rays["survived"] = int(survivors.shape[0])
-            suffix = torch.zeros(rays_per_cam, 3, device=device)
-            for chunk, color in self._chunks(
-                    survivors, chunk_size,
-                    lambda c: self._render_suffix(sample, c, k1), mesh):
-                suffix[chunk] = color
-            colors = colors + trans[:, None] * suffix
-        else:
-            for chunk, color in self._chunks(
-                    ray_offsets, chunk_size,
-                    lambda c: self._render_rays(sample, c), mesh):
-                colors[chunk] = color
-        colors = torch.where(mask[:, None], colors, 0.0)
-        image = torch.clamp(colors, 0.0, 1.0).reshape(
-            sampler.image_height, sampler.image_width, 3)
-        return (image * 255.0).to(torch.uint8)   # truncates, as the JAX frame
+        with span("frame") as frame:
+            rays_per_cam = sampler.rays_per_camera
+            device = sampler.device
+            if cull:
+                probe_subsample = self._safe_probe_subsample(
+                    sampler, probe_subsample)
+                with span("frame.probe"):
+                    mask = self._compute_hit(sampler, camera,
+                                             probe_subsample)
+                with span("frame.hit_count"):
+                    # the stable partition: hit rays in pixel order.
+                    # nonzero() reads the hit count on the host, once per
+                    # pass; the JAX package instead keeps a fixed chunk
+                    # count and skips empty chunks with lax.cond
+                    ray_offsets = torch.nonzero(mask).reshape(-1)
+            else:
+                ray_offsets = torch.arange(rays_per_cam, device=device)
+                mask = geometry(ray_offsets)[4]
+            colors = torch.zeros(rays_per_cam, 3, device=device)
+            hit = int(ray_offsets.shape[0])
+            self.frame_rays = {"hit": hit}
+            chunks = -(-hit // chunk_size)
+            if cull and early_term > 0.0:
+                trans = torch.zeros(rays_per_cam, device=device)
+                with span("frame.chunks"):
+                    for chunk, (color, trans_out) in self._chunks(
+                            ray_offsets, chunk_size,
+                            lambda c: self._render_prefix(sample, c, k1),
+                            mesh):
+                        colors[chunk] = color
+                        trans[chunk] = trans_out
+                with span("frame.hit_count"):
+                    survivors = torch.nonzero(
+                        mask & (trans > early_term)).reshape(-1)
+                self.frame_rays["survived"] = int(survivors.shape[0])
+                chunks += -(-self.frame_rays["survived"] // chunk_size)
+                suffix = torch.zeros(rays_per_cam, 3, device=device)
+                with span("frame.chunks"):
+                    for chunk, color in self._chunks(
+                            survivors, chunk_size,
+                            lambda c: self._render_suffix(sample, c, k1),
+                            mesh):
+                        suffix[chunk] = color
+                colors = colors + trans[:, None] * suffix
+            else:
+                with span("frame.chunks"):
+                    for chunk, color in self._chunks(
+                            ray_offsets, chunk_size,
+                            lambda c: self._render_rays(sample, c), mesh):
+                        colors[chunk] = color
+            frame.set(hit_rays=hit, chunks=chunks)
+            with span("frame.finish"):
+                colors = torch.where(mask[:, None], colors, 0.0)
+                image = torch.clamp(colors, 0.0, 1.0).reshape(
+                    sampler.image_height, sampler.image_width, 3)
+                # truncates, as the JAX frame
+                return (image * 255.0).to(torch.uint8)
 
     def render_frame(self, sampler: RaySampler, camera: int,
                      chunk_size: int = 16384, cull_empty: bool = True,
@@ -776,7 +800,8 @@ class Raycaster:
             left in ``self.step_ms``, its step count in
             ``self.call_steps``, the host time to issue it in
             ``self.host_ms`` and each occupancy refresh's time in
-            ``self.occupancy_refresh_ms``.
+            ``self.occupancy_refresh_ms``. Each call is a ``fit.call``
+            span (:mod:`..utils.tracing`) with its ``steps``.
         """
         from ..utils.checkpoint import (
             AsyncCheckpointer,
@@ -894,7 +919,8 @@ class Raycaster:
 
         def run(fn, perm, offset, first_step, rng, steps):
             timer.start()
-            fn(perm, offset, first_step, rng)
+            with span("fit.call", steps=steps):
+                fn(perm, offset, first_step, rng)
             timer.stop()
             self.call_steps.append(steps)
 
@@ -1048,7 +1074,9 @@ class _GraphChunk:
 
     ``captured`` holds each kernel wrapper's launches recorded into the
     graph, ``replays`` the number of replays: a replay launches the
-    graph, not the wrappers, so their counts do not grow with it.
+    graph, not the wrappers, so their counts do not grow with it. The
+    warm-up and the capture are the set-up spans ``graph.warmup`` and
+    ``graph.capture`` (:mod:`..utils.tracing`).
     """
 
     def __init__(self, chunk_fn, optimizer: ClippedAdam, names,
@@ -1084,7 +1112,7 @@ class _GraphChunk:
             saved = [t.detach().clone() for t in state]
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
+        with setup_span("graph.warmup"), torch.cuda.stream(side):
             self.chunk_fn(self.inputs)
         torch.cuda.current_stream(device).wait_stream(side)
         with torch.no_grad():
@@ -1094,7 +1122,7 @@ class _GraphChunk:
         before = _kernel_launches()
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph):
+            with setup_span("graph.capture"), torch.cuda.graph(graph):
                 self.result = self.chunk_fn(self.inputs)
         except RuntimeError as error:
             raise RuntimeError(

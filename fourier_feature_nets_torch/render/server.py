@@ -20,8 +20,9 @@ Endpoints:
   (intrinsics default to the rig's);
 - ``GET /stream.mjpeg?start=0&count=N&loop=1``: a multipart MJPEG
   stream of rig frames, two requests in flight;
-- ``GET /stats``: the latency histogram and percentiles of the last
-  4096 frames, as JSON.
+- ``GET /stats``: the last 4096 frames' latency from submit to resolve
+  (a histogram and percentiles), their queue wait and dispatch
+  percentiles and the frames a second, as JSON.
 
 An unknown path answers 404, a failed request 500 with the error's
 text. PNGs come from the port's standard-library writer
@@ -42,8 +43,13 @@ pose's extrinsics and intrinsics) before it renders its slab; the
 other ranks loop in :func:`follow`, render their slabs of each
 broadcast frame, and leave when :meth:`RenderServer.close` broadcasts
 the end.
+
+Each request has an id, and its dispatch and its resolve are the spans
+``serve.dispatch`` and ``serve.resolve`` (``utils.tracing``), on their
+threads, with the id as ``request``.
 """
 
+import itertools
 import json
 import queue
 import threading
@@ -56,6 +62,7 @@ import numpy as np
 
 from ..utils.jpeg import encode_jpeg
 from ..utils.png import encode_png
+from ..utils.tracing import span
 
 __all__ = ["RenderServer", "follow", "serve"]
 
@@ -63,19 +70,24 @@ _STOP = ("stop", None)
 
 
 class _Request:
-    """One frame request in flight through the dispatcher."""
+    """One frame request in flight through the dispatcher, with its
+    ``time.perf_counter`` times: submitted, dispatch started, dispatch
+    done, resolved."""
 
-    __slots__ = ("dispatch", "event", "result", "error")
+    __slots__ = ("dispatch", "event", "result", "error", "id", "times")
 
-    def __init__(self, dispatch):
+    def __init__(self, dispatch, request_id: int = 0):
         self.dispatch = dispatch
         self.event = threading.Event()
         self.result = None
         self.error = None
+        self.id = request_id
+        self.times = [time.perf_counter()]
 
 
 class RenderServer:
-    """Model-resident frame renderer with latency accounting.
+    """Model-resident frame renderer with latency accounting: each
+    frame's submit, dispatch start, dispatch end and resolve times.
 
     A single dispatcher thread owns the device and drains a FIFO request
     queue across clients; a resolver thread copies the frames to the
@@ -106,14 +118,15 @@ class RenderServer:
         self.mesh = mesh
         self.num_cameras = sampler.num_cameras
         self.resolution = (sampler.image_height, sampler.image_width)
-        self._latencies = deque(maxlen=4096)
+        # each resolved frame's _Request.times
+        self._timings = deque(maxlen=4096)
         # guards stats()' read against the resolver's appends
-        self._latency_lock = threading.Lock()
+        self._timing_lock = threading.Lock()
         self._queue = queue.SimpleQueue()
         self._fetch_queue = queue.SimpleQueue()
         self._submit_lock = threading.Lock()
+        self._ids = itertools.count(1)
         self._stopped = False
-        self._last_resolve = 0.0
         self._dispatcher = threading.Thread(target=self._run_dispatch,
                                             daemon=True)
         self._resolver = threading.Thread(target=self._run_resolve,
@@ -130,33 +143,33 @@ class RenderServer:
             if request.dispatch is None:  # close()
                 if self.mesh is not None:
                     self.mesh.broadcast_object(_STOP)
-                self._fetch_queue.put((request, None, 0.0))
+                self._fetch_queue.put((request, None))
                 return
-            start = time.perf_counter()
+            request.times.append(time.perf_counter())
             try:
-                frame = request.dispatch()
+                with span("serve.dispatch", request=request.id):
+                    frame = request.dispatch()
             except Exception as error:  # surfaced to the client
                 request.error = error
                 request.event.set()
                 continue
-            self._fetch_queue.put((request, frame, start))
+            request.times.append(time.perf_counter())
+            self._fetch_queue.put((request, frame))
 
     def _run_resolve(self):
         while True:
-            request, frame, start = self._fetch_queue.get()
+            request, frame = self._fetch_queue.get()
             if request.dispatch is None:  # close()'s sentinel
                 request.event.set()
                 return
             try:
-                request.result = frame.cpu().numpy()
+                with span("serve.resolve", request=request.id):
+                    request.result = frame.cpu().numpy()
             except Exception as error:
                 request.error = error
-            now = time.perf_counter()
-            # in steady state the time between resolves (throughput);
-            # for an isolated request, dispatch to host copy
-            with self._latency_lock:
-                self._latencies.append(now - max(start, self._last_resolve))
-            self._last_resolve = now
+            request.times.append(time.perf_counter())
+            with self._timing_lock:
+                self._timings.append(tuple(request.times))
             request.event.set()
 
     def _submit(self, dispatch) -> _Request:
@@ -164,7 +177,7 @@ class RenderServer:
         with self._submit_lock:
             if self._stopped:
                 raise RuntimeError("render server is closed")
-            request = _Request(dispatch)
+            request = _Request(dispatch, next(self._ids))
             self._queue.put(request)
         return request
 
@@ -201,8 +214,8 @@ class RenderServer:
         returns its seconds; its latency is dropped from the stats."""
         start = time.perf_counter()
         self.frame(0)
-        with self._latency_lock:
-            self._latencies.clear()
+        with self._timing_lock:
+            self._timings.clear()
         return time.perf_counter() - start
 
     def frame(self, camera: int) -> np.ndarray:
@@ -233,21 +246,27 @@ class RenderServer:
             yield self._wait(in_flight.popleft())
 
     def stats(self) -> dict:
-        """The latency histogram (10 ms bins), percentiles and FPS."""
-        with self._latency_lock:
-            lat = np.asarray(self._latencies, np.float64)
-        if lat.size == 0:
+        """Of the last 4096 frames: the latency from submit to resolve
+        (histogram in 10 ms bins, mean and percentiles), the queue wait
+        (submit to dispatch) and the dispatch's milliseconds as
+        percentiles, and the frames a second from the first submit to
+        the last resolve."""
+        with self._timing_lock:
+            times = np.asarray(self._timings, np.float64).reshape(-1, 4)
+        if times.size == 0:
             return {"frames": 0}
-        ms = lat * 1e3
+        submitted, started, dispatched, resolved = times.T
+        ms = (resolved - submitted) * 1e3
         edges = np.arange(0, np.ceil(ms.max() / 10) * 10 + 10, 10)
         counts, _ = np.histogram(ms, bins=edges)
+        parts = {"": ms, "queue_": (started - submitted) * 1e3,
+                 "dispatch_": (dispatched - started) * 1e3}
         return {
-            "frames": int(lat.size),
+            "frames": len(times),
             "mean_ms": float(ms.mean()),
-            "p50_ms": float(np.percentile(ms, 50)),
-            "p90_ms": float(np.percentile(ms, 90)),
-            "p99_ms": float(np.percentile(ms, 99)),
-            "fps": float(1e3 / ms.mean()),
+            **{f"{part}p{q}_ms": float(np.percentile(values, q))
+               for part, values in parts.items() for q in (50, 90, 99)},
+            "fps": float(len(times) / (resolved.max() - submitted.min())),
             "histogram_ms": {
                 f"{int(lo)}-{int(hi)}": int(n)
                 for lo, hi, n in zip(edges[:-1], edges[1:], counts)

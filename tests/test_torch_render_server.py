@@ -15,14 +15,17 @@ import socket
 import subprocess
 import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 import zlib
+from types import SimpleNamespace
 
 import cv2
 import jax
 import numpy as np
 import pytest
+import torch
 
 from fourier_feature_nets_torch.models import NeRF as TorchNeRF
 from fourier_feature_nets_torch.models import params_from_jax
@@ -349,6 +352,39 @@ def test_stats_concurrent_with_rendering(server_url):
         done.set()
         poller.join(timeout=30)
     assert not errors, errors
+
+
+def test_stats_time_a_request_from_submit_to_resolve():
+    """Two requests submitted together, each dispatched in 50 ms: the
+    second waits for the first, so its latency is at least 100 ms and
+    its queue wait at least 50 ms. (The time between resolves, which
+    stats() reported before, read ~50 ms for both.)"""
+    gate = threading.Event()
+    sampler = SimpleNamespace(num_cameras=1, image_height=2, image_width=2)
+    server = RenderServer(None, sampler)
+
+    def dispatch():
+        time.sleep(0.05)
+        return torch.zeros(2, 2, 3, dtype=torch.uint8)
+
+    try:
+        # both requests are queued before the dispatcher takes the first
+        held = server._submit(lambda: gate.wait(60) and dispatch())
+        first, second = server._submit(dispatch), server._submit(dispatch)
+        gate.set()
+        for request in (held, first, second):
+            server._wait(request)
+        stats = server.stats()
+    finally:
+        server.close()
+    submitted, started, dispatched, resolved = server._timings[-1]
+    assert resolved - submitted >= 0.1
+    assert started - submitted >= 0.05
+    assert dispatched - started >= 0.05
+    assert stats["frames"] == 3
+    assert stats["p99_ms"] >= 99.0 and stats["queue_p99_ms"] >= 49.0
+    assert stats["dispatch_p50_ms"] >= 50.0
+    assert stats["fps"] <= 3 / 0.15
 
 
 def test_serve_cli_serves_a_frame(nerf, tmp_path):
