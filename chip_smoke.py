@@ -35,7 +35,10 @@ and drives the port's paths at the flagship width:
   and under a margin cotangent at 3x256, a limit each twin with a
   rounding point moved must fail, as the twin with dz left in f32 must
   fail the same-sign limit; in f32 the twin on single tf32 products must
-  fail the tail or the same-sign limit; 30 steps of ``train_nerf``
+  fail the tail or the same-sign limit; K2 bf16 alone at the CLI batch
+  at 8x256 and 6x192, each pass's device time (the recompute-backward,
+  the dW kernel, the sum), the bound and the dW kernel's launches a call
+  (one); 30 steps of ``train_nerf``
   on the generated ``synthetic`` scene in bf16 and f32, ``--fused``
   (through K1 and K2, which must both launch) and ``--no-fused``, then
   at the CLI's defaults (f32, no fused flag), which must train the path
@@ -1333,6 +1336,87 @@ def phase_backward_vs_twin(model):
     results["bfloat16"]["flagship_control"] = control["bfloat16"]
     results["float32"]["single_tf32_control"] = control["float32"]
     return results
+
+
+# K2 bf16's kernels by name: the recompute-backward (pass 1), the split-K
+# dW kernel (pass 2) and the fixed-order sum
+K2_PASSES = {"pass1": "fused_nerf_backward_bf16_kernel",
+             "dw": "fused_nerf_backward_dw_bf16_kernel",
+             "sum": "fused_nerf_backward_sum_kernel"}
+
+
+def k2_pass_times(weights, positions, views, g) -> dict:
+    """K2 bf16 alone on these inputs: its time (CUDA events, mean of
+    FLAGSHIP_REPS calls), each pass's device time a call from the
+    profiler by kernel name, the dW kernel's launches a call
+    (``fused_nerf_backward.dw_launches``) and the bound (three forwards a
+    point; positions, views, cotangents, the pack and its f32
+    gradients)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from fourier_feature_nets_torch.kernels.fused_nerf_train import (
+        fused_nerf_backward)
+    num = positions.shape[0]
+
+    def call():
+        return fused_nerf_backward(weights, positions, views, g)
+
+    ms = cuda_ms(call, FLAGSHIP_REPS)
+    before = fused_nerf_backward.dw_launches
+    call()
+    dw_launches = fused_nerf_backward.dw_launches - before
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(FLAGSHIP_REPS):
+            call()
+        torch.cuda.synchronize()
+    device = dict.fromkeys(K2_PASSES, 0.0)
+    for event in prof.key_averages():
+        if event.device_type != DeviceType.CUDA:
+            continue
+        for key, name in K2_PASSES.items():
+            if name + "<" in event.key or event.key.endswith(name) \
+                    or name + "(" in event.key:
+                device[key] += getattr(
+                    event, "self_device_time_total",
+                    getattr(event, "self_cuda_time_total", 0.0))
+    grads = (weights.weights.numel() + weights.biases.numel()) * 4
+    return {"ms": ms, "dw_launches": dw_launches,
+            **{f"{key}_device_ms": us / FLAGSHIP_REPS / 1e3
+               for key, us in device.items()},
+            **bound(3 * 2 * nerf_macs(weights) * num, "bf16",
+                    40 * num + pack_bytes(weights) + grads)}
+
+
+def phase_k2_passes(model) -> dict:
+    """K2 bf16 alone at TRAIN_POINTS at the flagship's width and the
+    serving student's (6x192), split by pass (k2_pass_times); the dW
+    kernel must launch once a call at this N."""
+    from fourier_feature_nets_torch.cli.common import RECOMMENDED_STUDENT
+    from fourier_feature_nets_torch.kernels.fused_nerf import (
+        prepare_fused_nerf)
+    from fourier_feature_nets_torch.models import NeRF
+    layers, channels = RECOMMENDED_STUDENT
+    student = NeRF(layers, channels, 9.0, 10, 3.0, 4, [layers // 2], True,
+                   generator=torch.Generator().manual_seed(SEED)).cuda()
+    rng = np.random.default_rng(SEED + 5)
+    positions, views = random_points(TRAIN_POINTS, rng, "cuda")
+    g = torch.from_numpy(rng.normal(size=(TRAIN_POINTS, 4)).astype(
+        np.float32)).cuda()
+    rows = {}
+    for label, net in (("8x256", model), (f"{layers}x{channels}", student)):
+        weights = prepare_fused_nerf(net, torch.bfloat16)
+        row = k2_pass_times(weights, positions, views, g)
+        log(f"  K2 bf16 {label} N={TRAIN_POINTS:,d}: {row['ms']:.4f} ms "
+            f"(CUDA events, mean of {FLAGSHIP_REPS}); device ms a call: pass "
+            f"1 {row['pass1_device_ms']:.4f}, dW {row['dw_device_ms']:.4f}, "
+            f"sum {row['sum_device_ms']:.4f}; bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}); dW launches a call {row['dw_launches']}")
+        if row["dw_launches"] != 1:
+            raise AssertionError(f"K2 bf16 {label}: {row['dw_launches']} dW "
+                                 f"launches a call at N={TRAIN_POINTS:,d}")
+        rows[label] = row
+        del weights
+    return rows
 
 
 def single_tf32_control(weights, positions, views, gs, num) -> dict:
@@ -5750,6 +5834,8 @@ def main(argv=None) -> int:
     backward = phase_backward_vs_twin(model)
     log("K2 bf16's limit against a moved rounding point:")
     backward["bfloat16"]["control"] = phase_backward_control()
+    log("K2 bf16 alone by pass, at the flagship's and the student's width:")
+    backward["bfloat16"]["passes"] = phase_k2_passes(model)
     del model
     torch.cuda.empty_cache()
     step_ms, train_launches, checkpoint = phase_train()
@@ -5949,6 +6035,7 @@ def main(argv=None) -> int:
         "max_rel_err_by_cotangent": backward["bfloat16"]["max_rel_err"],
         "f32_max_rel_err_by_cotangent": backward["float32"]["max_rel_err"],
         "bitwise_equal": backward["bfloat16"]["bitwise_equal"],
+        "passes": backward["bfloat16"]["passes"],
         "moved_rounding_control": {
             "margin_3x256": backward["bfloat16"]["control"],
             "flagship": backward["bfloat16"]["flagship_control"]},

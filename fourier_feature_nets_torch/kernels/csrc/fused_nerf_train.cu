@@ -5,56 +5,75 @@
 // ::_bwd_kernel_fm (feature-major, the same function). Given positions,
 // views, the packed weights and the (N, 4) f32 cotangent g of the logits
 // [r, g, b, opacity], it recomputes the forward on chip (rounding where K1,
-// fused_nerf.cu, rounds), then backpropagates and adds every tile's share of
-// every packed weight and bias gradient into one f32 gradient buffer.
-// Positions and views get no gradient.
+// fused_nerf.cu, rounds), backpropagates, and returns the f32 gradient of
+// every packed weight and bias. Positions and views get no gradient.
 //
 // What bounds it on an H100. Three products a layer (the recompute, dX and
 // dW), ~3.6 MFLOP a point at the 8x256 flagship: 0.47 ms of bf16 tensor-core
 // time for a 131,072-point step, 2.83 ms in f32 as 3xTF32. The TPU kernel
 // kept every weight and every gradient accumulator resident in VMEM across
-// a sequential grid. Here
-// blocks run in parallel, and neither the ~1.2 MB pack nor its 2.4 MB of f32
-// gradients fits a block, so every tile pays for them: its slabs stream from
-// L2 twice (recompute, dX) and its partial dW goes to the f32 buffer with
-// atomics (reductions the L2 serves). Per point that traffic falls with the
-// tile, so the bf16 tile is as large as K1's.
+// a sequential grid. Here blocks run in parallel, and neither the ~1.2 MB
+// pack nor its 2.4 MB of f32 gradients fits a block: every tile streams the
+// pack's slabs from L2 twice (recompute, dX), and a tile's dW cannot stay on
+// chip until the grid is done.
 //
-// bf16: fused_nerf_backward_bf16_kernel, persistent and warp-specialised on
-// K1's tile (fused_nerf_wgmma.cuh): one block per SM walks 128-point tiles,
-// two consumer warpgroups own 64 rows each, one producer warp streams slabs
-// of the slab image through a ring of bulk-copy stages, three encode.
-// * The recompute is K1's code (layer_product, store_layer, encode_rows), so
-//   it sums every layer in K1's k16 order: the forward that K2 differentiates
-//   is K1's, bit for bit. It skips the two heads' products (the backward needs
-//   only g). After each body layer's epilogue, the warpgroup's swizzled h
-//   blocks go out as they are, with one bulk copy from shared to global
-//   memory, into a per-block scratch region that the wrapper allocates (L x
-//   ceil(C / 64) x 8 KB a warpgroup); the backward brings each back with a
-//   bulk load into the same layout while its dX products run.
-// * dW = X^T dz: M is 64 of the layer's input columns, K the tile's 128
-//   points (8 k16 steps, across both warpgroups' rows), N its outputs. Both
-//   operands are read MN-major (wgmma's imm-trans = 1) from the rows as they
-//   lie, so nothing is transposed. The M slices alternate between the two
-//   warpgroups, so each sums all 128 points once, and each thread adds its
-//   f32 fragment with float2 atomics. A skip layer's input [h | pos] and the
-//   hidden layer's [bottleneck | view] are two segments, each sliced from
-//   the start of its own 64-column block.
-// * dX = dz W^T: per warpgroup, M its 64 points, K the layer's outputs, and
-//   B = W^T is the slab as it lies, read MN-major: each slab of the first C
-//   rows of W gives one 64-column chunk of dX. The epilogue works on the
-//   fragment in registers: the opacity head's f32 term (bottleneck), the
-//   ReLU mask of the input's h (read into bits before the next reload
-//   overwrites it), the cast, stmatrix into dz in place.
-// * Biases and heads on the CUDA cores, each summed over the tile's 128
-//   points before its atomic.
-// The two warpgroups meet at a barrier over both between dz's producers and
-// dW's readers. The sum order of the atomics varies from run to run, so the
-// gradients are not bitwise reproducible. Shared memory, per warpgroup: dz
-// (C columns), the input's h (C), the positional and the view features (in
-// 64-column blocks), and two or more ring stages of C x 128 bytes: the one
-// budget is bf16_shared_bytes, and a model that does not fit makes the
-// launch raise.
+// bf16: two passes and a sum, a slice of at most kSlicePoints points at a
+// time (the scratch holds one slice). Summing dW with per-tile atomics, as
+// a one-pass kernel does, cost 0.77 of its 2.69 ms at the flagship on an
+// H100 (PERF.md, section 6), and the atomics' order made the gradients
+// differ from launch to launch. Instead, as tiny-cuda-nn's fused MLP does, pass 1 stores what each
+// dW reads and pass 2 sums dW over all points:
+// * Pass 1, fused_nerf_backward_bf16_kernel, persistent and warp-specialised
+//   on K1's tile (fused_nerf_wgmma.cuh): one block per SM walks 128-point
+//   tiles, two consumer warpgroups own 64 rows each, one producer warp
+//   streams slabs of the slab image through a ring of bulk-copy stages,
+//   three encode. The recompute is K1's code (layer_product, encode_rows,
+//   store_layer), so it sums every layer in K1's k16 order: the forward that K2 differentiates is K1's, bit for
+//   bit; it skips the heads' products. Every tensor a dW reads leaves shared
+//   memory with one bulk copy, its 8 KB blocks as they lie (128-byte
+//   swizzled), into the records (Records: a scratch indexed by 64-point row
+//   block, tensor-major): each body layer's input h, the bottleneck's output,
+//   the positional and view features, and each layer's dz after its cast to
+//   bf16 (the operand dW read before). Since dW leaves, a warpgroup keeps
+//   K1's shared memory, one region of activations written in place: the
+//   recompute's epilogue also keeps each h's ReLU mask (16 bytes a thread
+//   and layer in the scratch), and the backward reads that instead of h.
+//   The ring then gets 4 stages at the flagship where the one-pass kernel,
+//   which kept h and dz apart, got 2 and waited on L2 for its slabs. dX = dz
+//   W^T: per warpgroup, M its 64 points, K the layer's outputs, B = W^T the
+//   slab as it lies, read MN-major; the epilogue adds the opacity head's f32
+//   term (bottleneck, its weights in shared memory), masks, casts and stores
+//   dz over the last. The heads' weight and bias gradients are summed on
+//   the CUDA cores in f32 over each warpgroup's 64 rows (the opacity head's
+//   right after h_{L-1}) and written to the row block's row of a small
+//   buffer; no step needs the other warpgroup's rows.
+// * Pass 2, fused_nerf_backward_dw_bf16_kernel: dW = X^T dz of the body
+//   layers, the bottleneck and the hidden layer, split-K over the points. An
+//   item is (layer, range of row blocks, a pair of 64-column slices of the
+//   layer's input); the producer loads each row block's two X blocks and its
+//   dz blocks into a ring of stages, and each consumer warpgroup runs wgmma
+//   with both operands MN-major (M = its slice, K = 64 points a stage, N =
+//   the layer's outputs), accumulating in f32 registers over the whole range
+//   (thousands of points, not 128). The first pair of a layer also sums dz's
+//   columns: the bias gradient. Each item writes its 64 x N block into its
+//   range's row of a [ranges, weights + biases] f32 buffer. The ranges
+//   (dw_plan) follow from N, the layers' widths and the SM count: enough
+//   items for kDwWaves a block, each range at least kDwMinRows row blocks.
+// * fused_nerf_backward_sum_kernel sums the ranges' rows in order and the
+//   tiles' head rows in a fixed order, and writes every gradient (a later
+//   slice adds its sum to the earlier slices'): the caller zeroes nothing,
+//   and every gradient is the same bit for bit from launch to launch.
+// What bounds them now (flagship, N = 131,072): pass 1 writes ~10 KB a
+// point (9.7 KB of records, the masks) besides its two forwards and the
+// slab stream; pass 2 reads the records once or, where a layer's dz feeds
+// two items, twice (9.7-15 KB a point).
+// Shared memory, pass 1, per warpgroup: the activations (C columns), the
+// positional and the view features (in 64-column blocks), and two or more
+// ring stages of C x 128 bytes: the one budget is bf16_shared_bytes, and a
+// model that does not fit makes the launch raise. Pass 2: stages of two X
+// blocks and a dz row block (dw_shared_bytes). The positional and view
+// features are stored rather than encoded again in pass 2: 256 bytes a point
+// at the flagship, and pass 2 keeps one producer and no encoder.
 //
 // f32: fused_nerf_backward_tf32_kernel, persistent and warp-specialised on
 // K1's f32 routines (fused_nerf_tf32.cuh): 3xTF32 products (tf32 hi and lo
@@ -65,7 +84,7 @@
 //   budget): f32 rows of 64 points take 64 KB of dz^T and 88 KB of x ([h |
 //   positional | view]) at the flagship, and two 32 KB ring stages, 222,376
 //   bytes in all. A 128-point tile would need twice the rows: so 64 points,
-//   one warpgroup, and twice bf16's atomics and L2 slab reads a point.
+//   one warpgroup, and twice bf16's L2 slab reads a point.
 // * The recompute is K1's code (layer_tf32, store_f32, encode_rows_f32) over
 //   the same image, so the forward K2 differentiates is K1's, bit for bit.
 //   Body layers' h are parked in the wrapper's scratch (L x 64 KB a block)
@@ -90,7 +109,7 @@
 //   end of the image).
 // L2 traffic a 64-point tile, at the flagship: the image's forward and dX
 // slabs, hi and lo (9.2 MB, 144 KB a point) and 2.4 MB of f32 dW reductions
-// (37.5 KB a point); bf16 read 18 KB and reduced 18.6 KB a point.
+// (37.5 KB a point).
 //
 // Rounding points (bf16). Each body layer's f32 sum + bias is cast and then
 // ReLU'd, the bottleneck is cast, the hidden layer is ReLU'd and cast (K1).
@@ -108,12 +127,12 @@
 // f32 GEMMs), and the limits against the twin are chip_smoke.py's GRAD_SHARE
 // f32, which the twin on single tf32 products fails.
 //
-// Both kernels mask the ragged last tile themselves (zero inputs and zero
+// The kernels mask the ragged last tile themselves (zero inputs and zero
 // cotangent rows, so dead points add nothing) and launch on the caller's
-// stream; the entry point returns cudaGetLastError(). Their one allocation,
-// the scratch their tiles park their activations in, is the wrapper's
-// (torch.empty, of the size fused_nerf_backward_scratch_bytes gives);
-// neither kernel allocates.
+// stream; the entry point returns the first launch error. Their one
+// allocation, the scratch (bf16: the records, the heads' rows and the
+// partials; f32: the parked activations), is the wrapper's (torch.empty, of
+// the size fused_nerf_backward_scratch_bytes gives); no kernel allocates.
 
 #include "fused_nerf_common.cuh"
 #include "fused_nerf_tf32.cuh"
@@ -133,9 +152,8 @@ using Bf16 = __nv_bfloat16;
 using namespace ffn::wgmma;
 
 // full and empty per stage; per consumer warpgroup, ready and free for its
-// positional and its view features, and the arrival of its reloaded h
-constexpr int kBarrierBytes = (2 * kMaxStages + 10) * 8;
-constexpr uint32_t kPairBarrier = 3;   // both consumer warpgroups
+// positional and its view features
+constexpr int kBarrierBytes = (2 * kMaxStages + 8) * 8;
 
 // The byte offset of every packed layer's slabs in the slab image.
 struct SlabOffsets {
@@ -155,18 +173,19 @@ SlabOffsets slab_offsets(const Desc& d) {
 }
 
 // One consumer warpgroup's shared memory, in 8 KB blocks of its 64 rows:
-// [dz (H) | x: the input's h (H) | positional features (Pb) | view features
-// (Vb)], H = ceil(C / 64). The recompute writes h in x, the hidden layer in
-// dz; from x, the features start at columns 64 H and 64 (H + Pb).
+// [act (H) | positional features (Pb) | view features (Vb)], H = ceil(C /
+// 64): K1's layout. The recompute writes each layer's output over its input
+// in act, the hidden layer over the bottleneck; the backward writes each dz
+// there, over the last. From act, the features start at columns 64 H and
+// 64 (H + Pb).
 struct Region {
   int H, Pb, Vb;
   __host__ __device__ uint32_t bytes() const {
-    return (2 * H + Pb + Vb) * kBlockBytes;
+    return (H + Pb + Vb) * kBlockBytes;
   }
-  __host__ __device__ uint32_t x() const { return H * kBlockBytes; }
-  __host__ __device__ uint32_t pos() const { return 2 * H * kBlockBytes; }
+  __host__ __device__ uint32_t pos() const { return H * kBlockBytes; }
   __host__ __device__ uint32_t view() const {
-    return (2 * H + Pb) * kBlockBytes;
+    return (H + Pb) * kBlockBytes;
   }
 };
 
@@ -175,24 +194,88 @@ __host__ __device__ inline Region region_of(const Desc& d) {
                 (d.view_width + 63) / 64};
 }
 
-// Rows [out_row, out_row + rows) of a layer's dW, whose inputs are the
-// columns from the block at byte `at` of each warpgroup's region.
-struct XSeg {
-  uint32_t at;
-  int rows;
-  int out_row;
+// The records pass 1 leaves for pass 2: per 64-point row block (one
+// warpgroup's rows of a tile, block r = 2 tile + warpgroup), every tensor a
+// layer's dW reads, as 8 KB blocks of 64 columns exactly as they lie in
+// shared memory (128-byte swizzled). Tensor-major: tensor t of every row
+// block, then the next tensor. Tensors: h_0 .. h_{L-1}, the bottleneck's
+// output b, the positional and the view features, dz_0 .. dz_{L-1}, the
+// bottleneck's dz and the hidden layer's dz.
+struct Records {
+  int L, H, Pb, Vb, Hh;      // Hh: the hidden layer's dz blocks
+  long long rows;            // row blocks
+
+  __host__ __device__ int h(int i) const { return i; }
+  __host__ __device__ int b() const { return L; }
+  __host__ __device__ int pos() const { return L + 1; }
+  __host__ __device__ int view() const { return L + 2; }
+  __host__ __device__ int dz(int i) const { return L + 3 + i; }
+  __host__ __device__ int dz_bottleneck() const { return 2 * L + 3; }
+  __host__ __device__ int dz_hidden() const { return 2 * L + 4; }
+  __host__ __device__ int blocks(int t) const {
+    return t == pos() ? Pb : t == view() ? Vb : t == dz_hidden() ? Hh : H;
+  }
+  // 8 KB blocks a row block holds in all
+  __host__ __device__ int row_blocks() const {
+    return 2 * (L + 1) * H + Pb + Vb + Hh;
+  }
+  // the byte offset of tensor t's blocks of row block r
+  __host__ __device__ long long at(int t, long long r) const {
+    const int before = t <= pos() ? t * H
+                       : t == view() ? (L + 1) * H + Pb
+                                     : (t - 2) * H + Pb + Vb;
+    return (before * rows + r * blocks(t)) * kBlockBytes;
+  }
+  __host__ __device__ long long bytes() const {
+    return row_blocks() * rows * kBlockBytes;
+  }
 };
 
-__device__ __forceinline__ float ld_bf16(uint32_t addr) {
-  uint16_t v;
-  asm volatile("ld.shared.b16 %0, [%1];\n" : "=h"(v) : "r"(addr) : "memory");
-  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+__host__ __device__ inline Records records_of(const Desc& d,
+                                              long long num_points) {
+  const Region reg = region_of(d);
+  return Records{d.num_layers, reg.H, reg.Pb, reg.Vb,
+                 (d.channels / 2 + 63) / 64,
+                 2 * ((num_points + kTileRows - 1) / kTileRows)};
 }
 
-__device__ __forceinline__ uint32_t ld_b32(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
-  return v;
+// The heads' sums of a row block, in f32 (head_floats of them, each
+// element's row blocks in a run): the color head's dW (C / 2 rows of 3), the
+// opacity head's (C), the color bias (3) and the opacity bias.
+__host__ __device__ inline int head_floats(int C) { return 5 * C / 2 + 4; }
+
+// The ReLU masks pass 1's backward reads: for each row block and body layer
+// i, each consumer thread's bits of h_i > 0 at its dX fragment (relu_mask's
+// layout), as one 16-byte word of up to four 32-bit words.
+constexpr int kMaskBytes = 16;
+__host__ __device__ inline long long mask_bytes(const Desc& d,
+                                                long long rows) {
+  return rows * d.num_layers * 128 * kMaskBytes;
+}
+
+// The value at shared-memory address `at`, read through a generic pointer:
+// the CUDA-core loops read their operands so, which lets the compiler keep
+// many loads in flight (a volatile ld.shared in inline PTX issues one at a
+// time).
+template <typename T>
+__device__ __forceinline__ T shared_at(uint32_t at) {
+  return *static_cast<const T*>(__cvta_shared_to_generic(at));
+}
+
+__device__ __forceinline__ float shared_bf16(uint32_t at) {
+  return __bfloat162float(shared_at<Bf16>(at));
+}
+
+// The 8-column groups whose bias loads store_layer (fused_nerf_wgmma.cuh)
+// issues ahead of their stores in the recompute: one L2 latency a batch,
+// where K1's loads, a pair beside each store, pay one a pair.
+constexpr int kBiasBatch = 16;
+
+// The warpgroup of this thread, warp-uniform as the compiler sees it: with
+// threadIdx.x / 128 the consumer's products sat on a path ptxas took for
+// divergent and serialized (its C7520 note), and it spilled more.
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
 }
 
 // W[k][n] of the packed layer whose slabs start at byte `at` of the slab
@@ -203,93 +286,6 @@ __device__ __forceinline__ float slab_weight(const char* image, long long at,
                          + n * 128 + ((((k & 63) >> 3) ^ (n & 7)) << 4)
                          + (k & 7) * 2;
   return __bfloat162float(__ldg(reinterpret_cast<const Bf16*>(image + byte)));
-}
-
-// dW[out_row + m][n] += sum over the tile's 128 points of X[p][m] dz[p][n],
-// for each segment of X. The 64-row M slices alternate between the
-// warpgroups; a slice reads A = X^T and B = dz MN-major from both
-// warpgroups' rows (dz at the start of each region), and its thread adds
-// its f32 fragment with float2 atomics.
-template <int N>
-__device__ __forceinline__ void dw_product(float* acc, const XSeg* segs,
-                                           int count, uint32_t base,
-                                           uint32_t region_bytes, int wg,
-                                           int r0, int pair,
-                                           float* __restrict__ grad) {
-  int slice = 0;
-  for (int s = 0; s < count; ++s) {
-    for (int m0 = 0; m0 < segs[s].rows; m0 += 64, ++slice) {
-      if ((slice & 1) != wg) continue;
-      hopper::fence_registers<N / 2>(acc);
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int p0 = 0; p0 < kTileRows; p0 += 16) {
-        const uint32_t rows = base + (p0 / kWgRows) * region_bytes
-                              + (p0 % kWgRows) * 128;
-        hopper::mma<N, 1, 1>(
-            acc,
-            hopper::desc_sw128_mn(rows + segs[s].at + (m0 / 64) * kBlockBytes),
-            hopper::desc_sw128_mn(rows), p0 > 0);
-      }
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      hopper::fence_registers<N / 2>(acc);
-      float* out = grad + static_cast<long long>(segs[s].out_row + m0) * N;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = r0 + 8 * h;
-        if (m0 + m < segs[s].rows) {
-#pragma unroll
-          for (int j = 0; j < N / 8; ++j) {
-            atomicAdd(reinterpret_cast<float2*>(out + m * N + 8 * j + pair),
-                      make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
-          }
-        }
-      }
-    }
-  }
-}
-
-// db[n] += sum over the tile's 128 points of dz[p][n], n < N: one consumer
-// thread a column.
-__device__ __forceinline__ void bias_grad_tile(uint32_t base,
-                                               uint32_t region_bytes, int N,
-                                               int ct,
-                                               float* __restrict__ grad) {
-  if (ct < N) {
-    float s = 0.0f;
-    for (int p = 0; p < kTileRows; ++p) {
-      s += ld_bf16(act_addr(base + (p / kWgRows) * region_bytes, p % kWgRows,
-                            ct));
-    }
-    atomicAdd(grad + ct, s);
-  }
-}
-
-// The ReLU mask of this thread's dX fragment: bit 4j + 2h + c of word s
-// says x[r0 + 8h][64 s + 8j + pair + c] > 0.
-template <int C>
-__device__ __forceinline__ void relu_mask(uint32_t* mask, uint32_t x, int r0,
-                                          int pair) {
-#pragma unroll
-  for (int s = 0; s < (C + 63) / 64; ++s) {
-    uint32_t bits = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (64 * s + 8 * j < C) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          // two bf16: positive when the sign is clear and the rest is not 0
-          const uint32_t v = ld_b32(act_addr(x, r0 + 8 * h,
-                                             64 * s + 8 * j + pair));
-          const uint32_t lo = (v & 0x8000u) == 0 && (v & 0x7FFFu) != 0;
-          const uint32_t hi = (v & 0x80000000u) == 0 && (v & 0x7FFF0000u) != 0;
-          bits |= (lo | (hi << 1)) << (4 * j + 2 * h);
-        }
-      }
-    }
-    mask[s] = bits;
-  }
 }
 
 // acc[32 s ..] = dz W^T for dX's columns 64 s .. 64 s + 63, s < kChunks:
@@ -327,14 +323,15 @@ __device__ __forceinline__ void dx_product(float* acc, Ring& ring,
 }
 
 // dz[:, 0:C] = bf16 of dX, with the opacity head's f32 term g_op opacity_w
-// added (kOpacity; g0 and g8 are g_op of rows r0 and r0 + 8) and the ReLU
-// mask applied (kMask), stored into the swizzled rows in place.
+// added (kOpacity; g0 and g8 are g_op of rows r0 and r0 + 8, opacity_w the
+// head's weights in shared memory) and the ReLU mask applied (kMask), stored
+// into the swizzled rows in place.
 template <int C, bool kOpacity, bool kMask>
 __device__ __forceinline__ void store_dz(const float* acc,
                                          const uint32_t* mask, uint32_t dz,
                                          const Fragment& f, int pair,
-                                         float g0, float g8, const char* image,
-                                         long long opacity_at) {
+                                         float g0, float g8,
+                                         const float* opacity_w) {
 #pragma unroll
   for (int s = 0; s < (C + 63) / 64; ++s) {
 #pragma unroll
@@ -351,8 +348,7 @@ __device__ __forceinline__ void store_dz(const float* acc,
             const int bit = 4 * jj + 2 * h + c;
             float x = acc[32 * s + bit];
             if (kOpacity) {
-              x += (h ? g8 : g0) * slab_weight(image, opacity_at, kHeadWidth,
-                                               64 * s + 8 * jj + pair + c, 0);
+              x += (h ? g8 : g0) * opacity_w[64 * s + 8 * jj + pair + c];
             }
             if (kMask && !((mask[s] >> bit) & 1u)) x = 0.0f;
             v[c] = x;
@@ -374,9 +370,9 @@ fused_nerf_backward_bf16_kernel(const float* __restrict__ positions,
                                 const Bf16* __restrict__ slabs,
                                 const float* __restrict__ biases,
                                 const float* __restrict__ g,
-                                float* __restrict__ d_weights,
-                                float* __restrict__ d_biases,
-                                char* __restrict__ scratch,
+                                float* __restrict__ heads,
+                                uint4* __restrict__ masks,
+                                char* __restrict__ records,
                                 long long num_points, Desc d,
                                 SlabOffsets offsets, int stages) {
   constexpr int H = (C + 63) / 64;
@@ -389,13 +385,13 @@ fused_nerf_backward_bf16_kernel(const float* __restrict__ positions,
   const uint32_t stage_bytes = C * 128;
   const uint32_t full = ring_base + stages * stage_bytes;
   const uint32_t empty = full + 8 * kMaxStages;
-  // [warpgroup]: features written, features read (for the next tile), h
-  // reloaded
+  // [warpgroup]: features written, features read (for the next tile)
   const uint32_t pos_ready = empty + 8 * kMaxStages;
   const uint32_t pos_free = pos_ready + 16;
   const uint32_t view_ready = pos_free + 16;
   const uint32_t view_free = view_ready + 16;
-  const uint32_t x_full = view_free + 16;
+  float* const opacity_w =
+      static_cast<float*>(__cvta_shared_to_generic(view_free + 16));
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       hopper::mbar_init(full + 8 * s, 1);
@@ -406,7 +402,6 @@ fused_nerf_backward_bf16_kernel(const float* __restrict__ positions,
       hopper::mbar_init(pos_free + 8 * w, kConsumerWarps / 2);
       hopper::mbar_init(view_ready + 8 * w, kEncoderThreads);
       hopper::mbar_init(view_free + 8 * w, kConsumerWarps / 2);
-      hopper::mbar_init(x_full + 8 * w, 1);
     }
     hopper::mbar_fence_init();
   }
@@ -415,7 +410,7 @@ fused_nerf_backward_bf16_kernel(const float* __restrict__ positions,
   const long long num_tiles = (num_points + kTileRows - 1) / kTileRows;
   const int L = d.num_layers;
   const char* const image = reinterpret_cast<const char*>(slabs);
-  const int wg = threadIdx.x / 128;
+  const int wg = warpgroup();
   if (wg == 2) {
     hopper::regs_decrease<kProducerRegs>();
     if (threadIdx.x == 256) {
@@ -499,8 +494,7 @@ fused_nerf_backward_bf16_kernel(const float* __restrict__ positions,
   const int ct = threadIdx.x;          // 0..255 over both warpgroups
   const int warp = t >> 5;
   const int lane = t & 31;
-  const uint32_t dz = base + wg * region_bytes;
-  const uint32_t x = dz + reg.x();
+  const uint32_t act = base + wg * region_bytes;
   const uint32_t barrier_id = 1 + wg;
   const bool releases = lane == 0;
   const bool copies = t == 0;          // issues the warpgroup's bulk copies
@@ -510,195 +504,216 @@ fused_nerf_backward_bf16_kernel(const float* __restrict__ positions,
   Ring ring{ring_base, stage_bytes, full, empty, stages, 0, 0u};
   const int P = d.pos_width;
   const int V = d.view_width;
-  const int pos_col = H * 64;              // from x
+  const int pos_col = H * 64;              // from act
   const int view_col = (H + reg.Pb) * 64;
-  const uint32_t h_bytes = H * kBlockBytes;
-  char* const slots = scratch + static_cast<long long>(blockIdx.x * 2 + wg)
-                                    * L * h_bytes;
+  const Records rec = records_of(d, num_points);
   const float4* g4 = reinterpret_cast<const float4*>(g);
   auto g_row = [&](long long p) {
     return p < num_points ? __ldg(g4 + p) : make_float4(0.f, 0.f, 0.f, 0.f);
   };
-  auto both_ready = [] { hopper::named_barrier(kPairBarrier, 256); };
-  // x's h leaves for slot i of the scratch
-  auto park = [&](int i) {
+  auto wg_sync = [&] { hopper::named_barrier(barrier_id, 128); };
+  long long row_block = 0;
+  // the blocks at `from` leave for tensor `tensor`'s record of this row block
+  auto park = [&](int tensor, uint32_t from) {
     if (copies) {
-      hopper::bulk_store(slots + static_cast<long long>(i) * h_bytes, x,
-                         h_bytes);
+      hopper::bulk_store(records + rec.at(tensor, row_block), from,
+                         rec.blocks(tensor) * kBlockBytes);
       hopper::bulk_commit();
     }
   };
-  // before x is written again: the last park has read it
+  // before act is written again: every park has read it
   auto parked = [&] {
     if (copies) hopper::bulk_wait_read();
-    hopper::named_barrier(barrier_id, 128);
+    wg_sync();
   };
-  uint32_t x_phase = 0;
-  auto reload = [&](int i) {
-    if (copies) {
-      hopper::mbar_arrive_expect_tx(x_full + 8 * wg, h_bytes);
-      hopper::bulk_load(x, slots + static_cast<long long>(i) * h_bytes,
-                        h_bytes, x_full + 8 * wg);
-    }
+  // element e of this row block's head sums (element-major: the sum kernel
+  // reads each element's row blocks in one run)
+  auto head = [&](int e) -> float& {
+    return heads[e * rec.rows + row_block];
   };
-  auto reloaded = [&] {
-    hopper::mbar_wait(x_full + 8 * wg, x_phase);
-    x_phase ^= 1u;
+  // the ReLU mask of h_i at this thread's fragment, in and out of `masks`
+  auto mask_word = [&](int i) {
+    return masks + (row_block * L + i) * 128 + t;
   };
+  auto load_mask = [&](int i, uint32_t* mask) {
+    const uint4 m = *mask_word(i);
+    const uint32_t w[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+    for (int s = 0; s < H; ++s) mask[s] = w[s];
+  };
+  // the opacity head's weights, f32, for the bottleneck's dX epilogue (read
+  // after the first tile's barriers)
+  for (int k = t; k < C; k += 128) {
+    opacity_w[k] = slab_weight(image, offsets.at[L], kHeadWidth, k, 0);
+  }
   float acc[32 * H];
-  uint32_t mask[H];
+  uint32_t mask[4];
   uint32_t parity = 0;
   for (long long tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    const long long tile0 = tile * kTileRows;
-    const long long row0 = tile0 + wg * kWgRows;
-    // ---- the recompute: K1's products and epilogues, h_i parked ----
+    const long long row0 = tile * kTileRows + wg * kWgRows;
+    row_block = 2 * tile + wg;
+    // ---- the recompute: K1's products and epilogues, each input parked ----
     hopper::mbar_wait(pos_ready + 8 * wg, parity);
+    park(rec.pos(), act + reg.pos());
     for (int i = 0; i < L; ++i) {
       const bool skip = i > 0 && ((d.skip_mask >> i) & 1u);
       const int K = i == 0 ? P : C + (skip ? P : 0);
-      layer_product<C>(acc, ring, x, K, i == 0 ? 0 : C,
+      layer_product<C>(acc, ring, act, K, i == 0 ? 0 : C,
                        i == 0 ? pos_col : pos_col - C, releases);
-      if (i > 0) parked();
-      store_layer<C, true>(acc, biases + d.b_off[i], x, f, pair);
+      parked();
+      store_layer<C, true, true, kBiasBatch, true>(acc, biases + d.b_off[i],
+                                                   act, f, pair, mask);
+      *mask_word(i) = make_uint4(mask[0], H > 1 ? mask[1] : 0u,
+                                 H > 2 ? mask[2] : 0u, H > 3 ? mask[3] : 0u);
       rows_ready(barrier_id);
-      park(i);
+      park(rec.h(i), act);
+    }
+    // the opacity head's dW over h_{L-1}, f32 on the CUDA cores: a column a
+    // thread, the rows in order, g broadcast 32 rows at a time by shuffles
+    for (int c0 = 0; c0 < C; c0 += 128) {
+      const int c = c0 + t;
+      float s = 0.0f;
+      for (int r = 0; r < kWgRows; r += 32) {
+        const float gl = g_row(row0 + r + lane).w;
+#pragma unroll 8
+        for (int q = 0; q < 32; ++q) {
+          s = fmaf(shared_bf16(act_addr(act, r + q, c < C ? c : 0)),
+                   __shfl_sync(0xffffffffu, gl, q), s);
+        }
+      }
+      if (c < C) head(3 * C / 2 + c) = s;
     }
     // the bottleneck, in place over h_{L-1}
-    layer_product<C>(acc, ring, x, C, C, 0, releases);
+    layer_product<C>(acc, ring, act, C, C, 0, releases);
     parked();
-    store_layer<C, false>(acc, biases + d.b_off[L + 1], x, f, pair);
+    store_layer<C, false, true, kBiasBatch>(acc, biases + d.b_off[L + 1], act,
+                                             f, pair);
     rows_ready(barrier_id);
-    // the hidden layer over [bottleneck | view features], into dz
+    park(rec.b(), act);
+    // the hidden layer over [bottleneck | view features], in place
     hopper::mbar_wait(view_ready + 8 * wg, parity);
-    layer_product<C / 2>(acc, ring, x, C + V, C, view_col - C, releases);
-    store_layer<C / 2, true>(acc, biases + d.b_off[L + 2], dz, f, pair);
-    if (copies) hopper::bulk_wait();   // the parks are written: reloadable
-    both_ready();
+    park(rec.view(), act + reg.view());
+    layer_product<C / 2>(acc, ring, act, C + V, C, view_col - C, releases);
+    // the parks have read the features: free for the next tile's (the
+    // backward reads neither)
+    parked();
+    if (releases) {
+      hopper::mbar_arrive(pos_free + 8 * wg);
+      hopper::mbar_arrive(view_free + 8 * wg);
+    }
+    store_layer<C / 2, true, true, kBiasBatch>(acc, biases + d.b_off[L + 2],
+                                                act, f, pair);
+    rows_ready(barrier_id);
 
-    // ---- the heads, f32 on the CUDA cores, over the tile's 128 points ----
-    if (ct < C / 2) {
+    // ---- the color head and the heads' biases, f32 over the 64 rows ----
+    // (g reaches a warp 32 rows at a time, a row a lane, and each row is
+    // broadcast by shuffles: a load a row for every thread waited on L2 one
+    // row after another)
+    if (t < (C / 2 + 31) / 32 * 32) {
+      // a column a thread, the rows in order
+      const int c = t < C / 2 ? t : 0;
       float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-      for (int p = 0; p < kTileRows; ++p) {
-        const float h = ld_bf16(act_addr(base + (p / kWgRows) * region_bytes,
-                                         p % kWgRows, ct));
-        const float4 gv = g_row(tile0 + p);
-        s0 = fmaf(h, gv.x, s0);
-        s1 = fmaf(h, gv.y, s1);
-        s2 = fmaf(h, gv.z, s2);
-      }
-      float* dw = d_weights + d.w_off[L + 3] + ct * kHeadWidth;
-      atomicAdd(dw, s0);
-      atomicAdd(dw + 1, s1);
-      atomicAdd(dw + 2, s2);
-    } else if (ct >= 252) {
-      const int k = ct - 252;
-      float s = 0.0f;
-      for (int p = 0; p < kTileRows; ++p) {
-        const float4 gv = g_row(tile0 + p);
-        s += k == 0 ? gv.x : k == 1 ? gv.y : k == 2 ? gv.z : gv.w;
-      }
-      atomicAdd(k < 3 ? d_biases + d.b_off[L + 3] + k : d_biases + d.b_off[L],
-                s);
-    }
-    both_ready();
-    // dz of the hidden layer, in place over it: (g_color color_w^T) masked
-    for (int idx = t; idx < kWgRows * (C / 2); idx += 128) {
-      const int row = idx / (C / 2);
-      const int c = idx - row * (C / 2);
-      const uint32_t at = act_addr(dz, row, c);
-      const float4 gv = g_row(row0 + row);
-      const long long color = offsets.at[L + 3];
-      const float dh = fmaf(
-          gv.z, slab_weight(image, color, kHeadWidth, c, 2),
-          fmaf(gv.y, slab_weight(image, color, kHeadWidth, c, 1),
-               gv.x * slab_weight(image, color, kHeadWidth, c, 0)));
-      st_bf16(at, ld_bf16(at) > 0.0f ? dh : 0.0f);
-    }
-    hopper::fence_async_shared();
-    both_ready();
-
-    // ---- the hidden layer: dW over [bottleneck | view]; dz <- d bottleneck
-    {
-      const XSeg segs[2] = {{reg.x(), C, 0}, {reg.view(), V, C}};
-      dw_product<C / 2>(acc, segs, 2, base, region_bytes, wg, r0, pair,
-                        d_weights + d.w_off[L + 2]);
-      bias_grad_tile(base, region_bytes, C / 2, ct,
-                     d_biases + d.b_off[L + 2]);
-      both_ready();
-      if (releases) hopper::mbar_arrive(view_free + 8 * wg);
-      reload(L - 1);
-      dx_product<C / 2, H>(acc, ring, dz, releases);
-      store_dz<C, false, false>(acc, mask, dz, f, pair, 0.0f, 0.0f, image, 0);
-      hopper::fence_async_shared();
-      reloaded();
-      both_ready();
-    }
-    // ---- the bottleneck over h_{L-1}, and the opacity head's dW ----
-    {
-      if (ct < C) {
-        float s = 0.0f;
-        for (int p = 0; p < kTileRows; ++p) {
-          s = fmaf(ld_bf16(act_addr(base + (p / kWgRows) * region_bytes
-                                        + reg.x(), p % kWgRows, ct)),
-                   g_row(tile0 + p).w, s);
+      for (int r = 0; r < kWgRows; r += 32) {
+        const float4 gl = g_row(row0 + r + lane);
+#pragma unroll 8
+        for (int q = 0; q < 32; ++q) {
+          const float h = shared_bf16(act_addr(act, r + q, c));
+          s0 = fmaf(h, __shfl_sync(0xffffffffu, gl.x, q), s0);
+          s1 = fmaf(h, __shfl_sync(0xffffffffu, gl.y, q), s1);
+          s2 = fmaf(h, __shfl_sync(0xffffffffu, gl.z, q), s2);
         }
-        atomicAdd(d_weights + d.w_off[L] + ct * kHeadWidth, s);
       }
-      const XSeg segs[1] = {{reg.x(), C, 0}};
-      dw_product<C>(acc, segs, 1, base, region_bytes, wg, r0, pair,
-                    d_weights + d.w_off[L + 1]);
-      bias_grad_tile(base, region_bytes, C, ct, d_biases + d.b_off[L + 1]);
-      relu_mask<C>(mask, x, r0, pair);
-      both_ready();
-      if (L >= 2) reload(L - 2);
-      dx_product<C, H>(acc, ring, dz, releases);
-      store_dz<C, true, true>(acc, mask, dz, f, pair, g_row(row0 + r0).w,
-                              g_row(row0 + r0 + 8).w, image, offsets.at[L]);
-      hopper::fence_async_shared();
-      if (L >= 2) reloaded();
-      both_ready();
+      if (t < C / 2) {
+        head(3 * t) = s0;
+        head(3 * t + 1) = s1;
+        head(3 * t + 2) = s2;
+      }
     }
-    // ---- body layers, last to first: X = [h_{i-1} | pos] or pos ----
-    for (int i = L - 1; i >= 0; --i) {
-      const bool skip = i > 0 && ((d.skip_mask >> i) & 1u);
-      XSeg segs[2] = {{reg.x(), C, 0}, {reg.pos(), P, C}};
-      if (i == 0) segs[0] = XSeg{reg.pos(), P, 0};
-      dw_product<C>(acc, segs, skip ? 2 : 1, base, region_bytes, wg, r0,
-                    pair, d_weights + d.w_off[i]);
-      bias_grad_tile(base, region_bytes, C, ct, d_biases + d.b_off[i]);
-      if (i > 0) relu_mask<C>(mask, x, r0, pair);
-      both_ready();
-      if (i == 0) {
-        if (releases) hopper::mbar_arrive(pos_free + 8 * wg);
-        break;
+    if (warp == 0) {
+      // lane l sums rows l and l + 32, then a fixed butterfly over the lanes
+      const float4 a = g_row(row0 + lane);
+      const float4 b = g_row(row0 + 32 + lane);
+      float4 s = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        s.x += __shfl_xor_sync(0xffffffffu, s.x, o);
+        s.y += __shfl_xor_sync(0xffffffffu, s.y, o);
+        s.z += __shfl_xor_sync(0xffffffffu, s.z, o);
+        s.w += __shfl_xor_sync(0xffffffffu, s.w, o);
       }
-      if (i >= 2) reload(i - 2);
-      dx_product<C, H>(acc, ring, dz, releases);
-      store_dz<C, false, true>(acc, mask, dz, f, pair, 0.0f, 0.0f, image, 0);
-      hopper::fence_async_shared();
-      if (i >= 2) reloaded();
-      both_ready();
+      if (lane == 0) {
+        head(5 * C / 2) = s.x;
+        head(5 * C / 2 + 1) = s.y;
+        head(5 * C / 2 + 2) = s.z;
+        head(5 * C / 2 + 3) = s.w;
+      }
+    }
+    wg_sync();
+    // dz of the hidden layer, in place over it: (g_color color_w^T) masked;
+    // a thread a column, its three color weights read once, g broadcast as
+    // in the heads
+    if (t < (C / 2 + 31) / 32 * 32) {
+      const int c = t < C / 2 ? t : 0;
+      const long long color = offsets.at[L + 3];
+      const float w0 = slab_weight(image, color, kHeadWidth, c, 0);
+      const float w1 = slab_weight(image, color, kHeadWidth, c, 1);
+      const float w2 = slab_weight(image, color, kHeadWidth, c, 2);
+      for (int r = 0; r < kWgRows; r += 32) {
+        const float4 gl = g_row(row0 + r + lane);
+#pragma unroll 8
+        for (int q = 0; q < 32; ++q) {
+          const uint32_t at = act_addr(act, r + q, c);
+          const float dh = fmaf(__shfl_sync(0xffffffffu, gl.z, q), w2,
+                                fmaf(__shfl_sync(0xffffffffu, gl.y, q), w1,
+                                     __shfl_sync(0xffffffffu, gl.x, q) * w0));
+          if (t < C / 2) st_bf16(at, shared_bf16(at) > 0.0f ? dh : 0.0f);
+        }
+      }
+    }
+    rows_ready(barrier_id);
+
+    // ---- the backward: each dz parked, then dz <- its dX, in place ----
+    // the hidden layer: d bottleneck = dz W^T, unmasked
+    park(rec.dz_hidden(), act);
+    dx_product<C / 2, H>(acc, ring, act, releases);
+    parked();
+    store_dz<C, false, false>(acc, mask, act, f, pair, 0.0f, 0.0f, nullptr);
+    rows_ready(barrier_id);
+    park(rec.dz_bottleneck(), act);
+    // the bottleneck: dh_{L-1} = d_b W^T + g_op opacity_w, masked by h_{L-1}
+    load_mask(L - 1, mask);
+    dx_product<C, H>(acc, ring, act, releases);
+    parked();
+    store_dz<C, true, true>(acc, mask, act, f, pair, g_row(row0 + r0).w,
+                            g_row(row0 + r0 + 8).w, opacity_w);
+    rows_ready(barrier_id);
+    // body layers, last to first: dz_{i-1} = (dz_i W^T) masked by h_{i-1}
+    for (int i = L - 1; i >= 0; --i) {
+      park(rec.dz(i), act);
+      if (i == 0) break;
+      load_mask(i - 1, mask);
+      dx_product<C, H>(acc, ring, act, releases);
+      parked();
+      store_dz<C, false, true>(acc, mask, act, f, pair, 0.0f, 0.0f, nullptr);
+      rows_ready(barrier_id);
     }
     parity ^= 1u;
   }
+  // the last parks are written before the block leaves
+  if (copies) hopper::bulk_wait();
 }
 
 // The shared memory a bf16 launch needs (0 if the model does not fit with
-// two ring stages) and the stages it gets: two warpgroups' regions and the
-// ring.
+// two ring stages) and the stages it gets: two warpgroups' regions, the
+// ring, its barriers and the opacity head's f32 weights.
 size_t bf16_shared_bytes(const Desc& d, int* stages) {
   const size_t fixed = kAlignSlack + 2ull * region_of(d).bytes()
-                       + kBarrierBytes;
+                       + kBarrierBytes + 4ull * d.channels;
   const size_t stage = static_cast<size_t>(d.channels) * 128;
   if (fixed + 2 * stage > kSharedLimit) return 0;
   const size_t fit = (kSharedLimit - fixed) / stage;
   *stages = static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
   return fixed + *stages * stage;
-}
-
-// The scratch bytes one block parks its tiles' activations in.
-long long bf16_scratch_per_block(const Desc& d) {
-  return 2ll * d.num_layers * region_of(d).H * kBlockBytes;
 }
 
 // The blocks of a launch on the current device over tiles of `rows`
@@ -714,37 +729,512 @@ cudaError_t block_grid(long long num_points, int rows, long long* grid) {
   return cudaSuccess;
 }
 
+// ---- pass 2: dW = X^T dz over all points, split-K in a fixed order ------
+
+// One input segment of a layer's dW: tensor `tensor` of the records feeds
+// rows [out_row, out_row + rows) of the weight.
+struct DwSegment {
+  int tensor;
+  int rows;
+  int out_row;
+};
+
+// dW layer k of pass 2 (body layers 0 .. L-1, then the bottleneck, then the
+// hidden layer): its packed layer, its dz tensor, its outputs N, and its
+// input segments (returned: 1 or 2).
+struct DwLayer {
+  int packed;
+  int dz;
+  int N;
+  int count;
+  DwSegment seg[2];
+  // 64-row slices of its inputs
+  __host__ __device__ int slices() const {
+    int n = 0;
+    for (int s = 0; s < count; ++s) n += (seg[s].rows + 63) / 64;
+    return n;
+  }
+  // two slices an item: one for each consumer warpgroup
+  __host__ __device__ int pairs() const { return (slices() + 1) / 2; }
+  // the tensor, 8 KB block and first weight row of slice q (rows: how many
+  // of its 64 rows the weight has)
+  __host__ __device__ DwSegment slice(int q, int* block) const {
+    int s = 0;
+    int first = (seg[0].rows + 63) / 64;
+    if (q >= first) {
+      s = 1;
+      q -= first;
+    }
+    const int left = seg[s].rows - 64 * q;
+    *block = q;
+    return DwSegment{seg[s].tensor, left < 64 ? left : 64,
+                     seg[s].out_row + 64 * q};
+  }
+};
+
+__host__ __device__ inline DwLayer dw_layer(const Desc& d, const Records& r,
+                                            int k) {
+  const int L = d.num_layers;
+  const int C = d.channels;
+  DwLayer l{};
+  if (k < L) {
+    l.packed = k;
+    l.dz = r.dz(k);
+    l.N = C;
+    if (k == 0) {
+      l.count = 1;
+      l.seg[0] = DwSegment{r.pos(), d.pos_width, 0};
+    } else {
+      l.count = ((d.skip_mask >> k) & 1u) ? 2 : 1;
+      l.seg[0] = DwSegment{r.h(k - 1), C, 0};
+      l.seg[1] = DwSegment{r.pos(), d.pos_width, C};
+    }
+  } else if (k == L) {
+    l.packed = L + 1;
+    l.dz = r.dz_bottleneck();
+    l.N = C;
+    l.count = 1;
+    l.seg[0] = DwSegment{r.h(L - 1), C, 0};
+  } else {
+    l.packed = L + 2;
+    l.dz = r.dz_hidden();
+    l.N = C / 2;
+    l.count = 2;
+    l.seg[0] = DwSegment{r.b(), C, 0};
+    l.seg[1] = DwSegment{r.view(), d.view_width, C};
+  }
+  return l;
+}
+
+// Pass 2's split: `ranges` ranges of `range_rows` row blocks (the last
+// shorter), and an item for each (layer, range, pair of slices), in that
+// order, so the items that read one dz range run side by side.
+struct DwPlan {
+  int ranges;
+  long long range_rows;
+  int items;
+};
+
+// Items enough for kDwWaves per SM, each range at least kDwMinRows row
+// blocks (4,096 points), so that a partial's write stays a small share of
+// what its item reads.
+constexpr int kDwWaves = 4;
+constexpr long long kDwMinRows = 64;
+
+DwPlan dw_plan(const Desc& d, const Records& r, int sms) {
+  int pairs = 0;
+  for (int k = 0; k < d.num_layers + 2; ++k) pairs += dw_layer(d, r, k).pairs();
+  long long ranges = (static_cast<long long>(kDwWaves) * sms + pairs - 1)
+                     / pairs;
+  const long long most = r.rows / kDwMinRows;
+  if (ranges > most) ranges = most;
+  if (ranges < 1) ranges = 1;
+  DwPlan plan;
+  plan.range_rows = (r.rows + ranges - 1) / ranges;
+  plan.ranges = static_cast<int>((r.rows + plan.range_rows - 1)
+                                 / plan.range_rows);
+  plan.items = plan.ranges * pairs;
+  return plan;
+}
+
+// The weights' and the biases' elements of the pack.
+__host__ __device__ inline long long weight_count(const Desc& d) {
+  return d.w_off[d.num_layers + 3] + (d.channels / 2) * kHeadWidth;
+}
+__host__ __device__ inline long long bias_count(const Desc& d) {
+  return d.b_off[d.num_layers + 3] + kHeadWidth;
+}
+
+constexpr int kDwStageSlices = 2;    // X blocks a stage, one a warpgroup
+
+// One item's products for a consumer warpgroup: acc = sum over the range's
+// row blocks of X_slice^T dz (M = 64 input columns, K = 64 points a row
+// block, N outputs; both operands MN-major as they lie), and, when `bias`,
+// the column sums of dz for the thread's column `ct`. Every stage is
+// released once its products and sums are done.
+template <int N>
+__device__ __forceinline__ void dw_range(float* acc, float* bias_sum,
+                                         Ring& ring, long long rows,
+                                         bool has, bool bias,
+                                         int wg, int ct, bool releases) {
+  const uint32_t dz_at = kDwStageSlices * kBlockBytes;
+  hopper::fence_registers<N / 2>(acc);
+  hopper::wgmma_fence();
+  float s = 0.0f;
+  int held = -1;
+  for (long long r = 0; r < rows; ++r) {
+    hopper::mbar_wait(ring.full + 8 * ring.stage, ring.phase);
+    const uint32_t stage = ring.base + ring.stage * ring.stage_bytes;
+    if (has) {
+#pragma unroll
+      for (int k = 0; k < kWgRows; k += 16) {
+        hopper::mma<N, 1, 1>(
+            acc, hopper::desc_sw128_mn(stage + wg * kBlockBytes + k * 128),
+            hopper::desc_sw128_mn(stage + dz_at + k * 128), r > 0 || k > 0);
+      }
+      hopper::wgmma_commit();
+    }
+    if (bias && ct < N) {
+      const uint32_t dz = stage + dz_at;
+#pragma unroll 8
+      for (int p = 0; p < kWgRows; ++p) {
+        s += shared_bf16(act_addr(dz, p, ct));
+      }
+    }
+    if (held >= 0) {
+      if (has) hopper::wgmma_wait<1>();
+      if (releases) hopper::mbar_arrive(ring.empty + 8 * held);
+    }
+    held = ring.stage;
+    ring.advance();
+  }
+  if (has) hopper::wgmma_wait<0>();
+  hopper::fence_registers<N / 2>(acc);
+  if (releases && held >= 0) hopper::mbar_arrive(ring.empty + 8 * held);
+  *bias_sum = s;
+}
+
+// acc (the thread's fragment of a 64 x N product) into rows [0, rows) of
+// the f32 matrix at `out`, N floats a row.
+template <int N>
+__device__ __forceinline__ void store_fragment(const float* acc, float* out,
+                                               int rows, int r0, int pair) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = r0 + 8 * h;
+    if (m < rows) {
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        *reinterpret_cast<float2*>(out + static_cast<long long>(m) * N + 8 * j
+                                   + pair) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// Pass 2, persistent and warp-specialised: one block per SM walks the items
+// of `plan` (item = blockIdx.x, + gridDim.x, ...). One producer thread loads
+// each row block's X slices (one 8 KB block per consumer warpgroup) and the
+// layer's dz blocks through a ring of stages with bulk copies; each consumer
+// warpgroup sums X_slice^T dz over the item's range of row blocks in f32
+// registers (K = every point of the range) and writes the 64 x N result,
+// and on the first pair of a layer the bias sums, into the range's row of
+// `partial` ([ranges, weights + biases] f32), in the pack's layout.
+template <int C>
+__global__ void __launch_bounds__(kBf16Threads, 1)
+fused_nerf_backward_dw_bf16_kernel(const char* __restrict__ records,
+                                   float* __restrict__ partial, Desc d,
+                                   Records rec, DwPlan plan, int stages) {
+  extern __shared__ __align__(1024) unsigned char dw_smem[];
+  const uint32_t base = (hopper::smem_addr(dw_smem) + kAlignSlack - 1)
+                        & ~static_cast<uint32_t>(kAlignSlack - 1);
+  const uint32_t stage_bytes = (kDwStageSlices + rec.H) * kBlockBytes;
+  const uint32_t full = base + stages * stage_bytes;
+  const uint32_t empty = full + 8 * kMaxStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(full + 8 * s, 1);
+      hopper::mbar_init(empty + 8 * s, kConsumerWarps);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // item -> its layer, range and pair
+  auto decode = [&](int item, DwLayer* layer, int* range, int* pair) {
+    int k = 0;
+    for (;; ++k) {
+      *layer = dw_layer(d, rec, k);
+      const int here = plan.ranges * layer->pairs();
+      if (item < here) break;
+      item -= here;
+    }
+    *range = item / layer->pairs();
+    *pair = item - *range * layer->pairs();
+  };
+  const int wg = warpgroup();
+  if (wg == 2) {
+    hopper::regs_decrease<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int item = blockIdx.x; item < plan.items; item += gridDim.x) {
+        DwLayer layer;
+        int range, pair;
+        decode(item, &layer, &range, &pair);
+        const int slices = layer.slices();
+        DwSegment x[kDwStageSlices];
+        int block[kDwStageSlices];
+        for (int w = 0; w < kDwStageSlices; ++w) {
+          if (2 * pair + w < slices) {
+            x[w] = layer.slice(2 * pair + w, &block[w]);
+          }
+        }
+        const bool two = 2 * pair + 1 < slices;
+        const uint32_t dz_bytes = rec.blocks(layer.dz) * kBlockBytes;
+        const long long r0 = range * plan.range_rows;
+        long long r1 = r0 + plan.range_rows;
+        if (r1 > rec.rows) r1 = rec.rows;
+        for (long long r = r0; r < r1; ++r) {
+          const uint32_t at = base + stage * stage_bytes;
+          hopper::mbar_wait(empty + 8 * stage, phase ^ 1u);
+          hopper::mbar_arrive_expect_tx(
+              full + 8 * stage, (two ? 2 : 1) * kBlockBytes + dz_bytes);
+          for (int w = 0; w < (two ? 2 : 1); ++w) {
+            hopper::bulk_load(at + w * kBlockBytes,
+                              records + rec.at(x[w].tensor, r)
+                                  + block[w] * kBlockBytes,
+                              kBlockBytes, full + 8 * stage);
+          }
+          hopper::bulk_load(at + kDwStageSlices * kBlockBytes,
+                            records + rec.at(layer.dz, r), dz_bytes,
+                            full + 8 * stage);
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1u;
+          }
+        }
+      }
+      // Leave only once the consumers have released every stage.
+      for (int s = 0; s < stages; ++s) {
+        hopper::mbar_wait(empty + 8 * stage, phase ^ 1u);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    return;
+  }
+
+  hopper::regs_increase<kConsumerRegs>();
+  const int t = threadIdx.x & 127;
+  const int ct = threadIdx.x;          // 0..255 over both warpgroups
+  const int lane = t & 31;
+  const bool releases = lane == 0;
+  const int r0 = 16 * (t >> 5) + (lane >> 2);
+  const int pair_col = 2 * (lane & 3);
+  const long long params = weight_count(d) + bias_count(d);
+  Ring ring{base, stage_bytes, full, empty, stages, 0, 0u};
+  float acc[C / 2];
+  for (int item = blockIdx.x; item < plan.items; item += gridDim.x) {
+    DwLayer layer;
+    int range, pair;
+    decode(item, &layer, &range, &pair);
+    const bool has = 2 * pair + wg < layer.slices();
+    const bool bias = pair == 0;
+    const long long first = range * plan.range_rows;
+    long long rows = rec.rows - first;
+    if (rows > plan.range_rows) rows = plan.range_rows;
+    float* const row = partial + range * params;
+    float bias_sum = 0.0f;
+    if (layer.N == C) {
+      dw_range<C>(acc, &bias_sum, ring, rows, has, bias, wg, ct, releases);
+    } else {
+      dw_range<C / 2>(acc, &bias_sum, ring, rows, has, bias, wg, ct,
+                      releases);
+    }
+    if (has) {
+      int block;
+      const DwSegment s = layer.slice(2 * pair + wg, &block);
+      float* const out = row + d.w_off[layer.packed]
+                         + static_cast<long long>(s.out_row) * layer.N;
+      if (layer.N == C) {
+        store_fragment<C>(acc, out, s.rows, r0, pair_col);
+      } else {
+        store_fragment<C / 2>(acc, out, s.rows, r0, pair_col);
+      }
+    }
+    if (bias && ct < layer.N) {
+      row[weight_count(d) + d.b_off[layer.packed] + ct] = bias_sum;
+    }
+  }
+}
+
+// The sum (written, or added to what is there when `accumulate`) of every
+// weight and bias gradient: the `ranges` rows of `partial` in order for the
+// layers pass 2 reduced; for the heads, pass 1's sums of `rows` row blocks,
+// each warp one element: lane l the row blocks l, l + 32, ... in order, then
+// a fixed butterfly over the lanes; zero for the heads' padding columns. The
+// first `main_blocks` blocks take the layers' elements, the rest the heads'.
+__global__ void __launch_bounds__(256)
+fused_nerf_backward_sum_kernel(const float* __restrict__ partial, int ranges,
+                               const float* __restrict__ heads,
+                               long long rows, float* __restrict__ d_weights,
+                               float* __restrict__ d_biases, Desc d,
+                               int main_blocks, int accumulate) {
+  const int L = d.num_layers;
+  const int C = d.channels;
+  const long long num_w = weight_count(d);
+  const long long params = num_w + bias_count(d);
+  if (static_cast<int>(blockIdx.x) < main_blocks) {
+    const long long opacity_w = d.w_off[L];
+    const long long color_w = d.w_off[L + 3];
+    const long long opacity_b = num_w + d.b_off[L];
+    const long long color_b = num_w + d.b_off[L + 3];
+    for (long long i = blockIdx.x * 256ll + threadIdx.x; i < params;
+         i += main_blocks * 256ll) {
+      const bool in_head = (i >= opacity_w && i < opacity_w + C * kHeadWidth)
+                           || (i >= color_w && i < num_w)
+                           || (i >= opacity_b && i < opacity_b + kHeadWidth)
+                           || i >= color_b;
+      float* const out = i < num_w ? d_weights + i : d_biases + (i - num_w);
+      if (in_head) {
+        // padding columns: 0; the heads' own columns: the warps below
+        const long long c = i < num_w ? (i - (i < color_w ? opacity_w
+                                                          : color_w))
+                                            % kHeadWidth
+                                      : i - (i < color_b ? opacity_b
+                                                         : color_b);
+        const bool own = (i < color_w || (i >= opacity_b && i < color_b))
+                             ? c == 0 : c < 3;
+        if (!own && !accumulate) *out = 0.0f;
+        continue;
+      }
+      float v = 0.0f;
+      for (int s = 0; s < ranges; ++s) v += partial[s * params + i];
+      *out = accumulate ? *out + v : v;
+    }
+    return;
+  }
+  const int hf = head_floats(C);
+  const int lane = threadIdx.x & 31;
+  const int warps = (gridDim.x - main_blocks) * 8;
+  for (int e = (blockIdx.x - main_blocks) * 8 + threadIdx.x / 32; e < hf;
+       e += warps) {
+    float v = 0.0f;
+    for (long long r = lane; r < rows; r += 32) v += heads[e * rows + r];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) {
+      float* out;
+      if (e < 3 * C / 2) {
+        out = d_weights + d.w_off[L + 3] + (e / 3) * kHeadWidth + e % 3;
+      } else if (e < 5 * C / 2) {
+        out = d_weights + d.w_off[L] + (e - 3 * C / 2) * kHeadWidth;
+      } else if (e < 5 * C / 2 + 3) {
+        out = d_biases + d.b_off[L + 3] + (e - 5 * C / 2);
+      } else {
+        out = d_biases + d.b_off[L];
+      }
+      *out = accumulate ? *out + v : v;
+    }
+  }
+}
+
+// The points of a slice: K2 bf16 runs both passes a slice at a time, so its
+// records hold at most this many points (2.5 GB at the flagship).
+constexpr long long kSlicePoints = 262144;
+
+// The bf16 scratch of a launch over num_points: the records of one slice,
+// the heads' sums and the ReLU masks of its row blocks, and pass 2's
+// partials (at 1024-byte boundaries).
+struct Bf16Scratch {
+  long long records, heads, masks, partial, bytes;
+};
+
+inline long long align_up(long long x) { return (x + 1023) / 1024 * 1024; }
+
+Bf16Scratch bf16_scratch(const Desc& d, long long num_points, int sms) {
+  const long long points = num_points < kSlicePoints ? num_points
+                                                     : kSlicePoints;
+  const Records rec = records_of(d, points);
+  Bf16Scratch s;
+  s.records = 0;
+  s.heads = align_up(rec.bytes());
+  s.masks = s.heads + align_up(rec.rows * head_floats(d.channels) * 4ll);
+  s.partial = s.masks + align_up(mask_bytes(d, rec.rows));
+  s.bytes = s.partial + align_up(dw_plan(d, rec, sms).ranges * 4ll
+                                 * (weight_count(d) + bias_count(d)));
+  return s;
+}
+
+cudaError_t sm_count(int* sms) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+}
+
+// The shared memory of a pass-2 launch and its stages: as many stages of
+// two X blocks and a dz row block as fit, up to kMaxStages.
+size_t dw_shared_bytes(const Desc& d, int* stages) {
+  const size_t fixed = kAlignSlack + 16 * kMaxStages;
+  const size_t stage = (kDwStageSlices + region_of(d).H) * kBlockBytes;
+  const size_t fit = (kSharedLimit - fixed) / stage;
+  *stages = static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
+  return fixed + *stages * stage;
+}
+
 template <int C>
 cudaError_t launch_bf16(const void* positions, const void* views,
                         const void* pos_enc, const void* view_enc,
                         const void* slabs, const void* biases, const void* g,
                         void* d_weights, void* d_biases, void* scratch,
                         long long scratch_bytes, long long num_points,
-                        const Desc& d, cudaStream_t stream) {
-  static ffn::SharedLimit limit;
-  int stages = 0;
+                        const Desc& d, long long* dw_launches,
+                        cudaStream_t stream) {
+  static ffn::SharedLimit limit, dw_limit;
+  int stages = 0, dw_stages = 0;
   const size_t smem = bf16_shared_bytes(d, &stages);
   if (smem == 0) return cudaErrorInvalidValue;
+  const size_t dw_smem = dw_shared_bytes(d, &dw_stages);
   cudaError_t err =
       ffn::reserve_shared(fused_nerf_backward_bf16_kernel<C>, smem, limit);
   if (err != cudaSuccess) return err;
-  long long grid = 0;
-  err = block_grid(num_points, kTileRows, &grid);
+  err = ffn::reserve_shared(fused_nerf_backward_dw_bf16_kernel<C>, dw_smem,
+                            dw_limit);
   if (err != cudaSuccess) return err;
-  if (grid <= 0 || scratch_bytes < grid * bf16_scratch_per_block(d)) {
-    return cudaErrorInvalidValue;
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const Bf16Scratch carve = bf16_scratch(d, num_points, sms);
+  if (scratch_bytes < carve.bytes) return cudaErrorInvalidValue;
+  char* const base = static_cast<char*>(scratch);
+  char* const records = base + carve.records;
+  float* const heads = reinterpret_cast<float*>(base + carve.heads);
+  uint4* const masks = reinterpret_cast<uint4*>(base + carve.masks);
+  float* const partial = reinterpret_cast<float*>(base + carve.partial);
+  const SlabOffsets offsets = slab_offsets(d);
+  const float* const pos = static_cast<const float*>(positions);
+  const float* const dir = static_cast<const float*>(views);
+  const float* const cot = static_cast<const float*>(g);
+  const long long params = weight_count(d) + bias_count(d);
+  for (long long p0 = 0; p0 < num_points; p0 += kSlicePoints) {
+    const long long n = num_points - p0 < kSlicePoints ? num_points - p0
+                                                       : kSlicePoints;
+    const Records rec = records_of(d, n);
+    const long long tiles = rec.rows / 2;
+    const long long grid = tiles < sms ? tiles : sms;
+    fused_nerf_backward_bf16_kernel<C>
+        <<<static_cast<unsigned>(grid), kBf16Threads, smem, stream>>>(
+            pos + 3 * p0, dir + 3 * p0, static_cast<const float*>(pos_enc),
+            static_cast<const float*>(view_enc),
+            static_cast<const Bf16*>(slabs), static_cast<const float*>(biases),
+            cot + 4 * p0, heads, masks, records, n, d, offsets, stages);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const DwPlan plan = dw_plan(d, rec, sms);
+    const int dw_grid = plan.items < sms ? plan.items : sms;
+    fused_nerf_backward_dw_bf16_kernel<C>
+        <<<dw_grid, kBf16Threads, dw_smem, stream>>>(records, partial, d, rec,
+                                                      plan, dw_stages);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*dw_launches;
+    const int main_blocks = static_cast<int>((params + 255) / 256 < 2 * sms
+                                                 ? (params + 255) / 256
+                                                 : 2 * sms);
+    const int head_blocks = (head_floats(d.channels) + 7) / 8;
+    fused_nerf_backward_sum_kernel<<<main_blocks + head_blocks, 256, 0,
+                                     stream>>>(
+        partial, plan.ranges, heads, rec.rows, static_cast<float*>(d_weights),
+        static_cast<float*>(d_biases), d, main_blocks, p0 > 0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
   }
-  fused_nerf_backward_bf16_kernel<C>
-      <<<static_cast<unsigned>(grid), kBf16Threads, smem, stream>>>(
-          static_cast<const float*>(positions),
-          static_cast<const float*>(views),
-          static_cast<const float*>(pos_enc),
-          static_cast<const float*>(view_enc),
-          static_cast<const Bf16*>(slabs), static_cast<const float*>(biases),
-          static_cast<const float*>(g), static_cast<float*>(d_weights),
-          static_cast<float*>(d_biases), static_cast<char*>(scratch),
-          num_points, d, slab_offsets(d), stages);
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -1374,13 +1864,18 @@ cudaError_t launch_tf32(const void* positions, const void* views,
 
 // meta: the host int64 descriptor of ffn::parse_desc (fused_nerf_common.cuh).
 // g: (N, 4) f32 cotangent. d_weights / d_biases: f32 buffers in the pack's
-// layout, zeroed by the caller; the kernel adds into them.
+// layout: bf16 writes every element; f32 adds into them, so the caller
+// zeroes them.
 // weight_dtype: 0 = f32, `weights` the f32 slab image of kernels/
 // fused_nerf.py::f32_slab_image; 1 = bf16, `weights` the slab image of
 // kernels/fused_nerf.py::slab_image. `scratch`: scratch_bytes of device
-// memory for the activations the tiles park, at least what
-// fused_nerf_backward_scratch_bytes gives for the type (else the launch
-// fails with cudaErrorInvalidValue).
+// memory, at least what fused_nerf_backward_scratch_bytes gives for the
+// type (else the launch fails with cudaErrorInvalidValue): in bf16 one
+// slice's records (each layer's input and dz, the features), its row
+// blocks' head sums and ReLU masks, and pass 2's partials; in f32 each
+// block's parked activations. *dw_launches: set to the launches of pass 2's
+// dW kernel that succeeded (one a slice in bf16, none in f32), also when a
+// later launch fails.
 extern "C" int fused_nerf_backward(const void* positions, const void* views,
                                    const void* pos_enc, const void* view_enc,
                                    const void* weights, const void* biases,
@@ -1388,8 +1883,9 @@ extern "C" int fused_nerf_backward(const void* positions, const void* views,
                                    void* d_weights, void* d_biases,
                                    void* scratch, long long scratch_bytes,
                                    long long num_points, int weight_dtype,
-                                   void* stream) {
+                                   long long* dw_launches, void* stream) {
   Desc d;
+  *dw_launches = 0;
   if (!ffn::parse_desc(static_cast<const long long*>(meta), &d)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1402,7 +1898,7 @@ extern "C" int fused_nerf_backward(const void* positions, const void* views,
   case C:                                                                    \
     err = launch_bf16<C>(positions, views, pos_enc, view_enc, weights,       \
                          biases, g, d_weights, d_biases, scratch,            \
-                         scratch_bytes, num_points, d, s);                   \
+                         scratch_bytes, num_points, d, dw_launches, s);      \
     break;
       FFN_BF16_CASE(32)
       FFN_BF16_CASE(64)
@@ -1443,9 +1939,13 @@ extern "C" int fused_nerf_backward(const void* positions, const void* views,
 }
 
 // *bytes: the scratch a launch of num_points points needs on the current
-// device: bf16 (weight_dtype 1), min(tiles of 128, SMs) blocks of 2 L
-// ceil(C / 64) x 8 KB; f32 (0), min(tiles of 64, SMs) blocks of L x 64
-// rows of C floats. The stream is unused (every entry point takes one).
+// device: bf16 (weight_dtype 1), the records of min(num_points, 262,144)
+// points (Records::row_blocks() 8 KB blocks a 64-point row block: 9,728
+// bytes a point at the flagship), their row blocks' head sums and ReLU
+// masks, and pass 2's partials (DwPlan::ranges rows of every weight and
+// bias, f32); f32 (0),
+// min(tiles of 64, SMs) blocks of L x 64 rows of C floats. The stream is
+// unused (every entry point takes one).
 extern "C" int fused_nerf_backward_scratch_bytes(const void* meta,
                                                  long long num_points,
                                                  int weight_dtype,
@@ -1458,13 +1958,16 @@ extern "C" int fused_nerf_backward_scratch_bytes(const void* meta,
       || (weight_dtype != 0 && weight_dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  long long grid = 0;
-  const cudaError_t err =
-      block_grid(num_points, weight_dtype == 1 ? kTileRows : kTf32Rows, &grid);
-  if (err == cudaSuccess) {
-    *bytes = grid * (weight_dtype == 1 ? bf16_scratch_per_block(d)
-                                       : tf32_scratch_per_block(d));
+  if (num_points <= 0) return static_cast<int>(cudaSuccess);
+  if (weight_dtype == 1) {
+    int sms = 0;
+    const cudaError_t err = sm_count(&sms);
+    if (err == cudaSuccess) *bytes = bf16_scratch(d, num_points, sms).bytes;
+    return static_cast<int>(err);
   }
+  long long grid = 0;
+  const cudaError_t err = block_grid(num_points, kTf32Rows, &grid);
+  if (err == cudaSuccess) *bytes = grid * tf32_scratch_per_block(d);
   return static_cast<int>(err);
 }
 

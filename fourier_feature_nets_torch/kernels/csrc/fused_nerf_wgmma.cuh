@@ -171,25 +171,65 @@ __device__ __forceinline__ void store_groups(uint32_t block, const Fragment& f,
 
 // h[:, 0:N] = bf16(acc + bias), then ReLU'd if kRelu, into the swizzled rows;
 // without kBias, bf16(acc) (the ablation's no-bias and matmul-only).
-template <int N, bool kRelu, bool kBias = true>
+// The bias loads of kBatch 8-column groups (even) are issued before their
+// stores: K1 loads a pair beside each store; K2's recompute, which has the
+// registers, batches more to pay one L2 latency a batch. The values and
+// their rounding do not depend on kBatch, so K2's recompute is K1's forward
+// bit for bit. With kMask it also returns in `mask` the ReLU mask of what it
+// stored, bit 4j + 2h + c of word s for row r0 + 8h, column 64 s + 8j +
+// pair + c (positive: the sign clear and the rest not 0), so K2's backward
+// need not read h again.
+template <int N, bool kRelu, bool kBias = true, int kBatch = 2,
+          bool kMask = false>
 __device__ __forceinline__ void store_layer(const float* acc,
                                             const float* __restrict__ bias,
                                             uint32_t act, const Fragment& f,
-                                            int pair) {
+                                            int pair,
+                                            uint32_t* mask = nullptr) {
+  static_assert(kBatch % 2 == 0, "bias loads go a pair of groups at a time");
+  auto positive = [](uint32_t v) {
+    const uint32_t lo = (v & 0x8000u) == 0 && (v & 0x7FFFu) != 0;
+    const uint32_t hi = (v & 0x80000000u) == 0 && (v & 0x7FFF0000u) != 0;
+    return lo | (hi << 1);
+  };
+  if constexpr (kMask) {
 #pragma unroll
-  for (int j = 0; j < N / 8; j += 2) {
-    float2 b = make_float2(0.0f, 0.0f);
-    float2 c = b;
-    if constexpr (kBias) {
-      b = __ldg(reinterpret_cast<const float2*>(bias + 8 * j + pair));
-      c = __ldg(reinterpret_cast<const float2*>(bias + 8 * j + 8 + pair));
+    for (int s = 0; s < (N + 63) / 64; ++s) mask[s] = 0;
+  }
+#pragma unroll
+  for (int j0 = 0; j0 < N / 8; j0 += kBatch) {
+    float2 b[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      b[q] = make_float2(0.0f, 0.0f);
+      if (kBias && j0 + q < N / 8) {
+        b[q] = __ldg(reinterpret_cast<const float2*>(bias + 8 * (j0 + q)
+                                                     + pair));
+      }
     }
-    store_groups(
-        act + (j / 8) * kBlockBytes, f, j % 8,
-        pack_bf16x2(acc[4 * j] + b.x, acc[4 * j + 1] + b.y, kRelu),
-        pack_bf16x2(acc[4 * j + 2] + b.x, acc[4 * j + 3] + b.y, kRelu),
-        pack_bf16x2(acc[4 * j + 4] + c.x, acc[4 * j + 5] + c.y, kRelu),
-        pack_bf16x2(acc[4 * j + 6] + c.x, acc[4 * j + 7] + c.y, kRelu));
+#pragma unroll
+    for (int q = 0; q < kBatch; q += 2) {
+      const int j = j0 + q;
+      if (j < N / 8) {
+        const uint32_t r0_j =
+            pack_bf16x2(acc[4 * j] + b[q].x, acc[4 * j + 1] + b[q].y, kRelu);
+        const uint32_t r8_j = pack_bf16x2(acc[4 * j + 2] + b[q].x,
+                                          acc[4 * j + 3] + b[q].y, kRelu);
+        const uint32_t r0_j1 = pack_bf16x2(acc[4 * j + 4] + b[q + 1].x,
+                                           acc[4 * j + 5] + b[q + 1].y,
+                                           kRelu);
+        const uint32_t r8_j1 = pack_bf16x2(acc[4 * j + 6] + b[q + 1].x,
+                                           acc[4 * j + 7] + b[q + 1].y,
+                                           kRelu);
+        store_groups(act + (j / 8) * kBlockBytes, f, j % 8, r0_j, r8_j,
+                     r0_j1, r8_j1);
+        if constexpr (kMask) {
+          mask[j / 8] |= (positive(r0_j) | (positive(r8_j) << 2)
+                          | ((positive(r0_j1) | (positive(r8_j1) << 2)) << 4))
+                         << (4 * (j % 8));
+        }
+      }
+    }
   }
 }
 

@@ -5,12 +5,15 @@ kernels ``fourier_feature_nets_tpu/ops/fused_nerf_train.py::_bwd_kernel``
 and ``ops/fused_nerf_train_fm.py::_bwd_kernel_fm`` (the same function in
 two layouts). Given positions, views, the packed weights and the (N, 4)
 f32 cotangent of the logits, it recomputes the forward on chip and
-returns the f32 gradient of every packed weight and bias. It is a
-persistent wgmma kernel that streams the pack's slab image and parks
-each tile's activations in a scratch buffer this wrapper allocates: in
-bf16 on K1's 128-point tile, in f32 (3xTF32 products) on K1's f32
-routines over 64-point tiles. The source comment says what bounds it
-on an H100.
+returns the f32 gradient of every packed weight and bias. In bf16 it
+is two persistent wgmma kernels and a small sum: the recompute-backward
+on K1's 128-point tile streams the pack's slab image and stores each
+tile's layer inputs and dz in a scratch buffer this wrapper allocates,
+then a split-K kernel sums each weight's X^T dz over all points, and
+the sum writes the partials in a fixed order. In f32 (3xTF32 products)
+it is one kernel on K1's f32 routines over 64-point tiles that adds its
+tiles' dW with atomics. The source comment says what bounds them on an
+H100.
 
 * :func:`fused_nerf_train_apply` is the differentiable forward: the
   packed weights from :func:`~.fused_nerf.pack_fused_nerf` (built from
@@ -223,7 +226,7 @@ def fused_nerf_backward_reference(weights: FusedNeRFWeights,
 
 
 _LIB = KernelLibrary("fused_nerf_train.cu", "fused_nerf_train_error_string",
-                     fused_nerf_backward=(PTR,) * 11 + (LONG, LONG, INT),
+                     fused_nerf_backward=(PTR,) * 11 + (LONG, LONG, INT, PTR),
                      fused_nerf_backward_scratch_bytes=(PTR, LONG, INT, PTR))
 
 
@@ -237,10 +240,18 @@ def scratch_bytes(weights: FusedNeRFWeights, num: int,
                   device: torch.device) -> int:
     """Bytes of the kernel's scratch for ``num`` points on the CUDA
     ``device``, as the kernel's library counts them (``csrc/
-    fused_nerf_train.cu::fused_nerf_backward_scratch_bytes``): each of
-    its min(tiles, SMs) blocks parks every body layer's h of a tile, in
-    bf16 as ceil(C / 64) blocks of 8 KB a warpgroup of 64 points, in f32
-    as 64 points x C floats."""
+    fused_nerf_train.cu::fused_nerf_backward_scratch_bytes``).
+
+    In bf16 the two passes run a slice of at most 262,144 points at a
+    time, and the scratch holds one slice: pass 1's records of every
+    tensor a dW reads (each layer's input and dz, and the features:
+    ``2 (L + 1) ceil(C / 64) + ceil(P / 64) + ceil(V / 64) + ceil(C /
+    128)`` blocks of 8 KB a 64 points, 9,728 bytes a point at the
+    flagship), the heads' f32 sums and the ReLU masks (16 bytes a body
+    layer and thread) of each of its 64-point row blocks, and pass 2's
+    f32 partials, a row of every weight and bias for each of its ranges
+    of points. In f32 each of its min(tiles of 64, SMs) blocks parks
+    every body layer's h of a tile, 64 points x C floats."""
     out = ctypes.c_longlong(0)
     _LIB.call("fused_nerf_backward_scratch_bytes", device,
               weights.meta.ctypes.data, num,
@@ -254,14 +265,20 @@ def fused_nerf_backward(weights: FusedNeRFWeights, positions: torch.Tensor,
     """K2: f32 gradients of the packed weights and biases.
 
     CPU tensors run :func:`fused_nerf_backward_reference`. CUDA tensors
-    launch the kernel on the current stream (building it on first use)
-    or raise; each launch adds one to ``fused_nerf_backward.launches``.
-    A pack launches its type's wgmma kernel on its slab image, with a
-    scratch buffer allocated here (:func:`scratch_bytes`) in which its
-    tiles park their activations; a model whose activation blocks and
-    two ring stages do not fit in a block's shared memory makes the
-    launch raise (``csrc/fused_nerf_train.cu::bf16_shared_bytes``,
-    ``tf32_shared_bytes``).
+    launch the kernels on the current stream (building them on first
+    use) or raise; each call adds one to ``fused_nerf_backward.launches``.
+    A bf16 pack runs two passes a slice of points: the recompute-backward
+    on its slab image, which stores each tile's layer inputs and dz, then
+    the dW kernel, which sums X^T dz over all of the slice's points; each
+    launch of it adds one to ``fused_nerf_backward.dw_launches``, as the
+    library reports them. A small kernel
+    then sums the partials in a fixed order and writes every gradient, so
+    a launch gives the same gradients bit for bit each time. An f32 pack
+    runs one pass, which adds its tiles' dW with atomics. The scratch
+    buffer (:func:`scratch_bytes`) is allocated here; a model whose
+    activation blocks and two ring stages do not fit in a block's shared
+    memory makes the launch raise (``csrc/fused_nerf_train.cu::
+    bf16_shared_bytes``, ``tf32_shared_bytes``).
     """
     if not on_cuda(positions, "fused NeRF backward"):
         return fused_nerf_backward_reference(weights, positions, views, g)
@@ -273,25 +290,35 @@ def fused_nerf_backward(weights: FusedNeRFWeights, positions: torch.Tensor,
                          f"tensor beside the positions, got {g.dtype} "
                          f"{tuple(g.shape)} on {g.device}")
     device = positions.device
-    d_weights = torch.zeros(weights.weights.numel(), dtype=torch.float32,
-                            device=device)
-    d_biases = torch.zeros(weights.biases.numel(), dtype=torch.float32,
-                           device=device)
+    # bf16 writes every gradient; f32 adds its tiles' into zeros
+    fill = torch.zeros if num == 0 or weights.weights.dtype == torch.float32 \
+        else torch.empty
+    d_weights = fill(weights.weights.numel(), dtype=torch.float32,
+                     device=device)
+    d_biases = fill(weights.biases.numel(), dtype=torch.float32,
+                    device=device)
     if num == 0:
         return d_weights, d_biases
     scratch = torch.empty(scratch_bytes(weights, num, device),
                           dtype=torch.uint8, device=device)
-    _LIB.launch(fused_nerf_backward, "fused_nerf_backward", device,
-                positions.data_ptr(), views.data_ptr(),
-                weights.pos_enc.data_ptr(), weights.view_enc.data_ptr(),
-                weights.slabs.data_ptr(), weights.biases.data_ptr(),
-                weights.meta.ctypes.data, g.data_ptr(), d_weights.data_ptr(),
-                d_biases.data_ptr(), scratch.data_ptr(), scratch.numel(), num,
-                _DTYPE_CODES[weights.weights.dtype])
+    dw_launches = ctypes.c_longlong(0)
+    try:
+        _LIB.launch(fused_nerf_backward, "fused_nerf_backward", device,
+                    positions.data_ptr(), views.data_ptr(),
+                    weights.pos_enc.data_ptr(), weights.view_enc.data_ptr(),
+                    weights.slabs.data_ptr(), weights.biases.data_ptr(),
+                    weights.meta.ctypes.data, g.data_ptr(),
+                    d_weights.data_ptr(), d_biases.data_ptr(),
+                    scratch.data_ptr(), scratch.numel(), num,
+                    _DTYPE_CODES[weights.weights.dtype],
+                    ctypes.addressof(dw_launches))
+    finally:
+        fused_nerf_backward.dw_launches += dw_launches.value
     return d_weights, d_biases
 
 
 fused_nerf_backward.launches = 0
+fused_nerf_backward.dw_launches = 0
 
 
 class FusedNeRFTrain(torch.autograd.Function):

@@ -12,6 +12,7 @@ has only the port's dependencies:
 """
 
 import contextlib
+import ctypes
 
 import numpy as np
 import pytest
@@ -277,6 +278,9 @@ GRAD_SHARE = {"random": {torch.float32: 2e-2, torch.bfloat16: 2e-2},
               "tail": {torch.float32: 2e-5, torch.bfloat16: 1e-2}}
 MARGIN = {torch.float32: 1e-6, torch.bfloat16: train.K2_BF16_MARGIN}
 GROUP = 128   # K2's bf16 tile, two of its f32 tiles
+# K2 bf16 runs its two passes a slice of at most this many points at a time
+# (csrc/fused_nerf_train.cu::kSlicePoints), one dW launch a slice
+SLICE_POINTS = 262_144
 
 
 def _tail_rows(num, device):
@@ -331,11 +335,17 @@ def _assert_backward_matches_twin(weights, pos, views, kind="random"):
     gradients and the inputs it ran on."""
     pos, views = _off_boundaries(kind, weights, pos, views)
     g = _cotangent(kind, weights, pos, views)
-    before = train.fused_nerf_backward.launches
+    before = (train.fused_nerf_backward.launches,
+              train.fused_nerf_backward.dw_launches)
     out = train.fused_nerf_backward(weights, pos, views, g)
     twin = train.fused_nerf_backward_reference(weights, pos, views, g)
     torch.cuda.synchronize()
-    assert train.fused_nerf_backward.launches == before + 1
+    # one K2 call; in bf16 one dW launch a slice of points, in f32 none
+    slices = (-(-pos.shape[0] // SLICE_POINTS)
+              if weights.weights.dtype == torch.bfloat16 else 0)
+    assert (train.fused_nerf_backward.launches,
+            train.fused_nerf_backward.dw_launches) \
+        == (before[0] + 1, before[1] + slices)
     share = GRAD_SHARE[kind][weights.weights.dtype]
     for (name, a), (_, b) in zip(weights.split_flat(*out),
                                  weights.split_flat(*twin)):
@@ -420,10 +430,11 @@ def test_backward_flagship_ragged_tight_cotangents(cuda, dtype, kind):
                                   *_inputs(20_011, cuda), kind=kind)
 
 
-# K2's bf16 wgmma kernel: K1's persistent grid of 128-point tiles, with each
-# tile's activations parked in a scratch buffer and its dW added across the
-# grid with atomics, so ragged tiles, a second pass over the grid, many
-# tiles a block, every channel width and the shared-memory budget are where
+# K2's bf16 wgmma kernels: K1's persistent grid of 128-point tiles, which
+# stores each tile's layer inputs and dz in a scratch buffer, then a split-K
+# kernel that sums dW over every point in a fixed order, a slice of points
+# at a time, so ragged tiles, a second pass over the grid, many tiles a
+# block, slices, every channel width and the shared-memory budget are where
 # its faults would show.
 
 
@@ -448,7 +459,7 @@ def test_backward_wgmma_persistent_grid_matches_twin(cuda, flagship_bf16,
         flagship_bf16, *_inputs(num, cuda), kind="clear")
     # every point's share is the kernel's own, whichever block and pass take
     # its tile: the gradient of all points is the sum of those of two parts
-    # split at a tile boundary, up to the order of the f32 atomics
+    # split at a tile boundary, up to the order of the f32 sums
     g = _cotangent("random", flagship_bf16, pos, views)
     cut = num // 2 // GROUP * GROUP
     whole = train.fused_nerf_backward(flagship_bf16, pos, views, g)
@@ -461,16 +472,24 @@ def test_backward_wgmma_persistent_grid_matches_twin(cuda, flagship_bf16,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("channels", [32, 64, 96, 128, 160, 192, 224, 256])
-def test_backward_wgmma_every_width_matches_twin(cuda, channels):
+@pytest.mark.parametrize("channels, num_freq_pos", [
+    *(pytest.param(c, 7, id=str(c))
+      for c in (32, 64, 96, 128, 160, 192, 224, 256)),
+    pytest.param(256, 20, id="256-pos128")])
+def test_backward_wgmma_every_width_matches_twin(cuda, channels,
+                                                 num_freq_pos):
     """Every channel width the kernel takes, with a skip layer, raw inputs
     at every other width, under the margin and tail cotangents (random
     ones with no cotangent near a ReLU boundary, or on points picked far
     from one: at 3,001 points one flip can carry a leaf past the random
-    limit)."""
+    limit). The last case widens the positional encode to 128 columns at
+    256 channels, which pass 1's shared memory takes (the one-pass kernel
+    refused it): two 64-column blocks of features in the skip layer's
+    input, for pass 1 and for pass 2."""
     model = NeRF(num_layers=3, num_channels=channels, skips=[2],
                  include_inputs=channels % 64 == 0, max_log_scale_pos=6.0,
-                 num_freq_pos=7, max_log_scale_view=2.0, num_freq_view=3,
+                 num_freq_pos=num_freq_pos, max_log_scale_view=2.0,
+                 num_freq_view=3,
                  generator=torch.Generator().manual_seed(channels)).to(cuda)
     weights = port.prepare_fused_nerf(model, torch.bfloat16)
     pos, views = _inputs(3001, cuda)
@@ -505,19 +524,16 @@ def test_k2_bf16_limits_reject_a_moved_rounding_point(cuda, model, kind,
 
 @pytest.mark.cuda
 def test_backward_wgmma_relaunch_agrees(cuda, flagship_bf16):
-    # the cross-tile dW sums are atomics in no fixed order: two launches
-    # agree within the limits, not bit for bit
+    # every cross-tile dW sum is taken in a fixed order: two launches give
+    # the same gradients bit for bit
     pos, views = _inputs(20_011, cuda)
     g = _cotangent("random", flagship_bf16, pos, views)
     first = train.fused_nerf_backward(flagship_bf16, pos, views, g)
     second = train.fused_nerf_backward(flagship_bf16, pos, views, g)
     torch.cuda.synchronize()
-    assert train.leaf_mean_share(flagship_bf16, first, second) \
-        <= train.K2_BF16_MEAN_SHARE
     for (name, a), (_, b) in zip(flagship_bf16.split_flat(*first),
                                  flagship_bf16.split_flat(*second)):
-        bound = GRAD_SHARE["same-sign"][torch.bfloat16] * b.abs().max().item()
-        assert (a - b).abs().max().item() <= bound + 1e-6, name
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
@@ -531,22 +547,27 @@ def test_backward_wgmma_launch_in_cuda_graph(cuda, flagship_bf16):
         train.fused_nerf_backward(flagship_bf16, pos, views, g)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = train.fused_nerf_backward.launches
+    before = (train.fused_nerf_backward.launches,
+              train.fused_nerf_backward.dw_launches)
     with torch.cuda.graph(graph):
         captured = train.fused_nerf_backward(flagship_bf16, pos, views, g)
-    assert train.fused_nerf_backward.launches == before + 1
+    assert (train.fused_nerf_backward.launches,
+            train.fused_nerf_backward.dw_launches) \
+        == (before[0] + 1, before[1] + 1)
     graph.replay()
     torch.cuda.synchronize()
-    assert train.leaf_mean_share(flagship_bf16, captured, eager) \
-        <= train.K2_BF16_MEAN_SHARE
+    # the replay sums in the eager launch's order: bit for bit
+    for (name, a), (_, b) in zip(flagship_bf16.split_flat(*captured),
+                                 flagship_bf16.split_flat(*eager)):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
 def test_backward_wgmma_refuses_a_model_too_wide_for_shared_memory(cuda):
-    # 256 channels with a 128-wide positional encode: two warpgroups' dz,
-    # h and feature blocks and two ring stages exceed 227 KB
+    # 256 channels with a 368-wide positional encode: two warpgroups'
+    # activation and feature blocks and two ring stages exceed 227 KB
     wide = NeRF(num_layers=2, num_channels=256, max_log_scale_pos=9.0,
-                num_freq_pos=20, max_log_scale_view=3.0, num_freq_view=4,
+                num_freq_pos=60, max_log_scale_view=3.0, num_freq_view=4,
                 skips=[], include_inputs=True).to(cuda)
     weights = port.prepare_fused_nerf(wide, torch.bfloat16)
     pos, views = _inputs(64, cuda)
@@ -556,16 +577,69 @@ def test_backward_wgmma_refuses_a_model_too_wide_for_shared_memory(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("num", [1, 129, 262_143])
+@pytest.mark.parametrize("num", [1, 129, 262_143, SLICE_POINTS + 1,
+                                 1_000_000])
 def test_backward_wgmma_scratch_is_a_block_per_tile_up_to_the_sms(
         cuda, flagship_bf16, num):
-    # each block parks two warpgroups' 8 body layers of 256 columns: 2 x 8 x
-    # 4 blocks of 8 KB; there are min(tiles, SMs) blocks
+    # one slice of at most SLICE_POINTS points: its records (every 64-point
+    # row block of its tiles holds 2 (L + 1) ceil(C / 64) + ceil(P / 64) +
+    # ceil(V / 64) + ceil(C / 128) blocks of 8 KB: the layers' inputs and
+    # dz, the features), its row blocks' head sums (5 C / 2 + 4 floats) and
+    # ReLU masks (16 bytes a body layer and consumer thread), and pass 2's
+    # partials (a row of every weight and bias a range of points: ranges for
+    # 4 items an SM over the pairs of 64-column input slices, each range at
+    # least 64 row blocks), each at a 1024-byte boundary
     device = flagship_bf16.weights.device
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks = min(-(-num // GROUP), sms)
-    assert train.scratch_bytes(flagship_bf16, num, device) \
-        == blocks * 2 * 8 * 4 * 8192
+    w = flagship_bf16
+    layers, channels = w.num_layers, w.channels
+
+    def blocks(width):
+        return -(-width // 64)
+
+    rows = 2 * -(-min(num, SLICE_POINTS) // GROUP)
+    h, pos, view = blocks(channels), blocks(w.pos_width), blocks(w.view_width)
+    records = ((2 * (layers + 1) * h + pos + view + blocks(channels // 2))
+               * rows * 8192)
+    heads = rows * (5 * channels // 2 + 4) * 4
+    masks = rows * layers * 128 * 16
+    slices = ([pos] + [h + (pos if i in w.skips else 0)
+                       for i in range(1, layers)] + [h, h + view])
+    pairs = sum(-(-n // 2) for n in slices)
+    ranges = max(1, min(-(-4 * sms // pairs), rows // 64))
+    ranges = -(-rows // -(-rows // ranges))
+    partial = ranges * (w.weights.numel() + w.biases.numel()) * 4
+
+    def aligned(n):
+        return -(-n // 1024) * 1024
+
+    assert train.scratch_bytes(w, num, device) \
+        == aligned(records) + aligned(heads) + aligned(masks) \
+        + aligned(partial)
+    if num >= SLICE_POINTS:
+        assert train.scratch_bytes(w, num, device) \
+            == train.scratch_bytes(w, SLICE_POINTS, device)
+
+
+@pytest.mark.cuda
+def test_backward_wgmma_slices_sum_their_parts(cuda, flagship_bf16):
+    """Above SLICE_POINTS points K2 runs its two passes a slice at a time
+    (one dW launch each): at a ragged N it agrees with its twin, and the
+    whole equals the sum of the two slices launched apart, bit for bit,
+    since each slice's sums are the fixed-order sums of its own launch."""
+    num = SLICE_POINTS + 4099
+    _, pos, views = _assert_backward_matches_twin(
+        flagship_bf16, *_inputs(num, cuda), kind="clear")
+    g = _cotangent("random", flagship_bf16, pos, views)
+    whole = train.fused_nerf_backward(flagship_bf16, pos, views, g)
+    parts = [train.fused_nerf_backward(flagship_bf16, pos[s], views[s], g[s])
+             for s in (slice(0, SLICE_POINTS), slice(SLICE_POINTS, num))]
+    torch.cuda.synchronize()
+    for (name, a), (_, b), (_, c) in zip(
+            flagship_bf16.split_flat(*whole),
+            flagship_bf16.split_flat(*parts[0]),
+            flagship_bf16.split_flat(*parts[1])):
+        assert torch.equal(a, b + c), name
 
 
 # K1 and K2 in f32: 3xTF32 wgmma kernels on persistent grids (K1 of
@@ -764,6 +838,7 @@ def test_backward_tf32_scratch_is_a_block_per_tile_up_to_the_sms(
     grads = [torch.zeros(t.numel(), device=cuda)
              for t in (flagship_f32.weights, flagship_f32.biases)]
     scratch = torch.empty(need - 16, dtype=torch.uint8, device=cuda)
+    dw_launches = ctypes.c_longlong(-1)
     with pytest.raises(RuntimeError, match="invalid argument"):
         train._LIB.launch(
             train.fused_nerf_backward, "fused_nerf_backward", device,
@@ -771,7 +846,9 @@ def test_backward_tf32_scratch_is_a_block_per_tile_up_to_the_sms(
             flagship_f32.view_enc.data_ptr(), flagship_f32.slabs.data_ptr(),
             flagship_f32.biases.data_ptr(), flagship_f32.meta.ctypes.data,
             g.data_ptr(), grads[0].data_ptr(), grads[1].data_ptr(),
-            scratch.data_ptr(), scratch.numel(), num, 0)
+            scratch.data_ptr(), scratch.numel(), num, 0,
+            ctypes.addressof(dw_launches))
+    assert dw_launches.value == 0     # f32 runs no dW kernel
 
 
 @pytest.mark.cuda

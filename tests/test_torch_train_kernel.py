@@ -371,10 +371,13 @@ def test_forward_value_and_no_input_gradient(nerf, inputs):
 
 
 def test_cpu_call_never_touches_the_kernel(nerf, inputs):
-    """On CPU tensors the wrapper runs the twin and counts no launch."""
+    """On CPU tensors the wrapper runs the twin and counts no launch,
+    neither of K2 nor of its dW kernel."""
     _, _, torch_model = nerf
-    before = port.fused_nerf_backward.launches
+    before = (port.fused_nerf_backward.launches,
+              port.fused_nerf_backward.dw_launches)
     weights = port_fwd.prepare_fused_nerf(torch_model, torch.bfloat16)
     pos, views, g = (torch.from_numpy(a) for a in inputs)
     port.fused_nerf_backward(weights, pos, views, g)
-    assert port.fused_nerf_backward.launches == before
+    assert (port.fused_nerf_backward.launches,
+            port.fused_nerf_backward.dw_launches) == before
