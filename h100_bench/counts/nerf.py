@@ -1,6 +1,6 @@
 """Frozen operation and byte counts of the NeRF MLP and of its two kernels,
-K1 (the fused forward) and K2 (the fused recompute-backward), and the
-published peaks of one NVIDIA H100 SXM.
+K1 (the fused forward) and K2 (the fused recompute-backward), with their
+bounds at the card's peaks (``counts/h100.py``).
 
 The counts follow from a configuration's widths alone, whatever code
 computes the model: a later change to a kernel cannot move them.
@@ -14,14 +14,17 @@ computes the model: a later change to a kernel cannot move them.
   weights and f32 biases once) at the HBM rate.
 * K2 recomputes the forward and runs the backward: 3 forwards a point,
   with the gradients of every weight and bias written once in f32.
+
+As the NeRF family's ``counts`` (``families/nerf.py``) it also gives
+those bounds keyed as the readers read them: a forward's (K1) and a
+training step's (K1 and K2).
 """
 
-PEAK_BF16_FLOPS = 989e12        # dense bf16, H100 SXM data sheet
-PEAK_HBM_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+from h100_bench.counts.h100 import PEAK_BF16_FLOPS, PEAK_HBM_BYTES_PER_S
 
-__all__ = ["PEAK_BF16_FLOPS", "PEAK_HBM_BYTES_PER_S", "layer_shapes",
-           "matmul_macs", "encoding_macs", "forward_flops",
-           "parameter_count", "k1_bound_s", "k2_bound_s"]
+__all__ = ["layer_shapes", "matmul_macs", "encoding_macs", "forward_flops",
+           "step_flops", "parameter_count", "k1_bound_s", "k2_bound_s", "forward_bounds",
+           "step_bounds"]
 
 
 def encoded_widths(cfg: dict):
@@ -64,6 +67,12 @@ def forward_flops(cfg: dict) -> int:
     return 2 * (matmul_macs(cfg) + encoding_macs(cfg))
 
 
+def step_flops(cfg: dict) -> int:
+    """Operations of one point trained: the forward, and the backward at
+    twice its cost."""
+    return 3 * forward_flops(cfg)
+
+
 def parameter_count(cfg: dict):
     """(weights, biases) of the model."""
     shapes = layer_shapes(cfg)
@@ -87,3 +96,15 @@ def k2_bound_s(cfg: dict, points: int) -> float:
              + 4 * (weights + biases))
     return max(3 * points * forward_flops(cfg) / PEAK_BF16_FLOPS,
                moved / PEAK_HBM_BYTES_PER_S)
+
+
+def forward_bounds(cfg: dict, points: int) -> dict:
+    """The least seconds of each kernel of a forward on ``points``."""
+    return {"k1_bound_s": k1_bound_s(cfg, points)}
+
+
+def step_bounds(cfg: dict, points: int) -> dict:
+    """The least seconds of each kernel of a training step on
+    ``points``: K1's forward and K2's backward."""
+    return {"k1_bound_s": k1_bound_s(cfg, points),
+            "k2_bound_s": k2_bound_s(cfg, points)}

@@ -1,5 +1,5 @@
-"""What the kinds of cell share: the program's model built from the seeded
-weights, the device's clock, the checks' arithmetic."""
+"""What the kinds of cell share: the device's clock, the kernels' bounds
+summed, the checks' arithmetic."""
 
 import time
 from typing import List, NamedTuple, Optional
@@ -7,12 +7,9 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..reference.model import PlainNeRF
-from ..weights import assign
-
-__all__ = ["Check", "compute_dtype", "program_nerf", "reference_nerf",
-           "sync", "now", "pick", "leaf_gap", "leaf_diff", "moving_leaves",
-           "mean_abs_gap", "WindowClosed"]
+__all__ = ["Check", "compute_dtype", "add_bounds", "sync", "now", "pick",
+           "leaf_gap", "leaf_diff", "moving_leaves", "frame_gaps", "worst",
+           "WindowClosed"]
 
 
 class Check(NamedTuple):
@@ -37,22 +34,12 @@ def compute_dtype(cfg: dict) -> Optional[torch.dtype]:
     return torch.bfloat16 if cfg["compute_dtype"] == "bfloat16" else None
 
 
-def program_nerf(cfg: dict, flat: torch.Tensor, device):
-    """The program's NeRF of ``cfg`` on ``device`` with the seeded
-    weights ``flat``."""
-    from fourier_feature_nets_torch.models.nerf import NeRF
-    model = NeRF(cfg["num_layers"], cfg["num_channels"],
-                 cfg["max_log_scale_pos"], cfg["num_freq_pos"],
-                 cfg["max_log_scale_view"], cfg["num_freq_view"],
-                 cfg["skips"], cfg["include_inputs"]).to(device)
-    assign(model, flat, cfg)
-    return model
-
-
-def reference_nerf(cfg: dict, flat: torch.Tensor, device) -> PlainNeRF:
-    model = PlainNeRF(cfg, device)
-    assign(model, flat, cfg)
-    return model
+def add_bounds(total: dict, bounds: dict) -> dict:
+    """Adds a family's kernel bounds (``forward_bounds``, ``step_bounds``)
+    into ``total``, key by key; returns ``total``."""
+    for key, seconds in bounds.items():
+        total[key] = total.get(key, 0.0) + seconds
+    return total
 
 
 def sync(device) -> None:
@@ -115,7 +102,26 @@ def moving_leaves(first_grads: List[torch.Tensor]) -> List[bool]:
     return [n >= floor for n in norms]
 
 
-def mean_abs_gap(program: np.ndarray, reference: np.ndarray) -> float:
-    """The mean absolute difference of two uint8 frames, in levels."""
-    return float(np.mean(np.abs(program.astype(np.int16)
-                                - reference.astype(np.int16))))
+def frame_gaps(program: np.ndarray, reference: np.ndarray,
+               drawn: np.ndarray) -> dict:
+    """The mean absolute difference of two (H, W, 3) uint8 frames, in
+    levels: over every pixel (``frame_mean_abs``), and over the pixels
+    that the reference draws (the (H, W) mask ``drawn``) or where the two
+    differ, so that what the program draws outside the reference's
+    pixels counts too (``frame_mean_abs_drawn``; 0 where that set is
+    empty). The second reads alike whatever share of the frame is
+    drawn."""
+    gap = np.abs(program.astype(np.int16) - reference.astype(np.int16))
+    pixels = drawn | np.any(gap > 0, axis=-1)
+    return {"frame_mean_abs": float(np.mean(gap)),
+            "frame_mean_abs_drawn": (float(np.mean(gap[pixels]))
+                                     if pixels.any() else 0.0)}
+
+
+def worst(rows) -> dict:
+    """The largest value of each name over ``rows`` (dicts of numbers)."""
+    out = {}
+    for row in rows:
+        for name, value in row.items():
+            out[name] = max(out.get(name, value), value)
+    return out

@@ -3,8 +3,9 @@ seeded teacher along the rays of a hemisphere rig, in graph chunks of
 ``steps_per_call`` steps, as ``distill_model`` runs it.
 
 Set-up seeds the teacher's and the student's weights on the device,
-builds the program's stratified occupancy sampler from the teacher's
-density grid and calls ``distill`` for more steps than any window holds,
+builds the program's stratified occupancy sampler from the mix's
+occupancy source (``kinds/orbit.py``; by default the teacher's density
+grid) and calls ``distill`` for more steps than any window holds,
 reporting every ``report_interval`` steps (``distill_model``'s 1000).
 ``distill``'s first chunk captures the CUDA graph and runs the first
 ``steps_per_call`` steps; the window opens when it returns (on a CPU, at
@@ -28,17 +29,23 @@ import sys
 
 import torch
 
-from ..counts.nerf import forward_flops, k1_bound_s, k2_bound_s
-from ..reference.geometry import Occupancy, density_grid, rig_tables
+from ..families import family
+from ..reference.geometry import Occupancy, rig_tables
 from ..reference.steps import follow_distillation
 from ..traffic.generator import hemisphere_rig
 from ..weights import seeded_flat
-from .common import WindowClosed, call_summary, program_nerf, reference_nerf
-from .orbit import cameras_of, program_sampler
+from .common import WindowClosed, add_bounds, call_summary
+from .orbit import cameras_of, program_sampler, reference_grid
 from .train import (CallChecks, Calls, Phases, _flat, _leaves,
                     training_readings)
 
-__all__ = ["Cell"]
+__all__ = ["Cell", "TINY"]
+
+# the CPU tests' cut of a distill mix
+TINY = {"resolution": 16, "num_cameras": 4, "num_samples": 8,
+        "batch_rays": 32, "steps_per_call": 4, "report_interval": 4,
+        "trace_calls": 2,
+        "occupancy": {"resolution": 8, "probe_resolution": 4}}
 
 
 class Cell(CallChecks):
@@ -55,9 +62,11 @@ class Cell(CallChecks):
         self.teacher_flat = seeded_flat(self.teacher_cfg, generator,
                                         self.device)
         self.flat = seeded_flat(self.cfg, generator, self.device)
-        self.teacher = program_nerf(self.teacher_cfg, self.teacher_flat,
-                                    self.device).requires_grad_(False)
-        self.student = program_nerf(self.cfg, self.flat, self.device)
+        self.teacher = family(self.teacher_cfg).program(
+            self.teacher_cfg, self.teacher_flat,
+            self.device).requires_grad_(False)
+        self.student = family(self.cfg).program(self.cfg, self.flat,
+                                                self.device)
         self.k, self.e = hemisphere_rig(self.mix)
         cameras = cameras_of(self.k, self.e, self.mix["resolution"])
         self.sampler = program_sampler(self.teacher, self.mix, cameras,
@@ -106,13 +115,13 @@ class Cell(CallChecks):
         """The reference (or, with ``quant``, the control) over the first
         chunk's steps, or over the chunk from ``start``."""
         mix, occ = self.mix, self.mix["occupancy"]
-        teacher = reference_nerf(self.teacher_cfg, self.teacher_flat,
-                                 self.device).requires_grad_(False)
+        teacher = family(self.teacher_cfg).reference(
+            self.teacher_cfg, self.teacher_flat,
+            self.device).requires_grad_(False)
         flat = _flat(start["params"]) if start is not None else self.flat
-        student = reference_nerf(self.cfg, flat, self.device)
+        student = family(self.cfg).reference(self.cfg, flat, self.device)
         scale = mix["box_scale"]
-        grid = density_grid(teacher, occ["resolution"], scale,
-                            occ["alpha_threshold"])
+        grid = reference_grid(teacher, mix, self.device)
         occupancy = Occupancy(grid, scale, occ["num_probes"],
                               occ["empty_weight"], occ["probe_resolution"])
         ray_m, positions = rig_tables(self.k, self.e, self.device)
@@ -139,10 +148,12 @@ class Cell(CallChecks):
         points = self.mix["batch_rays"] * self.mix["num_samples"]
         steps = self.phases.traced_steps
         teacher, student = self.teacher_cfg, self.cfg
-        return {"units": steps,
-                "k1_bound_s": steps * (k1_bound_s(teacher, points)
-                                       + k1_bound_s(student, points)),
-                "k2_bound_s": steps * k2_bound_s(student, points),
-                "window_model_flops": self.phases.window_steps * points * (
-                    forward_flops(teacher) + 3 * forward_flops(student)),
-                "window_seconds": self.phases.end - self.phases.start}
+        t_counts, s_counts = family(teacher).counts, family(student).counts
+        bounds = add_bounds(add_bounds({}, t_counts.forward_bounds(
+            teacher, points)), s_counts.step_bounds(student, points))
+        return dict({key: steps * seconds for key, seconds in bounds.items()},
+                    units=steps,
+                    window_model_flops=self.phases.window_steps * points * (
+                        t_counts.forward_flops(teacher)
+                        + s_counts.step_flops(student)),
+                    window_seconds=self.phases.end - self.phases.start)

@@ -2,7 +2,7 @@
 ``orbit_video`` renders them, each copied to the host.
 
 Set-up seeds the model's weights on the device, builds the rig, the
-program's occupancy sampler from the model's density grid and its
+program's occupancy sampler from the mix's occupancy source and its
 ``Raycaster``, and renders one frame (the weight pack, the kernel's
 build and every shape a frame uses). The window then renders the
 cameras in orbit order through ``Raycaster.render_frame_async``, one
@@ -10,23 +10,58 @@ frame ahead, copying the previous frame to the host; ``frame_ms`` is
 the window's seconds over the frames that reached the host in it. A
 traced run then renders ``trace_frames`` more under the tracer.
 
+The occupancy grid comes from the mix's ``occupancy["source"]``:
+``"model"`` (the default), the model's own density at the grid's cell
+centres, which the program computes through ``from_model`` and the
+reference from its own model; or ``"cloud"``, a fixed point cloud that
+the harness rasterises (``traffic.generator.cloud_grid``) and hands to
+both: to the program's ``OccupancyGridSampler`` constructor and to the
+reference's ``Occupancy``.
+
 The check renders a sample of the window's cameras, drawn from the
 seed, with the plain reference from the same weights and compares each
-pixel of the 8-bit frames.
+pixel of the 8-bit frames (``common.frame_gaps``): the mean gap over
+the frame, and over the pixels the reference draws or where the frames
+differ; the cell's limits name the ones compared.
 """
 
 import numpy as np
 import torch
 
-from ..counts.nerf import forward_flops, k1_bound_s
+from ..families import family
 from ..reference.frame import effective_stride, frame_hits, render_frame
 from ..reference.geometry import Occupancy, density_grid, rig_tables
-from ..traffic.generator import orbit_rig
+from ..traffic.generator import cloud_grid, orbit_rig
 from ..weights import seeded_flat
-from .common import (Check, compute_dtype, mean_abs_gap, now, pick,
-                     program_nerf, reference_nerf, sync)
+from .common import (Check, add_bounds, compute_dtype, frame_gaps, now,
+                     pick, sync, worst)
 
-__all__ = ["Cell", "FrameReference", "window_counts"]
+__all__ = ["Cell", "FrameReference", "TINY", "window_counts",
+           "program_sampler", "reference_grid"]
+
+# the CPU tests' cut of an orbit mix
+TINY = {"resolution": 24, "num_cameras": 4, "num_samples": 8,
+        "chunk_size": 64, "check_frames": 2, "trace_frames": 3,
+        "occupancy": {"resolution": 8, "probe_resolution": 4}}
+SOURCES = ("model", "cloud")
+
+
+def occupancy_source(mix: dict) -> str:
+    """The mix's occupancy source; raises on one this kind lacks."""
+    source = mix["occupancy"].get("source", "model")
+    if source not in SOURCES:
+        raise ValueError(f"occupancy source {source!r}: one of {SOURCES}")
+    return source
+
+
+def reference_grid(model, mix: dict, device) -> torch.Tensor:
+    """The reference's (R, R, R) 0/1 occupancy grid of the mix's source:
+    the density of ``model`` (the reference's), or the cloud's."""
+    occ, scale = mix["occupancy"], mix["box_scale"]
+    if occupancy_source(mix) == "cloud":
+        return torch.from_numpy(cloud_grid(occ, scale)).to(device)
+    return density_grid(model, occ["resolution"], scale,
+                        occ["alpha_threshold"])
 
 
 class FrameReference:
@@ -35,11 +70,10 @@ class FrameReference:
     def __init__(self, cfg: dict, flat: torch.Tensor, mix: dict, k, e,
                  device, quant=None):
         self.mix, self.quant = mix, quant
-        self.model = reference_nerf(cfg, flat, device)
+        self.model = family(cfg).reference(cfg, flat, device)
         occ = mix["occupancy"]
         scale = mix["box_scale"]
-        grid = density_grid(self.model, occ["resolution"], scale,
-                            occ["alpha_threshold"])
+        grid = reference_grid(self.model, mix, device)
         self.occupancy = Occupancy(grid, scale, occ["num_probes"],
                                    occ["empty_weight"],
                                    occ["probe_resolution"])
@@ -53,14 +87,14 @@ class FrameReference:
             float(np.linalg.norm(rig_e[:, :3, 3], axis=-1).max()))
 
     def frame(self, camera: int):
-        """((H, W, 3) uint8 host frame, drawn rays) of rig camera
-        ``camera``."""
+        """((H, W, 3) uint8 host frame, (H, W) bool host mask of the rays
+        it draws) of rig camera ``camera``."""
         size = self.mix["resolution"]
         image, drawn = render_frame(
             self.model, self.occupancy, self.ray_m[camera],
             self.positions[camera], size, size, self.mix["num_samples"],
             self.stride, self.lo, self.hi, self.quant)
-        return image.cpu().numpy(), drawn
+        return image.cpu().numpy(), drawn.cpu().numpy()
 
     def drawn(self, camera: int) -> int:
         """The rays the culled frame of ``camera`` draws."""
@@ -71,46 +105,53 @@ class FrameReference:
 
 
 def frame_counts(cfg: dict, mix: dict, drawn) -> dict:
-    """Model operations and K1's bound of frames that draw ``drawn``
-    rays each, in chunks of ``chunk_size`` rays."""
+    """Model operations and the kernels' bounds (the family's
+    ``forward_bounds``) of frames that draw ``drawn`` rays each, in chunks
+    of ``chunk_size`` rays."""
+    counts = family(cfg).counts
     samples, chunk = mix["num_samples"], mix["chunk_size"]
-    flops, bound = 0, 0.0
+    flops, bounds = 0, {}
     for rays in drawn:
-        flops += rays * samples * forward_flops(cfg)
+        flops += rays * samples * counts.forward_flops(cfg)
         for start in range(0, rays, chunk):
-            bound += k1_bound_s(cfg, min(chunk, rays - start) * samples)
-    return {"model_flops": flops, "k1_bound_s": bound, "k2_bound_s": 0.0}
+            add_bounds(bounds, counts.forward_bounds(
+                cfg, min(chunk, rays - start) * samples))
+    return {"model_flops": flops, "bounds": bounds}
 
 
 def window_counts(cfg: dict, mix: dict, drawn, traced, windowed,
                   window_seconds: float) -> dict:
-    """The per-layer readers' counts: the traced frames' (``units``,
-    K1's bound) and the window's model operations, for frames of the
+    """The per-layer readers' counts: the traced frames' (``units``, the
+    kernels' bounds) and the window's model operations, for frames of the
     cameras or poses ``traced`` and ``windowed``; ``drawn(c)`` is the rays
     that ``c``'s culled frame draws."""
     rays = {c: drawn(c) for c in set(traced) | set(windowed)}
     slice_ = frame_counts(cfg, mix, [rays[c] for c in traced])
     window = frame_counts(cfg, mix, [rays[c] for c in windowed])
-    return {"units": len(traced), "k1_bound_s": slice_["k1_bound_s"],
-            "k2_bound_s": 0.0,
-            "window_model_flops": window["model_flops"],
-            "window_seconds": window_seconds}
+    return dict(slice_["bounds"], units=len(traced),
+                window_model_flops=window["model_flops"],
+                window_seconds=window_seconds)
 
 
 def program_sampler(model, mix: dict, cameras, device,
                     stratified: bool = False):
-    """The program's occupancy sampler of the model's density grid."""
+    """The program's occupancy sampler of the mix's source: the model's
+    density grid (``from_model``), or the cloud's grid through the
+    constructor that ``from_model`` and ``from_tree`` end in."""
     from fourier_feature_nets_torch.render import OccupancyGridSampler
     occ, scale = mix["occupancy"], mix["box_scale"]
-    bounds = np.diag([2 * scale] * 3 + [1.0]).astype(np.float32)
+    shared = {"bounds": np.diag([2 * scale] * 3 + [1.0]).astype(np.float32),
+              "empty_weight": occ["empty_weight"],
+              "num_probes": occ["num_probes"],
+              "probe_resolution": occ["probe_resolution"], "device": device,
+              "stratified": stratified}
+    if occupancy_source(mix) == "cloud":
+        return OccupancyGridSampler(cloud_grid(occ, scale), scale, cameras,
+                                    mix["num_samples"], **shared)
     return OccupancyGridSampler.from_model(
         model, cameras, mix["num_samples"],
         grid_resolution=occ["resolution"],
-        alpha_threshold=occ["alpha_threshold"],
-        empty_weight=occ["empty_weight"], scale=scale, bounds=bounds,
-        num_probes=occ["num_probes"],
-        probe_resolution=occ["probe_resolution"], device=device,
-        stratified=stratified)
+        alpha_threshold=occ["alpha_threshold"], scale=scale, **shared)
 
 
 def cameras_of(k, e, size: int):
@@ -133,7 +174,7 @@ class Cell:
         from fourier_feature_nets_torch.render import Raycaster
         generator = torch.Generator(self.device).manual_seed(self.seed)
         self.flat = seeded_flat(self.cfg, generator, self.device)
-        model = program_nerf(self.cfg, self.flat, self.device)
+        model = family(self.cfg).program(self.cfg, self.flat, self.device)
         self.k, self.e = orbit_rig(self.mix)
         cameras = cameras_of(self.k, self.e, self.mix["resolution"])
         self.sampler = program_sampler(model, self.mix, cameras, self.device)
@@ -189,14 +230,16 @@ class Cell:
         return FrameReference(self.cfg, self.flat, self.mix, self.k, self.e,
                               self.device, quant)
 
+    def _checked(self) -> list:
+        return pick(self.seed, self.frames, self.mix["check_frames"])
+
     def check(self, limits: dict) -> list:
         reference = self.reference()
-        gaps = [mean_abs_gap(self.frames[c], reference.frame(c)[0])
-                for c in pick(self.seed, self.frames,
-                              self.mix["check_frames"])]
+        values = worst(frame_gaps(self.frames[c], *reference.frame(c))
+                       for c in self._checked())
         self._reference = reference
-        return [Check("frame_mean_abs", max(gaps),
-                      limits["frame_mean_abs"])]
+        return [Check(name, values.get(name, float("inf")), limit)
+                for name, limit in limits.items()]
 
     def counts(self) -> dict:
         """The traced frames' and the window's work, from the reference's
@@ -211,8 +254,9 @@ class Cell:
         reference = self.reference()
         control = self.reference("fp8")
         rows = {"program": [], "control": []}
-        for c in pick(self.seed, self.frames, self.mix["check_frames"]):
-            truth = reference.frame(c)[0]
-            rows["program"].append(mean_abs_gap(self.frames[c], truth))
-            rows["control"].append(mean_abs_gap(control.frame(c)[0], truth))
-        return {side: max(values) for side, values in rows.items()}
+        for c in self._checked():
+            truth, drawn = reference.frame(c)
+            rows["program"].append(frame_gaps(self.frames[c], truth, drawn))
+            rows["control"].append(frame_gaps(control.frame(c)[0], truth,
+                                              drawn))
+        return {side: worst(values) for side, values in rows.items()}

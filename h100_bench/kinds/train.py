@@ -26,16 +26,21 @@ import sys
 import numpy as np
 import torch
 
-from ..counts.nerf import forward_flops, k1_bound_s, k2_bound_s
+from ..families import family
 from ..reference.geometry import rig_rays
 from ..reference.steps import follow_training
 from ..traffic.generator import synthetic_scene
 from ..weights import seeded_flat
 from .common import (Check, WindowClosed, call_summary, compute_dtype,
-                     leaf_diff, leaf_gap, moving_leaves, now, program_nerf,
-                     reference_nerf, sync)
+                     leaf_diff, leaf_gap, moving_leaves, now, sync)
 
-__all__ = ["Cell", "Calls", "CallChecks", "Phases"]
+__all__ = ["Cell", "Calls", "CallChecks", "Phases", "TINY"]
+
+# the CPU tests' cut of a train mix
+TINY = {"batch_size": 64, "num_samples": 8, "steps_per_call": 4,
+        "trace_calls": 2,
+        "scene": {"resolution": 16, "split_counts": [3, 1, 1],
+                  "num_cameras": 5, "volume_side": 16, "march_samples": 32}}
 
 
 class Calls:
@@ -306,7 +311,8 @@ class Cell(CallChecks):
         self.train, self.val = self._datasets()
         generator = torch.Generator(self.device).manual_seed(self.seed)
         self.flat = seeded_flat(self.cfg, generator, self.device)
-        self.model = program_nerf(self.cfg, self.flat, self.device)
+        self.model = family(self.cfg).program(self.cfg, self.flat,
+                                              self.device)
         self.raycaster = Raycaster(self.model,
                                    compute_dtype=compute_dtype(self.cfg))
         self.reader = Calls(self.device, type(self.train).loss,
@@ -363,7 +369,7 @@ class Cell(CallChecks):
                 "lo": torch.full((3,), -self.scale, device=self.device),
                 "hi": torch.full((3,), self.scale, device=self.device)}
         flat = _flat(start["params"]) if start is not None else self.flat
-        model = reference_nerf(self.cfg, flat, self.device)
+        model = family(self.cfg).reference(self.cfg, flat, self.device)
         out = follow_training(model, data, self.mix, self.seed,
                               self.mix["steps_per_call"], quant, half_batch,
                               start)
@@ -375,14 +381,15 @@ class Cell(CallChecks):
         return training_readings(side, truth)
 
     def counts(self) -> dict:
+        counts = family(self.cfg).counts
         points = self.mix["batch_size"] * self.mix["num_samples"]
         steps = self.phases.traced_steps
-        return {"units": steps,
-                "k1_bound_s": steps * k1_bound_s(self.cfg, points),
-                "k2_bound_s": steps * k2_bound_s(self.cfg, points),
-                "window_model_flops": self.phases.window_steps * 3 * points
-                * forward_flops(self.cfg),
-                "window_seconds": self.phases.end - self.phases.start}
+        bounds = counts.step_bounds(self.cfg, points)
+        return dict({key: steps * seconds for key, seconds in bounds.items()},
+                    units=steps,
+                    window_model_flops=self.phases.window_steps * points
+                    * counts.step_flops(self.cfg),
+                    window_seconds=self.phases.end - self.phases.start)
 
 
 def training_readings(side: dict, truth: dict) -> dict:

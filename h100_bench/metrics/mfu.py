@@ -4,7 +4,7 @@ samples x a forward; a step: 3 forwards a point trained, 1 a teacher's
 point) over the window's seconds, in percent. The profiler's slice is
 not used: it runs slower than the window."""
 
-from h100_bench.counts.nerf import PEAK_BF16_FLOPS
+from h100_bench.counts.h100 import PEAK_BF16_FLOPS
 
 
 def read(trace):

@@ -69,7 +69,8 @@ def frame_hits(occupancy, ray_m, position, width: int, height: int,
 def render_frame(model, occupancy, ray_m, position, width: int,
                  height: int, num_samples: int, stride: int, lo, hi,
                  quant=None):
-    """((H, W, 3) uint8 frame, number of drawn rays) of one camera."""
+    """((H, W, 3) uint8 frame, (H, W) bool: the rays it draws) of one
+    camera."""
     mask = frame_hits(occupancy, ray_m, position, width, height, stride,
                       lo, hi)
     drawn = torch.nonzero(mask).reshape(-1)
@@ -87,4 +88,4 @@ def render_frame(model, occupancy, ray_m, position, width: int,
                                                 num_samples, 4)
             colors[offsets] = composite(logits, t)[0]
     image = torch.clamp(colors, 0.0, 1.0).reshape(height, width, 3)
-    return (image * 255.0).to(torch.uint8), int(drawn.shape[0])
+    return (image * 255.0).to(torch.uint8), mask.reshape(height, width)

@@ -131,7 +131,7 @@ def density_grid(model, resolution: int, scale: float,
     """The (R, R, R) 0/1 grid, indexed [z, y, x], of cell centers whose
     alpha over one cell, 1 - exp(-softplus(sigma) * cell), exceeds
     ``threshold``."""
-    device = model.freq_pos.device
+    device = next(model.parameters()).device
     centers = ((torch.arange(resolution, device=device, dtype=torch.float64)
                 + 0.5) / resolution * 2 - 1) * scale
     z, y, x = torch.meshgrid(centers, centers, centers, indexing="ij")

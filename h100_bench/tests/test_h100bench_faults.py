@@ -9,10 +9,12 @@ import itertools
 import pytest
 
 from h100_bench.run import run_cell
-from h100_bench.spec import load_benchmark
+from h100_bench.spec import cell_parts, load_benchmark
 from h100_bench.tests.tiny import tiny_parts, with_held_out
 
 BENCH = with_held_out(load_benchmark())
+ORBIT_CELLS = [w["name"] for w in BENCH["workloads"]
+               if cell_parts(BENCH, w["name"])["mix"]["kind"] == "orbit"]
 
 
 def _run(workload, seed=11, seconds=0.3):
@@ -69,7 +71,8 @@ def test_half_batch_loss_is_caught_in_distillation(monkeypatch):
     assert not _run("distill-6x192")["correct"]
 
 
-def test_altered_frames_are_caught(monkeypatch):
+@pytest.mark.parametrize("workload", ORBIT_CELLS)
+def test_altered_frames_are_caught(monkeypatch, workload):
     from fourier_feature_nets_torch.render import Raycaster
     frame = Raycaster.render_frame_async
 
@@ -78,12 +81,13 @@ def test_altered_frames_are_caught(monkeypatch):
         image[: image.shape[0] // 4] = 255 - image[: image.shape[0] // 4]
         return image
 
-    assert _run("orbit-8x256")["correct"]
+    assert _run(workload)["correct"]
     monkeypatch.setattr(Raycaster, "render_frame_async", altered)
-    assert not _run("orbit-8x256")["correct"]
+    assert not _run(workload)["correct"]
 
 
-def test_half_the_rays_left_out_is_caught(monkeypatch):
+@pytest.mark.parametrize("workload", ORBIT_CELLS)
+def test_half_the_rays_left_out_is_caught(monkeypatch, workload):
     from fourier_feature_nets_torch.render import Raycaster
     rays = Raycaster._render_rays
 
@@ -93,7 +97,7 @@ def test_half_the_rays_left_out_is_caught(monkeypatch):
         return colors
 
     monkeypatch.setattr(Raycaster, "_render_rays", half)
-    assert not _run("orbit-8x256")["correct"]
+    assert not _run(workload)["correct"]
 
 
 def test_altered_served_frames_are_caught(monkeypatch):

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from h100_bench.kinds.common import program_nerf, reference_nerf
+from h100_bench.families import family
 from h100_bench.reference.geometry import uniform_keyed
 from h100_bench.run import run_cell
 from h100_bench.spec import load_benchmark
@@ -29,8 +29,8 @@ def test_plain_model_matches_the_program_model():
     parts = tiny_parts("orbit-8x256")
     cfg = parts["config"]
     flat = seeded_flat(cfg, torch.Generator().manual_seed(3), "cpu")
-    program = program_nerf(cfg, flat, "cpu")
-    plain = reference_nerf(cfg, flat, "cpu")
+    program = family(cfg).program(cfg, flat, "cpu")
+    plain = family(cfg).reference(cfg, flat, "cpu")
     rng = np.random.default_rng(0)
     pos = torch.from_numpy(rng.uniform(-1, 1, (257, 3)).astype(np.float32))
     views = torch.nn.functional.normalize(

@@ -12,10 +12,13 @@ import torch
 from fourier_feature_nets_torch.utils import tracing
 from h100_bench.run import run_cell
 from h100_bench.spec import cell_parts, load_benchmark, load_reader
-from h100_bench.tests.tiny import tiny_parts
+from h100_bench.tests.tiny import tiny_parts, with_held_out
 from h100_bench.trace import Tracer
 
 BENCH = load_benchmark()
+HELD = with_held_out(BENCH)
+ORBIT_CELLS = [w["name"] for w in HELD["workloads"]
+               if cell_parts(HELD, w["name"])["mix"]["kind"] == "orbit"]
 SPAN_SOURCES = ("program_span", "program_counter")
 NEW = {m["name"]: m for m in BENCH["per_layer"]
        if m["source"] in SPAN_SOURCES}
@@ -93,11 +96,12 @@ def test_a_tiny_traced_cell_prints_its_span_metrics(workload):
         assert metrics[name]["unit"] == NEW[name]["unit"]
 
 
-def test_hit_rays_are_the_references_drawn_rays_and_the_face_rule():
+@pytest.mark.parametrize("workload", ORBIT_CELLS)
+def test_hit_rays_are_the_references_drawn_rays_and_the_face_rule(workload):
     """Each traced frame's ``hit_rays`` is the plain reference's count of
     the rays its culled frame draws, plus the 0-60 that the probe's face
     rule may add (ROADMAP.md, queue 3); the metric is their mean."""
-    parts = tiny_parts("orbit-8x256", BENCH)
+    parts = tiny_parts(workload, HELD)
     cell = parts["kind"].Cell(parts["config"], parts["mix"], 2 ** 31 + 5,
                               torch.device("cpu"), parts["configs"])
     tracer = Tracer(True, "cpu")

@@ -1,33 +1,21 @@
-"""Tiny versions of the benchmark's cells, for runs on the CPU."""
+"""Tiny versions of the benchmark's cells, for runs on the CPU: each
+kind's mix is cut by its module's ``TINY`` (``kinds/<kind>.py``; a
+nested group merges into the mix's group of that name), each
+configuration by its family's (``families/<model>.py``)."""
 
 import copy
 
+from h100_bench.families import family
 from h100_bench.spec import cell_parts, load_benchmark
 
-TINY_MODEL = {"num_layers": 2, "num_channels": 32, "skips": [1],
-              "num_freq_pos": 4, "max_log_scale_pos": 3.0,
-              "num_freq_view": 2, "max_log_scale_view": 1.0}
-TINY_OCCUPANCY = {"resolution": 8, "probe_resolution": 4}
-TINY_MIX = {
-    "orbit": {"resolution": 24, "num_cameras": 4, "num_samples": 8,
-              "chunk_size": 64, "check_frames": 2, "trace_frames": 3},
-    "serve": {"resolution": 24, "num_cameras": 4, "num_samples": 8,
-              "chunk_size": 64, "pose_count": 64, "clients": 4,
-              "drain_seconds": 60.0, "check_requests": 2,
-              "trace_seconds": 0.5},
-    "train": {"batch_size": 64, "num_samples": 8, "steps_per_call": 4,
-              "trace_calls": 2},
-    "distill": {"resolution": 16, "num_cameras": 4, "num_samples": 8,
-                "batch_rays": 32, "steps_per_call": 4, "report_interval": 4,
-                "trace_calls": 2},
-}
-TINY_SCENE = {"resolution": 16, "split_counts": [3, 1, 1], "num_cameras": 5,
-              "volume_side": 16, "march_samples": 32}
 # Cells whose kind, mix and limits are kept but which BENCHMARK.json does
-# not run: a served frame's time moves with the host by more than any
-# bound allows (PERF.md, section 7). The tests keep their drivers sound.
+# not run: a served frame's time, and a sparse frame's, move with the host
+# by more than any bound allows (PERF.md, section 7). The tests keep their
+# kinds sound.
 HELD_OUT = [{"name": "serve-6x192", "config": "nerf-6x192",
-             "traffic": "serve-pose-4clients", "chips": 1}]
+             "traffic": "serve-pose-4clients", "chips": 1},
+            {"name": "orbit-8x256-sparse", "config": "nerf-8x256",
+             "traffic": "orbit-sparse", "chips": 1}]
 
 
 def with_held_out(bench: dict) -> dict:
@@ -35,18 +23,20 @@ def with_held_out(bench: dict) -> dict:
     return dict(bench, workloads=bench["workloads"] + HELD_OUT)
 
 
+def _laid_over(mix: dict, tiny: dict) -> dict:
+    out = copy.deepcopy(mix)
+    for key, value in tiny.items():
+        out[key] = (_laid_over(out.get(key, {}), value)
+                    if isinstance(value, dict) else value)
+    return out
+
+
 def tiny_parts(workload: str, bench=None) -> dict:
     """The cell's parts with every model and input cut to a CPU's size;
     its limits are the cell's own."""
     parts = cell_parts(bench or load_benchmark(), workload)
-    parts = dict(parts, configs={name: dict(cfg, **TINY_MODEL)
+    parts = dict(parts, configs={name: dict(cfg, **family(cfg).TINY)
                                  for name, cfg in parts["configs"].items()})
     parts["config"] = parts["configs"][parts["entry"]["config"]]
-    mix = copy.deepcopy(parts["mix"])
-    mix.update(TINY_MIX[mix["kind"]])
-    if "occupancy" in mix:
-        mix["occupancy"].update(TINY_OCCUPANCY)
-    if "scene" in mix:
-        mix["scene"].update(TINY_SCENE)
-    parts["mix"] = mix
+    parts["mix"] = _laid_over(parts["mix"], parts["kind"].TINY)
     return parts

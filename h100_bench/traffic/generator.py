@@ -11,6 +11,12 @@ parameters (``traffic/<mix>.json``).
   lattice on the sphere of ``distance`` (its caps beyond ``max_abs_up``
   left out), looking at the origin with ``up``; a run's seed only
   orders them.
+* ``cloud_grid``: the 0/1 occupancy grid of a seeded point cloud (an
+  orbit's ``"cloud"`` occupancy source): ``points`` draws from
+  N(``mean``, ``sigma``) by NumPy's ``default_rng(seed)``, as bench.py
+  draws its cloud; a cell of the grid is occupied when it holds
+  ``min_points`` (the cloud's own cells, not bench.py's octree leaves,
+  which ``from_tree`` also dilates).
 * ``synthetic_scene``: the project's procedural scene (a cube with a
   spherical cavity, a dense sphere and a ground slab, 64^3 by default)
   ray-marched into RGBA images from a hemisphere rig.
@@ -26,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["intrinsics", "orbit_rig", "hemisphere_rig", "sphere_poses",
-           "synthetic_scene"]
+           "cloud_grid", "synthetic_scene"]
 
 
 def intrinsics(fov_y_degrees: float, width: int, height: int) -> np.ndarray:
@@ -136,6 +142,24 @@ def sphere_poses(mix: dict, count: int, order_seed: int):
     order = np.random.default_rng(order_seed).permutation(count)
     return _stack([look_at(points[j] * mix["distance"], mix["up"])
                    for j in order], mix)
+
+
+def cloud_grid(occupancy: dict, scale: float) -> np.ndarray:
+    """The (R, R, R) f32 0/1 grid, indexed [z, y, x], over [-scale,
+    scale]^3 at R = ``occupancy["resolution"]``: a cell is 1 when it
+    holds at least ``min_points`` of the cloud ``occupancy["cloud"]``'s
+    points (f32); points outside the box count nowhere."""
+    cloud, side = occupancy["cloud"], occupancy["resolution"]
+    rng = np.random.default_rng(cloud["seed"])
+    points = rng.normal(cloud["mean"], cloud["sigma"],
+                        (cloud["points"], 3)).astype(np.float32)
+    cells = np.floor((points / np.float32(scale) + 1.0) * 0.5
+                     * side).astype(np.int64)
+    cells = cells[np.all((cells >= 0) & (cells < side), axis=1)]
+    x, y, z = cells.T
+    counts = np.bincount((z * side + y) * side + x, minlength=side ** 3)
+    return (counts >= occupancy["min_points"]).astype(np.float32).reshape(
+        side, side, side)
 
 
 def _scene_volume(side: int) -> np.ndarray:
