@@ -4,9 +4,10 @@
 
 Builds the port's CUDA kernels (K1, the fused NeRF forward; K2, the
 fused recompute backward; K3, the fused ray render, with T1's scan;
-P1a-c, the int8 probe's; P2, the forward's ablations; P3a-c, the
-IO-floor copy kernels) from the sources in this checkout, in parallel,
-and drives the port's paths at the flagship width:
+K4, the hash grid's encode and backward; P1a-c, the int8 probe's; P2,
+the forward's ablations; P3a-c, the IO-floor copy kernels) from the
+sources in this checkout, in parallel, and drives the port's paths at
+the flagship width:
 
 * serving: K1 against its plain twin (and timed beside it at the bench
   batch, the frame chunk and the train batch), in bf16 within
@@ -48,6 +49,16 @@ and drives the port's paths at the flagship width:
   (K1 must launch) makes a tree of it (at a lower ``--alpha-threshold``,
   logged, if the checkpoint has no surface above 0.3), which renders an
   ``--octree`` frame;
+* the hash grid (K4) at instant-ngp's published widths: the encode
+  and the backward at train-instant-ngp's 262,144 points, in f32 and
+  bf16, against their plain twin (the encode equal but for the last
+  bit, the backward within what two f32 sums in any order can differ
+  by), each timed alone; then ``train_nerf --model instant-ngp`` at
+  4096 rays x 64 in bf16 graph chunks of 8 for 32 steps, the wrappers'
+  counts zeroed just before: the capture must record one encode and one
+  backward a step and ``torch.profiler`` must name each kernel 8 times
+  in one more replay, whose device times, beside the bound of
+  ``h100_bench/counts/hash_grid.py``'s bytes, make K4's row;
 * training's left-overs and early termination: ``train_nerf
   --steps-per-call 8 --fused`` in bf16 and f32 for 32 steps, each chunk
   one CUDA-graph replay: the capture must record one K1 and one K2
@@ -210,6 +221,9 @@ card.
 and plain, in bf16 and f32, with the host's ms to issue a call, as one
 JSON line.
 
+``--hash-grid`` runs only K4's phase (the item above) and prints its
+kernels row.
+
 ``--sass DIR`` prints only the SASS instruction count of each kernel of
 ``fused_nerf.cu``, ``fused_nerf_ablation.cu`` and ``fused_nerf_train.cu``
 (K1, P2, K2) in ``DIR`` and in this checkout, and whether the two are
@@ -349,6 +363,12 @@ CHUNK_MEAN_SHARE = 5e-2        # a fused graph chunk vs the eager steps, per
                                # leaf: mean |d| over its mean update
 FRAME_RES = 800                # the focus, octree and voxelize phases' frames
 TIMED_TRAIN_STEPS = 100   # --times-only: whole train steps a path
+# K4 at train-instant-ngp's step: 4096 rays x 64 samples (2^18 points)
+HASH_RAYS = 4096
+HASH_POINTS = HASH_RAYS * 64
+# K4's encode against its twin: |d| <= HASH_RTOL |twin| (the last bit of
+# an f32 sum; a bf16 feature rounding that sum one step apart)
+HASH_RTOL = {"f32": 2.0 ** -20, "bf16": 2.0 ** -7}
 SEED = 0
 # The probes, at the shapes of their CLIs (the JAX tools') and ragged ones.
 P1_GEMM_SHAPES = ((128, 128, 256), (100, 72, 250))     # (M, K, N)
@@ -650,7 +670,7 @@ def phase_device():
                                        f"{name}")
                for name in ("fused_nerf", "fused_nerf_train",
                             "fused_ray_render", "int8_probe",
-                            "fused_nerf_ablation", "io_floor")]
+                            "fused_nerf_ablation", "io_floor", "hash_grid")]
     start = time.perf_counter()
     # one nvcc per source, all started together
     with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
@@ -1780,6 +1800,234 @@ def phase_train_chunks() -> dict:
         "float32_plain": chunk_vs_eager(torch.float32, False),
         "bfloat16_fused": chunk_vs_eager(torch.bfloat16, True)}
     return rows
+
+
+def _hash_launches():
+    from fourier_feature_nets_torch.kernels import hash_grid
+    return (hash_grid.hash_grid_encode.launches,
+            hash_grid.hash_grid_backward.launches)
+
+
+@contextlib.contextmanager
+def _hash_launches_at_capture():
+    """Yields a list that gets, for each graph chunk captured inside the
+    block, the hash grid's (encode, backward) wrapper launches its chunk
+    function recorded into the graph (the warm-up chunk before each
+    capture runs eagerly and is left out)."""
+    from fourier_feature_nets_torch.render.raycaster import _GraphChunk
+    made, init = [], _GraphChunk.__init__
+
+    def counting(self, chunk_fn, *args, **kwargs):
+        def run(inputs):
+            before = _hash_launches()
+            result = chunk_fn(inputs)
+            if torch.cuda.is_current_stream_capturing():
+                made.append(tuple(after - b for after, b
+                                  in zip(_hash_launches(), before)))
+            return result
+
+        init(self, run, *args, **kwargs)
+
+    _GraphChunk.__init__ = counting
+    try:
+        yield made
+    finally:
+        _GraphChunk.__init__ = init
+
+
+def replay_kernel_times(chunk) -> dict:
+    """The device kernels ``torch.profiler`` records in one more replay
+    of a graph chunk: {name: (count, device ms)}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        chunk.graph.replay()
+        torch.cuda.synchronize()
+    return {event.key: (event.count, getattr(
+        event, "self_device_time_total",
+        getattr(event, "self_cuda_time_total", 0.0)) / 1e3)
+        for event in prof.key_averages()
+        if event.device_type == DeviceType.CUDA}
+
+
+def hash_order_bound(positions, grad, grid):
+    """Per table row, what two sums of its f32 terms in any two orders
+    can differ by: 2 (m - 1) 2^-24 sum |term| for m terms (the backward
+    kernel's atomics, and the twin's ``index_add_`` on a card, add in the
+    order the card schedules them)."""
+    from fourier_feature_nets_torch.kernels import hash_grid as kernel
+    rows, _ = kernel.corner_indices(positions, grid)
+    terms = torch.bincount(rows.reshape(-1), minlength=grid.entries)
+    del rows
+    magnitude = kernel.hash_grid_backward_reference(positions, grad.abs(),
+                                                    grid)
+    return 2.0 * (terms.clamp(min=1) - 1).double()[:, None] * 2.0 ** -24 \
+        * magnitude.double()
+
+
+def phase_hash_grid() -> dict:
+    """K4 (``kernels/csrc/hash_grid.cu``) at instant-ngp's published
+    widths (``models/hash_grid.py::instant_ngp``; a table drawn from
+    U(-1, 1), so that its rows, not the init's 1e-4, carry the features):
+
+    * the encode and the backward on HASH_POINTS points a little beyond
+      the box (the clamp), in f32 and bf16, against their plain twin: the
+      encode equal but for the last bit (|d| <= HASH_RTOL |twin|: the
+      same products and adds in the same order, and a bf16 feature
+      rounds the same f32 sum), the backward within what two f32 sums in
+      any order can differ by (:func:`hash_order_bound`); each timed
+      alone (CUDA events) beside its twin;
+    * ``train_nerf --model instant-ngp`` at the cell's batch (4096 rays
+      x 64, bf16, rate 1e-2) in graph chunks of CHUNK_STEPS for
+      CHUNK_TRAIN_STEPS steps, the wrappers' counts zeroed just before:
+      each capture must record one encode and one backward a step, and
+      ``torch.profiler`` must name each kernel CHUNK_STEPS times in one
+      more replay, whose device times are the row's ms a step, beside
+      the bound (``h100_bench/counts/hash_grid.py``: both passes'
+      compulsory bytes at 3.35 TB/s).
+
+    Returns K4's kernels row."""
+    from fourier_feature_nets_torch.kernels import hash_grid as kernel
+    from fourier_feature_nets_torch.models.hash_grid import instant_ngp
+    from h100_bench.counts import hash_grid as counts
+    grid = instant_ngp(torch.Generator().manual_seed(SEED)).grid
+    rng = np.random.default_rng(SEED + 24)
+    table = torch.from_numpy(rng.uniform(-1.0, 1.0, (grid.entries, 2))
+                             .astype(np.float32)).cuda()
+    positions = torch.from_numpy(rng.uniform(-1.05, 1.05, (HASH_POINTS, 3))
+                                 .astype(np.float32)).cuda()
+    checks = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        before = _hash_launches()
+        features = kernel.hash_grid_encode(positions, table, grid, dtype)
+        twin = kernel.hash_grid_encode_reference(positions, table, grid,
+                                                 dtype)
+        d = (features.float() - twin.float()).abs()
+        encode_excess = float((d - 1e-30 - HASH_RTOL[kind]
+                               * twin.float().abs()).max())
+        grad = torch.from_numpy(rng.normal(size=(HASH_POINTS, 2 * grid.levels))
+                                .astype(np.float32)).cuda().to(dtype)
+        out = kernel.hash_grid_backward(positions, grad, grid)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(_hash_launches(), before))
+        expected = kernel.hash_grid_backward_reference(positions, grad, grid)
+        gap = (out.double() - expected.double()).abs()
+        backward_excess = float((gap - hash_order_bound(positions, grad,
+                                                        grid)).max())
+        row = {"encode_max_abs_err": float(d.max()),
+               "encode_excess": encode_excess,
+               "backward_max_abs_err": float(gap.max()),
+               "backward_max_share": float(gap.max()
+                                           / expected.abs().max()),
+               "backward_excess": backward_excess,
+               "encode_ms": cuda_ms(lambda: kernel.hash_grid_encode(
+                   positions, table, grid, dtype), FLAGSHIP_REPS),
+               "backward_ms": cuda_ms(lambda: kernel.hash_grid_backward(
+                   positions, grad, grid), FLAGSHIP_REPS),
+               "plain_ms": cuda_ms(lambda: (
+                   kernel.hash_grid_encode_reference(positions, table, grid,
+                                                     dtype),
+                   kernel.hash_grid_backward_reference(positions, grad,
+                                                       grid)), 2)}
+        checks[kind] = row
+        log(f"  K4 {kind} N={HASH_POINTS:,d}: encode max |d| "
+            f"{row['encode_max_abs_err']:.3e} (excess over {HASH_RTOL[kind]:.1e}"
+            f" |twin|: {encode_excess:.3e}), backward max |d| "
+            f"{row['backward_max_abs_err']:.3e} ({row['backward_max_share']:.2e}"
+            f" of max |twin|; excess over the order bound "
+            f"{backward_excess:.3e}); encode {row['encode_ms']:.4f} ms, "
+            f"backward {row['backward_ms']:.4f} ms (CUDA events, mean of "
+            f"{FLAGSHIP_REPS}), twin {row['plain_ms']:.3f} ms; launches "
+            f"{launched}")
+        if encode_excess > 0.0 or backward_excess > 0.0:
+            raise AssertionError(f"K4 {kind} against its twin: encode "
+                                 f"excess {encode_excess}, backward "
+                                 f"excess {backward_excess}")
+        if launched != (1, 1):
+            raise AssertionError(f"K4 {kind}: {launched} launches, not one "
+                                 f"encode and one backward")
+        del features, twin, d, grad, out, expected, gap
+    del table, positions
+    torch.cuda.empty_cache()
+
+    kernel.hash_grid_encode.launches = 0
+    kernel.hash_grid_encode.points = 0
+    kernel.hash_grid_backward.launches = 0
+    start = time.perf_counter()
+    with _hash_launches_at_capture() as captures:
+        output, caster, chunks = run_train_cli(
+            os.path.join(OUT_DIR, "train_hash_grid"),
+            ["--model", "instant-ngp", "--compute-dtype", "bfloat16",
+             "--learning-rate", "1e-2", "--batch-size", str(HASH_RAYS),
+             "--num-samples", str(HASH_POINTS // HASH_RAYS),
+             "--steps-per-call", str(CHUNK_STEPS),
+             "--num-steps", str(CHUNK_TRAIN_STEPS - 1),
+             "--report-interval", "16", "--image-interval", "0"])
+    wall = time.perf_counter() - start
+    counters = {"encode": kernel.hash_grid_encode.launches,
+                "encode_points": kernel.hash_grid_encode.points,
+                "backward": kernel.hash_grid_backward.launches}
+    if len(chunks) != 1 or chunks[0].captures != 1:
+        raise AssertionError(f"train_nerf --model instant-ngp: "
+                             f"{len(chunks)} graph chunks")
+    chunk = chunks[0]
+    times = replay_kernel_times(chunk)
+    found = {part: [(n, ms) for name, (n, ms) in times.items()
+                    if f"hash_grid_{part}_kernel" in name]
+             for part in ("encode", "backward")}
+    replay = {part: (sum(n for n, _ in rows), sum(ms for _, ms in rows))
+              for part, rows in found.items()}
+    cfg = dict(json.load(open(os.path.join(ROOT, "h100_bench", "configs",
+                                           "instant-ngp.json"))))
+    bound_ms = counts.step_bounds(cfg, HASH_POINTS)["hash_bound_s"] * 1e3
+    per_step = {part: ms / CHUNK_STEPS for part, (_, ms) in replay.items()}
+    steps = sum(caster.call_steps)
+    log(f"train_nerf --model instant-ngp --steps-per-call {CHUNK_STEPS}, "
+        f"bf16, {HASH_RAYS} rays x {HASH_POINTS // HASH_RAYS}: {steps} steps "
+        f"in {len(caster.call_steps)} calls, {wall:.3f} s for the CLI call, "
+        f"{_steady_ms_per_step(caster):.3f} ms/step after the first call; "
+        f"{chunk.captures} capture, {chunk.replays} replays; the wrappers "
+        f"recorded (encode, backward) {captures} into the capture, "
+        f"{counters} in all (warm-up, capture, validation); one more "
+        f"replay: encode x{replay['encode'][0]} "
+        f"{per_step['encode']:.4f} ms a step, backward "
+        f"x{replay['backward'][0]} {per_step['backward']:.4f} ms a step "
+        f"(device); bound {bound_ms:.4f} ms a step (bytes)")
+    if captures != [(CHUNK_STEPS, CHUNK_STEPS)]:
+        raise AssertionError(f"the capture recorded {captures} hash grid "
+                             f"launches, not one encode and one backward "
+                             f"a step")
+    if replay["encode"][0] != CHUNK_STEPS \
+            or replay["backward"][0] != CHUNK_STEPS:
+        raise AssertionError(f"one replay ran {replay}; the profiler saw "
+                             f"{sorted(times)[:12]}")
+    bf16 = checks["bf16"]
+    return {
+        "name": "hash_grid",
+        "route": "cuda",
+        "source": "fourier_feature_nets_torch/kernels/csrc/hash_grid.cu",
+        "replaces": None,
+        "launches": {"captured_a_chunk": list(captures[0]),
+                     "in_replays": [n * chunk.replays for n in captures[0]],
+                     "wrappers": counters},
+        "max_abs_err": max(bf16["encode_max_abs_err"],
+                           bf16["backward_max_abs_err"]),
+        "ms": per_step["encode"] + per_step["backward"],
+        "encode_ms": per_step["encode"],
+        "backward_ms": per_step["backward"],
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "plain_ms": bf16["plain_ms"],
+        "library_ms": None,
+        "shape": f"ms: device ms a step of train_nerf --model instant-ngp "
+                 f"({HASH_POINTS} points) in one replay; alone at "
+                 f"N={HASH_POINTS} random points: alone_*",
+        **{f"alone_{kind}": row for kind, row in checks.items()},
+        "train_ms_per_step": _steady_ms_per_step(caster),
+    }
 
 
 def chunk_vs_eager(dtype, fused: bool) -> dict:
@@ -5793,6 +6041,11 @@ def main(argv=None) -> int:
                         help="only time train_nerf at --steps-per-call 8 "
                              "against 1, fused and plain, bf16 and f32, in "
                              "turns (one JSON line)")
+    parser.add_argument("--hash-grid", action="store_true",
+                        help="only run K4's phase (the hash grid's kernels "
+                             "against their twin, and in train_nerf --model "
+                             "instant-ngp's graph chunks) and print its "
+                             "kernels row")
     parser.add_argument("--tree", default=ROOT,
                         help="with --times-only or --k2-limits: import the "
                              "port from this checkout (e.g. an unpacked "
@@ -5814,6 +6067,15 @@ def main(argv=None) -> int:
         return run_train_turns()
     if args.times_only:
         return run_times(args.tree)
+    if args.hash_grid:
+        name = phase_device()
+        log("K4, the hash grid's kernels, vs plain twin at instant-ngp's "
+            "widths, and in train_nerf --model instant-ngp's graph chunks:")
+        print(json.dumps({"kernels": [phase_hash_grid()]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
     from fourier_feature_nets_torch.kernels.fused_nerf import (
         prepare_fused_nerf)
     from fourier_feature_nets_torch.models import flagship_nerf
@@ -5853,6 +6115,9 @@ def main(argv=None) -> int:
         return result
 
     chunks = timed("train_chunks", phase_train_chunks)
+    log("K4, the hash grid's kernels, vs plain twin at instant-ngp's widths, "
+        "and in train_nerf --model instant-ngp's graph chunks:")
+    hash_row = timed("hash_grid", phase_hash_grid)
     resume = timed("train_resume", phase_train_resume)
     occupancy = timed("train_occupancy", phase_train_occupancy)
     quality = {
@@ -6135,7 +6400,7 @@ def main(argv=None) -> int:
         ("io_wide", "io_floor.cu", "tools/kernel_io_floor_bench.py:165",
          io_rows["io_wide"]),
         ("packed8", "io_floor.cu", "tools/kernel_io_floor_bench.py:185",
-         io_rows["packed8"]))]}))
+         io_rows["packed8"]))] + [hash_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

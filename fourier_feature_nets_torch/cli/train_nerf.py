@@ -16,13 +16,21 @@ from the newest; ``--occupancy-*`` trains occupancy-guided.
 run to ``<results_dir>/video`` (through K1 when the run is fused) in
 place of the evaluation grids. ``--data-parallel`` trains over the
 ranks ``torchrun`` started, each on its slab of every batch (K1/K2 on
-each rank when fused), and only rank 0 writes files:
+each rank when fused), and only rank 0 writes files. ``--model
+instant-ngp`` trains Instant-NGP's hash-grid NeRF at its published widths
+(:func:`~..models.hash_grid.instant_ngp`; its encoding runs the hash
+grid's kernels on a CUDA device) in place of the NeRF, whose flags it
+ignores:
 
     torchrun --nproc-per-node 4 -m fourier_feature_nets_torch.cli.train_nerf \
         synthetic out/ --data-parallel --compute-dtype bfloat16
 
     python -m fourier_feature_nets_torch.cli.train_nerf synthetic out/ \\
         --num-steps 30 --report-interval 10 --steps-per-call 8
+
+    python -m fourier_feature_nets_torch.cli.train_nerf synthetic out/ \\
+        --model instant-ngp --learning-rate 1e-2 --batch-size 4096 \\
+        --num-samples 64 --compute-dtype bfloat16 --steps-per-call 8
 """
 
 import os
@@ -30,7 +38,7 @@ from argparse import ArgumentDefaultsHelpFormatter, ArgumentParser
 
 import torch
 
-from ..models import NeRF, save_model
+from ..models import NeRF, instant_ngp, save_model
 from ..render import Raycaster
 from . import common
 
@@ -42,6 +50,10 @@ def _parse_args(argv=None):
                         "(or 'synthetic[:res]')")
     parser.add_argument("results_dir", help="Path to output results")
     parser.add_argument("--opacity-model")
+    parser.add_argument("--model", choices=("nerf", "instant-ngp"),
+                        default="nerf",
+                        help="the NeRF of the flags below, or Instant-NGP's "
+                             "hash-grid NeRF at its published widths")
     parser.add_argument("--num-samples", type=int, default=128)
     parser.add_argument("--num-layers", type=int, default=8)
     parser.add_argument("--learning-rate", type=float, default=5e-4)
@@ -68,11 +80,14 @@ def main(argv=None):
                                               args.mesh)
     os.makedirs(args.results_dir, exist_ok=True)
 
-    model = NeRF(args.num_layers, args.num_channels,
-                 args.pos_max_log_scale, args.pos_freq,
-                 args.view_max_log_scale, args.view_freq,
-                 [4], not args.omit_inputs,
-                 generator=torch.Generator().manual_seed(args.seed)).to(device)
+    generator = torch.Generator().manual_seed(args.seed)
+    if args.model == "instant-ngp":
+        model = instant_ngp(generator).to(device)
+    else:
+        model = NeRF(args.num_layers, args.num_channels,
+                     args.pos_max_log_scale, args.pos_freq,
+                     args.view_max_log_scale, args.view_freq,
+                     [4], not args.omit_inputs, generator=generator).to(device)
     opacity_model = common.load_opacity(args.opacity_model, device)
     train_dataset, val_dataset = common.load_train_val(args, opacity_model)
     visualizers = common.make_visualizers(args, train_dataset, val_dataset)

@@ -1,5 +1,5 @@
-"""Models of the port: the NeRF, the Fourier Feature MLP family and the
-dense and factorized voxel fields."""
+"""Models of the port: the NeRF, the Fourier Feature MLP family, the
+dense and factorized voxel fields and Instant-NGP's hash-grid NeRF."""
 
 from .factorized import FactorizedVoxels
 from .fourier import (
@@ -9,6 +9,7 @@ from .fourier import (
     GaussianFourierMLP,
     PositionalFourierMLP,
 )
+from .hash_grid import HashGridNeRF, instant_ngp
 from .module import Linear, linear_apply, mlp_apply, mlp_layers, query_model
 from .nerf import NeRF, flagship_nerf
 from .serialization import (
@@ -23,8 +24,8 @@ from .serialization import (
 from .voxels import Voxels
 
 __all__ = ["BasicFourierMLP", "FactorizedVoxels", "FourierFeatureMLP",
-           "GaussianFourierMLP", "Linear", "MLP", "NeRF",
+           "GaussianFourierMLP", "HashGridNeRF", "Linear", "MLP", "NeRF",
            "PositionalFourierMLP", "Voxels", "build_model", "flagship_nerf",
-           "linear_apply", "load_model", "load_torch_model", "mlp_apply",
+           "instant_ngp", "linear_apply", "load_model", "load_torch_model", "mlp_apply",
            "mlp_layers", "params_from_jax", "params_to_jax", "query_model",
            "save_model", "save_torch_model"]

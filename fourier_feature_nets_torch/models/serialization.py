@@ -2,7 +2,10 @@
 
 Port of ``fourier_feature_nets_tpu/models/serialization.py`` for the
 four model types (``fourier``, ``nerf``, ``voxels``,
-``factorized_voxels``).
+``factorized_voxels``), and of the port's Instant-NGP NeRF
+(``hash_grid_nerf``, :class:`~.hash_grid.HashGridNeRF`), which the JAX
+package lacks: its ``table`` keeps its (entries, 2) layout in both
+formats.
 
 * NPZ (:func:`save_model`, :func:`load_model`): a JSON ``__manifest__``
   (``type`` + constructor ``params``) and the flattened parameter tree
@@ -33,6 +36,7 @@ from torch import nn
 from ..utils.layout import from_jax_layout, to_jax_layout
 from .factorized import FactorizedVoxels
 from .fourier import FourierFeatureMLP
+from .hash_grid import HashGridNeRF
 from .nerf import NeRF
 from .voxels import Voxels
 
@@ -46,6 +50,7 @@ _MODEL_TYPES = {
     "nerf": NeRF,
     "voxels": Voxels,
     "factorized_voxels": FactorizedVoxels,
+    "hash_grid_nerf": HashGridNeRF,
 }
 _TRAIN_STATE_FORMAT = "ffn_tpu_train_state_v1"
 
