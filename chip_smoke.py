@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels (K1, the fused NeRF forward; K2, the
 fused recompute backward; K3, the fused ray render, with T1's scan;
-K4, the hash grid's encode and backward; P1a-c, the int8 probe's; P2,
+K4, the hash grid's encode and backward; K5, the clipped Adam step;
+P1a-c, the int8 probe's; P2,
 the forward's ablations; P3a-c, the IO-floor copy kernels) from the
 sources in this checkout, in parallel, and drives the port's paths at
 the flagship width:
@@ -59,6 +60,17 @@ the flagship width:
   backward a step and ``torch.profiler`` must name each kernel 8 times
   in one more replay, whose device times, beside the bound of
   ``h100_bench/counts/hash_grid.py``'s bytes, make K4's row;
+* the optimizer (K5) at the main path's sizes (Instant-NGP's 6 tensors
+  of 12,205,648 values, the 8x256 NeRF's 24 of 595,844): 20 steps of the
+  capturable ``ClippedAdam`` against torch's capturable Adam behind its
+  two clipping utilities, every gradient, moment and parameter within
+  ``K5_ULPS`` (``kernels/clipped_adam.py``), two launches a step; then
+  one step's wrapper, device and host times beside the bound (both
+  passes' bytes at 3.35 TB/s), the twin's and the library's
+  (``Adam(fused=True)`` behind the same clips); K5's row takes its
+  launches and its device ms a step from the instant-ngp graph chunk
+  above (the main path), which must hold two K5 launches a step, in its
+  capture and in one replay;
 * training's left-overs and early termination: ``train_nerf
   --steps-per-call 8 --fused`` in bf16 and f32 for 32 steps, each chunk
   one CUDA-graph replay: the capture must record one K1 and one K2
@@ -656,6 +668,11 @@ def png_shape(path: str):
     return pixels.shape, int(pixels.max())
 
 
+KERNEL_MODULES = ("fused_nerf", "fused_nerf_train", "fused_ray_render",
+                  "int8_probe", "fused_nerf_ablation", "io_floor",
+                  "hash_grid", "clipped_adam")
+
+
 def phase_device():
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -668,9 +685,7 @@ def phase_device():
     import importlib
     modules = [importlib.import_module(f"fourier_feature_nets_torch.kernels."
                                        f"{name}")
-               for name in ("fused_nerf", "fused_nerf_train",
-                            "fused_ray_render", "int8_probe",
-                            "fused_nerf_ablation", "io_floor", "hash_grid")]
+               for name in KERNEL_MODULES]
     start = time.perf_counter()
     # one nvcc per source, all started together
     with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
@@ -1696,12 +1711,15 @@ def _launch_counts():
 
 
 def _reset_launches():
+    from fourier_feature_nets_torch.kernels.clipped_adam import clipped_adam
     from fourier_feature_nets_torch.kernels.fused_nerf import (
         fused_nerf_apply)
     from fourier_feature_nets_torch.kernels.fused_nerf_train import (
         fused_nerf_backward)
     fused_nerf_apply.launches = 0
     fused_nerf_backward.launches = 0
+    clipped_adam.launches = 0
+    clipped_adam.elements = 0
 
 
 def replay_kernel_names(chunk) -> dict:
@@ -1787,11 +1805,12 @@ def phase_train_chunks() -> dict:
                 // CHUNK_STEPS:
             raise AssertionError(f"{dtype}: {chunk.captures} captures, "
                                  f"{chunk.replays} replays")
-        if any(chunk.captured[name] != CHUNK_STEPS
-               for name in ("fused_nerf", "fused_nerf_train")):
+        if chunk.captured != {"fused_nerf": CHUNK_STEPS,
+                              "fused_nerf_train": CHUNK_STEPS,
+                              "clipped_adam": 2 * CHUNK_STEPS}:
             raise AssertionError(f"{dtype}: the graph captured "
                                  f"{chunk.captured} launches, not one of "
-                                 f"K1 and K2 a step")
+                                 f"K1 and K2 and two of K5 a step")
         if found != [CHUNK_STEPS, CHUNK_STEPS]:
             raise AssertionError(f"{dtype}: one replay ran K1 x{found[0]} "
                                  f"and K2 x{found[1]}; the profiler saw "
@@ -1867,7 +1886,31 @@ def hash_order_bound(positions, grad, grid):
         * magnitude.double()
 
 
-def phase_hash_grid() -> dict:
+def optimizer_in_replay(chunk, times, wrappers) -> dict:
+    """K5 in a graph chunk of CHUNK_STEPS steps: the launches its capture
+    recorded (two a step), the wrapper's count over the whole CLI call
+    (``wrappers``: warm-up, capture; a replay calls no wrapper), and in
+    one replay's kernels (:func:`replay_kernel_times`) K5's count and
+    device ms a step, the kernels a step, and torch's true divisions
+    left (``DivFunctor``), which the step no longer runs for its
+    optimizer. Raises unless K5 ran twice a step."""
+    adam = [(n, ms) for name, (n, ms) in times.items()
+            if "clipped_adam" in name]
+    row = {"captured_a_step": chunk.captured["clipped_adam"] / CHUNK_STEPS,
+           "in_replays": chunk.captured["clipped_adam"] * chunk.replays,
+           "wrappers": wrappers,
+           "in_replay_a_step": sum(n for n, _ in adam) / CHUNK_STEPS,
+           "device_ms_a_step": sum(ms for _, ms in adam) / CHUNK_STEPS,
+           "kernels_a_step": sum(n for n, _ in times.values()) / CHUNK_STEPS,
+           "divisions_a_step": sum(n for name, (n, _) in times.items()
+                                   if "DivFunctor" in name) / CHUNK_STEPS}
+    log(f"  K5 in the chunk: {row}")
+    if row["captured_a_step"] != 2 or row["in_replay_a_step"] != 2:
+        raise AssertionError(f"K5 in a graph chunk: {row}")
+    return row
+
+
+def phase_hash_grid() -> tuple:
     """K4 (``kernels/csrc/hash_grid.cu``) at instant-ngp's published
     widths (``models/hash_grid.py::instant_ngp``; a table drawn from
     U(-1, 1), so that its rows, not the init's 1e-4, carry the features):
@@ -1888,7 +1931,10 @@ def phase_hash_grid() -> dict:
       the bound (``h100_bench/counts/hash_grid.py``: both passes'
       compulsory bytes at 3.35 TB/s).
 
-    Returns K4's kernels row."""
+    Returns K4's kernels row, and K5 in the same chunks
+    (:func:`optimizer_in_replay`), the main path's reading for K5's row.
+    """
+    from fourier_feature_nets_torch.kernels import clipped_adam as k5
     from fourier_feature_nets_torch.kernels import hash_grid as kernel
     from fourier_feature_nets_torch.models.hash_grid import instant_ngp
     from h100_bench.counts import hash_grid as counts
@@ -1956,6 +2002,8 @@ def phase_hash_grid() -> dict:
     kernel.hash_grid_encode.launches = 0
     kernel.hash_grid_encode.points = 0
     kernel.hash_grid_backward.launches = 0
+    k5.clipped_adam.launches = 0
+    k5.clipped_adam.elements = 0
     start = time.perf_counter()
     with _hash_launches_at_capture() as captures:
         output, caster, chunks = run_train_cli(
@@ -1970,6 +2018,8 @@ def phase_hash_grid() -> dict:
     counters = {"encode": kernel.hash_grid_encode.launches,
                 "encode_points": kernel.hash_grid_encode.points,
                 "backward": kernel.hash_grid_backward.launches}
+    adam_wrappers = {"launches": k5.clipped_adam.launches,
+                     "elements": k5.clipped_adam.elements}
     if len(chunks) != 1 or chunks[0].captures != 1:
         raise AssertionError(f"train_nerf --model instant-ngp: "
                              f"{len(chunks)} graph chunks")
@@ -1996,6 +2046,7 @@ def phase_hash_grid() -> dict:
         f"{per_step['encode']:.4f} ms a step, backward "
         f"x{replay['backward'][0]} {per_step['backward']:.4f} ms a step "
         f"(device); bound {bound_ms:.4f} ms a step (bytes)")
+    adam = optimizer_in_replay(chunk, times, adam_wrappers)
     if captures != [(CHUNK_STEPS, CHUNK_STEPS)]:
         raise AssertionError(f"the capture recorded {captures} hash grid "
                              f"launches, not one encode and one backward "
@@ -2027,6 +2078,158 @@ def phase_hash_grid() -> dict:
                  f"N={HASH_POINTS} random points: alone_*",
         **{f"alone_{kind}": row for kind, row in checks.items()},
         "train_ms_per_step": _steady_ms_per_step(caster),
+    }, adam
+
+
+# K5's sizes: the main path's models, (name, values, tensors)
+ADAM_MODELS = (("instant-ngp", 12_205_648, 6), ("nerf-8x256", 595_844, 24))
+ADAM_STEPS = 20     # steps held to torch's before the timings
+
+
+def _adam_values(name):
+    from fourier_feature_nets_torch.models import flagship_nerf
+    from fourier_feature_nets_torch.models.hash_grid import instant_ngp
+    generator = torch.Generator().manual_seed(SEED)
+    model = (instant_ngp(generator) if name == "instant-ngp"
+             else flagship_nerf(generator))
+    return [p.detach().cuda() for p in model.parameters()]
+
+
+def _adam_grads(values, step):
+    generator = torch.Generator("cuda").manual_seed(SEED + 1000 + step)
+    return [torch.randn(v.shape, device="cuda", generator=generator) * 0.05
+            for v in values]
+
+
+def phase_clipped_adam(in_step: dict) -> dict:
+    """K5 (``kernels/csrc/clipped_adam.cu``) at the main path's sizes
+    (ADAM_MODELS), clipped at 0.1 by value and by norm, weight decay 0,
+    rate 1e-2 in a device tensor:
+
+    * ADAM_STEPS steps of the port's capturable ``ClippedAdam`` against
+      its twin, torch's capturable Adam behind ``clip_grad_value_`` and
+      ``clip_grad_norm_``, on gradients N(0, 0.05): every gradient,
+      moment and parameter within ``K5_ULPS`` (``ulp_distance``), the
+      steps equal, two launches a step;
+    * one step's three times (:func:`call_times`): the wrapper's, the
+      twin's, and the library's, ``torch.optim.Adam(fused=True,
+      capturable=True)`` behind the same two clips (the port never calls
+      it), beside the bound: both passes' bytes at 3.35 TB/s.
+
+    Returns K5's kernels row, whose launches and ``ms`` (device ms a
+    step) are the main path's: ``in_step``, K5 in the instant-ngp graph
+    chunks of :func:`phase_hash_grid` (:func:`optimizer_in_replay`); the
+    steps above give the rest."""
+    from fourier_feature_nets_torch.kernels import clipped_adam as k5
+    from fourier_feature_nets_torch.utils.optim import ClippedAdam
+    rows = {}
+    for name, elements, tensors in ADAM_MODELS:
+        values = _adam_values(name)
+        if (sum(v.numel() for v in values), len(values)) != (elements,
+                                                             tensors):
+            raise AssertionError(f"{name}: {len(values)} tensors of "
+                                 f"{sum(v.numel() for v in values)} values")
+        ours = [torch.nn.Parameter(v.clone()) for v in values]
+        optimizer = ClippedAdam(ours, 1e-2, capturable=True)
+        lr = torch.tensor(1e-2, device="cuda")
+
+        def twin_of(fused):
+            params = [torch.nn.Parameter(v.clone()) for v in values]
+            rate = torch.tensor(1e-2, device="cuda")
+            adam = torch.optim.Adam(params, lr=rate, capturable=True,
+                                    fused=fused or None)
+
+            def step():
+                torch.nn.utils.clip_grad_value_(params, 0.1)
+                torch.nn.utils.clip_grad_norm_(params, 0.1)
+                adam.step()
+            return params, adam, step
+
+        twin, adam, twin_step = twin_of(False)
+        before = k5.clipped_adam.launches
+        worst = {}
+        for step in range(ADAM_STEPS):
+            for p, q, g in zip(ours, twin, _adam_grads(values, step)):
+                p.grad, q.grad = g.clone(), g.clone()
+            optimizer.step(lr)
+            twin_step()
+            pairs = [("grad", p.grad, q.grad) for p, q in zip(ours, twin)]
+            pairs += [("param", p, q) for p, q in zip(ours, twin)]
+            pairs += [(key, optimizer.optimizer.state[p][key],
+                       adam.state[q][key]) for p, q in zip(ours, twin)
+                      for key in ("exp_avg", "exp_avg_sq")]
+            for key, a, b in pairs:
+                worst[key] = max(worst.get(key, 0.0), k5.ulp_distance(a, b))
+            steps = {float(optimizer.optimizer.state[p]["step"])
+                     for p in ours} | {float(adam.state[q]["step"])
+                                       for q in twin}
+            if steps != {float(step + 1)}:
+                raise AssertionError(f"K5 {name}: steps {steps} after "
+                                     f"{step + 1}")
+        launched = k5.clipped_adam.launches - before
+        library, _, library_step = twin_of(True)
+        for p, q in zip(library, ours):
+            p.grad = q.grad.clone()
+        del twin, adam
+        times = call_times(lambda: optimizer.step(lr), 20)
+        plain = call_times(twin_step, 20)
+        lib = call_times(library_step, 20)
+        bound_ms = k5.compulsory_bytes(elements) / HBM_BYTES_PER_S * 1e3
+        row = {"elements": elements, "tensors": tensors,
+               "worst_ulps": worst,
+               "alone_launches_a_step": launched / ADAM_STEPS,
+               "ms": times["wrapper_ms"], "device_ms": times["device_ms"],
+               "host_us": times["host_us"], "kernel_ms": times["kernel_ms"],
+               "bound_ms": bound_ms, "plain_ms": plain["wrapper_ms"],
+               "plain_device_ms": plain["device_ms"],
+               "plain_host_us": plain["host_us"],
+               "library_ms": lib["wrapper_ms"],
+               "library_device_ms": lib["device_ms"],
+               "library_host_us": lib["host_us"]}
+        rows[name] = row
+        log(f"  K5 {name} ({tensors} tensors, {elements:,d} values): worst "
+            f"ulps after {ADAM_STEPS} steps "
+            + ", ".join(f"{k} {v:.2f}" for k, v in worst.items())
+            + f"; {launched / ADAM_STEPS:g} launches a step; wrapper "
+            f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} ms, host "
+            f"{row['host_us']:.1f} us, profiler {row['kernel_ms']} ms; "
+            f"bound {bound_ms:.4f} ms (bytes); twin {row['plain_ms']:.4f} / "
+            f"{row['plain_device_ms']:.4f} ms / {row['plain_host_us']:.1f} "
+            f"us; Adam(fused=True) + clips {row['library_ms']:.4f} / "
+            f"{row['library_device_ms']:.4f} ms / "
+            f"{row['library_host_us']:.1f} us")
+        if max(worst.values()) > k5.K5_ULPS or launched != 2 * ADAM_STEPS:
+            raise AssertionError(f"K5 {name}: worst ulps {worst} (limit "
+                                 f"{k5.K5_ULPS}), {launched} launches in "
+                                 f"{ADAM_STEPS} steps")
+        del ours, optimizer, library, values
+        torch.cuda.empty_cache()
+    main = rows["instant-ngp"]
+    return {
+        "name": "clipped_adam",
+        "route": "cuda",
+        "source": "fourier_feature_nets_torch/kernels/csrc/clipped_adam.cu",
+        "replaces": None,
+        "launches": {key: in_step[key] for key in (
+            "captured_a_step", "in_replays", "wrappers",
+            "in_replay_a_step")},
+        "max_ulps": max(max(r["worst_ulps"].values()) for r in rows.values()),
+        "ms": in_step["device_ms_a_step"],
+        "step_kernels_a_step": in_step["kernels_a_step"],
+        "divisions_a_step": in_step["divisions_a_step"],
+        "wrapper_ms": main["ms"],
+        "alone_device_ms": main["device_ms"],
+        **{k: main[k] for k in ("host_us", "kernel_ms", "bound_ms",
+                                "plain_ms", "library_ms",
+                                "library_device_ms")},
+        "bound_by": "bytes",
+        "shape": "ms: device ms a step of train_nerf --model instant-ngp's "
+                 "graph chunk in one replay (6 tensors, 12,205,648 "
+                 "values); wrapper_ms, alone_device_ms, host_us, plain_ms, "
+                 "library_ms: one step alone at that size; nerf_8x256_*: "
+                 "alone at the 8x256 NeRF's 24 (595,844)",
+        **{f"nerf_8x256_{k}": v for k, v in rows["nerf-8x256"].items()
+           if k not in ("elements", "tensors")},
     }
 
 
@@ -2201,7 +2404,8 @@ def phase_train_occupancy() -> dict:
     if "Enabling occupancy-guided sampling" not in output \
             or len(refresh) != 2 or len(chunks) != 2 \
             or guided.captures != 1 or guided.replays != 5 \
-            or any(guided.captured[k] != 5 for k in guided.captured) \
+            or guided.captured != {"fused_nerf": 5, "fused_nerf_train": 5,
+                                   "clipped_adam": 10} \
             or min(launches.values()) <= 0:
         raise AssertionError(f"occupancy-guided training: {output[-2000:]}")
     return {"wall_s": wall, "ms_per_step_128": full_ms,
@@ -3903,7 +4107,8 @@ def phase_distill(checkpoint) -> dict:
     chunk_ok = all(
         len(run["chunks"]) == 1 and run["chunks"][0].captures == 1
         and run["chunks"][0].captured == {"fused_nerf": 2 * DISTILL_CALL,
-                                          "fused_nerf_train": DISTILL_CALL}
+                                          "fused_nerf_train": DISTILL_CALL,
+                                          "clipped_adam": 2 * DISTILL_CALL}
         for run in (first, resumed))
     if not falls or not chunk_ok or row["resumed_at"] != DISTILL_STEPS \
             or row["resumed_steps"] != DISTILL_RESUMED or steady is None \
@@ -4070,9 +4275,11 @@ def distill_step_checks(checkpoint, out_dir) -> dict:
                 or twins["update_mean_share"] > CHUNK_MEAN_SHARE):
             failed.append(f"{label}: the fused step left its twins' step")
         if (row["launches"]["fused"] != {"fused_nerf": 2,
-                                         "fused_nerf_train": 1}
+                                         "fused_nerf_train": 1,
+                                         "clipped_adam": 2}
                 or any(row["launches"][v] != {"fused_nerf": 0,
-                                              "fused_nerf_train": 0}
+                                              "fused_nerf_train": 0,
+                                              "clipped_adam": 2}
                        for v in ("twins", "plain"))):
             failed.append(f"{label}: launches {row['launches']}")
     plain = rows["step 0"]["plain"]
@@ -4324,8 +4531,9 @@ def run_main(main, argv):
 
 def _no_kernel(label: str, launches: dict) -> None:
     """The fused kernels take a NeRF only: none may launch on an FFN,
-    voxel or regression path."""
-    if any(launches.values()):
+    voxel or regression path (K5, the optimizer, runs on every path that
+    trains on the card)."""
+    if launches["fused_nerf"] or launches["fused_nerf_train"]:
         raise AssertionError(f"{label}: the fused kernels launched "
                              f"{launches} on a path without a NeRF")
 
@@ -4961,7 +5169,8 @@ def phase_distill_voxels() -> dict:
         f"call (CUDA events; predicted 2.3-3.0); launches {launches} "
         f"({CARD})")
     student_only = {"fused_nerf": DISTILL_CALL,
-                    "fused_nerf_train": DISTILL_CALL}
+                    "fused_nerf_train": DISTILL_CALL,
+                    "clipped_adam": 2 * DISTILL_CALL}
     if not row["loss_last_20"] < row["loss_first_20"] \
             or row["ms_per_step"] is None or len(run["chunks"]) != 1 \
             or run["chunks"][0].captured != student_only \
@@ -5688,7 +5897,9 @@ def phase_mesh(checkpoint) -> dict:
         if chunk is not None:
             launches = {"eager": launches, "in_graph_replays": {
                 k: v * chunk.replays for k, v in chunk.captured.items()}}
-            if any(chunk.captured[k] != calls for k in chunk.captured):
+            if chunk.captured != {"fused_nerf": calls,
+                                  "fused_nerf_train": calls,
+                                  "clipped_adam": 2 * calls}:
                 raise AssertionError(f"the mesh chunk captured "
                                      f"{chunk.captured}")
         rows[label] = {"losses": meshed[0], "plain_losses": plain[0],
@@ -6071,7 +6282,7 @@ def main(argv=None) -> int:
         name = phase_device()
         log("K4, the hash grid's kernels, vs plain twin at instant-ngp's "
             "widths, and in train_nerf --model instant-ngp's graph chunks:")
-        print(json.dumps({"kernels": [phase_hash_grid()]}))
+        print(json.dumps({"kernels": [phase_hash_grid()[0]]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
             "count": torch.cuda.device_count()}}))
@@ -6117,7 +6328,10 @@ def main(argv=None) -> int:
     chunks = timed("train_chunks", phase_train_chunks)
     log("K4, the hash grid's kernels, vs plain twin at instant-ngp's widths, "
         "and in train_nerf --model instant-ngp's graph chunks:")
-    hash_row = timed("hash_grid", phase_hash_grid)
+    hash_row, adam_in_step = timed("hash_grid", phase_hash_grid)
+    log("K5, the clipped Adam kernel, vs torch's step at the main path's "
+        "sizes:")
+    adam_row = timed("clipped_adam", phase_clipped_adam, adam_in_step)
     resume = timed("train_resume", phase_train_resume)
     occupancy = timed("train_occupancy", phase_train_occupancy)
     quality = {
@@ -6400,7 +6614,7 @@ def main(argv=None) -> int:
         ("io_wide", "io_floor.cu", "tools/kernel_io_floor_bench.py:165",
          io_rows["io_wide"]),
         ("packed8", "io_floor.cu", "tools/kernel_io_floor_bench.py:185",
-         io_rows["packed8"]))] + [hash_row]}))
+         io_rows["packed8"]))] + [hash_row, adam_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

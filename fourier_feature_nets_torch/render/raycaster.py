@@ -1157,10 +1157,12 @@ class _GraphChunk:
 
 def _kernel_launches() -> dict:
     """The launch counts of the kernels a train step can run."""
+    from ..kernels.clipped_adam import clipped_adam
     from ..kernels.fused_nerf import fused_nerf_apply
     from ..kernels.fused_nerf_train import fused_nerf_backward
     return {"fused_nerf": fused_nerf_apply.launches,
-            "fused_nerf_train": fused_nerf_backward.launches}
+            "fused_nerf_train": fused_nerf_backward.launches,
+            "clipped_adam": clipped_adam.launches}
 
 
 class _StepTimer:

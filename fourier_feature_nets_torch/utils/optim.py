@@ -5,22 +5,30 @@ update, exactly these torch semantics: each gradient element clipped
 to [-clip_value, clip_value] (``clip_grad_value_``), then all gradients
 scaled by ``clip_norm / (norm + 1e-6)`` when their global L2 norm
 exceeds ``clip_norm`` (``clip_grad_norm_``), then ``torch.optim.Adam``
-with L2 weight decay. Here they are the torch calls themselves.
+with L2 weight decay.
 
-A capturable :class:`ClippedAdam` (``torch.optim.Adam(capturable=True)``
-with its learning rate in a device tensor) can be captured in a CUDA
-graph: nothing in its step reads the host. Its state maps both ways to
-the JAX package's ``AdamState`` (one ``step``, ``mu`` and ``nu`` named
-and laid out as :func:`~..models.serialization.params_to_jax` lays out
-the weights), so a train-state checkpoint resumes in either
-package.
+CPU parameters take the torch calls themselves. CUDA parameters take
+K5 (:mod:`..kernels.clipped_adam`): the optimizer is then a
+``torch.optim.Adam`` whose ``step`` clips and updates in two kernel
+launches, in the float order of torch's capturable Adam, and leaves in
+each ``.grad`` the gradient clipped as torch's calls leave it. torch
+wraps that ``step`` as any optimizer's, so its step hooks fire; its
+state keeps torch's keys, with every step count on the device.
+
+A capturable :class:`ClippedAdam` (its learning rate in a device
+tensor, ``Adam(capturable=True)``'s) can be captured in a CUDA graph:
+nothing in its step reads the host. Its state maps both ways to the JAX
+package's ``AdamState`` (one ``step``, ``mu`` and ``nu`` named and laid
+out as :func:`~..models.serialization.params_to_jax` lays out the
+weights), so a train-state checkpoint resumes in either package.
 """
 
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..kernels.clipped_adam import clipped_adam
 from .layout import from_jax_layout, to_jax_layout
 
 __all__ = ["ClippedAdam", "exponential_lr"]
@@ -42,8 +50,53 @@ def exponential_lr(initial_learning_rate: float, step, decay_rate: float,
         torch.float32)
 
 
+def _zero_state(state: dict, p: torch.Tensor) -> None:
+    """A parameter's Adam state before its first step: a step count of 0
+    (f32, on the parameter's device) and zero moments."""
+    state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+    state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+    state["exp_avg_sq"] = torch.zeros_like(
+        p, memory_format=torch.preserve_format)
+
+
+class _KernelAdam(torch.optim.Adam):
+    """``torch.optim.Adam`` of CUDA parameters whose step is K5: the value
+    and norm clips, then Adam, in two launches; the learning rate is the
+    group's (a float, or a device tensor when capturable)."""
+
+    def __init__(self, params, lr, weight_decay: float, capturable: bool,
+                 clip_value: Optional[float], clip_norm: Optional[float]):
+        super().__init__(params, lr=lr, weight_decay=weight_decay,
+                         capturable=capturable)
+        self.clip_value = clip_value
+        self.clip_norm = clip_norm
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("clipped Adam takes no closure")
+        for group in self.param_groups:
+            if group["amsgrad"] or group["maximize"]:
+                raise ValueError("clipped Adam has no amsgrad or maximize")
+            params = [p for p in group["params"] if p.grad is not None]
+            for p in params:
+                if not self.state[p]:
+                    _zero_state(self.state[p], p)
+            states = [self.state[p] for p in params]
+            beta1, beta2 = group["betas"]
+            clipped_adam(params, [p.grad for p in params],
+                         [s["exp_avg"] for s in states],
+                         [s["exp_avg_sq"] for s in states],
+                         [s["step"] for s in states], lr=group["lr"],
+                         beta1=beta1, beta2=beta2, eps=group["eps"],
+                         weight_decay=group["weight_decay"],
+                         clip_value=self.clip_value, clip_norm=self.clip_norm)
+        return None
+
+
 class ClippedAdam:
-    """``torch.optim.Adam`` behind value and global-norm clipping."""
+    """``torch.optim.Adam`` behind value and global-norm clipping: torch's
+    calls on the CPU, K5 on CUDA."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  learning_rate: float, weight_decay: float = 0.0,
@@ -52,27 +105,30 @@ class ClippedAdam:
         """Constructor.
 
         Args:
-            params: the parameters to train.
+            params: the parameters to train, f32 (on CUDA, contiguous).
             learning_rate: the initial learning rate.
             weight_decay: Adam's L2 weight decay.
             clip_value / clip_norm: the gradient clips (None: no clip,
                 as distillation's plain Adam).
-            capturable: build ``Adam(capturable=True)`` with the learning
-                rate in a 0-d f32 tensor on the parameters' device (a
-                CUDA device), so that :meth:`step` can be captured in a
-                CUDA graph.
+            capturable: keep the learning rate in a 0-d f32 tensor on
+                the parameters' device (a CUDA device), so that
+                :meth:`step` can be captured in a CUDA graph.
         """
         self.params = [p for p in params if p.requires_grad]
         self.capturable = capturable
+        self.kernel = self.params[0].device.type == "cuda"
+        lr = learning_rate
         if capturable:
-            self.lr = torch.tensor(float(learning_rate), dtype=torch.float32,
-                                   device=self.params[0].device)
-            self.optimizer = torch.optim.Adam(self.params, lr=self.lr,
-                                              weight_decay=weight_decay,
-                                              capturable=True)
+            self.lr = lr = torch.tensor(float(learning_rate),
+                                        dtype=torch.float32,
+                                        device=self.params[0].device)
+        if self.kernel:
+            self.optimizer = _KernelAdam(self.params, lr, weight_decay,
+                                         capturable, clip_value, clip_norm)
         else:
-            self.optimizer = torch.optim.Adam(self.params, lr=learning_rate,
-                                              weight_decay=weight_decay)
+            self.optimizer = torch.optim.Adam(self.params, lr=lr,
+                                              weight_decay=weight_decay,
+                                              capturable=capturable)
         self.clip_value = clip_value
         self.clip_norm = clip_norm
 
@@ -80,11 +136,12 @@ class ClippedAdam:
         """Clips the parameters' ``.grad`` and takes one Adam step at
         ``learning_rate``: a float, or for a capturable optimizer also a
         device tensor, which is copied into its learning-rate tensor on
-        the device."""
-        if self.clip_value is not None:
-            torch.nn.utils.clip_grad_value_(self.params, self.clip_value)
-        if self.clip_norm is not None:
-            torch.nn.utils.clip_grad_norm_(self.params, self.clip_norm)
+        the device. On CUDA the optimizer's step clips (K5)."""
+        if not self.kernel:
+            if self.clip_value is not None:
+                torch.nn.utils.clip_grad_value_(self.params, self.clip_value)
+            if self.clip_norm is not None:
+                torch.nn.utils.clip_grad_norm_(self.params, self.clip_norm)
         if isinstance(learning_rate, torch.Tensor):
             self.lr.copy_(learning_rate)
         elif self.capturable:
@@ -103,16 +160,8 @@ class ClippedAdam:
         read, copied into, or captured before any step."""
         for p in self.params:
             state = self.optimizer.state[p]
-            if state:
-                continue
-            state["step"] = (torch.zeros((), dtype=torch.float32,
-                                         device=p.device)
-                             if self.capturable
-                             else torch.tensor(0.0, dtype=torch.float32))
-            state["exp_avg"] = torch.zeros_like(
-                p, memory_format=torch.preserve_format)
-            state["exp_avg_sq"] = torch.zeros_like(
-                p, memory_format=torch.preserve_format)
+            if not state:
+                _zero_state(state, p)
 
     def state_tensors(self):
         """Every tensor of the optimizer's state (steps and moments), in

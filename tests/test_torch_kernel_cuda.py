@@ -958,14 +958,15 @@ def test_plain_train_chunk_is_the_eager_steps(train_scene):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, None], ids=["bf16", "f32"])
 def test_fused_train_chunk_captures_k1_and_k2(train_scene, dtype):
     """A graph chunk of the fused step records one K1 and one K2 launch
-    a step, replays without calling the wrappers, and lands near the
+    a step (and K5's two), replays without calling the wrappers, and lands near the
     eager steps: K2's atomics change the gradients' last bits, which can
     flip the sign of a near-zero element's Adam update, so each leaf is
     held in the mean, within 5e-2 of its mean change."""
     launches = (port.fused_nerf_apply.launches,
                 train.fused_nerf_backward.launches)
     chunked, eager, chunk = _chunk_and_eager(*train_scene, dtype, True)
-    assert chunk.captured == {"fused_nerf": 4, "fused_nerf_train": 4}
+    assert chunk.captured == {"fused_nerf": 4, "fused_nerf_train": 4,
+                              "clipped_adam": 2 * 4}
     before = (port.fused_nerf_apply.launches,
               train.fused_nerf_backward.launches)
     assert before[0] > launches[0] and before[1] > launches[1]
